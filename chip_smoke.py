@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``rdmnet_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+1. device: a CUDA card is required; prints its name and power limit;
+2. build: both kernels from ``rdmnet_tpu_torch/csrc`` with ``nvcc``, in
+   parallel, with the ``-Xptxas -v`` register/spill report;
+3. kernels against their plain PyTorch versions at the main path's shapes:
+   the 12 radius searches of one pair's graph build (plus the unbanded
+   level-0 search), and Sinkhorn at P=256, K1=129, 100 iterations with
+   masked patches and rows; CUDA-event times beside each kernel's bound;
+4. the main path at ``make_cfg()`` full width, 0.7 bucket: a seeded ~20k
+   point procedural pair through ``pipeline`` (graph build to pose), 3
+   warm-up pairs, 12 timed pairs, 5 pairs with a per-stage breakdown; every
+   kernel must have launched inside that window;
+5. the same weights and inputs on the card and on the CPU at
+   ``make_tiny_cfg()``, for 8 weight draws: every index table equal, log
+   transport plans within 1e-3, LGR on the same plans with equal
+   correspondence sets and per-patch hypothesis residuals within 1e-4 m,
+   and poses within 1e-4 for the draws that register the pair.
+
+Prints a ``kernels`` JSON line, the card line, and as the last line
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+SEED = 7351
+WEIGHT_SEEDS = (1, 2, 3, 4, 5, 6, 7, 8)  # weight draws of the card-vs-CPU phase (phase 5)
+LGR_INPUTS = ("ref_node_corr_knn_points", "src_node_corr_knn_points", "ref_node_corr_knn_masks",
+              "src_node_corr_knn_masks", "matching_scores", "node_corr_valid")
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+SFU_PER_SM_CLK = 16           # exp2 throughput per SM per clock (compute capability 9.0)
+NUM_SMS = 132
+KNN_OPS_PER_PAIR = 9          # 3 FMA (2 each), sub, add, max per (query, candidate)
+SINKHORN_OPS_PER_ENTRY = 4    # add, max, sub, add per entry and half-step (beside one exp)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def smi(query: str) -> str:
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "unknown"
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call over ``reps`` calls, CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def knn_diagnosis(q, s, got, want, rows: int = 3):
+    """Lines describing the first ``rows`` rows where the kernel's table
+    differs from the plain version's: each side's neighbours with their
+    float64 squared distances (printed when the check fails)."""
+    import torch
+
+    ns = s.shape[1]
+    lines = []
+    for b, r in (got != want).any(dim=-1).nonzero().tolist()[:rows]:
+        qd = q[b, r].double()
+        for side, idx in (("kernel", got[b, r]), ("plain", want[b, r])):
+            valid = idx[idx < ns].long()
+            d = ((s[b, valid].double() - qd) ** 2).sum(-1)
+            lines.append(f"  cloud {b} query {r} {side}: "
+                         + ", ".join(f"{i}:{x:.6f}" for i, x in zip(valid.tolist(), d.tolist())))
+    return lines
+
+
+def hypothesis_residuals(corr):
+    """Per-patch Procrustes hypotheses of an LGR correspondence set, as LGR
+    forms them: each hypothesis's weighted mean residual on its own patch
+    (m) and the patch's number of correspondences."""
+    import torch
+
+    from rdmnet_tpu_torch.ops.geometry import apply_transform
+    from rdmnet_tpu_torch.ops.procrustes import weighted_procrustes
+
+    p = int(corr.patch_ids.max()) + 1
+    src, ref = corr.src_points.reshape(p, -1, 3), corr.ref_points.reshape(p, -1, 3)
+    w = corr.scores.reshape(p, -1)
+    hyp = weighted_procrustes(src, ref, w)
+    res = torch.linalg.norm(ref - apply_transform(src, hyp), dim=-1)
+    return (res * w).sum(-1) / (w.sum(-1) + 1e-12), (w > 0).sum(-1)
+
+
+def check_knn(pts, cnts, sp, kernels):
+    """Kernel vs plain for one search ``sp`` (a ``SearchSpec``) of the graph
+    build on the card."""
+    import torch
+
+    from rdmnet_tpu_torch.ops.kernels.radius_knn import radius_knn_cuda, radius_knn_plain
+    from rdmnet_tpu_torch.ops.radius_search import band_windows
+
+    q, s, scnt = pts[sp.q_lvl], pts[sp.s_lvl], cnts[sp.s_lvl]
+    kw = {}
+    if sp.band is not None:
+        win, _ = band_windows(q, s, cnts[sp.q_lvl], sp.radius, sp.cell, sp.band, sp.chunk)
+        kw = dict(win=win, chunk=sp.chunk, band=sp.band)
+    got = radius_knn_cuda(q, s, scnt, sp.radius, sp.k, **kw)
+    torch.cuda.synchronize()
+    want = radius_knn_plain(q, s, scnt, sp.radius, sp.k, **kw)
+    # exact: the kernel's FMA chain and (distance, index) order are the plain
+    # version's, so even ties must come out the same
+    differ = (got != want).any(dim=-1)
+    if bool(differ.any()):
+        print("\n".join(knn_diagnosis(q, s, got, want)), file=sys.stderr)
+        fail(f"radius_knn {sp.table}[{sp.q_lvl}->{sp.s_lvl}] k={sp.k}: {int(differ.sum())} "
+             "rows differ from the plain version")
+    err = float((got.long() - want.long()).abs().max())
+    ms = cuda_ms(lambda: radius_knn_cuda(q, s, scnt, sp.radius, sp.k, **kw), reps=10)
+    plain_ms = cuda_ms(lambda: radius_knn_plain(q, s, scnt, sp.radius, sp.k, **kw), reps=1,
+                       warmup=0)
+    # work this run's data needs: valid queries x valid candidates in their window
+    pairs = 0
+    bsz, nq, _ = q.shape
+    qcnt = cnts[sp.q_lvl].tolist()
+    for b in range(bsz):
+        c = int(scnt[b])
+        if sp.band is None:
+            pairs += qcnt[b] * c
+            continue
+        for ci, w in enumerate(kw["win"][b].tolist()):
+            nvq = max(0, min(qcnt[b], (ci + 1) * sp.chunk) - ci * sp.chunk)
+            pairs += nvq * max(0, min(w + sp.band, c) - w)
+    nbytes = bsz * (nq * 3 * 4 + s.shape[1] * 3 * 4 + nq * sp.k * 4)
+    bound = max(nbytes / HBM_BYTES_PER_S, pairs * KNN_OPS_PER_PAIR / F32_FLOPS) * 1e3
+    kernels["radius_knn"]["max_abs_err"] = max(kernels["radius_knn"]["max_abs_err"], err)
+    return ms, plain_ms, bound, pairs
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA card")
+    import numpy as np
+
+    from rdmnet_tpu_torch.config import make_cfg, make_tiny_cfg
+    from rdmnet_tpu_torch.data.loader import choose_bucket
+    from rdmnet_tpu_torch.data.procedural import procedural_pair
+    from rdmnet_tpu_torch.device import set_precision
+    from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud, search_plan
+    from rdmnet_tpu_torch.models import RDMNet, pipeline
+    from rdmnet_tpu_torch.models.rdmnet import STAGES
+    from rdmnet_tpu_torch.ops.kernels import _build, launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain
+    from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
+
+    card = smi("name,power.limit")
+    max_clock_mhz = float(smi("clocks.max.sm").split()[0])
+    dev = torch.device("cuda")
+    set_precision()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)} "
+          f"({card}), max SM clock {max_clock_mhz:.0f} MHz")
+
+    # ---- 2. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    builds = [_build.Build(name) for name in _build.KERNELS]
+    for b in builds:
+        for line in b.wait().splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "built")):
+                print(f"[{b.name}] {line.strip()}")
+    print(f"build: {time.perf_counter() - t0:.3f} s for {len(builds)} kernels")
+
+    kernels = {
+        "radius_knn": dict(name="radius_knn", route="cuda",
+                           source="rdmnet_tpu_torch/csrc/radius_knn.cu",
+                           replaces="rdmnet_tpu/ops/pallas/radius_knn.py:93",
+                           launches=0, max_abs_err=0.0, library_ms=None),
+        "sinkhorn": dict(name="sinkhorn", route="cuda",
+                         source="rdmnet_tpu_torch/csrc/sinkhorn.cu",
+                         replaces="rdmnet_tpu/ops/pallas/sinkhorn.py:59",
+                         launches=0, max_abs_err=0.0, library_ms=None),
+    }
+
+    # ---- main-path input and model ------------------------------------------
+    ref, src, gt = procedural_pair(SEED, n_rings=80, n_azimuths=3000)
+    cfg = make_cfg()
+    buckets = [cfg.pyramid.scaled(0.7), cfg.pyramid]
+    bi = choose_bucket(max(len(ref), len(src)), [b.caps[0] for b in buckets])
+    cfg = dataclasses.replace(cfg, pyramid=buckets[bi])
+    cap = cfg.pyramid.caps[0]
+    print(f"input: ref {len(ref)} / src {len(src)} points, bucket caps {cfg.pyramid.caps}, "
+          f"band caps {cfg.pyramid.band_caps}")
+    model = RDMNet(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    rp, rc = pad_cloud(ref, cap, device=dev)
+    sp, sc = pad_cloud(src, cap, device=dev)
+
+    # ---- 3. kernels vs plain at main-path shapes -------------------------
+    batch = build_pair_batch(rp, rc, sp, sc, torch.eye(4, device=dev), cfg.pyramid)
+    pts = [torch.stack([batch.ref.points[i], batch.src.points[i]]).contiguous()
+           for i in range(cfg.pyramid.num_stages)]
+    cnts = [torch.stack([batch.ref.counts[i], batch.src.counts[i]]).to(torch.int32)
+            for i in range(cfg.pyramid.num_stages)]
+    knn_ms = knn_plain_ms = knn_bound = 0.0
+    for item in search_plan(cfg.pyramid):
+        ms, pms, bound, pairs = check_knn(pts, cnts, item, kernels)
+        knn_ms, knn_plain_ms, knn_bound = knn_ms + ms, knn_plain_ms + pms, knn_bound + bound
+        print(f"radius_knn {item.table}[{item.q_lvl}->{item.s_lvl}] Q={pts[item.q_lvl].shape[1]} "
+              f"S={pts[item.s_lvl].shape[1]} K={item.k} band={item.band}: kernel {ms:.4f} ms, "
+              f"plain {pms:.3f} ms, bound {bound:.5f} ms, candidate pairs {pairs}")
+    level0 = search_plan(cfg.pyramid)[0]
+    for extra in (level0._replace(band=None),
+                  level0._replace(band=None, k=1, radius=2 * cfg.pyramid.search_radius)):
+        ms, pms, bound, _ = check_knn(pts, cnts, extra, kernels)
+        print(f"radius_knn level-0 unbanded K={extra.k} r={extra.radius}: kernel {ms:.4f} ms, "
+              f"plain {pms:.3f} ms, bound {bound:.5f} ms")
+    print(f"radius_knn per pair (12 searches): kernel {knn_ms:.4f} ms, plain {knn_plain_ms:.3f} "
+          f"ms, bound {knn_bound:.5f} ms, tables equal to the plain version's (max abs index "
+          f"difference {kernels['radius_knn']['max_abs_err']})")
+
+    rng = np.random.RandomState(SEED)
+    p, k1, iters = 256, 129, 100
+    scores = (rng.randn(p, k1, k1) * 3).astype(np.float32)
+    log_mu = np.full((p, k1), -np.log(2 * (k1 - 1)), np.float32)
+    log_nu = log_mu.copy()
+    masked_patch = rng.rand(p) < 0.1
+    scores[masked_patch] = -1e12
+    log_mu[masked_patch, :-1] = -1e12
+    log_nu[masked_patch, :-1] = -1e12
+    rows = (rng.rand(p, k1) < 0.1) & ~masked_patch[:, None]
+    rows[:, -1] = False
+    scores[rows] = -1e12
+    log_mu[rows] = -1e12
+    s_t, mu_t, nu_t = (torch.from_numpy(x).to(dev) for x in (scores, log_mu, log_nu))
+    got = sinkhorn_cuda(s_t, mu_t, nu_t, iters)
+    torch.cuda.synchronize()
+    want = sinkhorn_plain(s_t, mu_t, nu_t, iters)
+    live = want > -1e11
+    if not torch.isfinite(got).all() or not torch.equal(got > -1e11, live):
+        fail("sinkhorn: non-finite output or masked entries differ")
+    err = float((got - want)[live].abs().max())
+    kernels["sinkhorn"]["max_abs_err"] = err
+    if err > 1e-4:
+        fail(f"sinkhorn: max abs error {err} > 1e-4")
+    s_ms = cuda_ms(lambda: sinkhorn_cuda(s_t, mu_t, nu_t, iters), reps=20)
+    s_plain = cuda_ms(lambda: sinkhorn_plain(s_t, mu_t, nu_t, iters), reps=3)
+    entries = p * k1 * k1
+    exp_s = 2 * iters * entries / (NUM_SMS * SFU_PER_SM_CLK * max_clock_mhz * 1e6)
+    ops_s = 2 * iters * entries * SINKHORN_OPS_PER_ENTRY / F32_FLOPS
+    bytes_s = (2 * entries + 2 * p * k1) * 4 / HBM_BYTES_PER_S
+    s_bound = max(exp_s, ops_s, bytes_s) * 1e3
+    print(f"sinkhorn P={p} K1={k1} iters={iters}: kernel {s_ms:.4f} ms, plain {s_plain:.3f} ms, "
+          f"bound {s_bound:.5f} ms (exp {exp_s * 1e3:.5f}, f32 ops {ops_s * 1e3:.5f}, "
+          f"bytes {bytes_s * 1e3:.5f}), max abs err {err:.3e}")
+    kernels["radius_knn"].update(ms=knn_ms, plain_ms=knn_plain_ms, bound_ms=knn_bound,
+                                 bound_by="operations")
+    kernels["sinkhorn"].update(ms=s_ms, plain_ms=s_plain, bound_ms=s_bound,
+                               bound_by="operations" if max(exp_s, ops_s) >= bytes_s else "bytes")
+
+    # ---- 4. main path -----------------------------------------------------
+    n_warm, n_timed, n_stage = 3, 12, 5
+    jitter = [rp + 1e-6 * (i + 1) for i in range(n_warm + n_timed)]
+    reset_launch_counts()
+    for i in range(n_warm):
+        out = pipeline(model, jitter[i], rc, sp, sc, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = [pipeline(model, jitter[n_warm + i], rc, sp, sc, device=dev)["estimated_transform"]
+            for i in range(n_timed)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_timed
+    peak = torch.cuda.max_memory_allocated()
+    stage_ms = {name: 0.0 for name in STAGES}
+    for _ in range(n_stage):
+        marks = []
+
+        def hook(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = pipeline(model, rp, rc, sp, sc, device=dev, stage_hook=hook)
+        prev = start
+        for name, t in marks:
+            stage_ms[name] += (t - prev) * 1e3 / n_stage
+            prev = t
+    counts = launch_counts()
+    n_pairs = n_warm + n_timed + n_stage
+    for name, n in counts.items():
+        kernels[name]["launches"] = n
+        if n == 0:
+            fail(f"kernel {name} was not launched on the main path")
+    tf = out["estimated_transform"]
+    if not all(bool(torch.isfinite(t).all()) for t in outs + [tf]) or tf.shape != (4, 4):
+        fail("main path: non-finite or misshapen estimated_transform")
+    rot_err = float(np.degrees(np.arccos(np.clip(
+        (np.trace(tf[:3, :3].cpu().numpy().T @ gt[:3, :3]) - 1) / 2, -1, 1))))
+    print("main path stages (ms, mean of %d pairs, synchronised at each stage): %s" % (
+        n_stage, json.dumps({k: round(v, 3) for k, v in stage_ms.items()})))
+    print(f"main path: {dt * 1e3:.3f} ms/pair, {1.0 / dt:.4f} pairs/s over {n_timed} pairs, "
+          f"peak memory {peak / 2**20:.1f} MiB, dropped {out['dropped'].tolist()}, "
+          f"NMS rounds {out['nms_rounds']}, launches {counts} over {n_pairs} pairs "
+          f"({ {k: v / n_pairs for k, v in counts.items()} } per pair), "
+          f"rotation vs ground truth {rot_err:.2f} deg (random weights)")
+
+    # ---- 5. card vs CPU on the whole path at a small config ---------------
+    # A scan against a rigidly moved copy through both devices, with the same
+    # weights, for each draw of WEIGHT_SEEDS. Held for every draw: every
+    # index table equal and the log transport plans within 1e-3; then LGR on
+    # the CPU's patches and plans, run on both devices: the same
+    # correspondence set and per-patch Procrustes hypotheses whose weighted
+    # residuals agree within 1e-4 m (a residual stays well-posed where a
+    # patch's few correspondences leave its pose ill-conditioned). The poses
+    # are held to 1e-4 only for draws whose CPU pose registers the pair:
+    # random weights otherwise pick a hypothesis that rests on a few
+    # ill-conditioned correspondences, and the pose is chaotic in the last
+    # bits of the plans. The draw of WEIGHT_SEEDS[0] registers it.
+    tiny = make_tiny_cfg()
+    small, _, _ = procedural_pair(SEED + 2, n_rings=16, n_azimuths=200)
+    small = small[np.random.RandomState(0).permutation(len(small))[:500]]
+    motion = np.eye(4, dtype=np.float32)
+    motion[:2, :2] = [[np.cos(0.05), -np.sin(0.05)], [np.sin(0.05), np.cos(0.05)]]
+    motion[:3, 3] = [0.5, 0.3, 0.1]
+    moved = ((small - motion[:3, 3]) @ motion[:3, :3]).astype(np.float32)
+    tcap = tiny.pyramid.caps[0]
+    registered, diverged = [], []
+    for seed in WEIGHT_SEEDS:
+        m_gpu = RDMNet(tiny, device=dev, generator=torch.Generator().manual_seed(seed))
+        m_cpu = RDMNet(tiny, device="cpu", generator=torch.Generator().manual_seed(seed))
+        o_gpu = pipeline(m_gpu, *pad_cloud(small, tcap, device=dev),
+                         *pad_cloud(moved, tcap, device=dev), device=dev)
+        o_cpu = pipeline(m_cpu, *pad_cloud(small, tcap), *pad_cloud(moved, tcap), device="cpu")
+        for side in ("ref", "src"):
+            g, c = getattr(o_gpu["batch"], side), getattr(o_cpu["batch"], side)
+            for field in ("points", "neighbors", "subsampling", "upsampling"):
+                for lvl, (a, b) in enumerate(zip(getattr(g, field), getattr(c, field))):
+                    if not torch.equal(a.cpu(), b):
+                        fail(f"card vs CPU (weights {seed}): {side} {field}[{lvl}] differ")
+        for key in ("dropped", "nodes_ref_valid", "nodes_src_valid", "ref_node_corr_indices",
+                    "src_node_corr_indices", "node_corr_valid"):
+            if not torch.equal(o_gpu[key].cpu(), o_cpu[key]):
+                fail(f"card vs CPU (weights {seed}): {key} differ")
+        live = o_cpu["matching_scores"] > -1e11
+        ms_err = float((o_gpu["matching_scores"].cpu() - o_cpu["matching_scores"])[live].abs().max())
+        if ms_err > 1e-3:
+            fail(f"card vs CPU (weights {seed}): matching scores differ by {ms_err} > 1e-3")
+
+        lgr_in = [o_cpu[key] for key in LGR_INPUTS]
+        corr_c, tf_c = local_to_global_registration(*lgr_in, tiny.fine_matching)
+        corr_g, tf_g = local_to_global_registration(*[x.to(dev) for x in lgr_in],
+                                                    tiny.fine_matching)
+        if not (torch.equal(corr_g.ref_points.cpu(), corr_c.ref_points)
+                and torch.equal(corr_g.src_points.cpu(), corr_c.src_points)):
+            fail(f"card vs CPU (weights {seed}): LGR correspondence sets differ")
+        sc_err = float((corr_g.scores.cpu() - corr_c.scores).abs().max())
+        if sc_err > 1e-6:
+            fail(f"card vs CPU (weights {seed}): correspondence scores differ by {sc_err} > 1e-6")
+        (res_g, n_g), (res_c, n_c) = hypothesis_residuals(corr_g), hypothesis_residuals(corr_c)
+        posed = n_c >= tiny.fine_matching.correspondence_threshold
+        hyp_err = float((res_g.cpu() - res_c)[posed].abs().max()) if bool(posed.any()) else 0.0
+        if hyp_err > 1e-4:
+            fail(f"card vs CPU (weights {seed}): hypothesis residuals differ by {hyp_err} m")
+
+        tf_err = float((o_gpu["estimated_transform"].cpu()
+                        - o_cpu["estimated_transform"]).abs().max())
+        lgr_err = float((tf_g.cpu() - tf_c).abs().max())
+        reg_err = float(np.abs(o_cpu["estimated_transform"].numpy() - motion).max())
+        print(f"card vs CPU (tiny cfg, weights {seed}): index tables equal, matching scores max "
+              f"abs diff {ms_err:.3e}; LGR on the same plans: correspondence sets equal, scores "
+              f"{sc_err:.3e}, {int(posed.sum())} hypotheses' residuals within {hyp_err:.3e} m, "
+              f"pose {lgr_err:.3e}; whole-path pose {tf_err:.3e}; CPU pose vs known motion "
+              f"{reg_err:.3e}")
+        if reg_err <= 0.05:
+            registered.append(seed)
+            if max(tf_err, lgr_err) > 1e-4:
+                fail(f"card vs CPU (weights {seed}): registered poses differ by "
+                     f"{max(tf_err, lgr_err)} > 1e-4")
+        elif max(tf_err, lgr_err) > 1e-4:
+            diverged.append(seed)
+    if WEIGHT_SEEDS[0] not in registered:
+        fail(f"card vs CPU: the weights of seed {WEIGHT_SEEDS[0]} no longer register the pair")
+    print(f"card vs CPU: {len(registered)} of {len(WEIGHT_SEEDS)} weight draws register the "
+          f"pair (poses held to 1e-4: {registered}); of the others, {len(diverged)} have card "
+          f"and CPU poses more than 1e-4 apart: {diverged}")
+
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

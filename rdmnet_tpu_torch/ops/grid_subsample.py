@@ -1,0 +1,110 @@
+"""Fixed-capacity voxel-grid subsampling (twin of ``rdmnet_tpu/ops/grid_subsample.py``).
+
+Each occupied voxel of side ``voxel_size`` emits the centroid of its points.
+Output voxels are ordered by the x-major packed voxel key, the order the
+banded radius search relies on. Batched over a leading axis (the pair).
+
+Segment sums: the JAX package sums each voxel's points with
+``segment_sum``, which XLA evaluates sequentially in sorted order in float32.
+``index_add_``/``scatter_add_`` on CUDA add in a nondeterministic order, and
+a float32 ``cumsum`` difference loses precision against the running total.
+Here the sorted segments are summed column by column: step j adds every
+segment's j-th point in one elementwise float32 add, so each segment is
+summed left to right exactly as XLA does, on any device, deterministically.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from rdmnet_tpu_torch.ops.geometry import f32_reciprocal
+
+PAD_COORD = 1.0e9  # coordinate of padded output slots
+
+# Voxel-key packing: 11/10/10 bits (x/y/z), x primary; cx clipped to 2046 so
+# the largest key stays below the invalid-point sentinel.
+_CLIP = (2046, 1023, 1023)
+INVALID_KEY = 2 ** 31 - 1
+
+
+def voxel_sort_key(points: torch.Tensor, valid: torch.Tensor, cell: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, N, 3) points, (B, N) bool -> (key (B, N) int32, n_clipped (B,) int32).
+
+    Grid anchored at floor(min / cell) * cell over valid points. Invalid
+    points get the int32-max key. ``n_clipped`` counts valid points whose
+    voxel coordinate fell outside the packable range."""
+    c = torch.tensor(cell, dtype=torch.float32, device=points.device)
+    inv = f32_reciprocal(cell, points)
+    masked = torch.where(valid[..., None], points, torch.full_like(points, float("inf")))
+    anchor = torch.floor(masked.amin(dim=1, keepdim=True) * inv) * c
+    coords = torch.floor((points - anchor) * inv)
+    # clamp in float before the cast: pad rows sit at 1e9 and would overflow
+    coords = torch.clamp(coords, -1.0, 4096.0).to(torch.int32)
+    cx = coords[..., 0].clamp(0, _CLIP[0])
+    cy = coords[..., 1].clamp(0, _CLIP[1])
+    cz = coords[..., 2].clamp(0, _CLIP[2])
+    clipped = ((coords[..., 0] > _CLIP[0]) | (coords[..., 1] > _CLIP[1])
+               | (coords[..., 2] > _CLIP[2])) & valid
+    key = (cx << 20) | (cy << 10) | cz
+    key = torch.where(valid, key, torch.full_like(key, INVALID_KEY))
+    return key, clipped.sum(dim=1).to(torch.int32)
+
+
+def grid_subsample(points: torch.Tensor, num_valid: torch.Tensor, voxel_size: float, cap: int):
+    """Voxel-centroid subsample of padded clouds.
+
+    Args:
+      points: (B, N, 3) float32; the first ``num_valid[b]`` rows are real.
+      num_valid: (B,) int32.
+      voxel_size: voxel edge length.
+      cap: output capacity (occupied voxels beyond it are dropped).
+
+    Returns (sub_points (B, cap, 3) with pad rows at 1e9, sub_count (B,)
+    int32, dropped (B,) int32 = overflow voxels + clipped points).
+    """
+    b, n, _ = points.shape
+    dev = points.device
+    pos = torch.arange(n, device=dev)
+    valid = pos[None, :] < num_valid[:, None]
+    key, n_clipped = voxel_sort_key(points, valid, voxel_size)
+
+    # tie order: a stable sort keeps equal keys in input order, as lax.sort
+    skey, order = torch.sort(key, dim=1, stable=True)
+    sorted_pts = torch.gather(points, 1, order[..., None].expand(b, n, 3))
+    svalid = skey != INVALID_KEY
+
+    changed = (skey[:, 1:] != skey[:, :-1]).to(torch.int64)
+    seg = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                     torch.cumsum(changed, dim=1)], dim=1)
+    true_count = torch.where(
+        num_valid > 0,
+        torch.where(svalid, seg, torch.full_like(seg, -1)).amax(dim=1) + 1,
+        torch.zeros_like(num_valid, dtype=torch.int64),
+    )
+    sub_count = torch.clamp(true_count, max=cap)
+
+    # segment layout on the sorted axis: first position and length of each
+    # kept segment (row `cap` collects invalid points and overflow segments)
+    sid = torch.where(svalid, torch.clamp(seg, max=cap), torch.full_like(seg, cap))
+    start = torch.full((b, cap + 1), n, dtype=torch.int64, device=dev)
+    start.scatter_reduce_(1, sid, pos.expand(b, n), reduce="amin")
+    length = torch.zeros((b, cap + 1), dtype=torch.int64, device=dev)
+    length.scatter_add_(1, sid, torch.ones_like(sid))
+    start, length = start[:, :cap], length[:, :cap]
+
+    sums = torch.zeros((b, cap, 3), dtype=points.dtype, device=dev)
+    steps = int(length.max()) if cap > 0 else 0
+    for j in range(steps):
+        take = torch.clamp(start + j, max=n - 1)
+        row = torch.gather(sorted_pts, 1, take[..., None].expand(b, cap, 3))
+        row = torch.where((j < length)[..., None], row, torch.zeros_like(row))
+        sums = sums + row
+    counts = length.to(points.dtype)
+
+    out_valid = torch.arange(cap, device=dev)[None, :] < sub_count[:, None]
+    centroids = sums / torch.clamp_min(counts, 1.0)[..., None]
+    sub_points = torch.where(out_valid[..., None], centroids, torch.full_like(centroids, PAD_COORD))
+    dropped = torch.clamp_min(true_count - cap, 0) + n_clipped
+    return sub_points, sub_count.to(torch.int32), dropped.to(torch.int32)

@@ -1,0 +1,71 @@
+"""Fused log-domain Sinkhorn: CUDA kernel wrapper and its plain PyTorch version.
+
+Kernel: ``csrc/sinkhorn.cu`` (replaces ``rdmnet_tpu/ops/pallas/sinkhorn.py``
+sinkhorn_pallas). Both versions run ``num_iterations`` of
+``u = log_mu - LSE_j(s + v)``, ``v = log_nu - LSE_i(s + u)`` from u = v = 0
+and return ``s + u + v``; masked entries carry -1e12.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rdmnet_tpu_torch.ops.kernels._build import check, load_library
+
+MAX_K1 = 240  # (K1^2 + 2 K1) float32 must fit one block's shared memory
+
+
+def _lse(t: torch.Tensor, dim: int) -> torch.Tensor:
+    m = t.amax(dim=dim, keepdim=True)
+    return (m + torch.log(torch.exp(t - m).sum(dim=dim, keepdim=True))).squeeze(dim)
+
+
+def sinkhorn_plain(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
+                   num_iterations: int) -> torch.Tensor:
+    """Plain PyTorch version: (P, K1, K1), (P, K1), (P, K1) -> (P, K1, K1)."""
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    for _ in range(num_iterations):
+        u = log_mu - _lse(scores + v[..., None, :], dim=-1)
+        v = log_nu - _lse(scores + u[..., :, None], dim=-2)
+    return scores + u[..., :, None] + v[..., None, :]
+
+
+def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
+                  num_iterations: int) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (one launch per call)."""
+    for name, t in (("scores", scores), ("log_mu", log_mu), ("log_nu", log_nu)):
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"sinkhorn_cuda: {name} must be a contiguous CUDA float32 tensor")
+    p, k1, k2 = scores.shape
+    if k1 != k2 or log_mu.shape != (p, k1) or log_nu.shape != (p, k1):
+        raise ValueError("sinkhorn_cuda: expected scores (P, K1, K1), log_mu/log_nu (P, K1)")
+    if k1 > MAX_K1:
+        raise ValueError(f"sinkhorn_cuda: K1={k1} exceeds {MAX_K1}")
+    out = torch.empty_like(scores)
+    fn = load_library("sinkhorn").sinkhorn_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(scores.device).cuda_stream
+    err = fn(scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), p, k1,
+             num_iterations, out.data_ptr(), stream)
+    check(err, "sinkhorn")
+    sinkhorn_cuda.launches += 1
+    return out
+
+
+sinkhorn_cuda.launches = 0
+
+
+def sinkhorn(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
+             num_iterations: int) -> torch.Tensor:
+    """Route by device: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. No fallback: a failing launch raises."""
+    if scores.is_cuda:
+        return sinkhorn_cuda(scores.float().contiguous(), log_mu.float().contiguous(),
+                             log_nu.float().contiguous(), num_iterations)
+    if scores.device.type != "cpu":
+        raise ValueError(f"sinkhorn: unsupported device {scores.device}")
+    return sinkhorn_plain(scores, log_mu, log_nu, num_iterations)

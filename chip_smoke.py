@@ -9,8 +9,12 @@ Phases, each fatal on failure:
    parallel, with the ``-Xptxas -v`` register/spill report;
 3. kernels against their plain PyTorch versions at the main path's shapes:
    the 12 radius searches of one pair's graph build (plus the unbanded
-   level-0 search), and Sinkhorn at P=256, K1=129, 100 iterations with
-   masked patches and rows; CUDA-event times beside each kernel's bound;
+   level-0 searches and a level-0 search over duplicated points, whose
+   distance ties must come out in index order), and Sinkhorn at P=256,
+   K1=129, 100 iterations with masked patches and rows; each kernel's device
+   time (CUDA-graph replay) and time per wrapper call (CUDA events around
+   eager calls) beside its bound, its launch plan and the time per call of
+   the kernels' first design (v1);
 4. the main path at ``make_cfg()`` full width, 0.7 bucket: a seeded ~20k
    point procedural pair through ``pipeline`` (graph build to pose), 3
    warm-up pairs, 12 timed pairs, 5 pairs with a per-stage breakdown; every
@@ -41,6 +45,22 @@ SFU_PER_SM_CLK = 16           # exp2 throughput per SM per clock (compute capabi
 NUM_SMS = 132
 KNN_OPS_PER_PAIR = 9          # 3 FMA (2 each), sub, add, max per (query, candidate)
 SINKHORN_OPS_PER_ENTRY = 4    # add, max, sub, add per entry and half-step (beside one exp)
+DESIGN = "v2"                 # the kernels' design in csrc/, as PERF.md names it
+# ms per wrapper call of the kernels' first design, v1 (one thread per query with
+# a local-memory top-K; warp-per-row Sinkhorn in shared memory), on an NVIDIA H100
+# 80GB HBM3 at 700.00 W: the mean of two runs of the v1 tree's chip_smoke.py in
+# one call (PERF.md, section 6, the v2 redesign). Keys are (table, query level,
+# support level, k).
+V1_KNN_MS = {
+    ("neighbors", 0, 0, 40): 1.2344, ("subsampling", 1, 0, 40): 1.7591,
+    ("neighbors", 1, 1, 40): 1.0634, ("subsampling", 2, 1, 40): 1.7496,
+    ("upsampling", 1, 2, 1): 0.0551, ("neighbors", 2, 2, 40): 0.9172,
+    ("subsampling", 3, 2, 40): 1.5240, ("upsampling", 2, 3, 1): 0.0397,
+    ("neighbors", 3, 3, 40): 0.8292, ("subsampling", 4, 3, 40): 1.2368,
+    ("upsampling", 3, 4, 1): 0.0383, ("neighbors", 4, 4, 40): 0.5811,
+    ("unbanded", 0, 0, 40): 2.5537, ("unbanded", 0, 0, 1): 0.6676,
+}
+V1_SINKHORN_MS = 2.5560
 
 
 def fail(msg: str) -> None:
@@ -65,6 +85,30 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call: ``reps`` calls captured in one CUDA
+    graph and replayed, so the host's per-call work is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -110,10 +154,11 @@ def check_knn(pts, cnts, sp, kernels):
     build on the card."""
     import torch
 
-    from rdmnet_tpu_torch.ops.kernels.radius_knn import radius_knn_cuda, radius_knn_plain
+    from rdmnet_tpu_torch.ops.kernels.radius_knn import knn_plan, radius_knn_cuda, radius_knn_plain
     from rdmnet_tpu_torch.ops.radius_search import band_windows
 
     q, s, scnt = pts[sp.q_lvl], pts[sp.s_lvl], cnts[sp.s_lvl]
+    plan = knn_plan(q.shape[0], q.shape[1], s.shape[1], sp.k, sp.band)
     kw = {}
     if sp.band is not None:
         win, _ = band_windows(q, s, cnts[sp.q_lvl], sp.radius, sp.cell, sp.band, sp.chunk)
@@ -129,7 +174,8 @@ def check_knn(pts, cnts, sp, kernels):
         fail(f"radius_knn {sp.table}[{sp.q_lvl}->{sp.s_lvl}] k={sp.k}: {int(differ.sum())} "
              "rows differ from the plain version")
     err = float((got.long() - want.long()).abs().max())
-    ms = cuda_ms(lambda: radius_knn_cuda(q, s, scnt, sp.radius, sp.k, **kw), reps=10)
+    call = lambda: radius_knn_cuda(q, s, scnt, sp.radius, sp.k, **kw)  # noqa: E731
+    ms, call_ms = graph_ms(call, reps=10), cuda_ms(call, reps=10)
     plain_ms = cuda_ms(lambda: radius_knn_plain(q, s, scnt, sp.radius, sp.k, **kw), reps=1,
                        warmup=0)
     # work this run's data needs: valid queries x valid candidates in their window
@@ -147,7 +193,15 @@ def check_knn(pts, cnts, sp, kernels):
     nbytes = bsz * (nq * 3 * 4 + s.shape[1] * 3 * 4 + nq * sp.k * 4)
     bound = max(nbytes / HBM_BYTES_PER_S, pairs * KNN_OPS_PER_PAIR / F32_FLOPS) * 1e3
     kernels["radius_knn"]["max_abs_err"] = max(kernels["radius_knn"]["max_abs_err"], err)
-    return ms, plain_ms, bound, pairs
+    return ms, call_ms, plain_ms, bound, pairs, plan
+
+
+def knn_line(name: str, ms, call_ms, pms, bound, plan, v1) -> str:
+    p = (f"plan warps={plan.warps} k_bucket={plan.k_bucket} tile_rows={plan.tile_rows} "
+         f"tiled={plan.tiled} smem={plan.smem_bytes}")
+    old = "not recorded" if v1 is None else f"{v1:.4f} ms per call"
+    return (f"radius_knn {name}: kernel {ms:.4f} ms on the device, {call_ms:.4f} ms per call, "
+            f"v1 design {old}; plain {pms:.3f} ms, bound {bound:.5f} ms; {p}")
 
 
 def main() -> None:
@@ -188,11 +242,11 @@ def main() -> None:
         "radius_knn": dict(name="radius_knn", route="cuda",
                            source="rdmnet_tpu_torch/csrc/radius_knn.cu",
                            replaces="rdmnet_tpu/ops/pallas/radius_knn.py:93",
-                           launches=0, max_abs_err=0.0, library_ms=None),
+                           launches=0, max_abs_err=0.0, library_ms=None, design=DESIGN),
         "sinkhorn": dict(name="sinkhorn", route="cuda",
                          source="rdmnet_tpu_torch/csrc/sinkhorn.cu",
                          replaces="rdmnet_tpu/ops/pallas/sinkhorn.py:59",
-                         launches=0, max_abs_err=0.0, library_ms=None),
+                         launches=0, max_abs_err=0.0, library_ms=None, design=DESIGN),
     }
 
     # ---- main-path input and model ------------------------------------------
@@ -214,22 +268,35 @@ def main() -> None:
            for i in range(cfg.pyramid.num_stages)]
     cnts = [torch.stack([batch.ref.counts[i], batch.src.counts[i]]).to(torch.int32)
             for i in range(cfg.pyramid.num_stages)]
-    knn_ms = knn_plain_ms = knn_bound = 0.0
+    knn_ms = knn_call_ms = knn_plain_ms = knn_bound = 0.0
     for item in search_plan(cfg.pyramid):
-        ms, pms, bound, pairs = check_knn(pts, cnts, item, kernels)
-        knn_ms, knn_plain_ms, knn_bound = knn_ms + ms, knn_plain_ms + pms, knn_bound + bound
-        print(f"radius_knn {item.table}[{item.q_lvl}->{item.s_lvl}] Q={pts[item.q_lvl].shape[1]} "
-              f"S={pts[item.s_lvl].shape[1]} K={item.k} band={item.band}: kernel {ms:.4f} ms, "
-              f"plain {pms:.3f} ms, bound {bound:.5f} ms, candidate pairs {pairs}")
+        ms, call_ms, pms, bound, pairs, plan = check_knn(pts, cnts, item, kernels)
+        knn_ms, knn_call_ms = knn_ms + ms, knn_call_ms + call_ms
+        knn_plain_ms, knn_bound = knn_plain_ms + pms, knn_bound + bound
+        name = (f"{item.table}[{item.q_lvl}->{item.s_lvl}] Q={pts[item.q_lvl].shape[1]} "
+                f"S={pts[item.s_lvl].shape[1]} K={item.k} band={item.band}")
+        print(knn_line(name, ms, call_ms, pms, bound, plan,
+                       V1_KNN_MS.get((item.table, item.q_lvl, item.s_lvl, item.k)))
+              + f"; candidate pairs {pairs}")
     level0 = search_plan(cfg.pyramid)[0]
     for extra in (level0._replace(band=None),
                   level0._replace(band=None, k=1, radius=2 * cfg.pyramid.search_radius)):
-        ms, pms, bound, _ = check_knn(pts, cnts, extra, kernels)
-        print(f"radius_knn level-0 unbanded K={extra.k} r={extra.radius}: kernel {ms:.4f} ms, "
-              f"plain {pms:.3f} ms, bound {bound:.5f} ms")
-    print(f"radius_knn per pair (12 searches): kernel {knn_ms:.4f} ms, plain {knn_plain_ms:.3f} "
-          f"ms, bound {knn_bound:.5f} ms, tables equal to the plain version's (max abs index "
-          f"difference {kernels['radius_knn']['max_abs_err']})")
+        ms, call_ms, pms, bound, _, plan = check_knn(pts, cnts, extra, kernels)
+        print(knn_line(f"level-0 unbanded K={extra.k} r={extra.radius}", ms, call_ms, pms, bound,
+                       plan, V1_KNN_MS.get(("unbanded", 0, 0, extra.k))))
+    # every level-0 point twice (rows 2i-1 and 2i): each query's nearest two
+    # are at one distance, so the table shows the (distance, index) tie order
+    twin = (torch.arange(cap, device=dev) + 1) // 2
+    dup_pts = [p[:, twin].contiguous() for p in pts[:1]] + pts[1:]
+    dup_cnts = [torch.clamp(2 * cnts[0] - 1, max=cap)] + cnts[1:]
+    ms, call_ms, pms, bound, _, plan = check_knn(dup_pts, dup_cnts, level0, kernels)
+    print(knn_line(f"level-0 duplicated points K={level0.k} band={level0.band}", ms, call_ms,
+                   pms, bound, plan, None) + ": table equal to the plain version's")
+    v1 = sum(V1_KNN_MS[(i.table, i.q_lvl, i.s_lvl, i.k)] for i in search_plan(cfg.pyramid))
+    print(f"radius_knn per pair (12 searches): kernel {knn_ms:.4f} ms on the device, "
+          f"{knn_call_ms:.4f} ms in wrapper calls, v1 design {v1:.4f} ms in wrapper calls; "
+          f"plain {knn_plain_ms:.3f} ms, bound {knn_bound:.5f} ms, tables equal to the plain "
+          f"version's (max abs index difference {kernels['radius_knn']['max_abs_err']})")
 
     rng = np.random.RandomState(SEED)
     p, k1, iters = 256, 129, 100
@@ -255,19 +322,21 @@ def main() -> None:
     kernels["sinkhorn"]["max_abs_err"] = err
     if err > 1e-4:
         fail(f"sinkhorn: max abs error {err} > 1e-4")
-    s_ms = cuda_ms(lambda: sinkhorn_cuda(s_t, mu_t, nu_t, iters), reps=20)
+    s_ms = graph_ms(lambda: sinkhorn_cuda(s_t, mu_t, nu_t, iters), reps=20)
+    s_call_ms = cuda_ms(lambda: sinkhorn_cuda(s_t, mu_t, nu_t, iters), reps=20)
     s_plain = cuda_ms(lambda: sinkhorn_plain(s_t, mu_t, nu_t, iters), reps=3)
     entries = p * k1 * k1
     exp_s = 2 * iters * entries / (NUM_SMS * SFU_PER_SM_CLK * max_clock_mhz * 1e6)
     ops_s = 2 * iters * entries * SINKHORN_OPS_PER_ENTRY / F32_FLOPS
     bytes_s = (2 * entries + 2 * p * k1) * 4 / HBM_BYTES_PER_S
     s_bound = max(exp_s, ops_s, bytes_s) * 1e3
-    print(f"sinkhorn P={p} K1={k1} iters={iters}: kernel {s_ms:.4f} ms, plain {s_plain:.3f} ms, "
-          f"bound {s_bound:.5f} ms (exp {exp_s * 1e3:.5f}, f32 ops {ops_s * 1e3:.5f}, "
-          f"bytes {bytes_s * 1e3:.5f}), max abs err {err:.3e}")
-    kernels["radius_knn"].update(ms=knn_ms, plain_ms=knn_plain_ms, bound_ms=knn_bound,
-                                 bound_by="operations")
-    kernels["sinkhorn"].update(ms=s_ms, plain_ms=s_plain, bound_ms=s_bound,
+    print(f"sinkhorn P={p} K1={k1} iters={iters}: kernel {s_ms:.4f} ms on the device, "
+          f"{s_call_ms:.4f} ms per call, v1 design {V1_SINKHORN_MS:.4f} ms per call; plain "
+          f"{s_plain:.3f} ms, bound {s_bound:.5f} ms (exp {exp_s * 1e3:.5f}, f32 ops "
+          f"{ops_s * 1e3:.5f}, bytes {bytes_s * 1e3:.5f}), max abs err {err:.3e}")
+    kernels["radius_knn"].update(ms=knn_ms, ms_per_call=knn_call_ms, plain_ms=knn_plain_ms,
+                                 bound_ms=knn_bound, bound_by="operations")
+    kernels["sinkhorn"].update(ms=s_ms, ms_per_call=s_call_ms, plain_ms=s_plain, bound_ms=s_bound,
                                bound_by="operations" if max(exp_s, ops_s) >= bytes_s else "bytes")
 
     # ---- 4. main path -----------------------------------------------------

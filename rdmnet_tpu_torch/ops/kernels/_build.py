@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``rdmnet_tpu_torch/_build/lib<name>-<hash>.so`` (the
-hash covers the source and the flags, so an edited source rebuilds) and
+hash covers the source, every ``csrc/*.cuh`` header and the flags, so an
+edited source or header rebuilds) and
 loaded with ctypes. Nothing is built at import time; a wrapper builds its
 library at first use, and a caller may start several ``Build``s (one
 ``nvcc`` process each) before waiting on any.
@@ -47,8 +48,11 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(source_path(name).read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(source_path(name).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -14,7 +14,8 @@ each chunk of ``chunk`` consecutive queries, which then see ``band`` rows;
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,6 +24,40 @@ from rdmnet_tpu_torch.ops.geometry import dot3, sq_norm3
 from rdmnet_tpu_torch.ops.kernels._build import check, load_library
 
 KMAX = 128  # largest k the kernel takes
+NUM_SMS = 132  # H100 SXM
+WINDOW_ROWS_MAX = 7168  # rows staged at once: 112 KB (the 1.0 bucket's level-0 band), 2 blocks/SM
+ROW_BYTES = 16  # a staged support row: float4 (x, y, z, |s|^2)
+
+
+class KnnPlan(NamedTuple):
+    """How ``csrc/radius_knn.cu`` runs one search."""
+
+    warps: int  # queries (one warp each) per block; divides the query chunk
+    k_bucket: int  # length of the register-resident top-K list: 1, 32, 64 or 128
+    tile_rows: int  # support rows staged in shared memory at once
+    tiled: bool  # the window is larger than one tile and is swept tile by tile
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def knn_plan(batch: int, nq: int, ns: int, k: int, band: Optional[int] = None) -> KnnPlan:
+    """Launch plan of one search (pure; the CPU tests call it).
+
+    A window of ``band`` rows (``ns`` when unbanded) that fits in
+    ``WINDOW_ROWS_MAX`` rows is staged whole and swept once per query;
+    a larger one is swept in tiles of that many rows. Blocks hold 16, 8 or 4
+    warps: the most that still makes at least two blocks per SM, so small
+    searches spread over the card. Every choice divides 64, hence the query
+    chunk. The list bucket is the smallest of 32, 64, 128 that holds k (1
+    for k = 1, which keeps one best per lane instead).
+    """
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"radius_knn: k={k} outside [1, {KMAX}]")
+    rows = ns if band is None else band
+    tile_rows = max(1, min(rows, WINDOW_ROWS_MAX))
+    warps = next((w for w in (16, 8) if batch * -(-nq // w) >= 2 * NUM_SMS), 4)
+    k_bucket = 1 if k == 1 else next(kb for kb in (32, 64, 128) if k <= kb)
+    return KnnPlan(warps, k_bucket, tile_rows, rows > WINDOW_ROWS_MAX, tile_rows * ROW_BYTES)
 
 
 def _radius_sq(radius: float) -> float:
@@ -63,6 +98,15 @@ def radius_knn_plain(q, s, s_count, radius, k, win=None, chunk=0, band=0,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = load_library("radius_knn").radius_knn_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def radius_knn_cuda(q, s, s_count, radius, k, win=None, chunk=0, band=0) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (one launch per call)."""
     for name, t, dt in (("q", q, torch.float32), ("s", s, torch.float32),
@@ -73,8 +117,6 @@ def radius_knn_cuda(q, s, s_count, radius, k, win=None, chunk=0, band=0) -> torc
     ns = s.shape[1]
     if q.shape[-1] != 3 or s.shape[-1] != 3 or s.shape[0] != bsz or s_count.shape != (bsz,):
         raise ValueError("radius_knn_cuda: expected q (B, Q, 3), s (B, S, 3), s_count (B,)")
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"radius_knn_cuda: k={k} outside [1, {KMAX}]")
     n_chunks = 0
     if win is not None:
         if (not win.is_cuda or win.dtype != torch.int32 or not win.is_contiguous()
@@ -82,17 +124,13 @@ def radius_knn_cuda(q, s, s_count, radius, k, win=None, chunk=0, band=0) -> torc
             raise ValueError("radius_knn_cuda: win must be contiguous CUDA int32, "
                              "chunk a multiple of 64 and band > 0")
         n_chunks = win.shape[1]
+    plan = knn_plan(bsz, nq, ns, k, None if win is None else band)
     out = torch.empty((bsz, nq, k), dtype=torch.int32, device=q.device)
-    lib = load_library("radius_knn")
-    fn = lib.radius_knn_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), s.data_ptr(), s_count.data_ptr(),
-             None if win is None else win.data_ptr(),
-             bsz, nq, ns, k, _radius_sq(radius), chunk, band, n_chunks,
-             out.data_ptr(), stream)
+    err = _launcher()(q.data_ptr(), s.data_ptr(), s_count.data_ptr(),
+                      None if win is None else win.data_ptr(),
+                      bsz, nq, ns, k, _radius_sq(radius), chunk, band, n_chunks,
+                      plan.warps, plan.k_bucket, plan.tile_rows, out.data_ptr(), stream)
     check(err, "radius_knn")
     radius_knn_cuda.launches += 1
     return out

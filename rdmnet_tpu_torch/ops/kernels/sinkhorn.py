@@ -9,12 +9,13 @@ and return ``s + u + v``; masked entries carry -1e12.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from rdmnet_tpu_torch.ops.kernels._build import check, load_library
 
-MAX_K1 = 240  # (K1^2 + 2 K1) float32 must fit one block's shared memory
+MAX_K1 = 208  # a patch lives in the registers of 256 threads: K1 <= 16 * 13
 
 
 def _lse(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -33,6 +34,14 @@ def sinkhorn_plain(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Ten
     return scores + u[..., :, None] + v[..., None, :]
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = load_library("sinkhorn").sinkhorn_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
                   num_iterations: int) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (one launch per call)."""
@@ -45,12 +54,9 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
     if k1 > MAX_K1:
         raise ValueError(f"sinkhorn_cuda: K1={k1} exceeds {MAX_K1}")
     out = torch.empty_like(scores)
-    fn = load_library("sinkhorn").sinkhorn_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(scores.device).cuda_stream
-    err = fn(scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), p, k1,
-             num_iterations, out.data_ptr(), stream)
+    err = _launcher()(scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), p, k1,
+                      num_iterations, out.data_ptr(), stream)
     check(err, "sinkhorn")
     sinkhorn_cuda.launches += 1
     return out

@@ -6,8 +6,9 @@ Imports no JAX, so it runs where only PyTorch is installed:
 
 (``--noconftest``: the suite's conftest configures JAX). Every test skips
 on a host without a CUDA device. Tolerances: radius kNN indices exact (the
-kernel rounds distances exactly as the plain version does), Sinkhorn at
-rtol/atol 1e-4 (float32 sums in another order).
+kernel rounds distances exactly as the plain version does and keeps the
+(distance, index) order, ties included), Sinkhorn at rtol/atol 1e-4 (float32
+sums in another order, approximate exp2/log2).
 """
 
 import numpy as np
@@ -19,7 +20,8 @@ from rdmnet_tpu_torch.data.procedural import procedural_pair
 from rdmnet_tpu_torch.graph.pyramid import pad_cloud
 from rdmnet_tpu_torch.models import RDMNet, pipeline
 from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-from rdmnet_tpu_torch.ops.kernels.radius_knn import radius_knn_cuda, radius_knn_plain
+from rdmnet_tpu_torch.ops.kernels.radius_knn import (WINDOW_ROWS_MAX, knn_plan, radius_knn_cuda,
+                                                     radius_knn_plain)
 from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain
 from rdmnet_tpu_torch.ops.radius_search import band_windows
 
@@ -37,6 +39,12 @@ def _lidar_like(seed, n, scale=(70.0, 30.0, 3.0)):
     rng = np.random.RandomState(seed)
     pts = (rng.rand(n, 3) * np.asarray(scale) - np.asarray(scale) / 2).astype(np.float32)
     return pts[np.argsort(np.floor(pts[:, 0] / 0.6), kind="stable")]
+
+
+def _duplicated(seed, n, scale=(70.0, 30.0, 3.0)):
+    """Every point twice, as rows 2i-1 and 2i: exact distance ties between
+    neighbouring lanes, across 32-row steps and across tiles (7168 is even)."""
+    return _lidar_like(seed, n // 2 + 1, scale)[(np.arange(n) + 1) // 2]
 
 
 def test_sinkhorn_kernel_matches_plain(cuda):
@@ -68,6 +76,67 @@ def test_radius_knn_kernel_matches_plain(cuda, k, band, chunk):
     got = radius_knn_cuda(pts, pts, cnt, 1.275, k, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, radius_knn_plain(pts, pts, cnt, 1.275, k, **kw))
+
+
+@pytest.mark.parametrize("k1", [17, 65, 129, 200])
+def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
+    """Masked rows, masked columns, both, and a fully masked patch at every
+    register layout of the kernel (K1 <= 32, 80, 144, 208)."""
+    rng = np.random.RandomState(k1)
+    p = 12
+    s = (rng.randn(p, k1, k1) * 3).astype(np.float32)
+    mu = np.full((p, k1), -np.log(2 * (k1 - 1)), np.float32)
+    nu = mu.copy()
+    s[0], mu[0, :-1], nu[0, :-1] = -1e12, -1e12, -1e12
+    rows, cols = slice(0, k1 // 4), slice(2, 2 + k1 // 5)
+    s[1, rows], mu[1, rows] = -1e12, -1e12
+    s[2, :, cols], nu[2, cols] = -1e12, -1e12
+    s[3, rows], mu[3, rows], s[3, :, cols], nu[3, cols] = -1e12, -1e12, -1e12, -1e12
+    args = [torch.from_numpy(x).to(cuda) for x in (s, mu, nu)]
+    got = sinkhorn_cuda(*args, 100)
+    torch.cuda.synchronize()
+    want = sinkhorn_plain(*args, 100)
+    live = want > -1e11
+    assert torch.isfinite(got).all()
+    assert torch.equal(got > -1e11, live)
+    torch.testing.assert_close(got[live], want[live], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 16, 40, 64, 128])
+def test_radius_knn_kernel_exact_ties_in_tiled_window(cuda, k):
+    """Duplicated support points in an unbanded window too large for one
+    tile; s_count ends inside the last tile of cloud 0."""
+    n = 2 * WINDOW_ROWS_MAX + 1000
+    s = torch.from_numpy(np.stack([_duplicated(20, n), _duplicated(21, n)])).to(cuda)
+    q = s[:, ::7].contiguous()
+    cnt = torch.tensor([n - 333, n], dtype=torch.int32, device=cuda)
+    assert knn_plan(2, q.shape[1], n, k).tiled
+    got = radius_knn_cuda(q, s, cnt, 1.275, k)
+    torch.cuda.synchronize()
+    want = radius_knn_plain(q, s, cnt, 1.275, k)
+    assert torch.equal(got, want)
+    assert (want[..., :2] < n).all(dim=-1).float().mean() > 0.9  # most rows have a tie pair
+
+
+@pytest.mark.parametrize("k", [1, 16, 40, 64, 128])
+def test_radius_knn_kernel_dense_cluster_banded(cuda, k):
+    """More than k in-radius rows per query, banded windows, Q not a multiple
+    of the block's query count, s_count ending inside a window, and
+    duplicated points."""
+    n = 2990
+    s = torch.from_numpy(np.stack([_duplicated(30, n, (8.0, 2.0, 1.0)),
+                                   _duplicated(31, n, (8.0, 2.0, 1.0))])).to(cuda)
+    cnt = torch.tensor([2500, n], dtype=torch.int32, device=cuda)
+    band, chunk, radius = 1024, 192, 1.5
+    plan = knn_plan(2, n, n, k, band)
+    assert n % plan.warps and chunk % plan.warps == 0
+    win, _ = band_windows(s, s, cnt, radius, 0.6, band, chunk)
+    assert int(win[0, -1]) + band > 2500  # the last windows of cloud 0 hold invalid rows
+    got = radius_knn_cuda(s, s, cnt, radius, k, win=win, chunk=chunk, band=band)
+    torch.cuda.synchronize()
+    want = radius_knn_plain(s, s, cnt, radius, k, win=win, chunk=chunk, band=band)
+    assert torch.equal(got, want)
+    assert (want < n).all(dim=-1).float().mean() > 0.5  # most queries keep k neighbours
 
 
 def test_pipeline_on_card_launches_kernels_and_matches_cpu(cuda):

@@ -23,7 +23,21 @@ Phases, each fatal on failure:
    ``make_tiny_cfg()``, for 8 weight draws: every index table equal, log
    transport plans within 1e-3, LGR on the same plans with equal
    correspondence sets and per-patch hypothesis residuals within 1e-4 m,
-   and poses within 1e-4 for the draws that register the pair.
+   and poses within 1e-4 for the draws that register the pair;
+6. the training path at ``make_cfg()`` full width, 0.7 bucket, on the
+   phase-4 pair with its true pose: ``batch_to_device`` then
+   ``make_train_step`` (forward with ground truth, the seven losses,
+   backward, Adam), 2 warm-up and 8 timed steps with each part synchronised,
+   the peak memory and every step's losses (finite, ``grad_norm`` > 0, the
+   weights move); 12 kNN and 0 Sinkhorn launches per step (training runs the
+   plain Sinkhorn under autograd); then one eval step (PIR, IR, RRE, RTE, RR)
+   with 12 kNN launches and 1 Sinkhorn launch;
+7. one tiny-config train step on the card and on the CPU with the same
+   weights, for 3 weight draws, on a pair whose ground-truth target set fits
+   ``num_targets`` (so both sample all of it): losses within 1e-4, gradients
+   within 1e-2 of each tensor's norm plus 1e-6 of the global norm (2e-3
+   globally), weights after the step within 1e-7 where the gradient stands
+   clear of float noise and within one step (lr) elsewhere.
 
 Prints a ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -37,6 +51,8 @@ import time
 
 SEED = 7351
 WEIGHT_SEEDS = (1, 2, 3, 4, 5, 6, 7, 8)  # weight draws of the card-vs-CPU phase (phase 5)
+TRAIN_SEEDS = (1, 2, 3)                  # weight draws of the training card-vs-CPU phase (7)
+TRAIN_WARM, TRAIN_TIMED = 2, 8           # train steps of phase 6
 LGR_INPUTS = ("ref_node_corr_knn_points", "src_node_corr_knn_points", "ref_node_corr_knn_masks",
               "src_node_corr_knn_masks", "matching_scores", "node_corr_valid")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -204,6 +220,170 @@ def knn_line(name: str, ms, call_ms, pms, bound, plan, v1) -> str:
             f"v1 design {old}; plain {pms:.3f} ms, bound {bound:.5f} ms; {p}")
 
 
+def train_phase(cfg, host, dev):
+    """Phase 6: ``TRAIN_WARM`` + ``TRAIN_TIMED`` train steps on ``host`` (a
+    one-pair host batch), each part synchronised, then one eval step. Returns
+    the printed summary's numbers and the launch counts."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.engine import (TRAIN_STAGES, batch_to_device, create_train_state,
+                                         make_eval_step, make_train_step)
+    from rdmnet_tpu_torch.models import RDMNet
+    from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    state = create_train_state(cfg, RDMNet(cfg, device=dev,
+                                           generator=torch.Generator().manual_seed(SEED)))
+    step = make_train_step(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    start = [p.detach().clone() for p in state.params]
+    parts = {name: 0.0 for name in TRAIN_STAGES}
+    train_counts = {name: 0 for name in launch_counts()}
+    step_ms = []
+    for i in range(TRAIN_WARM + TRAIN_TIMED):
+        if i == TRAIN_WARM:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        marks = []
+
+        def hook(name):
+            torch.cuda.synchronize(dev)
+            marks.append((name, time.perf_counter()))
+
+        reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        batch = batch_to_device(host, cfg.pyramid, device=dev)
+        hook("build")
+        state, metrics = step(state, batch, gen, stage_hook=hook)
+        counts = launch_counts()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if counts != {"radius_knn": 12, "sinkhorn": 0}:
+            fail(f"train step {i}: launches {counts}, expected 12 kNN and 0 Sinkhorn")
+        if not all(np.isfinite(v) for v in metrics.values()) or metrics["grad_norm"] <= 0:
+            fail(f"train step {i}: non-finite losses or zero gradient: {metrics}")
+        for name in counts:
+            train_counts[name] += counts[name]
+        kind = "warm-up" if i < TRAIN_WARM else "timed"
+        print(f"train step {i} ({kind}): {(marks[-1][1] - t0) * 1e3:.3f} ms, "
+              + ", ".join(f"{k} {v:.6g}" for k, v in metrics.items()))
+        if i >= TRAIN_WARM:
+            step_ms.append((marks[-1][1] - t0) * 1e3)
+            prev = t0
+            for name, t in marks:
+                parts[name] += (t - prev) * 1e3 / TRAIN_TIMED
+                prev = t
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(state.params, start))
+    if state.count != TRAIN_WARM + TRAIN_TIMED or moved <= 0:
+        fail(f"training: {state.count} updates applied, weights moved by {moved}")
+
+    # one more step under the profiler: device time by operation and the
+    # device's busy share of the step's wall time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch_to_device(host, cfg.pyramid, device=dev), gen)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels are the events on the device; operators (host events) carry
+    # the device time of the kernels they launched, so they are listed, not summed
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)) / 1e3
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    print(f"profiled train step: {wall_ms:.3f} ms wall, {device_ms:.3f} ms of kernel time on "
+          f"the device ({100 * device_ms / wall_ms:.1f}% busy under the profiler); top "
+          "operators by the device time of their kernels:")
+    for e in ops[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+    reset_launch_counts()
+    batch = batch_to_device(host, cfg.pyramid, device=dev)
+    ev, tfs = make_eval_step(cfg, device=dev)(state, batch)
+    eval_counts = launch_counts()
+    ev = {k: float(v) for k, v in ev.items()}
+    if eval_counts != {"radius_knn": 12, "sinkhorn": 1}:
+        fail(f"eval step: launches {eval_counts}, expected 12 kNN and 1 Sinkhorn")
+    if not all(np.isfinite(v) for v in ev.values()) or tfs.shape != (1, 4, 4):
+        fail(f"eval step: non-finite metrics {ev} or transforms of shape {tuple(tfs.shape)}")
+    return dict(step_ms=step_ms, parts=parts, peak=peak, moved=moved, eval=ev,
+                train_counts=train_counts, eval_counts=eval_counts, busy=device_ms / wall_ms)
+
+
+def train_card_vs_cpu(cfg, host, dev):
+    """Phase 7: one train step per weight draw of ``TRAIN_SEEDS`` on ``dev``
+    and on the CPU, held to the tolerances of the module docstring."""
+    import torch
+
+    from rdmnet_tpu_torch.engine import batch_to_device, create_train_state, make_value_and_grad
+    from rdmnet_tpu_torch.models import RDMNet
+
+    lr = cfg.optim.lr
+    for seed in TRAIN_SEEDS:
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            state = create_train_state(cfg, RDMNet(cfg, device=d,
+                                                   generator=torch.Generator().manual_seed(seed)))
+            batch = batch_to_device(host, cfg.pyramid, device=d)
+            with torch.no_grad():
+                overlaps = state.model(batch[0], training=False, with_gt=True)["gt_node_corr_overlaps"]
+            eligible = int((overlaps > cfg.coarse_matching.overlap_threshold).sum())
+            if not 0 < eligible <= cfg.coarse_matching.num_targets:
+                fail(f"train card vs CPU (weights {seed}): {eligible} eligible targets, the "
+                     f"check needs 1..{cfg.coarse_matching.num_targets}")
+            metrics, grads = make_value_and_grad(cfg, device=d)(
+                state, batch, torch.Generator(device=d).manual_seed(0))
+            before = [p.detach().cpu().clone() for p in state.params]
+            if not state.apply_gradients(grads):
+                fail(f"train card vs CPU (weights {seed}): the update was skipped on {d}")
+            runs.append(({k: float(v) for k, v in metrics.items()}, [g.cpu() for g in grads],
+                         before, [p.detach().cpu().clone() for p in state.params], eligible))
+        (m_g, g_g, p0_g, p1_g, e_g), (m_c, g_c, p0_c, p1_c, e_c) = runs
+        loss_err = max(abs(m_g[k] - m_c[k]) for k in m_c if k != "grad_norm")
+        total = float(torch.sqrt(sum((g * g).sum() for g in g_c)))
+        glob = float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(g_g, g_c)))) / total
+        gmax = max(float(g.abs().max()) for g in g_c)
+        names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+        worst, worst_name, p_err, step_max = 0.0, "", 0.0, 0.0
+        for name, a, b, q0g, q0c, q1g, q1c in zip(names, g_g, g_c, p0_g, p0_c, p1_g, p1_c):
+            if not torch.equal(q0g, q0c):
+                fail(f"train card vs CPU (weights {seed}): the initial weights differ")
+            ratio = float(torch.linalg.norm(a - b)) / (1e-2 * float(torch.linalg.norm(b))
+                                                       + 1e-6 * total)
+            if ratio > worst:
+                worst, worst_name = ratio, name
+            sig = b.abs() > 1e-3 * gmax
+            if bool(sig.any()):
+                p_err = max(p_err, float((q1g - q1c)[sig].abs().max()))
+            step_max = max(step_max, float((q1g - q0g).abs().max()))
+        print(f"train card vs CPU (tiny cfg, weights {seed}): eligible targets {e_g}/{e_c} of "
+              f"{cfg.coarse_matching.num_targets}; losses max abs diff {loss_err:.3e}; gradients "
+              f"{glob:.3e} of the global norm, worst tensor {worst_name} at {worst:.3f} of its "
+              f"bound; weights after the step {p_err:.3e} where the gradient is clear of noise, "
+              f"largest step {step_max:.3e} (lr {lr})")
+        if e_g != e_c or loss_err > 1e-4 or glob > 2e-3 or worst > 1.0 or p_err > 1e-7 \
+                or step_max > lr * (1 + 1e-3):
+            fail(f"train card vs CPU (weights {seed}): outside the tolerances")
+
+
+def host_pair(ref, src, transform, cap):
+    """One padded pair as the host batch ``batch_to_device`` takes."""
+    import numpy as np
+
+    from rdmnet_tpu_torch.graph.pyramid import pad_cloud
+
+    (rp, rc), (sp, sc) = pad_cloud(ref, cap), pad_cloud(src, cap)
+    return {"ref_points": rp.numpy()[None], "ref_counts": rc.numpy()[None],
+            "src_points": sp.numpy()[None], "src_counts": sc.numpy()[None],
+            "transform": np.asarray(transform, np.float32)[None]}
+
+
 def main() -> None:
     import torch
 
@@ -213,7 +393,7 @@ def main() -> None:
 
     from rdmnet_tpu_torch.config import make_cfg, make_tiny_cfg
     from rdmnet_tpu_torch.data.loader import choose_bucket
-    from rdmnet_tpu_torch.data.procedural import procedural_pair
+    from rdmnet_tpu_torch.data.procedural import procedural_pair, procedural_sequence
     from rdmnet_tpu_torch.device import set_precision
     from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud, search_plan
     from rdmnet_tpu_torch.models import RDMNet, pipeline
@@ -466,6 +646,31 @@ def main() -> None:
     print(f"card vs CPU: {len(registered)} of {len(WEIGHT_SEEDS)} weight draws register the "
           f"pair (poses held to 1e-4: {registered}); of the others, {len(diverged)} have card "
           f"and CPU poses more than 1e-4 apart: {diverged}")
+
+    # ---- 6. training path at full width ------------------------------------
+    tr = train_phase(cfg, host_pair(ref, src, gt, cap), dev)
+    for name, n in tr["train_counts"].items():
+        kernels[name]["launches_per_train_step"] = n / (TRAIN_WARM + TRAIN_TIMED)
+    for name, n in tr["eval_counts"].items():
+        kernels[name]["launches_per_eval_step"] = n
+    ms = sorted(tr["step_ms"])
+    print("train step parts (ms, mean of %d steps, synchronised at each part): %s" % (
+        TRAIN_TIMED, json.dumps({k: round(v, 3) for k, v in tr["parts"].items()})))
+    print(f"train path: {sum(ms) / len(ms):.3f} ms/step (median {ms[len(ms) // 2]:.3f}, min "
+          f"{ms[0]:.3f}, max {ms[-1]:.3f}) over {TRAIN_TIMED} steps, build included; peak memory "
+          f"{tr['peak'] / 2**20:.1f} MiB; weights moved by up to {tr['moved']:.3e}; launches "
+          f"{tr['train_counts']} over {TRAIN_WARM + TRAIN_TIMED} steps")
+    print("eval step: " + ", ".join(f"{k} {v:.6g}" for k, v in tr["eval"].items())
+          + f"; launches {tr['eval_counts']} (random weights after {TRAIN_WARM + TRAIN_TIMED} "
+          "steps)")
+
+    # ---- 7. card vs CPU on one train step at a small config ---------------
+    scans, poses = procedural_sequence(11, 2, n_rings=16, n_azimuths=200)
+    pick = np.random.RandomState(0)
+    small_ref = scans[0][pick.permutation(len(scans[0]))[:500], :3]
+    small_src = scans[1][pick.permutation(len(scans[1]))[:480], :3]
+    train_card_vs_cpu(tiny, host_pair(small_ref, small_src, np.linalg.inv(poses[0]) @ poses[1],
+                                      tcap), dev)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -1,13 +1,15 @@
-"""Configuration tree of the PyTorch port (inference slice).
+"""Configuration tree of the PyTorch port (inference and training).
 
 Own copy of the dataclasses of ``rdmnet_tpu/config.py`` that single-pair
-inference reads, with the same field names and defaults so one set of
-numbers describes both implementations. Frozen dataclasses, as there.
+inference and the train and eval steps read, with the same field names and
+defaults so one set of numbers describes both implementations. Frozen
+dataclasses, as there.
 
-Fields that only training reads (ground-truth radii, overlap and score
-thresholds) are left out until training is ported. ``PyramidConfig`` has no
-``approx_recall``: PyTorch has no counterpart of ``lax.approx_max_k``, so the
-port's radius search is always exact.
+Left out until their slices: data, loader, RANSAC, parallel and the other
+coarse-module families' fields, and the n2p/p2p score gates that no port
+path reads. ``PyramidConfig`` has no ``approx_recall``: PyTorch has no
+counterpart of ``lax.approx_max_k``, so the port's radius search is always
+exact.
 """
 
 from __future__ import annotations
@@ -96,14 +98,18 @@ class BackboneConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
+    ground_truth_matching_radius: float = 0.6
     num_points_in_patch: int = 128
     num_sinkhorn_iterations: int = 100
+    ground_truth_corres_radius: float = 2.4
     # the port implements the ThDRoFormer family only
     coarse_module: str = "thdroformer"
 
 
 @dataclasses.dataclass(frozen=True)
 class CoarseMatchingConfig:
+    num_targets: int = 128
+    overlap_threshold: float = 0.1
     num_correspondences: int = 256
     dual_normalization: bool = True
 
@@ -131,6 +137,9 @@ class VoteConfig:
     # None = exact full-radius NMS adjacency; an int truncates it to the
     # nearest ``nms_neighbor_limit`` entries (self included)
     nms_neighbor_limit: Optional[int] = None
+    n2n_overlap_threshold: float = 1.2
+    n2p_overlap_threshold: float = 0.6
+    p2p_overlap_threshold: float = 0.6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +156,60 @@ class FineMatchingConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CoarseLossConfig:
+    """Weighted circle loss on node features."""
+
+    positive_margin: float = 0.1
+    negative_margin: float = 1.4
+    positive_optimal: float = 0.1
+    negative_optimal: float = 1.4
+    log_scale: float = 40.0
+    positive_overlap: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class GapLossConfig:
+    """Score-gap hinge loss on the transport plan."""
+
+    positive_radius: float = 0.6
+    triplet_loss_gamma: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class LossWeights:
+    weight_coarse_loss: float = 1.0
+    weight_vote_loss: float = 1.0
+    weight_gap_loss: float = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    acceptance_overlap: float = 0.0
+    acceptance_radius: float = 0.6
+    rre_threshold: float = 5.0   # degrees
+    rte_threshold: float = 2.0   # meters
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Adam with coupled L2 decay and an LR schedule counted in applied
+    updates: "step" (x lr_decay every lr_decay_steps epochs) or
+    "warmup_cosine" (linear warmup from eta_init x lr over warmup_steps
+    micro steps, then a half cosine to eta_min x lr at max_epoch)."""
+
+    lr: float = 1e-4
+    lr_decay: float = 0.95
+    lr_decay_steps: int = 4      # epochs per decay step
+    weight_decay: float = 1e-6
+    max_epoch: int = 160
+    grad_acc_steps: int = 1
+    scheduler: str = "step"
+    warmup_steps: int = 0
+    eta_init: float = 0.1
+    eta_min: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     seed: int = 7351
     pyramid: PyramidConfig = dataclasses.field(default_factory=PyramidConfig)
@@ -156,6 +219,11 @@ class Config:
     thdroformer: ThDRoFormerConfig = dataclasses.field(default_factory=ThDRoFormerConfig)
     vote: VoteConfig = dataclasses.field(default_factory=VoteConfig)
     fine_matching: FineMatchingConfig = dataclasses.field(default_factory=FineMatchingConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    coarse_loss: CoarseLossConfig = dataclasses.field(default_factory=CoarseLossConfig)
+    gap_loss: GapLossConfig = dataclasses.field(default_factory=GapLossConfig)
+    loss: LossWeights = dataclasses.field(default_factory=LossWeights)
 
 
 def check_geometry_consistent(cfg: Config) -> None:
@@ -189,7 +257,7 @@ def make_tiny_cfg() -> Config:
             neighbor_limits=(16, 16, 16, 16, 16),
         ),
         model=ModelConfig(num_points_in_patch=16, num_sinkhorn_iterations=10),
-        coarse_matching=CoarseMatchingConfig(num_correspondences=32),
+        coarse_matching=CoarseMatchingConfig(num_targets=16, num_correspondences=32),
         thdroformer=ThDRoFormerConfig(num_layers=1, num_layers2=1),
         vote=VoteConfig(mlps=(64, 32)),
         fine_matching=FineMatchingConfig(num_refinement_steps=2),

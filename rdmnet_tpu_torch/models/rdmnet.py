@@ -1,9 +1,11 @@
-"""RDMNet single-pair inference (twin of ``rdmnet_tpu/models/rdmnet.py``,
-``training=False, with_gt=False``).
+"""RDMNet on one pair (twin of ``rdmnet_tpu/models/rdmnet.py``).
 
 Order: stacked-pair KPConv encoder -> ThDRoFormer #1 -> decoder -> vote,
 NMS -> ThDRoFormer #2 -> point-to-node partition -> superpoint matching ->
-patch Sinkhorn -> local-to-global registration. Submodules carry the flax
+patch Sinkhorn -> local-to-global registration. ``with_gt`` adds the
+ground-truth targets the losses read (vote masks, patch overlaps);
+``training`` swaps the matched patches for sampled ground-truth ones, runs
+Sinkhorn under autograd and skips registration. Submodules carry the flax
 tree's names (``encoder``, ``transformer``, ``proj_n2p_score``, ``decoder``,
 ``vote``, ``proj_n2n_score``, ``transformer2``, ``optimal_transport``).
 """
@@ -21,10 +23,14 @@ from rdmnet_tpu_torch.device import resolve_device
 from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch, stack_pair_graph
 from rdmnet_tpu_torch.nn.backbone import Decoder, Encoder
 from rdmnet_tpu_torch.nn.kpconv import KPConv
-from rdmnet_tpu_torch.nn.matching import superpoint_matching
+from rdmnet_tpu_torch.nn.matching import superpoint_matching, superpoint_target_sample
 from rdmnet_tpu_torch.nn.sinkhorn import LearnableLogOptimalTransport
 from rdmnet_tpu_torch.nn.thdroformer import ThDRoFormer
 from rdmnet_tpu_torch.nn.vote import VoteLayer
+from rdmnet_tpu_torch.ops.correspondences import (
+    mutual_nearest_node_masks,
+    node_correspondence_overlaps,
+)
 from rdmnet_tpu_torch.ops.geometry import take_padded
 from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
 from rdmnet_tpu_torch.ops.nms import greedy_nms
@@ -80,20 +86,33 @@ class RDMNet(nn.Module):
     def device(self) -> torch.device:
         return self.proj_n2p_score.weight.device
 
-    @torch.no_grad()
-    def forward(self, batch: PairBatch,
+    def forward(self, batch: PairBatch, training: bool = False, with_gt: bool = False,
+                generator: Optional[torch.Generator] = None,
                 stage_hook: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
-        """Inference on one pair. ``stage_hook(name)``, when given, is called
-        after each stage of ``STAGES[1:]`` (timing breakdowns)."""
+        """One pair. Autograd stays on unless the caller turns it off
+        (``pipeline`` runs inference under ``no_grad``).
+
+        ``training`` needs ``with_gt`` and a ``generator`` on the batch's
+        device for the target sample; it runs Sinkhorn's plain version under
+        autograd (the CUDA kernel has no backward), inference the kernel.
+        ``stage_hook(name)``, when given, is called after each stage of
+        ``STAGES[1:]`` (timing breakdowns)."""
+        if training and (not with_gt or generator is None):
+            raise ValueError("training=True needs with_gt=True and a generator")
         cfg = self.cfg
         mark = stage_hook or (lambda name: None)
-        out: Dict[str, Any] = {}
         ref_pyr, src_pyr = batch.ref, batch.src
         coarse, fine = ref_pyr.num_stages - 1, 1
         ref_points_c, src_points_c = ref_pyr.points[coarse], src_pyr.points[coarse]
         ref_points_f, src_points_f = ref_pyr.points[fine], src_pyr.points[fine]
         ref_mask_c, src_mask_c = ref_pyr.mask(coarse), src_pyr.mask(coarse)
         ref_mask_f, src_mask_f = ref_pyr.mask(fine), src_pyr.mask(fine)
+        out: Dict[str, Any] = {
+            "ref_points_c": ref_points_c, "src_points_c": src_points_c,
+            "ref_points_f": ref_points_f, "src_points_f": src_points_f,
+            "ref_mask_c": ref_mask_c, "src_mask_c": src_mask_c,
+            "ref_mask_f": ref_mask_f, "src_mask_f": src_mask_f,
+        }
 
         # backbone on the stacked pair (GroupNorm statistics shared)
         graph = stack_pair_graph(ref_pyr, src_pyr)
@@ -119,13 +138,20 @@ class RDMNet(nn.Module):
         out["src_p2p_scores_c"] = torch.sigmoid(dec_f[1][:, -1])
         mark("decoder")
 
+        if with_gt:
+            out["vote_mask_mat"] = mutual_nearest_node_masks(
+                ref_points_c, src_points_c, batch.transform,
+                cfg.model.ground_truth_corres_radius, ref_mask_c, src_mask_c)
         points_c_pair = torch.stack([ref_points_c, src_points_c])
         mask_pair = torch.stack([ref_mask_c, src_mask_c])
         shifted_pair, voted_feats = self.vote(points_c_pair, torch.stack([ref_feats_c, src_feats_c]))
         shifted_pair = torch.where(mask_pair[..., None], shifted_pair, points_c_pair)
+        out["shifted_ref_points_c"], out["shifted_src_points_c"] = shifted_pair[0], shifted_pair[1]
         n2n = self.proj_n2n_score(voted_feats)[..., 0]
         out["ref_n2n_scores_c"], out["src_n2n_scores_c"] = torch.sigmoid(n2n[0]), torch.sigmoid(n2n[1])
-        keep_pair, rounds = greedy_nms(shifted_pair, mask_pair, cfg.vote.nms_radius,
+        # node selection and partition decide indices only: no gradient
+        nodes_pair = shifted_pair.detach()
+        keep_pair, rounds = greedy_nms(nodes_pair, mask_pair, cfg.vote.nms_radius,
                                        neighbor_limit=cfg.vote.nms_neighbor_limit)
         out["nms_rounds"] = rounds
         node_valid = mask_pair & keep_pair
@@ -141,16 +167,26 @@ class RDMNet(nn.Module):
 
         k = cfg.model.num_points_in_patch
         _, ref_node_masks, ref_knn_idx, ref_knn_masks = point_to_node_partition(
-            ref_points_f, ref_mask_f, shifted_pair[0], node_valid[0], k)
+            ref_points_f, ref_mask_f, nodes_pair[0], node_valid[0], k)
         _, src_node_masks, src_knn_idx, src_knn_masks = point_to_node_partition(
-            src_points_f, src_mask_f, shifted_pair[1], node_valid[1], k)
+            src_points_f, src_mask_f, nodes_pair[1], node_valid[1], k)
         out["ref_node_masks"], out["src_node_masks"] = ref_node_masks, src_node_masks
+        if with_gt:
+            out["gt_node_corr_overlaps"] = node_correspondence_overlaps(
+                nodes_pair[0], nodes_pair[1], take_padded(ref_points_f, ref_knn_idx),
+                take_padded(src_points_f, src_knn_idx), batch.transform,
+                cfg.model.ground_truth_matching_radius, ref_node_masks, src_node_masks,
+                ref_knn_masks, src_knn_masks)
         ref_corr, src_corr, corr_scores, corr_valid = superpoint_matching(
-            ref_feats_c, src_feats_c, ref_node_masks, src_node_masks,
+            ref_feats_c.detach(), src_feats_c.detach(), ref_node_masks, src_node_masks,
             cfg.coarse_matching.num_correspondences, cfg.coarse_matching.dual_normalization)
         out["ref_node_corr_indices"], out["src_node_corr_indices"] = ref_corr, src_corr
         out["node_corr_valid"] = corr_valid
         out["node_corr_scores"] = corr_scores
+        if training:
+            ref_corr, src_corr, corr_scores, corr_valid = superpoint_target_sample(
+                out["gt_node_corr_overlaps"], cfg.coarse_matching.num_targets,
+                cfg.coarse_matching.overlap_threshold, generator)
         mark("matching")
 
         rc, sc = ref_corr.long(), src_corr.long()
@@ -164,17 +200,19 @@ class RDMNet(nn.Module):
         out["ref_node_corr_knn_points"], out["src_node_corr_knn_points"] = p_ref_points, p_src_points
         out["ref_node_corr_knn_masks"], out["src_node_corr_knn_masks"] = p_ref_masks, p_src_masks
         sim = (p_ref_feats @ p_src_feats.transpose(1, 2)) / math.sqrt(ref_feats_f.shape[1])
-        matching_scores = self.optimal_transport(sim, p_ref_masks, p_src_masks)
+        matching_scores = self.optimal_transport(sim, p_ref_masks, p_src_masks,
+                                                 use_kernel=not training)
         out["matching_scores"] = matching_scores
         mark("OT")
 
-        corr, transform = local_to_global_registration(
-            p_ref_points, p_src_points, p_ref_masks, p_src_masks, matching_scores,
-            corr_valid, cfg.fine_matching, node_corr_scores=corr_scores)
-        out["ref_corr_points"], out["src_corr_points"] = corr.ref_points, corr.src_points
-        out["corr_scores"] = corr.scores
-        out["estimated_transform"] = transform
-        mark("LGR")
+        if not training:
+            corr, transform = local_to_global_registration(
+                p_ref_points, p_src_points, p_ref_masks, p_src_masks, matching_scores.detach(),
+                corr_valid, cfg.fine_matching, node_corr_scores=corr_scores)
+            out["ref_corr_points"], out["src_corr_points"] = corr.ref_points, corr.src_points
+            out["corr_scores"] = corr.scores
+            out["estimated_transform"] = transform
+            mark("LGR")
         return out
 
 

@@ -1,5 +1,5 @@
-"""Coarse (superpoint) matching (twin of ``rdmnet_tpu/nn/matching.py``,
-inference branch)."""
+"""Coarse (superpoint) matching and training target sampling
+(twin of ``rdmnet_tpu/nn/matching.py``)."""
 
 from __future__ import annotations
 
@@ -38,3 +38,27 @@ def superpoint_matching(ref_feats: torch.Tensor, src_feats: torch.Tensor,
     corr_valid = corr_scores > NEG / 2
     corr_scores = torch.where(corr_valid, corr_scores, torch.zeros_like(corr_scores))
     return ref_corr, src_corr, corr_scores, corr_valid
+
+
+def superpoint_target_sample(gt_overlaps: torch.Tensor, num_targets: int,
+                             overlap_threshold: float, generator: torch.Generator
+                             ) -> Tuple[torch.Tensor, ...]:
+    """Up to ``num_targets`` ground-truth node pairs with overlap above the
+    threshold, drawn uniformly without replacement: uniform random keys from
+    ``generator`` (on the overlaps' device) on the eligible pairs, then an
+    exact top-k. The JAX package takes an ``approx_max_k`` there only to dodge
+    a TPU crash; its random stream differs from torch's, so the two draw the
+    same set only when every eligible pair fits.
+
+    Returns (ref_indices int32, src_indices int32, overlaps, valid), each
+    (num_targets,)."""
+    m, n = gt_overlaps.shape
+    eligible = (gt_overlaps > overlap_threshold).reshape(-1)
+    noise = torch.rand(m * n, generator=generator, device=gt_overlaps.device)
+    rank = torch.where(eligible, noise, torch.full_like(noise, NEG))
+    top_vals, idx = top_k(rank, num_targets)
+    valid = top_vals > NEG / 2
+    ref_indices = torch.div(idx, n, rounding_mode="floor").to(torch.int32)
+    src_indices = (idx % n).to(torch.int32)
+    overlaps = torch.where(valid, gt_overlaps.reshape(-1)[idx], torch.zeros_like(top_vals))
+    return ref_indices, src_indices, overlaps, valid

@@ -1,8 +1,10 @@
 """Learnable log-domain Sinkhorn optimal transport
-(twin of ``rdmnet_tpu/nn/sinkhorn.py``, inference path).
+(twin of ``rdmnet_tpu/nn/sinkhorn.py``).
 
-The iterations run in ``ops/kernels/sinkhorn``: the fused CUDA kernel for
-CUDA tensors, its plain version for CPU tensors. Float32 throughout.
+The iterations run in ``ops/kernels/sinkhorn``. Inference (``use_kernel``):
+the fused CUDA kernel for CUDA tensors, its plain version for CPU tensors.
+Training: the plain version under autograd on either device, as the JAX
+package trains through its scan. Float32 throughout.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ class LearnableLogOptimalTransport(nn.Module):
         self.alpha = nn.Parameter(torch.tensor(1.0))
 
     def forward(self, scores: torch.Tensor, row_valid: torch.Tensor,
-                col_valid: torch.Tensor) -> torch.Tensor:
+                col_valid: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
         p, num_row, num_col = scores.shape
         ones = torch.ones((p, 1), dtype=torch.bool, device=scores.device)
         pad_row_valid = torch.cat([row_valid, ones], dim=1)  # dustbin always valid
@@ -33,7 +35,7 @@ class LearnableLogOptimalTransport(nn.Module):
 
         padded = torch.nn.functional.pad(scores, (0, 1, 0, 1))
         alpha = self.alpha.to(scores.dtype)
-        padded[:, :, -1] = alpha
+        padded[:, :, -1] = alpha  # in-place writes keep alpha's gradient
         padded[:, -1, :] = alpha
         valid_mat = pad_row_valid[:, :, None] & pad_col_valid[:, None, :]
         padded = torch.where(valid_mat, padded, torch.full_like(padded, -INF))
@@ -49,5 +51,5 @@ class LearnableLogOptimalTransport(nn.Module):
         log_mu = torch.where(pad_row_valid, log_mu, torch.full_like(log_mu, -INF))
         log_nu = torch.where(pad_col_valid, log_nu, torch.full_like(log_nu, -INF))
 
-        out = sinkhorn(padded, log_mu, log_nu, self.num_iterations)
+        out = sinkhorn(padded, log_mu, log_nu, self.num_iterations, use_kernel=use_kernel)
         return out - norm[:, None, None]

@@ -54,36 +54,40 @@ def sq_norm3(x: torch.Tensor) -> torch.Tensor:
 
 
 def sq_dist3(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(N, 3), (M, 3) -> (N, M) ``max(|x|^2 - 2 x.y + |y|^2, 0)`` with the
-    JAX package's float32 rounding (module docstring)."""
-    xy = dot3(x[:, None, :], y[None, :, :])
-    sq = (sq_norm3(x)[:, None] - 2.0 * xy) + sq_norm3(y)[None, :]
+    """(*, N, 3), (*, M, 3) -> (*, N, M) ``max(|x|^2 - 2 x.y + |y|^2, 0)``
+    with the JAX package's float32 rounding (module docstring)."""
+    xy = dot3(x[..., :, None, :], y[..., None, :, :])
+    sq = (sq_norm3(x)[..., :, None] - 2.0 * xy) + sq_norm3(y)[..., None, :]
     return torch.clamp_min(sq, 0.0)
 
 
 def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor, normalized: bool = False) -> torch.Tensor:
-    """Squared euclidean distances between rows of x (N, C) and y (M, C),
+    """Squared euclidean distances between rows of x (*, N, C) and y (*, M, C),
     clamped at zero. Points (C = 3) take the exact path of ``sq_dist3``;
     unit-norm feature rows (``normalized``) ``2 - 2 x.y``, a float32 matmul."""
     if normalized:
         return torch.clamp_min(2.0 - 2.0 * (x @ y.transpose(-1, -2)), 0.0)
-    if x.dim() != 2 or x.shape[-1] != 3:
-        raise ValueError(f"pairwise_sq_dist: expected (N, 3) points, got {tuple(x.shape)}")
+    if x.dim() < 2 or x.shape[-1] != 3:
+        raise ValueError(f"pairwise_sq_dist: expected (*, N, 3) points, got {tuple(x.shape)}")
     return sq_dist3(x, y)
 
 
 def take_padded(x: torch.Tensor, indices: torch.Tensor, fill_value: float = 0.0) -> torch.Tensor:
-    """Gather rows of ``x`` (N, ...) by ``indices`` of any shape.
+    """Gather rows of float ``x`` (N, ...) by ``indices`` of any shape.
 
     Sentinel gathers: an index >= N yields a ``fill_value`` row, as
     ``jnp.take(mode="fill")`` does. Implemented with one appended fill row
     and indices clamped to it (torch would raise on the out-of-range ones).
+    The gather is an embedding lookup with the fill row as its padding
+    index, so the backward skips the sentinel, which most missing
+    neighbours of a level share, and sums the rest by sorted segments.
     """
     n = x.shape[0]
     fill = torch.full((1,) + tuple(x.shape[1:]), fill_value, dtype=x.dtype, device=x.device)
-    ext = torch.cat([x, fill], dim=0)
+    ext = torch.cat([x, fill], dim=0).reshape(n + 1, -1)
     idx = torch.clamp(indices.long(), max=n)
-    return ext[idx]
+    out = torch.nn.functional.embedding(idx, ext, padding_idx=n)
+    return out.reshape(tuple(indices.shape) + tuple(x.shape[1:]))
 
 
 def get_transform_from_rotation_translation(rotation: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:
@@ -101,11 +105,18 @@ def get_rotation_translation_from_transform(transform: torch.Tensor) -> Tuple[to
 
 
 def apply_transform(points: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
-    """(*, 3) points with one (4, 4) transform, or (B, N, 3) with (B, 4, 4)."""
+    """(*, 3) points with one (4, 4) transform, or (B, N, 3) with (B, 4, 4).
+
+    With one transform each rotated coordinate is the fused chain of
+    ``dot3``, XLA's rounding of the 3-deep product, on either device:
+    ground-truth labels decided on transformed points
+    (``ops/correspondences``, the losses' radii) then equal the JAX
+    package's. The batched form (LGR's hypotheses) is a plain matmul: its
+    float64 temporaries would be ~200 MB each there."""
     rotation = transform[..., :3, :3]
     translation = transform[..., :3, 3]
     if transform.dim() == 2:
-        return points @ rotation.T + translation
+        return dot3(points[..., None, :], rotation) + translation
     return points @ rotation.transpose(-1, -2) + translation[..., None, :]
 
 
@@ -115,3 +126,11 @@ def inverse_transform(transform: torch.Tensor) -> torch.Tensor:
     inv_rotation = rotation.transpose(-1, -2)
     inv_translation = -(inv_rotation @ translation[..., None])[..., 0]
     return get_transform_from_rotation_translation(inv_rotation, inv_translation)
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, dim=None, eps: float = 1e-12) -> torch.Tensor:
+    """Mean over entries where ``mask`` is True (all of them, or along ``dim``)."""
+    mask = mask.to(values.dtype)
+    total = (values * mask).sum() if dim is None else (values * mask).sum(dim)
+    count = mask.sum() if dim is None else mask.sum(dim)
+    return total / torch.clamp_min(count, eps)

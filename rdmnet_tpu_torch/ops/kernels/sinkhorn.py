@@ -19,13 +19,17 @@ MAX_K1 = 208  # a patch lives in the registers of 256 threads: K1 <= 16 * 13
 
 
 def _lse(t: torch.Tensor, dim: int) -> torch.Tensor:
-    m = t.amax(dim=dim, keepdim=True)
+    # the shift carries no gradient (as in jax.nn.logsumexp): under autograd
+    # each half-step then keeps one (P, K1, K1) tensor, the exp, for backward
+    m = t.amax(dim=dim, keepdim=True).detach()
     return (m + torch.log(torch.exp(t - m).sum(dim=dim, keepdim=True))).squeeze(dim)
 
 
 def sinkhorn_plain(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
                    num_iterations: int) -> torch.Tensor:
-    """Plain PyTorch version: (P, K1, K1), (P, K1), (P, K1) -> (P, K1, K1)."""
+    """Plain PyTorch version: (P, K1, K1), (P, K1), (P, K1) -> (P, K1, K1).
+    Differentiable: the training route (the JAX package trains through its
+    ``lax.scan`` version too; neither has a backward kernel)."""
     u = torch.zeros_like(log_mu)
     v = torch.zeros_like(log_nu)
     for _ in range(num_iterations):
@@ -44,7 +48,12 @@ def _launcher():
 
 def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
                   num_iterations: int) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (one launch per call)."""
+    """Launch the CUDA kernel on the current stream (one launch per call).
+    The kernel has no backward: with grad mode on, inputs that require grad
+    raise instead of returning a result cut off from the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (scores, log_mu, log_nu)):
+        raise RuntimeError("sinkhorn_cuda has no backward: call it under torch.no_grad(), "
+                           "or take the plain version (use_kernel=False) to train")
     for name, t in (("scores", scores), ("log_mu", log_mu), ("log_nu", log_nu)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"sinkhorn_cuda: {name} must be a contiguous CUDA float32 tensor")
@@ -66,12 +75,14 @@ sinkhorn_cuda.launches = 0
 
 
 def sinkhorn(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
-             num_iterations: int) -> torch.Tensor:
-    """Route by device: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. No fallback: a failing launch raises."""
-    if scores.is_cuda:
+             num_iterations: int, use_kernel: bool = True) -> torch.Tensor:
+    """``use_kernel``: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors (inference). ``use_kernel=False`` is the training route, the
+    plain version under autograd on either device, chosen by the caller. No
+    fallback: a failing launch raises."""
+    if scores.is_cuda and use_kernel:
         return sinkhorn_cuda(scores.float().contiguous(), log_mu.float().contiguous(),
                              log_nu.float().contiguous(), num_iterations)
-    if scores.device.type != "cpu":
+    if scores.device.type not in ("cpu", "cuda"):
         raise ValueError(f"sinkhorn: unsupported device {scores.device}")
     return sinkhorn_plain(scores, log_mu, log_nu, num_iterations)

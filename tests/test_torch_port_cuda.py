@@ -1,4 +1,5 @@
-"""CUDA kernels of the port against their plain PyTorch versions, on the card.
+"""CUDA kernels of the port against their plain PyTorch versions, and the
+training path against the CPU's, on the card.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 
@@ -8,7 +9,11 @@ Imports no JAX, so it runs where only PyTorch is installed:
 on a host without a CUDA device. Tolerances: radius kNN indices exact (the
 kernel rounds distances exactly as the plain version does and keeps the
 (distance, index) order, ties included), Sinkhorn at rtol/atol 1e-4 (float32
-sums in another order, approximate exp2/log2).
+sums in another order, approximate exp2/log2); a tiny-config train step on
+the card against the CPU's with the tolerances of ``test_torch_port_train.py``
+(losses 1e-4; gradient norms per tensor 1e-2 of the tensor's plus 1e-6 of
+the global norm, 2e-3 globally; parameters after the step 1e-7 where the
+gradient stands clear of float noise, else within one step of lr).
 """
 
 import numpy as np
@@ -16,7 +21,8 @@ import pytest
 import torch
 
 from rdmnet_tpu_torch.config import make_tiny_cfg
-from rdmnet_tpu_torch.data.procedural import procedural_pair
+from rdmnet_tpu_torch.data.procedural import procedural_pair, procedural_sequence
+from rdmnet_tpu_torch.engine import batch_to_device, create_train_state, make_value_and_grad
 from rdmnet_tpu_torch.graph.pyramid import pad_cloud
 from rdmnet_tpu_torch.models import RDMNet, pipeline
 from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -156,3 +162,76 @@ def test_pipeline_on_card_launches_kernels_and_matches_cpu(cuda):
             for a, b in zip(getattr(getattr(out["batch"], side), field),
                             getattr(getattr(ref_out["batch"], side), field)):
                 assert torch.equal(a.cpu(), b)
+
+
+def test_sinkhorn_kernel_refuses_inputs_that_require_grad(cuda):
+    s = torch.randn(4, 17, 17, device=cuda, requires_grad=True)
+    mu = torch.full((4, 17), -3.0, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sinkhorn_cuda(s, mu, mu, 10)
+    with torch.no_grad():
+        assert torch.isfinite(sinkhorn_cuda(s, mu, mu, 10)).all()
+
+
+def _train_pair(cfg, device):
+    """Frames 0 and 1 of a procedural sequence at the tiny capacity, with
+    their relative pose: few enough overlapping node pairs that the target
+    sample is the whole eligible set on any random stream."""
+    scans, poses = procedural_sequence(11, 2, n_rings=16, n_azimuths=200)
+    rng = np.random.RandomState(0)
+    ref = scans[0][rng.permutation(len(scans[0]))[:500], :3]
+    src = scans[1][rng.permutation(len(scans[1]))[:480], :3]
+    (rp, rc), (sp, sc) = pad_cloud(ref, 512), pad_cloud(src, 512)
+    host = {"ref_points": rp.numpy()[None], "ref_counts": rc.numpy()[None],
+            "src_points": sp.numpy()[None], "src_counts": sc.numpy()[None],
+            "transform": (np.linalg.inv(poses[0]) @ poses[1]).astype(np.float32)[None]}
+    return batch_to_device(host, cfg.pyramid, device=device)
+
+
+def test_gradient_reaches_alpha_and_n2p_head_through_plain_sinkhorn(cuda):
+    cfg = make_tiny_cfg()
+    model = RDMNet(cfg, device=cuda, generator=torch.Generator().manual_seed(1))
+    batch = _train_pair(cfg, cuda)
+    reset_launch_counts()
+    out = model(batch[0], training=True, with_gt=True,
+                generator=torch.Generator(device=cuda).manual_seed(0))
+    assert launch_counts()["sinkhorn"] == 0
+    assert out["matching_scores"].requires_grad
+    (out["matching_scores"][out["matching_scores"] > -1e11].mean()
+     + out["ref_n2p_scores_c"].mean()).backward()
+    for p in (model.optimal_transport.alpha, model.proj_n2p_score.weight):
+        assert p.grad is not None and torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    cfg = make_tiny_cfg()
+    states, results = [], []
+    for dev in (cuda, torch.device("cpu")):
+        model = RDMNet(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        state = create_train_state(cfg, model)
+        batch = _train_pair(cfg, dev)
+        with torch.no_grad():
+            overlaps = model(batch[0], training=False, with_gt=True)["gt_node_corr_overlaps"]
+        assert 0 < int((overlaps > 0.1).sum()) <= cfg.coarse_matching.num_targets
+        metrics, grads = make_value_and_grad(cfg, device=dev)(
+            state, batch, torch.Generator(device=dev).manual_seed(0))
+        params0 = [p.detach().clone() for p in state.params]
+        assert state.apply_gradients(grads)
+        states.append(state)
+        results.append((metrics, [g.cpu() for g in grads], [p.cpu() for p in params0]))
+    (m_gpu, g_gpu, p0_gpu), (m_cpu, g_cpu, p0_cpu) = results
+    for name, value in m_cpu.items():
+        if name != "grad_norm":
+            assert abs(float(m_gpu[name]) - float(value)) <= 1e-4, name
+    total = torch.sqrt(sum((g * g).sum() for g in g_cpu))
+    assert torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(g_gpu, g_cpu))) <= 2e-3 * total
+    gmax = max(float(g.abs().max()) for g in g_cpu)
+    lr = cfg.optim.lr
+    for a, b, g, p0, q0, p_gpu, p_cpu in zip(g_gpu, g_cpu, g_cpu, p0_gpu, p0_cpu,
+                                            states[0].params, states[1].params):
+        assert torch.equal(p0, q0)
+        assert torch.linalg.norm(a - b) <= 1e-2 * torch.linalg.norm(b) + 1e-6 * total
+        got, want = p_gpu.detach().cpu(), p_cpu.detach()
+        sig = g.abs() > 1e-3 * gmax
+        assert not sig.any() or (got - want)[sig].abs().max() <= 1e-7
+        assert (got - p0).abs().max() <= lr * (1 + 1e-3)

@@ -37,22 +37,58 @@ Phases, each fatal on failure:
    ``num_targets`` (so both sample all of it): losses within 1e-4, gradients
    within 1e-2 of each tensor's norm plus 1e-6 of the global norm (2e-3
    globally), weights after the step within 1e-7 where the gradient stands
-   clear of float noise and within one step (lr) elsewhere.
+   clear of float noise and within one step (lr) elsewhere;
+8. serving at ``make_cfg()`` full width: ``export_inference`` with buckets
+   (0.5, 0.7, 1.0) into a temporary directory, ``load_exported`` on the card
+   (the load must allocate one set of weights, ~101 MB, shared by the
+   buckets), ``make_handler`` on a ``ThreadingHTTPServer`` at 127.0.0.1 in a
+   thread; seeded procedural pairs of ~13k, ~20k and ~28k points and one
+   above the largest capacity (truncated) posted over HTTP: every response
+   equal to a direct ``serve`` call (pose within 1e-6, the same number of
+   correspondences) and to ``pipeline`` on the model at that bucket's
+   config, 12 kNN and 1 Sinkhorn launches per request, ``/healthz`` counting
+   every request per bucket, a malformed body answered 400 with the server
+   still up; for each of these requests, both kernels against their plain
+   versions at that bucket's shapes: the 12 searches of the request's graph
+   build at the bucket's caps, bands and launch plans (tables equal), and
+   Sinkhorn on the request's own inputs (against a float64 run of the
+   plain version: within 1e-4 + 1e-4 of each entry's magnitude, or no
+   further than twice the float32 plain version); per bucket, after
+   warm-up, the ms per request over HTTP, per direct call, per direct call
+   on a new thread and per ``pipeline`` call on the padded pair already on
+   the card, timed in turns, with their spread; the ms per request of the
+   HTTP layer alone (a server answering with stored outputs); the peak
+   memory; and the kernel time of one profiled request;
+9. RANSAC on the card: 2048 correspondences under a known pose with noise
+   and 60% outliers, the same uniforms on the card and on the CPU
+   (transforms within 1e-5, the pose within 1e-3 of the known one), and the
+   ms of ``ransac_registration_host`` for 50,000 iterations.
 
 Prints a ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 import dataclasses
+import io
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 7351
 WEIGHT_SEEDS = (1, 2, 3, 4, 5, 6, 7, 8)  # weight draws of the card-vs-CPU phase (phase 5)
 TRAIN_SEEDS = (1, 2, 3)                  # weight draws of the training card-vs-CPU phase (7)
 TRAIN_WARM, TRAIN_TIMED = 2, 8           # train steps of phase 6
+SERVE_SCALES = (0.5, 0.7, 1.0)           # capacity buckets of phase 8
+SERVE_SIZES = (13000, 20000, 28000)      # points per cloud of phase 8's pairs, one per bucket
+SERVE_WARM, SERVE_TIMED = 3, 15          # requests per bucket of phase 8
+HTTP_LAYER_TIMED = 40                    # requests per bucket to phase 8's HTTP-layer server
+RANSAC_ITERATIONS = 50000                # phase 9
 LGR_INPUTS = ("ref_node_corr_knn_points", "src_node_corr_knn_points", "ref_node_corr_knn_masks",
               "src_node_corr_knn_masks", "matching_scores", "node_corr_valid")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -220,6 +256,35 @@ def knn_line(name: str, ms, call_ms, pms, bound, plan, v1) -> str:
             f"v1 design {old}; plain {pms:.3f} ms, bound {bound:.5f} ms; {p}")
 
 
+def pair_levels(batch, num_stages):
+    """Per-level points (2, N, 3) and counts (2,) of a pair batch, ref and src
+    stacked as the kNN wrapper takes them."""
+    import torch
+
+    pts = [torch.stack([batch.ref.points[i], batch.src.points[i]]).contiguous()
+           for i in range(num_stages)]
+    cnts = [torch.stack([batch.ref.counts[i], batch.src.counts[i]]).to(torch.int32)
+            for i in range(num_stages)]
+    return pts, cnts
+
+
+def check_searches(pts, cnts, pyramid, kernels, prefix="", v1=None):
+    """``check_knn`` over the 12 searches of ``pyramid``'s graph build, one
+    line each. Returns the summed (device ms, ms per call, plain ms, bound ms)."""
+    from rdmnet_tpu_torch.graph.pyramid import search_plan
+
+    total = [0.0, 0.0, 0.0, 0.0]
+    for item in search_plan(pyramid):
+        ms, call_ms, pms, bound, pairs, plan = check_knn(pts, cnts, item, kernels)
+        total = [a + b for a, b in zip(total, (ms, call_ms, pms, bound))]
+        name = (f"{prefix}{item.table}[{item.q_lvl}->{item.s_lvl}] Q={pts[item.q_lvl].shape[1]} "
+                f"S={pts[item.s_lvl].shape[1]} K={item.k} band={item.band}")
+        print(knn_line(name, ms, call_ms, pms, bound, plan,
+                       (v1 or {}).get((item.table, item.q_lvl, item.s_lvl, item.k)))
+              + f"; candidate pairs {pairs}")
+    return total
+
+
 def train_phase(cfg, host, dev):
     """Phase 6: ``TRAIN_WARM`` + ``TRAIN_TIMED`` train steps on ``host`` (a
     one-pair host batch), each part synchronised, then one eval step. Returns
@@ -384,6 +449,332 @@ def host_pair(ref, src, transform, cap):
             "transform": np.asarray(transform, np.float32)[None]}
 
 
+def post(url, body):
+    """(status, body bytes) of one POST."""
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def get_json(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def spread(ms):
+    ms = sorted(ms)
+    return (f"mean {sum(ms) / len(ms):.3f}, median {ms[len(ms) // 2]:.3f}, min {ms[0]:.3f}, "
+            f"max {ms[-1]:.3f}")
+
+
+def serve_checked(serve, r, s, kernels):
+    """One direct ``serve`` call whose Sinkhorn inputs are kept and run again
+    through the plain version, in float32 and in float64. On the entries that
+    are not masked, the kernel's log plan must lie within the card tests'
+    tolerance, 1e-4 + 1e-4 * |x|, of the float64 run, or no further from it
+    than twice the float32 plain version does: a model's scores reach
+    magnitudes of a few hundred, where 100 iterations of float32 rounding
+    alone can leave the tolerance. Returns the call's outputs."""
+    import torch
+
+    ot = serve.model.optimal_transport  # shared by every bucket's view
+    seen = []
+    handle = ot.register_forward_hook(
+        lambda mod, args, kwargs, out: seen.append((args, kwargs, out)), with_kwargs=True)
+    try:
+        direct = serve(r, s)
+    finally:
+        handle.remove()
+    (args, kwargs, got), = seen
+    if not kwargs.get("use_kernel", True):
+        fail("serving: the served request did not take the Sinkhorn kernel")
+    with torch.no_grad():
+        want = ot(*args, use_kernel=False)
+        exact = ot(args[0].double(), *args[1:], use_kernel=False)
+    live = want > -1e11
+    if not torch.isfinite(got).all() or not torch.equal(got > -1e11, live):
+        fail("serving: Sinkhorn kernel output non-finite or masked entries differ")
+    ref = exact[live]
+    tol = 1e-4 + 1e-4 * ref.abs()
+    worst_k = float(((got[live] - ref).abs() / tol).max())
+    worst_p = float(((want[live] - ref).abs() / tol).max())
+    err = float((got - want)[live].abs().max())
+    kernels["sinkhorn"]["max_abs_err"] = max(kernels["sinkhorn"]["max_abs_err"], err)
+    print(f"serving: sinkhorn on the request's own inputs {tuple(args[0].shape)}: max abs err "
+          f"{err:.3e} against the plain version; against the float64 run (entries up to "
+          f"{float(ref.abs().max()):.3f} in magnitude) the kernel's worst entry is at "
+          f"{worst_k:.3f} of the tolerance, the float32 plain version's at {worst_p:.3f}")
+    if worst_k > max(1.0, 2.0 * worst_p):
+        fail("serving: sinkhorn outside its tolerance on a served request's inputs")
+    return direct
+
+
+def serving_phase(dev, card, kernels):
+    """Phase 8: export, load on the card, serve over HTTP at every bucket.
+    Returns the launches per served request by kernel."""
+    import numpy as np
+    import torch
+    from http.server import ThreadingHTTPServer
+
+    from rdmnet_tpu_torch.cli.serve import make_handler
+    from rdmnet_tpu_torch.config import make_cfg
+    from rdmnet_tpu_torch.data.procedural import procedural_pair
+    from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud
+    from rdmnet_tpu_torch.models import RDMNet, pipeline, with_pyramid
+    from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.data.loader import pad_points_np
+    from rdmnet_tpu_torch.serving import export_inference, load_exported
+
+    cfg = make_cfg()
+    model = RDMNet(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    resident = sum(t.numel() * t.element_size()
+                   for t in list(model.parameters()) + list(model.buffers()))
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        buckets = export_inference(cfg, model, out_dir, bucket_scales=SERVE_SCALES)
+        export_s = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        serve, meta = load_exported(out_dir)
+        torch.cuda.synchronize(dev)
+        load_s = time.perf_counter() - t0
+        loaded = torch.cuda.memory_allocated(dev) - before
+    del model
+    caps = [b["cap"] for b in buckets]
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in list(serve.model.parameters()) + list(serve.model.buffers())}
+    print(f"serving: exported {n_params} parameters ({meta['n_weights']} arrays) for buckets "
+          f"{caps} in {export_s:.3f} s, loaded in {load_s:.3f} s; the load allocated "
+          f"{loaded / 1e6:.3f} MB on the card for {resident / 1e6:.3f} MB of parameters and "
+          f"buffers, held in {len(storages)} device storages of {sum(storages.values()) / 1e6:.3f} "
+          "MB")
+    if serve.model.device.type != "cuda" or not resident <= loaded < 1.5 * resident:
+        fail(f"serving: the load allocated {loaded} bytes for {resident} bytes of weights "
+             "(one shared copy expected)")
+
+    # ~13k / ~20k / ~28k points per cloud from one dense procedural pair, and the
+    # whole pair (above the largest capacity: truncated)
+    ref, src, _ = procedural_pair(SEED, n_rings=192, n_azimuths=6000)
+    if min(len(ref), len(src)) <= caps[-1]:
+        fail(f"serving: the dense pair has {len(ref)}/{len(src)} points, not above {caps[-1]}")
+    pick = np.random.RandomState(SEED)
+    pairs = [(ref[pick.permutation(len(ref))[:n]], src[pick.permutation(len(src))[:n]])
+             for n in SERVE_SIZES] + [(ref, src)]
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(serve, meta))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    served, expected = {name: 0 for name in launch_counts()}, {}
+    n_requests = 0
+    try:
+        for (r, s), want_cap in zip(pairs, caps + [caps[-1]]):
+            buf = io.BytesIO()
+            np.savez(buf, ref_points=r, src_points=s)
+            body = buf.getvalue()
+            # the checked request: over HTTP, launches counted around it alone
+            reset_launch_counts()
+            status, data = post(url + "/register", body)
+            counts = launch_counts()
+            n_requests += 1
+            expected[str(want_cap)] = expected.get(str(want_cap), 0) + 1
+            if status != 200:
+                fail(f"serving: HTTP {status} for a {len(r)}-point pair: {data[:200]!r}")
+            if counts != {"radius_knn": 12, "sinkhorn": 1}:
+                fail(f"serving: launches {counts} for one request, expected 12 kNN and 1 Sinkhorn")
+            for name, n in counts.items():
+                served[name] += n
+            resp = dict(np.load(io.BytesIO(data)))
+            direct = serve_checked(serve, r, s, kernels)
+            if serve.last_cap != want_cap:
+                fail(f"serving: a {len(r)}-point pair went to bucket {serve.last_cap}, "
+                     f"expected {want_cap}")
+            bucket = next(b for b in buckets if b["cap"] == want_cap)
+            # the kNN kernel against its plain version at this bucket's shapes
+            # and launch plans, on the graph of this request's pair
+            pyr = bucket["cfg"].pyramid
+            kb = build_pair_batch(*pad_cloud(r, want_cap, device=dev),
+                                  *pad_cloud(s, want_cap, device=dev),
+                                  torch.eye(4, device=dev), pyr)
+            check_searches(*pair_levels(kb, pyr.num_stages), pyr, kernels,
+                           prefix=f"bucket {want_cap} ({len(r)} points) ")
+            rp, rc = pad_points_np(r, want_cap)
+            sp, sc = pad_points_np(s, want_cap)
+            live = pipeline(with_pyramid(serve.model, bucket["cfg"].pyramid), rp, rc, sp, sc,
+                            device=dev)
+            live_tf = live["estimated_transform"].cpu().numpy()
+            n_corr = int((direct["corr_scores"] > 0).sum())
+            est = direct["estimated_transform"]
+            http_err = float(np.abs(resp["estimated_transform"] - est).max())
+            live_err = float(np.abs(live_tf - est).max())
+            n_live = int((live["corr_scores"] > 0).sum())
+            print(f"serving: {len(r)}/{len(s)} points -> bucket {want_cap}: {n_corr} "
+                  f"correspondences; HTTP vs direct pose {http_err:.3e}, "
+                  f"{len(resp['corr_scores'])} correspondences; pipeline vs direct pose "
+                  f"{live_err:.3e}, {n_live} correspondences; launches {counts}")
+            if http_err > 1e-6 or len(resp["corr_scores"]) != n_corr:
+                fail("serving: the HTTP response differs from the direct call")
+            if live_err > 1e-6 or n_live != n_corr or not np.isfinite(live_tf).all():
+                fail("serving: the direct call differs from pipeline at the bucket's config")
+
+        status, data = post(url + "/register", b"not an npz")
+        if status != 400:
+            fail(f"serving: a malformed body got HTTP {status}, expected 400")
+        health = get_json(url + "/healthz")
+        print(f"serving: /healthz after a malformed body: requests {health['requests']}, "
+              f"errors {health['errors']}, per bucket {health['bucket_requests']}")
+        if (health["requests"], health["errors"]) != (n_requests, 1) \
+                or health["bucket_requests"] != expected:
+            fail(f"serving: /healthz counts {health}, expected {n_requests} requests, 1 error, "
+                 f"{expected}")
+
+        # time each bucket on its pair, after warm-up: HTTP requests, direct
+        # calls, direct calls on a new thread (as the server runs each
+        # request) and pipeline on the padded pair already on the card, in
+        # turns with the order rotating (the host's noise drifts)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        # the HTTP layer alone: a second server whose serve function returns
+        # the bucket's stored outputs, so its time holds no device work and
+        # none of the device path's host noise
+        stored = {}
+        stub = lambda _r, _s: stored["out"]  # noqa: E731
+        stub_server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(stub, meta))
+        stub_thread = threading.Thread(target=stub_server.serve_forever, daemon=True)
+        stub_thread.start()
+        stub_url = f"http://127.0.0.1:{stub_server.server_address[1]}/register"
+        kinds = ("http", "direct", "thread", "pipeline")
+        for (r, s), b in zip(pairs, buckets):
+            cap = b["cap"]
+            buf = io.BytesIO()
+            np.savez(buf, ref_points=r, src_points=s)
+            body = buf.getvalue()
+            view = with_pyramid(serve.model, b["cfg"].pyramid)
+            padded = [torch.as_tensor(x, device=dev)
+                      for x in (*pad_points_np(r, cap), *pad_points_np(s, cap))]
+            for _ in range(SERVE_WARM):
+                post(url + "/register", body)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            resident_now = torch.cuda.memory_allocated(dev)
+            ms = {kind: [] for kind in kinds}
+            for i in range(SERVE_TIMED):
+                for kind in kinds[i % 4:] + kinds[:i % 4]:
+                    t0 = time.perf_counter()
+                    if kind == "http":
+                        status, _ = post(url + "/register", body)
+                        if status != 200:
+                            fail(f"serving: HTTP {status} while timing bucket {cap}")
+                    elif kind == "direct":
+                        serve(r, s)
+                    elif kind == "thread":
+                        with ThreadPoolExecutor(max_workers=1) as worker:
+                            worker.submit(serve, r, s).result()
+                    else:
+                        pipeline(view, *padded, device=dev)
+                        torch.cuda.synchronize(dev)
+                    ms[kind].append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated(dev)
+            # one more direct call under the profiler: kernel time against wall time
+            torch.cuda.synchronize(dev)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                serve(r, s)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA
+                            and not getattr(e, "is_user_annotation", False)) / 1e3
+            diff = {k: sorted(a - c for a, c in zip(ms[k], ms[base]))
+                    for k, base in (("http", "direct"), ("thread", "direct"),
+                                    ("direct", "pipeline"))}
+            stored["out"] = serve(r, s)
+            layer_ms = []
+            for i in range(SERVE_WARM + HTTP_LAYER_TIMED):
+                t0 = time.perf_counter()
+                status, _ = post(stub_url, body)
+                if status != 200:
+                    fail(f"serving: HTTP {status} from the HTTP-layer server")
+                if i >= SERVE_WARM:
+                    layer_ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"serving bucket {cap} ({len(r)}/{len(s)} points), {SERVE_TIMED} turns after "
+                  f"{SERVE_WARM} warm-up requests, {card}:\n"
+                  f"  HTTP ms/request {spread(ms['http'])}\n"
+                  f"  direct ms/call {spread(ms['direct'])}\n"
+                  f"  direct ms/call on a new thread {spread(ms['thread'])}\n"
+                  f"  pipeline ms/pair on the padded pair on the card {spread(ms['pipeline'])}\n"
+                  f"  serving overhead per turn: HTTP - direct {spread(diff['http'])}; thread - "
+                  f"direct {spread(diff['thread'])}; direct - pipeline {spread(diff['direct'])}\n"
+                  f"  HTTP layer alone (stored outputs, {len(body)} request bytes), "
+                  f"{HTTP_LAYER_TIMED} requests: ms/request {spread(layer_ms)}\n"
+                  f"  peak memory {peak / 2**20:.1f} MiB ({resident_now / 2**20:.1f} MiB resident "
+                  f"before the requests); profiled direct call {wall_ms:.3f} ms wall, "
+                  f"{kernel_ms:.3f} ms of kernel time ({100 * kernel_ms / wall_ms:.1f}% busy under "
+                  "the profiler)")
+        final = get_json(url + "/healthz")
+        if final["requests"] != n_requests + len(caps) * (SERVE_WARM + SERVE_TIMED):
+            fail(f"serving: /healthz counted {final['requests']} requests")
+        stub_server.shutdown()
+        stub_server.server_close()
+        stub_thread.join(timeout=60)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    return {name: n / n_requests for name, n in served.items()}
+
+
+def ransac_phase(dev, card):
+    """Phase 9: RANSAC on the card against the CPU on the same uniforms, the
+    known pose recovered, and the time of 50,000 iterations."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.ops.ransac import (ransac_capacity, ransac_registration,
+                                             ransac_registration_host)
+    from rdmnet_tpu_torch.utils.se3_np import get_transform_from_rotation_translation
+
+    rng = np.random.RandomState(SEED)
+    n, n_in = 2048, 820  # 60% outliers
+    q = rng.randn(4)
+    w, x, y, z = q / np.linalg.norm(q)
+    rot = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                    [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                    [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+    tf = get_transform_from_rotation_translation(rot, rng.randn(3) * 3)
+    src = ((rng.rand(n, 3) - 0.5) * 40).astype(np.float32)
+    ref = (src @ rot.T + tf[:3, 3] + (rng.rand(n, 3) - 0.5) * 0.02).astype(np.float32)
+    ref[n_in:] = (rng.rand(n - n_in, 3) - 0.5) * 40
+    cap, chunk = ransac_capacity(n)
+    n_chunks = -(-RANSAC_ITERATIONS // chunk)
+    u = torch.rand(n_chunks, chunk, 4, generator=torch.Generator().manual_seed(SEED))
+    args = [torch.from_numpy(src), torch.from_numpy(ref), torch.ones(n, dtype=torch.bool), u]
+    kw = dict(num_iterations=RANSAC_ITERATIONS, chunk=chunk, threshold=0.3)
+    with torch.no_grad():
+        want = ransac_registration(*args, **kw).numpy()
+        got = ransac_registration(*[a.to(dev) for a in args], **kw).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    pose_err = float(np.abs(got - tf).max())
+    ransac_registration_host(src, ref, num_iterations=RANSAC_ITERATIONS)  # warm-up
+    ms = []
+    for seed in range(5):
+        t0 = time.perf_counter()
+        host = ransac_registration_host(src, ref, num_iterations=RANSAC_ITERATIONS, seed=seed)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    host_err = float(np.abs(host - tf).max())
+    print(f"ransac: {n} correspondences ({n - n_in} outliers), {n_chunks} chunks of {chunk} "
+          f"hypotheses at capacity {cap}; card vs CPU on the same uniforms {err:.3e}; pose vs "
+          f"known {pose_err:.3e} (host wrapper {host_err:.3e}); {RANSAC_ITERATIONS} iterations "
+          f"in ms: {spread(ms)} ({card})")
+    if err > 1e-5 or pose_err > 1e-3 or host_err > 1e-3:
+        fail("ransac: outside the tolerances")
+
+
 def main() -> None:
     import torch
 
@@ -444,20 +835,9 @@ def main() -> None:
 
     # ---- 3. kernels vs plain at main-path shapes -------------------------
     batch = build_pair_batch(rp, rc, sp, sc, torch.eye(4, device=dev), cfg.pyramid)
-    pts = [torch.stack([batch.ref.points[i], batch.src.points[i]]).contiguous()
-           for i in range(cfg.pyramid.num_stages)]
-    cnts = [torch.stack([batch.ref.counts[i], batch.src.counts[i]]).to(torch.int32)
-            for i in range(cfg.pyramid.num_stages)]
-    knn_ms = knn_call_ms = knn_plain_ms = knn_bound = 0.0
-    for item in search_plan(cfg.pyramid):
-        ms, call_ms, pms, bound, pairs, plan = check_knn(pts, cnts, item, kernels)
-        knn_ms, knn_call_ms = knn_ms + ms, knn_call_ms + call_ms
-        knn_plain_ms, knn_bound = knn_plain_ms + pms, knn_bound + bound
-        name = (f"{item.table}[{item.q_lvl}->{item.s_lvl}] Q={pts[item.q_lvl].shape[1]} "
-                f"S={pts[item.s_lvl].shape[1]} K={item.k} band={item.band}")
-        print(knn_line(name, ms, call_ms, pms, bound, plan,
-                       V1_KNN_MS.get((item.table, item.q_lvl, item.s_lvl, item.k)))
-              + f"; candidate pairs {pairs}")
+    pts, cnts = pair_levels(batch, cfg.pyramid.num_stages)
+    knn_ms, knn_call_ms, knn_plain_ms, knn_bound = check_searches(pts, cnts, cfg.pyramid,
+                                                                  kernels, v1=V1_KNN_MS)
     level0 = search_plan(cfg.pyramid)[0]
     for extra in (level0._replace(band=None),
                   level0._replace(band=None, k=1, radius=2 * cfg.pyramid.search_radius)):
@@ -671,6 +1051,13 @@ def main() -> None:
     small_src = scans[1][pick.permutation(len(scans[1]))[:480], :3]
     train_card_vs_cpu(tiny, host_pair(small_ref, small_src, np.linalg.inv(poses[0]) @ poses[1],
                                       tcap), dev)
+
+    # ---- 8. serving at full width ---------------------------------------------
+    for name, n in serving_phase(dev, card, kernels).items():
+        kernels[name]["launches_per_served_request"] = n
+
+    # ---- 9. RANSAC on the card ------------------------------------------------
+    ransac_phase(dev, card)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

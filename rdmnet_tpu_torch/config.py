@@ -1,11 +1,11 @@
 """Configuration tree of the PyTorch port (inference and training).
 
 Own copy of the dataclasses of ``rdmnet_tpu/config.py`` that single-pair
-inference and the train and eval steps read, with the same field names and
-defaults so one set of numbers describes both implementations. Frozen
-dataclasses, as there.
+inference, the train and eval steps, serving and RANSAC read, with the same
+field names and defaults so one set of numbers describes both
+implementations. Frozen dataclasses, as there.
 
-Left out until their slices: data, loader, RANSAC, parallel and the other
+Left out until their slices: data, loader, parallel and the other
 coarse-module families' fields, and the n2p/p2p score gates that no port
 path reads. ``PyramidConfig`` has no ``approx_recall``: PyTorch has no
 counterpart of ``lax.approx_max_k``, so the port's radius search is always
@@ -15,6 +15,7 @@ exact.
 from __future__ import annotations
 
 import dataclasses
+import typing
 from typing import Optional, Tuple
 
 
@@ -191,6 +192,15 @@ class EvalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RansacConfig:
+    """RANSAC re-solve of predicted correspondences (``ops/ransac.py``)."""
+
+    distance_threshold: float = 0.3
+    num_points: int = 4
+    num_iterations: int = 50000
+
+
+@dataclasses.dataclass(frozen=True)
 class OptimConfig:
     """Adam with coupled L2 decay and an LR schedule counted in applied
     updates: "step" (x lr_decay every lr_decay_steps epochs) or
@@ -220,10 +230,25 @@ class Config:
     vote: VoteConfig = dataclasses.field(default_factory=VoteConfig)
     fine_matching: FineMatchingConfig = dataclasses.field(default_factory=FineMatchingConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    ransac: RansacConfig = dataclasses.field(default_factory=RansacConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     coarse_loss: CoarseLossConfig = dataclasses.field(default_factory=CoarseLossConfig)
     gap_loss: GapLossConfig = dataclasses.field(default_factory=GapLossConfig)
     loss: LossWeights = dataclasses.field(default_factory=LossWeights)
+
+
+def config_from_dict(cls, values: dict):
+    """Inverse of ``dataclasses.asdict`` for the config tree (JSON lists back
+    to tuples). Unknown keys raise."""
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for name, value in values.items():
+        if dataclasses.is_dataclass(hints.get(name)):
+            value = config_from_dict(hints[name], value)
+        elif isinstance(value, list):
+            value = tuple(value)
+        kwargs[name] = value
+    return cls(**kwargs)
 
 
 def check_geometry_consistent(cfg: Config) -> None:

@@ -1,1 +1,2 @@
-"""Host-side data: procedural scans and capacity bucketing."""
+"""Host-side data: procedural scans, capacity bucketing and padding, the
+demo-pair dataset."""

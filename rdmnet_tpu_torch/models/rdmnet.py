@@ -12,13 +12,15 @@ tree's names (``encoder``, ``transformer``, ``proj_n2p_score``, ``decoder``,
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
 
-from rdmnet_tpu_torch.config import Config
+from rdmnet_tpu_torch.config import Config, PyramidConfig
 from rdmnet_tpu_torch.device import resolve_device
 from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch, stack_pair_graph
 from rdmnet_tpu_torch.nn.backbone import Decoder, Encoder
@@ -240,3 +242,13 @@ def pipeline(model: RDMNet, rp, rc, sp, sc, device=None,
     out["dropped"] = torch.stack([batch.ref.dropped, batch.src.dropped])
     out["batch"] = batch
     return out
+
+
+def with_pyramid(model: RDMNet, pyramid: PyramidConfig) -> RDMNet:
+    """``model`` at another capacity bucket: a shallow copy that shares every
+    parameter and buffer tensor and carries ``pyramid`` in its config, which
+    only ``pipeline``'s graph build reads (the forward reads no pyramid
+    field)."""
+    view = copy.copy(model)
+    view.cfg = dataclasses.replace(model.cfg, pyramid=pyramid)
+    return view

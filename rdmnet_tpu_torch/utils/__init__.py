@@ -1,1 +1,2 @@
-"""Utilities: weight conversion from the JAX package's parameter tree."""
+"""Utilities: weight conversion to and from the JAX package's parameter tree
+and its artifact's flat layout; host SE(3) helpers."""

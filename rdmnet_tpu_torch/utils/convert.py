@@ -1,18 +1,24 @@
-"""Weights of the JAX package -> a ``state_dict`` of the port's ``RDMNet``.
+"""Weights of the JAX package <-> a ``state_dict`` of the port's ``RDMNet``.
 
 The port names its submodules after the flax parameter tree, so conversion
 is a tree walk: the path joins with "." and each leaf maps by name —
 Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in), transposed; norm
 ``scale`` -> ``weight``; ``bias``, KPConv ``weights`` and ``kernel_points``
 and the dustbin ``alpha`` verbatim. The result loads with ``strict=True``.
+
+The JAX package's serving artifact stores the tree flat (``weights.npz``,
+keys ``w{i}``) in ``jax.tree_util.tree_flatten`` order: dict keys sorted at
+every level. ``flat_leaf_paths`` derives that order from the tree itself,
+so the port reads and writes the same file.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -27,12 +33,79 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{name}.")
                 continue
-            arr = np.array(value, dtype=np.float32)  # a writable copy
+            arr = np.asarray(value, dtype=np.float32)
             if name == "kernel":
                 name, arr = "weight", arr.T
             elif name == "scale":
                 name = "weight"
-            state[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr))
+            # a writable C-order copy that keeps 0-d shapes (the dustbin alpha)
+            state[prefix + name] = torch.from_numpy(np.array(arr, order="C"))
 
     walk(params, "")
     return state
+
+
+def params_to_jax(model: nn.Module) -> dict:
+    """Inverse of ``params_from_jax``: the model's state_dict as the flax
+    variable tree ``{"params": {...}}`` of float32 numpy arrays. A Linear's
+    ``weight`` becomes its transposed ``kernel``, any other ``weight`` a
+    norm's ``scale``."""
+    linear = {name for name, mod in model.named_modules() if isinstance(mod, nn.Linear)}
+    tree: dict = {}
+    for key, value in model.state_dict().items():
+        prefix, _, leaf = key.rpartition(".")
+        arr = value.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf, arr = ("kernel", arr.T) if prefix in linear else ("scale", arr)
+        node = tree
+        for part in prefix.split(".") if prefix else ():
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(arr, dtype=np.float32, order="C")  # keeps 0-d shapes
+    return {"params": tree}
+
+
+def flat_leaf_paths(tree: Mapping) -> List[Tuple[str, ...]]:
+    """Leaf paths of a nested dict in ``jax.tree_util.tree_flatten`` order
+    (keys sorted at every level, depth first)."""
+    paths: List[Tuple[str, ...]] = []
+
+    def walk(node: Mapping, prefix: Tuple[str, ...]) -> None:
+        for name in sorted(node):
+            if isinstance(node[name], Mapping):
+                walk(node[name], prefix + (name,))
+            else:
+                paths.append(prefix + (name,))
+
+    walk(tree, ())
+    return paths
+
+
+def flatten_params(model: nn.Module) -> List[np.ndarray]:
+    """The model's weights as the JAX artifact's flat list (``w{i}``)."""
+    tree = params_to_jax(model)
+    out = []
+    for path in flat_leaf_paths(tree):
+        node = tree
+        for part in path:
+            node = node[part]
+        out.append(node)
+    return out
+
+
+def load_flat_params(model: nn.Module, flat: Sequence[np.ndarray]) -> None:
+    """Load the JAX artifact's flat list into ``model`` (``strict=True``):
+    the tree layout comes from the model, the values in flatten order."""
+    template = params_to_jax(model)
+    paths = flat_leaf_paths(template)
+    if len(paths) != len(flat):
+        raise ValueError(f"{len(flat)} weight arrays for a model with {len(paths)}")
+    tree: dict = {}
+    for path, arr in zip(paths, flat):
+        node, want = tree, template
+        for part in path[:-1]:
+            node, want = node.setdefault(part, {}), want[part]
+        if tuple(np.shape(arr)) != want[path[-1]].shape:
+            raise ValueError(f"{'/'.join(path)}: shape {np.shape(arr)}, the model has "
+                             f"{want[path[-1]].shape}")
+        node[path[-1]] = arr
+    model.load_state_dict(params_from_jax(tree), strict=True)

@@ -30,6 +30,8 @@ from rdmnet_tpu_torch.ops.kernels.radius_knn import (WINDOW_ROWS_MAX, knn_plan, 
                                                      radius_knn_plain)
 from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain
 from rdmnet_tpu_torch.ops.radius_search import band_windows
+from rdmnet_tpu_torch.ops.ransac import ransac_registration, ransac_registration_host
+from rdmnet_tpu_torch.serving import export_inference, load_exported
 
 pytestmark = pytest.mark.cuda
 
@@ -235,3 +237,55 @@ def test_train_step_on_card_matches_cpu(cuda):
         sig = g.abs() > 1e-3 * gmax
         assert not sig.any() or (got - want)[sig].abs().max() <= 1e-7
         assert (got - p0).abs().max() <= lr * (1 + 1e-3)
+
+
+def test_serve_on_card_matches_cpu(cuda, tmp_path):
+    """An artifact of seeded tiny-config weights served on the card and on
+    the CPU: a scan against a rigidly moved copy (weights 1 register it)."""
+    cfg = make_tiny_cfg()
+    small, _, _ = procedural_pair(7353, n_rings=16, n_azimuths=200)
+    small = small[np.random.RandomState(0).permutation(len(small))[:500]]
+    motion = np.eye(4, dtype=np.float32)
+    motion[:2, :2] = [[np.cos(0.05), -np.sin(0.05)], [np.sin(0.05), np.cos(0.05)]]
+    motion[:3, 3] = [0.5, 0.3, 0.1]
+    moved = ((small - motion[:3, 3]) @ motion[:3, :3]).astype(np.float32)
+    model = RDMNet(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    export_inference(cfg, model, str(tmp_path), bucket_scales=(0.5, 1.0))
+    on_card, _ = load_exported(str(tmp_path))
+    on_cpu, _ = load_exported(str(tmp_path), device="cpu")
+    assert on_card.model.device.type == "cuda"
+    reset_launch_counts()
+    got = on_card(small, moved)
+    assert launch_counts() == {"radius_knn": 12, "sinkhorn": 1}
+    want = on_cpu(small, moved)
+    assert on_card.last_cap == on_cpu.last_cap == 512
+    valid = want["corr_scores"] > 0
+    assert torch.equal(torch.from_numpy(got["corr_scores"] > 0), torch.from_numpy(valid))
+    for k in ("ref_corr_points", "src_corr_points"):
+        np.testing.assert_array_equal(got[k][valid], want[k][valid])
+    np.testing.assert_allclose(got["corr_scores"], want["corr_scores"], atol=1e-3)
+    np.testing.assert_allclose(want["estimated_transform"], motion, atol=0.05)
+    np.testing.assert_allclose(got["estimated_transform"], want["estimated_transform"], atol=1e-4)
+
+
+def test_ransac_on_card_matches_cpu(cuda):
+    rng = np.random.RandomState(12)
+    n, n_in = 2048, 800
+    angle = 0.3
+    tf = np.eye(4, dtype=np.float32)
+    tf[:2, :2] = [[np.cos(angle), -np.sin(angle)], [np.sin(angle), np.cos(angle)]]
+    tf[:3, 3] = [1.0, -2.0, 0.5]
+    src = ((rng.rand(n, 3) - 0.5) * 40).astype(np.float32)
+    ref = (src @ tf[:3, :3].T + tf[:3, 3] + (rng.rand(n, 3) - 0.5) * 0.02).astype(np.float32)
+    ref[n_in:] = (rng.rand(n - n_in, 3) - 0.5) * 40
+    mask = torch.ones(n, dtype=torch.bool)
+    u = torch.rand(4, 1024, 4, generator=torch.Generator().manual_seed(0))
+    args = [torch.from_numpy(src), torch.from_numpy(ref), mask, u]
+    kw = dict(num_iterations=4096, chunk=1024, threshold=0.3)
+    with torch.no_grad():
+        want = ransac_registration(*args, **kw)
+        got = ransac_registration(*[a.to(cuda) for a in args], **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(want.numpy(), tf, atol=1e-2)
+    host = ransac_registration_host(src, ref, num_iterations=5000)
+    np.testing.assert_allclose(host, tf, atol=1e-2)

@@ -62,15 +62,33 @@ Phases, each fatal on failure:
 9. RANSAC on the card: 2048 correspondences under a known pose with noise
    and 60% outliers, the same uniforms on the card and on the CPU
    (transforms within 1e-5, the pose within 1e-3 of the known one), and the
-   ms of ``ransac_registration_host`` for 50,000 iterations.
+   ms of ``ransac_registration_host`` for 50,000 iterations;
+10. the train -> snapshot -> test -> eval workflow at ``make_cfg()`` full
+   width, 0.7 bucket, on a KITTI-layout root of procedural scans written
+   into a temporary directory (train sequence 00 of 5 frames, val 06 and
+   test 08 of 3, ~20k points per scan): ``cli.trainval.main`` for 2 epochs
+   (8 steps, 4 validation pairs), then again with ``--resume`` for a third
+   (the resumed state equal to the saved one bit for bit, 3 train and 3 val
+   records, every loss finite, the best snapshot the best val record);
+   ``cli.test.main`` on the best snapshot with buckets 0.7/1.0 (each dump
+   equal to ``make_forward`` + ``trim_outputs`` at its bucket); ``cli.eval.main``
+   with lgr, svd and ransac on the card (the JAX CLI's JSON keys, 2 pairs,
+   finite numbers); 12 kNN and 0 Sinkhorn launches per train step, 12 and 1
+   per validation and test pair. Prints the Trainer's windowed steps/s beside
+   phase 6's isolated step, the loader-wait share of each epoch, validation
+   ms per pair, snapshot save/restore ms and size, test ms per pair (prep,
+   proc, the ``.npz`` write alone, wall) and eval ms per pair per method.
 
 Prints a ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
+import contextlib
 import dataclasses
 import io
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -89,6 +107,12 @@ SERVE_SIZES = (13000, 20000, 28000)      # points per cloud of phase 8's pairs, 
 SERVE_WARM, SERVE_TIMED = 3, 15          # requests per bucket of phase 8
 HTTP_LAYER_TIMED = 40                    # requests per bucket to phase 8's HTTP-layer server
 RANSAC_ITERATIONS = 50000                # phase 9
+# phase 10: (scene seed, frames) per sequence of the KITTI-layout root
+WORKFLOW_SEQUENCES = {0: (SEED + 10, 5), 6: (SEED + 11, 3), 8: (SEED + 12, 3)}
+WORKFLOW_SCAN = dict(n_rings=80, n_azimuths=3000, step=10.0)
+# the JAX CLI's --json_out keys (rdmnet_tpu/cli/eval.py)
+EVAL_JSON_KEYS = {"method", "n_pairs", "RR", "RRE_deg", "RTE_m", "PIR", "IR", "overlap",
+                  "failed_pairs", "per_pair"}
 LGR_INPUTS = ("ref_node_corr_knn_points", "src_node_corr_knn_points", "ref_node_corr_knn_masks",
               "src_node_corr_knn_masks", "matching_scores", "node_corr_valid")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -775,6 +799,322 @@ def ransac_phase(dev, card):
         fail("ransac: outside the tolerances")
 
 
+def _launch_recorder(events, kind):
+    """Wraps a step factory of the port so each step it makes appends (kind,
+    the cumulative launch counts after the step) to ``events``."""
+    from rdmnet_tpu_torch.ops.kernels import launch_counts
+
+    def wrap(factory):
+        def make(*args, **kwargs):
+            step = factory(*args, **kwargs)
+
+            def counted(*a, **kw):
+                out = step(*a, **kw)
+                events.append((kind, launch_counts()))
+                return out
+            return counted
+        return make
+    return wrap
+
+
+def _per_event(events):
+    """Launches per event from cumulative counts: each event owns what was
+    launched since the one before it (its batch's graph build included)."""
+    out, prev = [], {"radius_knn": 0, "sinkhorn": 0}
+    for kind, counts in events:
+        out.append((kind, {k: counts[k] - prev[k] for k in counts}))
+        prev = counts
+    return out
+
+
+def workflow_phase(dev, card, kernels, isolated_step_ms, cli_args=()):
+    """Phase 10: train -> snapshot -> test -> eval through the CLIs' ``main``
+    on a procedural KITTI-layout root, on ``dev``. ``cli_args`` go to every
+    CLI (``--cfg_preset tiny`` rehearses the phase on the CPU). Returns
+    launches per trainer step, validation pair and test pair by kernel."""
+    import numpy as np
+    import torch
+
+    import rdmnet_tpu_torch.cli.test as test_cli
+    import rdmnet_tpu_torch.engine.trainer as trainer_mod
+    from rdmnet_tpu_torch.cli import eval as eval_cli
+    from rdmnet_tpu_torch.cli import trainval
+    from rdmnet_tpu_torch.cli.common import (build_model_and_params, make_forward, pad_pair_np,
+                                             trim_outputs)
+    from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset, write_procedural_root
+    from rdmnet_tpu_torch.data.loader import PairLoader, choose_bucket
+    from rdmnet_tpu_torch.engine import create_train_state
+    from rdmnet_tpu_torch.engine.checkpoint import CheckpointManager, state_to_host
+    from rdmnet_tpu_torch.models import RDMNet
+    from rdmnet_tpu_torch.ops.kernels import reset_launch_counts
+
+    def equal_states(a, b, where):
+        for part in ("model", "accumulator"):
+            for k, v in (a[part] or {}).items():
+                if not torch.equal(v, b[part][k]):
+                    fail(f"workflow: {where}: {part} {k} differs")
+        for name, st in a["optimizer"]["state"].items():
+            for k, v in st.items():
+                if not torch.equal(v.cpu(), b["optimizer"]["state"][name][k].cpu()):
+                    fail(f"workflow: {where}: optimizer {name} {k} differs")
+        for k in ("count", "mini_step", "notfinite_count"):
+            if a[k] != b[k]:
+                fail(f"workflow: {where}: {k} {a[k]} != {b[k]}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    cli_args = ["--device", dev.type, *cli_args]
+    events, resumed, test_cfgs = [], [], []
+    orig = (trainer_mod.make_train_step, trainer_mod.make_eval_step, trainer_mod.Trainer.resume,
+            test_cli._make_eval_forward, test_cli.run_eval_loop)
+    loop_s = []
+
+    def resume_and_keep(self):
+        orig[2](self)
+        resumed.append(state_to_host(self.state))
+
+    def test_forward(cfg, *args, **kwargs):
+        test_cfgs.append(cfg)
+        return _launch_recorder(events, "test")(orig[3])(cfg, *args, **kwargs)
+
+    def timed_loop(*args, **kwargs):
+        t0 = time.perf_counter()
+        board = orig[4](*args, **kwargs)
+        loop_s.append(time.perf_counter() - t0)
+        return board
+
+    # the CLIs build these inside their mains: wrapped here to count launches
+    # per step and pair, keep the resumed state and time the test loop
+    trainer_mod.make_train_step = _launch_recorder(events, "train")(orig[0])
+    trainer_mod.make_eval_step = _launch_recorder(events, "val")(orig[1])
+    trainer_mod.Trainer.resume = resume_and_keep
+    test_cli._make_eval_forward = test_forward
+    test_cli.run_eval_loop = timed_loop
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root, run = os.path.join(tmp, "kitti"), os.path.join(tmp, "run")
+            t0 = time.perf_counter()
+            write_procedural_root(root, "kitti", WORKFLOW_SEQUENCES, **WORKFLOW_SCAN)
+            sizes = [len(np.load(os.path.join(root, "downsampled_xyzi", f"{seq:02d}",
+                                              f"{i:06d}.npy")))
+                     for seq, (_, n) in WORKFLOW_SEQUENCES.items() for i in range(n)]
+            print(f"workflow: root of {len(sizes)} procedural scans ({min(sizes)}-{max(sizes)} "
+                  f"points) written in {time.perf_counter() - t0:.3f} s")
+            argv = ["--root", root, "--output_dir", run, "--bucket_scale", "0.7",
+                    "--log_steps", "2", "--keep_snapshots", "1", *cli_args]
+
+            # ---- train 2 epochs, then resume for a third
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            first = trainval.main(argv + ["--max_epoch", "2"])
+            train1_s = time.perf_counter() - t0
+            saved = torch.load(os.path.join(run, "snapshots", "2", "state.pt"),
+                               map_location="cpu", weights_only=True)
+            equal_states(state_to_host(first.state), saved, "the saved snapshot")
+            t0 = time.perf_counter()
+            second = trainval.main(argv + ["--max_epoch", "3", "--resume"])
+            train2_s = time.perf_counter() - t0
+            if len(resumed) != 1:
+                fail("workflow: the resumed run did not resume")
+            equal_states(resumed[0], saved, "the resumed state against the snapshot")
+            train_events = _per_event(events)
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            phases = [(r["phase"], r["epoch"]) for r in records]
+            if phases != [("train", 0), ("val", 0), ("train", 1), ("val", 1), ("train", 2),
+                          ("val", 2)]:
+                fail(f"workflow: metrics.jsonl records {phases}")
+            if not all(np.isfinite(v) for r in records for v in r.values()
+                       if isinstance(v, float)):
+                fail(f"workflow: non-finite values in metrics.jsonl: {records}")
+            best = CheckpointManager(os.path.join(run, "snapshots_best")).read_metadata()
+            want_best = max(trainer_mod.Trainer._val_score(r) for r in records
+                            if r["phase"] == "val")
+            if tuple(best["score"]) != want_best:
+                fail(f"workflow: best snapshot score {best['score']}, best val {want_best}")
+            if second.snapshots.all_steps() != [3] or second.state.count != 12:
+                fail(f"workflow: snapshots {second.snapshots.all_steps()}, "
+                     f"{second.state.count} updates")
+            for kind, want in (("train", {"radius_knn": 12, "sinkhorn": 0}),
+                               ("val", {"radius_knn": 12, "sinkhorn": 1})):
+                got = [c for k, c in train_events if k == kind]
+                if len(got) != {"train": 12, "val": 6}[kind] or any(c != want for c in got):
+                    fail(f"workflow: {kind} launches {got}, expected {want} each")
+            timings = first.epoch_timings + second.epoch_timings
+            vals = first.val_timings + second.val_timings
+            cfg = second.cfg
+            for t, v in zip(timings, vals):
+                rates = ", ".join(f"{r:.3f}" for r in t["window_steps_per_s"])
+                print(f"workflow epoch {t['epoch']}: {t['steps']} steps in {t['seconds']:.3f} s "
+                      f"({t['seconds'] / t['steps'] * 1e3:.3f} ms/step), windowed steps/s "
+                      f"[{rates}] ({', '.join(f'{1e3 / r:.3f}' for r in t['window_steps_per_s'])}"
+                      f" ms/step; phase 6 isolated step {isolated_step_ms:.3f} ms); waited on the "
+                      f"loader {t['loader_wait_s']:.3f} s ({100 * t['loader_wait_s'] / t['seconds']:.2f}"
+                      f"% of the epoch); validation {v['pairs']:.0f} pairs in {v['seconds']:.3f} s "
+                      f"({v['seconds'] / v['pairs'] * 1e3:.3f} ms/pair)")
+            print(f"workflow train: trainval.main {train1_s:.3f} s (2 epochs), resumed "
+                  f"{train2_s:.3f} s (1 epoch); resumed state equal to the snapshot; launches per "
+                  f"train step {train_events[0][1]}, per val pair "
+                  f"{next(c for k, c in train_events if k == 'val')}; best snapshot epoch "
+                  f"{best['epoch']} score {best['score']}")
+
+            # ---- snapshot save and restore on their own
+            mgr = CheckpointManager(os.path.join(tmp, "timing"))
+            sync()
+            t0 = time.perf_counter()
+            mgr.save(1, second.state, metadata={"epoch": 1})
+            host_s = time.perf_counter() - t0
+            mgr.wait_until_finished()
+            save_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(os.path.join(mgr.directory, "1", "state.pt"))
+            fresh = create_train_state(cfg, RDMNet(cfg, device=dev))
+            sync()
+            t0 = time.perf_counter()
+            mgr.restore(fresh)
+            sync()
+            restore_s = time.perf_counter() - t0
+            equal_states(state_to_host(fresh), state_to_host(second.state), "restore timing")
+            print(f"workflow snapshot: save {save_s * 1e3:.3f} ms ({host_s * 1e3:.3f} ms copying "
+                  f"to the host, the rest writing), restore {restore_s * 1e3:.3f} ms, "
+                  f"{nbytes / 1e6:.3f} MB on disk ({card})")
+            del fresh, first
+
+            # ---- what the loader's thread costs the loop: the CLI's prefetch of 2
+            # against batches read on the loop's own thread, in turns, one
+            # epoch each on the same data (seeds as trainval's)
+            t = cfg.train
+            for turn, prefetch in enumerate((0, 2, 2, 0)):
+                ds = RegistrationPairDataset("kitti", root, "train", point_limit=t.point_limit,
+                                             use_augmentation=t.use_augmentation, seed=cfg.seed)
+                loader = PairLoader(ds, cap=cfg.pyramid.caps[0], shuffle=True, drop_last=True,
+                                    seed=cfg.seed, prefetch=prefetch)
+                probe = trainer_mod.Trainer(cfg, loader, output_dir=os.path.join(tmp, f"pf{turn}"),
+                                            log_steps=1, device=dev)
+                probe.train_epoch()
+                e = probe.epoch_timings[-1]
+                print(f"workflow loader prefetch {prefetch} (turn {turn}): ms per step "
+                      f"{[round(1e3 / r, 3) for r in e['window_steps_per_s']]}, epoch "
+                      f"{e['seconds'] * 1e3:.3f} ms ({e['seconds'] / e['steps'] * 1e3:.3f} "
+                      f"ms/step), waited on the loader {e['loader_wait_s'] * 1e3:.3f} ms ({card})")
+                del probe
+            # the same batches through the train step outside the loop, each
+            # step synchronised: what the data costs beside phase 6's one pair
+            loader = PairLoader(RegistrationPairDataset(
+                "kitti", root, "train", point_limit=t.point_limit,
+                use_augmentation=t.use_augmentation, seed=cfg.seed),
+                cap=cfg.pyramid.caps[0], shuffle=True, drop_last=True, seed=cfg.seed, prefetch=0)
+            loader.peek()  # as the Trainer does
+            batches = list(loader)
+            state = create_train_state(cfg, RDMNet(cfg, device=dev, generator=torch.Generator()
+                                                   .manual_seed(cfg.seed)),
+                                       steps_per_epoch=len(batches))
+            step, gen, alone_ms = orig[0](cfg, dev), torch.Generator(device=dev), []
+            gen.manual_seed(cfg.seed + 1)
+            for _ in range(2):
+                for b in batches:
+                    sync()
+                    t0 = time.perf_counter()
+                    state, _ = step(state, trainer_mod.batch_to_device(b, cfg.pyramid, dev), gen)
+                    sync()
+                    alone_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+            print(f"workflow: the epoch's batches through the train step outside the loop, twice, "
+                  f"each step synchronised: ms {alone_ms} ({card})")
+            del state
+
+            # ---- test the best snapshot
+            feature_dir = os.path.join(tmp, "features")
+            events.clear()
+            reset_launch_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                board = test_cli.main(["--root", root, "--snapshot_dir",
+                                       os.path.join(run, "snapshots_best"), "--buckets",
+                                       "0.7,1.0", "--subset", "test", "--feature_dir",
+                                       feature_dir, *cli_args])
+            test_s = time.perf_counter() - t0
+            print("\n".join("  " + line for line in out.getvalue().splitlines()))
+            test_events = _per_event(events)
+            if [c for _, c in test_events] != [{"radius_knn": 12, "sinkhorn": 1}] * 2:
+                fail(f"workflow: test launches {test_events}")
+            names = sorted(n for n in os.listdir(feature_dir) if n.endswith(".npz"))
+            if len(names) != 2:
+                fail(f"workflow: test wrote {names}")
+            # each dump against the same pair through make_forward at its bucket
+            cfgs = sorted(test_cfgs, key=lambda c: c.pyramid.caps[0])
+            t0 = time.perf_counter()
+            model = build_model_and_params(cfgs[-1], os.path.join(run, "snapshots_best"),
+                                           device=dev)
+            load_s = time.perf_counter() - t0
+            dataset = RegistrationPairDataset("kitti", root, "test")
+            write_ms, check_ms = [], []
+            for i in range(len(dataset)):
+                item = dataset[i]
+                name = f"{item['seq_id']}_{item['src_frame']}_{item['ref_frame']}.npz"
+                bi = choose_bucket(max(len(item["ref_points"]), len(item["src_points"])),
+                                   [c.pyramid.caps[0] for c in cfgs])
+                sync()
+                t0 = time.perf_counter()
+                want = trim_outputs(make_forward(cfgs[bi], model, with_gt=True, device=dev)(
+                    *pad_pair_np(cfgs[bi], item["ref_points"], item["src_points"]),
+                    item["transform"]), item["transform"])
+                check_ms.append((time.perf_counter() - t0) * 1e3)
+                got = dict(np.load(os.path.join(feature_dir, name)))
+                if set(got) != set(want) or any(not np.array_equal(got[k], want[k]) for k in want):
+                    bad = [k for k in want if k not in got or not np.array_equal(got[k], want[k])]
+                    fail(f"workflow: {name} differs from make_forward + trim_outputs in {bad}")
+                t0 = time.perf_counter()
+                np.savez_compressed(os.path.join(tmp, "write_" + name), **got)
+                write_ms.append((time.perf_counter() - t0) * 1e3)
+            lines = [line for line in out.getvalue().splitlines() if "prep" in line]
+            prep = [float(x) * 1e3 for x in re.findall(r"prep ([0-9.]+)s", "\n".join(lines))]
+            proc = [float(x) * 1e3 for x in re.findall(r"proc ([0-9.]+)s", "\n".join(lines))]
+            print(f"workflow test: {len(names)} dumps equal to make_forward + trim_outputs at "
+                  f"their buckets; per pair prep {prep} ms, proc {proc} ms, the .npz write alone "
+                  f"{[round(w, 3) for w in write_ms]} ms, forward + trim in sequence "
+                  f"{[round(c, 3) for c in check_ms]} ms; run_eval_loop {loop_s[0] * 1e3 / len(names):.3f} "
+                  f"ms/pair wall (in sequence, forward + trim + write: "
+                  f"{(sum(check_ms) + sum(write_ms)) / len(names):.3f}); test.main {test_s:.3f} s in "
+                  f"all (model build and snapshot load alone {load_s * 1e3:.3f} ms); launches per "
+                  f"pair {test_events[0][1]} ({card})")
+            print(f"workflow test board (a model trained for 12 steps: a plumbing check, not "
+                  f"accuracy): {board.format()}")
+
+            # ---- eval the dumps
+            for method in ("lgr", "svd", "ransac"):
+                json_out = os.path.join(tmp, f"eval_{method}.json")
+                with contextlib.redirect_stdout(io.StringIO()):
+                    t0 = time.perf_counter()
+                    summary = eval_cli.main(["--feature_dir", feature_dir, "--method", method,
+                                             "--json_out", json_out, "--device", dev.type])
+                    eval_s = time.perf_counter() - t0
+                with open(json_out) as f:
+                    written = json.load(f)
+                numbers = [v for k, v in written.items() if k not in ("method", "failed_pairs",
+                                                                       "per_pair")]
+                numbers += [v for p in written["per_pair"] for k, v in p.items()
+                            if k not in ("seq_id", "src_frame", "ref_frame")]
+                if set(written) != EVAL_JSON_KEYS or written["n_pairs"] != 2 or written != summary \
+                        or not all(v is None or np.isfinite(v) for v in numbers):
+                    fail(f"workflow: eval {method} wrote {written}")
+                print(f"workflow eval {method}: {eval_s / written['n_pairs'] * 1e3:.3f} ms/pair; "
+                      f"RR {written['RR']}, RRE {written['RRE_deg']} deg, RTE {written['RTE_m']} m, "
+                      f"PIR {written['PIR']:.4f}, IR {written['IR']:.4f} (a model trained for 12 "
+                      f"steps: a plumbing check, not accuracy; {card})")
+    finally:
+        (trainer_mod.make_train_step, trainer_mod.make_eval_step, trainer_mod.Trainer.resume,
+         test_cli._make_eval_forward, test_cli.run_eval_loop) = orig
+    counts = {}
+    for key, kind, events_of in (("launches_per_trainer_step", "train", train_events),
+                                 ("launches_per_val_pair", "val", train_events),
+                                 ("launches_per_test_pair", "test", test_events)):
+        got = [c for k, c in events_of if k == kind]
+        counts[key] = {name: sum(c[name] for c in got) / len(got) for name in got[0]}
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -1058,6 +1398,12 @@ def main() -> None:
 
     # ---- 9. RANSAC on the card ------------------------------------------------
     ransac_phase(dev, card)
+
+    # ---- 10. train -> snapshot -> test -> eval ---------------------------------
+    step_ms = sum(tr["step_ms"]) / len(tr["step_ms"])
+    for key, per in workflow_phase(dev, card, kernels, step_ms).items():
+        for name, n in per.items():
+            kernels[name][key] = n
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -1,2 +1,2 @@
 """Command-line entry points of the port (twins of ``rdmnet_tpu/cli``):
-export, serve and infer so far."""
+trainval, test, eval, export, serve and infer."""

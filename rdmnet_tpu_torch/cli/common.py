@@ -4,13 +4,14 @@ forward, and padded -> dynamic output trimming.
 
 ``--device`` (``cuda`` or ``cpu``) takes the place of the JAX CLIs'
 ``--platform``. The port does not JIT, so there is no compile cache to set
-up. Checkpoints and the parity config come with their slices.
+up. The parity config and upstream torch checkpoints come with their slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -77,13 +78,23 @@ def make_cli_cfg(args) -> Config:
     return apply_pyramid_overrides(cfg, args)
 
 
-def build_model_and_params(cfg: Config, device=None):
-    """The model with weights drawn from ``cfg.seed`` on ``device`` (CUDA
-    unless told otherwise). The port's model holds its parameters, so it is
-    returned alone."""
+def build_model_and_params(cfg: Config, snapshot_dir: Optional[str] = None,
+                           epoch: Optional[int] = None, device=None):
+    """The model on ``device`` (CUDA unless told otherwise) with the weights
+    of ``snapshot_dir``'s snapshot ``epoch`` (the latest if None), whatever
+    optimizer the snapshot was saved with; without a snapshot, weights drawn
+    from ``cfg.seed``. A missing ``snapshot_dir`` raises: a mistyped path
+    must not evaluate random weights. The port's model holds its
+    parameters, so it is returned alone."""
+    from rdmnet_tpu_torch.engine.checkpoint import CheckpointManager
     from rdmnet_tpu_torch.models import RDMNet
 
-    return RDMNet(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
+    if snapshot_dir and not os.path.isdir(snapshot_dir):
+        raise FileNotFoundError(f"snapshot_dir not found: {snapshot_dir}")
+    model = RDMNet(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
+    if snapshot_dir:
+        model.load_state_dict(CheckpointManager(snapshot_dir).restore_params(epoch), strict=True)
+    return model
 
 
 def pad_pair_np(cfg: Config, ref_points: np.ndarray, src_points: np.ndarray):

@@ -2,12 +2,12 @@
 ``rdmnet_tpu/cli/export.py``).
 
 Usage:
-    rdmnet-torch-export --out_dir output/export [--buckets 0.5,0.7,1.0]
-                        [--check --asset_dir DIR] [--device cpu]
+    rdmnet-torch-export --out_dir output/export [--snapshot_dir DIR [--test_epoch N]]
+                        [--buckets 0.5,0.7,1.0] [--check --asset_dir DIR] [--device cpu]
 
 The artifact (``weights.npz`` in the JAX artifact's layout + ``serving.json``,
-see ``rdmnet_tpu_torch/serving.py``) holds seeded weights until checkpoints
-are ported. ``--check`` reloads it, registers the demo pair
+see ``rdmnet_tpu_torch/serving.py``) holds a snapshot's weights, or weights
+drawn from the config's seed without one. ``--check`` reloads it, registers the demo pair
 ``000000.npy``/``000004.npy`` of ``--asset_dir`` through it and compares the
 pose with the live ``pipeline`` at the bucket the request was dispatched to.
 """
@@ -25,6 +25,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     add_pyramid_overrides(parser)
     parser.add_argument("--out_dir", default="output/export")
+    parser.add_argument("--snapshot_dir", default=None)
+    parser.add_argument("--test_epoch", type=int, default=None)
     parser.add_argument(
         "--buckets", default="1.0",
         help="comma-separated capacity-bucket scale factors (e.g. 0.5,0.7,1.0) over "
@@ -46,7 +48,7 @@ def main(argv=None):
     from rdmnet_tpu_torch.serving import export_inference, load_exported
 
     cfg = make_cli_cfg(args)
-    model = build_model_and_params(cfg, device=args.device)
+    model = build_model_and_params(cfg, args.snapshot_dir, args.test_epoch, device=args.device)
     bucket_scales = tuple(float(s) for s in args.buckets.split(",") if s.strip())
     buckets = export_inference(cfg, model, args.out_dir, bucket_scales=bucket_scales)
     print(f"exported: {args.out_dir} (buckets={args.buckets}, caps="

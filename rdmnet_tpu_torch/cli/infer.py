@@ -5,11 +5,11 @@ lines and one npz per pair, with a RANSAC re-solve of the predicted
 correspondences beside the LGR pose.
 
 Usage:
-    rdmnet-torch-infer --asset_dir DIR [--output_dir DIR] [--device cpu]
-                       [--ransac_iterations N]
+    rdmnet-torch-infer --asset_dir DIR [--snapshot_dir DIR [--test_epoch N]]
+                       [--output_dir DIR] [--device cpu] [--ransac_iterations N]
 
 ``--asset_dir`` holds ``000000.npy``, ``000004.npy`` and ``000007.npy``.
-Weights are drawn from the config's seed until checkpoints are ported.
+Without ``--snapshot_dir`` the weights are drawn from the config's seed.
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser()
     add_pyramid_overrides(parser)
+    parser.add_argument("--snapshot_dir", default=None)
+    parser.add_argument("--test_epoch", type=int, default=None)
     parser.add_argument("--asset_dir", required=True)
     parser.add_argument("--output_dir", default="output/infer")
     parser.add_argument("--ransac_iterations", type=int, default=50000)
@@ -48,7 +50,7 @@ def main(argv=None):
     dataset = RegistrationPairDataset(
         "kitti", root=args.asset_dir, subset="infer", demo_asset_dir=args.asset_dir
     )
-    model = build_model_and_params(cfg, device=args.device)
+    model = build_model_and_params(cfg, args.snapshot_dir, args.test_epoch, device=args.device)
     forward = make_forward(cfg, model, with_gt=False, device=args.device)
 
     pose_lines = []

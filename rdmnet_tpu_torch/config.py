@@ -5,9 +5,9 @@ inference, the train and eval steps, serving and RANSAC read, with the same
 field names and defaults so one set of numbers describes both
 implementations. Frozen dataclasses, as there.
 
-Left out until their slices: data, loader, parallel and the other
-coarse-module families' fields, and the n2p/p2p score gates that no port
-path reads. ``PyramidConfig`` has no ``approx_recall``: PyTorch has no
+Left out until their slices: the dataset roots, the loader's worker count,
+parallel and the other coarse-module families' fields, and the n2p/p2p
+score gates that no port path reads. ``PyramidConfig`` has no ``approx_recall``: PyTorch has no
 counterpart of ``lax.approx_max_k``, so the port's radius search is always
 exact.
 """
@@ -187,6 +187,7 @@ class LossWeights:
 class EvalConfig:
     acceptance_overlap: float = 0.0
     acceptance_radius: float = 0.6
+    inlier_ratio_threshold: float = 0.05
     rre_threshold: float = 5.0   # degrees
     rte_threshold: float = 2.0   # meters
 
@@ -220,8 +221,32 @@ class OptimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainDataConfig:
+    """Training data: batch, per-cloud point limit, augmentation."""
+
+    batch_size: int = 1
+    point_limit: int = 30000
+    use_augmentation: bool = True
+    augmentation_noise: float = 0.01
+    augmentation_min_scale: float = 0.8
+    augmentation_max_scale: float = 1.2
+    augmentation_shift: float = 2.0
+    augmentation_rotation: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TestDataConfig:
+    """Test data: batch and per-cloud point limit (None keeps every point)."""
+
+    batch_size: int = 1
+    point_limit: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     seed: int = 7351
+    train: TrainDataConfig = dataclasses.field(default_factory=TrainDataConfig)
+    test: TestDataConfig = dataclasses.field(default_factory=TestDataConfig)
     pyramid: PyramidConfig = dataclasses.field(default_factory=PyramidConfig)
     backbone: BackboneConfig = dataclasses.field(default_factory=BackboneConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)

@@ -1,2 +1,2 @@
-"""Host-side data: procedural scans, capacity bucketing and padding, the
-demo-pair dataset."""
+"""Host-side data: procedural scans, the datasets of the four layouts, the
+pair loader, capacity bucketing and padding."""

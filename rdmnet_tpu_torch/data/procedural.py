@@ -17,18 +17,9 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from rdmnet_tpu_torch.utils.se3_np import euler_zyx_matrix
+
 SENSOR_HEIGHT = 1.73  # KITTI velodyne mount height above ground (m)
-
-
-def euler_zyx_matrix(az: float, ay: float, ax: float) -> np.ndarray:
-    """Extrinsic z-y-x euler rotation, Rx @ Ry @ Rz."""
-    cz, sz = np.cos(az), np.sin(az)
-    cy, sy = np.cos(ay), np.sin(ay)
-    cx, sx = np.cos(ax), np.sin(ax)
-    rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
-    ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
-    rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
-    return rx @ ry @ rz
 
 
 def voxel_downsample_xyzi(points: np.ndarray, voxel_size: float) -> np.ndarray:

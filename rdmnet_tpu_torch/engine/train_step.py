@@ -94,14 +94,17 @@ class TrainState:
     def __init__(self, model: nn.Module, optimizer: torch.optim.Adam,
                  schedule: Callable[[int], float], grad_acc_steps: int = 1):
         self.model = model
-        self.params: List[nn.Parameter] = [p for p in model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        self.param_names: List[str] = [n for n, _ in named]
+        self.params: List[nn.Parameter] = [p for _, p in named]
         self.optimizer = optimizer
         self.schedule = schedule
         self.grad_acc_steps = max(1, grad_acc_steps)
         self.count = 0            # applied updates: the schedule's argument
         self.mini_step = 0        # micro-batches in the current group
         self.notfinite_count = 0  # skipped updates in a row
-        self._acc: Optional[List[torch.Tensor]] = None
+        # running mean of the current group's gradients (grad_acc_steps > 1)
+        self.accumulator: Optional[List[torch.Tensor]] = None
 
     @property
     def device(self) -> torch.device:
@@ -112,14 +115,14 @@ class TrainState:
         whether an update was applied. Reads one flag from the device (the
         finiteness of the update)."""
         if self.grad_acc_steps > 1:
-            if self._acc is None:
-                self._acc = [torch.zeros_like(g) for g in grads]
-            for acc, g in zip(self._acc, grads):
+            if self.accumulator is None:
+                self.accumulator = [torch.zeros_like(g) for g in grads]
+            for acc, g in zip(self.accumulator, grads):
                 acc.add_((g - acc) / (self.mini_step + 1))
             self.mini_step += 1
             if self.mini_step < self.grad_acc_steps:
                 return False
-            grads, self._acc = self._acc, None
+            grads, self.accumulator = self.accumulator, None
             self.mini_step = 0
         # GradScaler's multi-tensor check: one pass over the gradients, no
         # flat copy (the scale of 1 leaves every value as it was)

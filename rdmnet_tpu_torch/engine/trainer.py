@@ -1,16 +1,30 @@
-"""Host batches to pyramids on the device (twin of ``batch_to_device`` in
-``rdmnet_tpu/engine/trainer.py``; the ``Trainer`` loop is not ported yet)."""
+"""Epoch-based trainer (twin of ``rdmnet_tpu/engine/trainer.py``; reference
+geotransformer/engine/epoch_based_trainer.py:16-198, base_trainer.py:32-259):
+host batches to pyramids on the device, the train step, validation, rolling
+snapshots, the best-by-validation snapshot, resume, ``metrics.jsonl``.
+
+One device: data parallelism is not ported yet.
+"""
 
 from __future__ import annotations
 
-from typing import List, Mapping
+import dataclasses
+import json
+import os
+import time
+from typing import List, Mapping, Optional
 
 import numpy as np
 import torch
 
-from rdmnet_tpu_torch.config import PyramidConfig
+from rdmnet_tpu_torch.config import Config, PyramidConfig
 from rdmnet_tpu_torch.device import resolve_device
+from rdmnet_tpu_torch.engine.checkpoint import CheckpointManager
+from rdmnet_tpu_torch.engine.logger import create_logger
+from rdmnet_tpu_torch.engine.meters import SummaryBoard, Timer, to_floats
+from rdmnet_tpu_torch.engine.train_step import create_train_state, make_eval_step, make_train_step
 from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch
+from rdmnet_tpu_torch.models import RDMNet
 
 
 @torch.no_grad()
@@ -36,3 +50,195 @@ def batch_to_device(np_batch: Mapping, spec: PyramidConfig, device=None) -> List
                              put("transform", b, torch.float32), spec,
                              ref_dropped0=int(ref_dropped[b]), src_dropped0=int(src_dropped[b]))
             for b in range(bsz)]
+
+
+class Trainer:
+    """Trains ``cfg`` on ``train_loader`` for ``cfg.optim.max_epoch`` epochs
+    on ``device`` (CUDA unless told otherwise), validating on ``val_loader``
+    after each epoch. Writes ``config.json``, ``logs/train.log``,
+    ``metrics.jsonl`` (one train and one val record per epoch), a snapshot
+    per epoch in ``snapshots/`` (the newest ``keep_snapshots``, all if None)
+    and the best one by validation (higher RR, then lower RRE, then lower RTE)
+    in ``snapshots_best/``.
+
+    The weights are drawn from ``cfg.seed``; the target sample of each train
+    step from a generator seeded with ``cfg.seed + 1``. ``resume`` keeps the
+    JAX package's semantics, two quirks included: the target generator
+    restarts from ``cfg.seed + 1`` and the loaders' shuffle (with their
+    datasets' draws) from their seeds, rather than continuing where the
+    interrupted run stood.
+
+    ``epoch_timings`` gets one record per training epoch: its wall seconds,
+    the seconds the loop waited on the loader, the steps and the windowed
+    steps/s of each log line; ``val_timings`` one per validation: its
+    seconds and pairs."""
+
+    def __init__(self, cfg: Config, train_loader, val_loader=None, output_dir: str = "output",
+                 log_steps: int = 10, keep_snapshots: Optional[int] = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.output_dir = output_dir
+        self.log_steps = log_steps
+        self.logger = create_logger(os.path.join(output_dir, "logs", "train.log"))
+        self.snapshots = CheckpointManager(os.path.join(output_dir, "snapshots"),
+                                           max_to_keep=keep_snapshots)
+        self.best_snapshots = CheckpointManager(os.path.join(output_dir, "snapshots_best"),
+                                                max_to_keep=1)
+        self._best_score = None
+        with open(os.path.join(output_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=1, default=str)
+
+        # the first batch, read as the JAX Trainer reads it to initialise: the
+        # same seeds then give both packages the same epochs
+        example = train_loader.peek()
+        if example["ref_points"].shape[1] != cfg.pyramid.caps[0]:
+            raise ValueError(f"the train loader pads to {example['ref_points'].shape[1]} points, "
+                             f"the pyramid's level 0 holds {cfg.pyramid.caps[0]}")
+        model = RDMNet(cfg, device=self.device, generator=torch.Generator().manual_seed(cfg.seed))
+        self.state = create_train_state(cfg, model, steps_per_epoch=max(len(train_loader), 1))
+        self.train_step = make_train_step(cfg, self.device)
+        self.eval_step = make_eval_step(cfg, self.device)
+        self.epoch = 0
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self.epoch_timings: List[dict] = []
+        self.val_timings: List[dict] = []
+
+    def resume(self):
+        step = self.snapshots.latest_step()
+        if step is None:
+            self.logger.info("no snapshot found; training from scratch")
+            return
+        self.state, meta = self.snapshots.restore(self.state, step)
+        self.epoch = int(meta.get("epoch", step))
+        try:
+            self._best_score = tuple(self.best_snapshots.read_metadata()["score"])
+        except (FileNotFoundError, KeyError):
+            pass
+        self.logger.info(f"resumed from snapshot step={step} epoch={self.epoch}")
+
+    def warm_start(self, snapshot_dir: str, step: Optional[int] = None):
+        """Load the weights alone from another run's snapshot (curriculum
+        phases, fine-tuning): the optimizer, the epoch counter and the
+        schedule stay fresh, whatever the source run's optimizer was."""
+        params = CheckpointManager(snapshot_dir).restore_params(step)
+        self.state.model.load_state_dict(params, strict=True)
+        self.logger.info(f"warm-started params from {snapshot_dir}")
+
+    def train_epoch(self) -> dict:
+        board = SummaryBoard(last_n=self.log_steps)
+        timer = Timer()
+        pending = []  # metric tensors of the window, read in one pass at its end
+        rates = []
+        steps, wait = 0, 0.0
+
+        def flush():
+            for m in pending:
+                board.update_from_dict(to_floats(m))
+            pending.clear()
+
+        loader = iter(self.train_loader)
+        t_epoch = t_win = time.perf_counter()
+        timer.tic()
+        while True:
+            t0 = time.perf_counter()
+            np_batch = next(loader, None)
+            wait += time.perf_counter() - t0
+            if np_batch is None:
+                break
+            batch = batch_to_device(np_batch, self.cfg.pyramid, self.device)
+            timer.record_prepare()
+            self.state, metrics = self.train_step(self.state, batch, self.generator)
+            pending.append(metrics)
+            timer.record_process()
+            steps += 1
+            if steps % self.log_steps == 0:
+                flush()
+                rate = self.log_steps / max(time.perf_counter() - t_win, 1e-9)
+                rates.append(rate)
+                t_win = time.perf_counter()
+                self.logger.info(
+                    f"epoch {self.epoch} step {steps}/{len(self.train_loader)} "
+                    f"| {board.format()} | prep {timer.prepare_time():.3f}s "
+                    f"proc {timer.process_time():.3f}s | {rate:.2f} steps/s")
+        flush()
+        self.epoch_timings.append({"epoch": self.epoch, "seconds": time.perf_counter() - t_epoch,
+                                   "loader_wait_s": wait, "steps": steps,
+                                   "window_steps_per_s": rates})
+        return board.summary()
+
+    def validate(self) -> dict:
+        """Means over the validation pairs: each batch's mean weighted by its
+        valid pairs, so a ragged tail's repeats count once."""
+        if self.val_loader is None:
+            return {}
+        sums: dict = {}
+        denom = 0.0
+        t0 = time.perf_counter()
+        for np_batch in self.val_loader:
+            batch = batch_to_device(np_batch, self.cfg.pyramid, self.device)
+            valid = np_batch.get("batch_valid")
+            metrics, _ = self.eval_step(
+                self.state, batch, None if valid is None else torch.as_tensor(valid))
+            n_valid = float(np.sum(valid)) if valid is not None else float(len(batch))
+            for k, v in to_floats(metrics).items():
+                sums[k] = sums.get(k, 0.0) + v * n_valid
+            denom += n_valid
+        self.val_timings.append({"epoch": self.epoch, "seconds": time.perf_counter() - t0,
+                                 "pairs": denom})
+        summary = {k: v / max(denom, 1.0) for k, v in sums.items()}
+        line = ", ".join(f"{k}: {v:.4f}" for k, v in sorted(summary.items()))
+        self.logger.info(f"val epoch {self.epoch} | {line}")
+        return summary
+
+    @staticmethod
+    def _val_score(summary: dict):
+        """Best-snapshot order: higher RR, then lower RRE, then lower RTE."""
+        if "RR" not in summary:
+            return None
+        return (float(summary["RR"]), -float(summary.get("RRE", np.inf)),
+                -float(summary.get("RTE", np.inf)))
+
+    def _maybe_save_best(self, val_summary: dict):
+        score = self._val_score(val_summary)
+        if score is None:
+            return
+        if self._best_score is not None and tuple(score) <= tuple(self._best_score):
+            return
+        self._best_score = score
+        self.best_snapshots.save(
+            self.epoch, self.state,
+            metadata={"epoch": self.epoch, "score": list(score),
+                      **{k: float(v) for k, v in val_summary.items()
+                         if isinstance(v, (int, float))}})
+        self.logger.info(f"new best val snapshot at epoch {self.epoch} "
+                         f"(RR {score[0]:.4f}, RRE {-score[1]:.4f}, RTE {-score[2]:.4f})")
+
+    def _write_metrics(self, phase: str, summary: dict):
+        """Append one record to ``metrics.jsonl``."""
+        with open(os.path.join(self.output_dir, "metrics.jsonl"), "a") as f:
+            f.write(json.dumps({"phase": phase, "epoch": self.epoch, **summary}) + "\n")
+
+    def run(self, resume: bool = False):
+        if resume:
+            self.resume()
+        while self.epoch < self.cfg.optim.max_epoch:
+            t0 = time.perf_counter()
+            train_summary = self.train_epoch()
+            self._write_metrics("train", train_summary)
+            val_summary = self.validate()
+            if val_summary:
+                self._write_metrics("val", val_summary)
+            self.epoch += 1
+            self.snapshots.save(self.epoch, self.state,
+                                metadata={"epoch": self.epoch,
+                                          "loss": float(train_summary.get("loss", np.nan))})
+            if val_summary:
+                self._maybe_save_best(val_summary)
+            t = self.epoch_timings[-1]
+            self.logger.info(f"epoch {self.epoch} done in {time.perf_counter() - t0:.1f}s "
+                             f"({t['steps']} steps, {t['loader_wait_s']:.3f}s waiting on the "
+                             "loader); snapshot saved")
+        self.snapshots.wait_until_finished()
+        self.best_snapshots.wait_until_finished()

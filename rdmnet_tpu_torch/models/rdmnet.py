@@ -65,8 +65,8 @@ class RDMNet(nn.Module):
         super().__init__()
         if cfg.model.coarse_module != "thdroformer" or cfg.thdroformer.k2 is not None:
             raise NotImplementedError("the port implements the dense ThDRoFormer only")
-        if not (cfg.vote.model_use_vote and cfg.vote.inference_use_vote):
-            raise NotImplementedError("the port implements the vote path only")
+        if not cfg.vote.model_use_vote:
+            raise NotImplementedError("the port implements models with the vote layer only")
         self.cfg = cfg
         td = cfg.thdroformer
         self.encoder = Encoder(cfg.backbone)
@@ -151,16 +151,24 @@ class RDMNet(nn.Module):
         out["shifted_ref_points_c"], out["shifted_src_points_c"] = shifted_pair[0], shifted_pair[1]
         n2n = self.proj_n2n_score(voted_feats)[..., 0]
         out["ref_n2n_scores_c"], out["src_n2n_scores_c"] = torch.sigmoid(n2n[0]), torch.sigmoid(n2n[1])
-        # node selection and partition decide indices only: no gradient
-        nodes_pair = shifted_pair.detach()
-        keep_pair, rounds = greedy_nms(nodes_pair, mask_pair, cfg.vote.nms_radius,
-                                       neighbor_limit=cfg.vote.nms_neighbor_limit)
-        out["nms_rounds"] = rounds
-        node_valid = mask_pair & keep_pair
-        ref_feats_c, src_feats_c = self.transformer2(
-            shifted_pair[0], shifted_pair[1], voted_feats[0], voted_feats[1],
-            ref_valid=node_valid[0], src_valid=node_valid[1])
-        out["nodes_ref"], out["nodes_src"] = shifted_pair[0], shifted_pair[1]
+        if cfg.vote.inference_use_vote:
+            # node selection and partition decide indices only: no gradient
+            nodes_pair = shifted_pair.detach()
+            keep_pair, rounds = greedy_nms(nodes_pair, mask_pair, cfg.vote.nms_radius,
+                                           neighbor_limit=cfg.vote.nms_neighbor_limit)
+            out["nms_rounds"] = rounds
+            node_valid = mask_pair & keep_pair
+            ref_feats_c, src_feats_c = self.transformer2(
+                shifted_pair[0], shifted_pair[1], voted_feats[0], voted_feats[1],
+                ref_valid=node_valid[0], src_valid=node_valid[1])
+            out["nodes_ref"], out["nodes_src"] = shifted_pair[0], shifted_pair[1]
+        else:
+            # the vote branch still runs (its outputs feed the losses), but
+            # matching takes the unshifted nodes and the first transformer's
+            # features (the MulRan setting)
+            nodes_pair, node_valid = points_c_pair, mask_pair
+            out["nms_rounds"] = 0
+            out["nodes_ref"], out["nodes_src"] = ref_points_c, src_points_c
         out["nodes_ref_valid"], out["nodes_src_valid"] = node_valid[0], node_valid[1]
         ref_feats_c = ref_feats_c / (torch.linalg.norm(ref_feats_c, dim=1, keepdim=True) + 1e-12)
         src_feats_c = src_feats_c / (torch.linalg.norm(src_feats_c, dim=1, keepdim=True) + 1e-12)

@@ -1,2 +1,2 @@
-"""Utilities: weight conversion to and from the JAX package's parameter tree
-and its artifact's flat layout; host SE(3) helpers."""
+"""Utilities: weights and train states from the JAX package's trees, its
+artifact's flat layout; host SE(3) helpers and augmentation; numpy metrics."""

@@ -10,11 +10,15 @@ The JAX package's serving artifact stores the tree flat (``weights.npz``,
 keys ``w{i}``) in ``jax.tree_util.tree_flatten`` order: dict keys sorted at
 every level. ``flat_leaf_paths`` derives that order from the tree itself,
 so the port reads and writes the same file.
+
+``train_state_from_jax`` carries a whole JAX ``TrainState`` across: the
+weights, the optax chain's Adam moments and counts, its non-finite counter
+and the ``MultiSteps`` accumulator.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -109,3 +113,82 @@ def load_flat_params(model: nn.Module, flat: Sequence[np.ndarray]) -> None:
                              f"{want[path[-1]].shape}")
         node[path[-1]] = arr
     model.load_state_dict(params_from_jax(tree), strict=True)
+
+
+def _fields(node) -> Optional[dict]:
+    """An optax state node's (a NamedTuple's) fields by name, else None."""
+    if hasattr(node, "_fields"):
+        return {f: getattr(node, f) for f in node._fields}
+    return None
+
+
+def _optax_states(opt_state) -> Dict[str, dict]:
+    """The parts of the JAX package's optimizer state by role: ``adam``
+    (count, mu, nu), ``schedule`` (count), ``finite`` (apply_if_finite's
+    counters) and ``multisteps`` (mini_step, acc_grads), wherever the chain
+    nests them."""
+    found: Dict[str, dict] = {}
+
+    def walk(node) -> None:
+        fields = _fields(node)
+        if fields is None:
+            if isinstance(node, (list, tuple)):
+                for child in node:
+                    walk(child)
+            return
+        keys = set(fields)
+        if {"count", "mu", "nu"} <= keys:
+            found["adam"] = fields
+        elif keys == {"count"}:
+            found["schedule"] = fields
+        elif "notfinite_count" in keys:
+            found["finite"] = fields
+        elif {"mini_step", "acc_grads"} <= keys:
+            found["multisteps"] = fields
+        for name, child in fields.items():
+            if name not in ("mu", "nu", "acc_grads"):  # parameter trees
+                walk(child)
+
+    walk(opt_state)
+    return found
+
+
+def train_state_from_jax(state_np: Any, model: nn.Module, cfg, steps_per_epoch: int):
+    """A JAX ``TrainState`` as host numpy (restored, then
+    ``jax.device_get``) -> the port's ``TrainState`` over ``model`` that
+    continues it: the weights through ``params_from_jax``; Adam's ``mu``/``nu``
+    as ``exp_avg``/``exp_avg_sq`` (Dense kernels transposed as the weights
+    are), its count as each parameter's ``step``; the schedule's count as
+    ``count``; ``apply_if_finite``'s ``notfinite_count``; under
+    ``MultiSteps`` the ``mini_step`` and the accumulator. The moments of
+    ``kernel_points`` are dropped: they are buffers in the port."""
+    from rdmnet_tpu_torch.engine.train_step import create_train_state
+
+    get = (lambda name: state_np[name]) if isinstance(state_np, Mapping) \
+        else (lambda name: getattr(state_np, name))
+    model.load_state_dict(params_from_jax(get("params")), strict=True)
+    state = create_train_state(cfg, model, steps_per_epoch)
+    parts = _optax_states(get("opt_state"))
+    missing = {"adam", "schedule", "finite"} - set(parts)
+    if missing or ((cfg.optim.grad_acc_steps > 1) != ("multisteps" in parts)):
+        raise ValueError(f"the optimizer state does not match cfg.optim (found {sorted(parts)})")
+    mu, nu = params_from_jax(parts["adam"]["mu"]), params_from_jax(parts["adam"]["nu"])
+    names = state.param_names
+    extra = set(mu) - set(names)
+    if set(names) - set(mu) or any(not n.endswith("kernel_points") for n in extra):
+        raise ValueError(f"the moments cover other parameters than the model's: "
+                         f"{sorted((set(names) - set(mu)) | extra)[:5]}")
+    step = torch.tensor(float(np.asarray(parts["adam"]["count"])))
+    state.optimizer.load_state_dict({
+        "state": {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                  for i, n in enumerate(names)},
+        "param_groups": state.optimizer.state_dict()["param_groups"],
+    })
+    state.count = int(np.asarray(parts["schedule"]["count"]))
+    state.notfinite_count = int(np.asarray(parts["finite"]["notfinite_count"]))
+    if "multisteps" in parts:
+        state.mini_step = int(np.asarray(parts["multisteps"]["mini_step"]))
+        if state.mini_step:
+            acc = params_from_jax(parts["multisteps"]["acc_grads"])
+            state.accumulator = [acc[n].to(state.device) for n in names]
+    return state

@@ -1,5 +1,5 @@
 """CUDA kernels of the port against their plain PyTorch versions, and the
-training path against the CPU's, on the card.
+training, serving and evaluation paths against the CPU's, on the card.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 
@@ -16,11 +16,20 @@ the global norm, 2e-3 globally; parameters after the step 1e-7 where the
 gradient stands clear of float noise, else within one step of lr).
 """
 
+import dataclasses
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from rdmnet_tpu_torch.cli.test import run_eval_loop
 from rdmnet_tpu_torch.config import make_tiny_cfg
+from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset, write_procedural_root
+from rdmnet_tpu_torch.data.loader import PairLoader
+from rdmnet_tpu_torch.engine import Trainer
+from rdmnet_tpu_torch.engine.checkpoint import CheckpointManager, state_to_host
 from rdmnet_tpu_torch.data.procedural import procedural_pair, procedural_sequence
 from rdmnet_tpu_torch.engine import batch_to_device, create_train_state, make_value_and_grad
 from rdmnet_tpu_torch.graph.pyramid import pad_cloud
@@ -289,3 +298,87 @@ def test_ransac_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(want.numpy(), tf, atol=1e-2)
     host = ransac_registration_host(src, ref, num_iterations=5000)
     np.testing.assert_allclose(host, tf, atol=1e-2)
+
+
+def _tiny_root(path):
+    write_procedural_root(str(path), "kitti", {0: (11, 3), 6: (12, 2), 8: (13, 3)},
+                          n_rings=16, n_azimuths=200)
+    return str(path)
+
+
+def _loaders(root):
+    train = RegistrationPairDataset("kitti", root, "train", point_limit=500)
+    val = RegistrationPairDataset("kitti", root, "val", point_limit=500)
+    return (PairLoader(train, cap=512, shuffle=True, drop_last=True),
+            PairLoader(val, cap=512))
+
+
+def _host_states_equal(a, b):
+    for part in ("model", "accumulator"):
+        assert (a[part] is None) == (b[part] is None)
+        for k, v in (a[part] or {}).items():
+            assert torch.equal(v, b[part][k]), (part, k)
+    for name, st in a["optimizer"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v.cpu(), b["optimizer"]["state"][name][k].cpu()), (name, k)
+    assert [a[k] for k in ("count", "mini_step", "notfinite_count")] == \
+        [b[k] for k in ("count", "mini_step", "notfinite_count")]
+
+
+def test_trainer_epoch_on_card_and_checkpoint_across_devices(cuda, tmp_path):
+    root = _tiny_root(tmp_path / "root")
+    cfg = make_tiny_cfg()
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, max_epoch=1,
+                                                             grad_acc_steps=1))
+    trainer = Trainer(cfg, *_loaders(root), output_dir=str(tmp_path / "run"), log_steps=1,
+                      device=cuda)
+    reset_launch_counts()
+    trainer.run()
+    steps, pairs = trainer.epoch_timings[0]["steps"], trainer.val_timings[0]["pairs"]
+    assert (steps, pairs) == (2, 1)
+    assert launch_counts() == {"radius_knn": 12 * (steps + 1), "sinkhorn": 1}
+    with open(tmp_path / "run" / "metrics.jsonl") as f:
+        assert all(np.isfinite(v) for line in f for v in json.loads(line).values()
+                   if isinstance(v, float))
+    assert trainer.snapshots.all_steps() == [1] and trainer.state.count == 2
+
+    # card -> CPU -> card, through the files
+    on_card = state_to_host(trainer.state)
+    cpu_state = create_train_state(cfg, RDMNet(cfg, device="cpu"))
+    CheckpointManager(str(tmp_path / "run" / "snapshots")).restore(cpu_state)
+    assert cpu_state.device.type == "cpu"
+    _host_states_equal(on_card, state_to_host(cpu_state))
+    mgr = CheckpointManager(str(tmp_path / "from_cpu"))
+    mgr.save(1, cpu_state)
+    card_state = create_train_state(cfg, RDMNet(cfg, device=cuda,
+                                                generator=torch.Generator().manual_seed(9)))
+    mgr.restore(card_state)
+    assert card_state.device.type == "cuda"
+    _host_states_equal(on_card, state_to_host(card_state))
+
+
+def test_eval_loop_on_card_matches_cpu(cuda, tmp_path):
+    root = _tiny_root(tmp_path / "root")
+    cfg = make_tiny_cfg()
+    cfgs = [dataclasses.replace(cfg, pyramid=cfg.pyramid.scaled(s)) for s in (0.5, 1.0)]
+    dirs = [str(tmp_path / "card"), str(tmp_path / "cpu")]
+    for dev, out in zip((cuda, torch.device("cpu")), dirs):
+        model = RDMNet(cfgs[-1], device=dev, generator=torch.Generator().manual_seed(1))
+        dataset = RegistrationPairDataset("kitti", root, "test", point_limit=400)
+        os.makedirs(out)
+        reset_launch_counts()
+        board = run_eval_loop(cfgs[-1], model, dataset, list(range(len(dataset))), out,
+                              cfgs=cfgs, device=dev, log=lambda line: None)
+        if dev.type == "cuda":
+            assert launch_counts() == {"radius_knn": 12 * len(dataset), "sinkhorn": len(dataset)}
+        assert all(np.isfinite(v) for v in board.summary().values())
+    names = sorted(os.listdir(dirs[1]))
+    assert names == sorted(os.listdir(dirs[0])) and len(names) == 2
+    for name in names:
+        got, want = np.load(os.path.join(dirs[0], name)), np.load(os.path.join(dirs[1], name))
+        assert set(got.files) == set(want.files)
+        for key in ("ref_points", "src_points", "ref_points_f", "src_points_f",
+                    "ref_node_corr_indices", "src_node_corr_indices", "gt_node_corr_indices",
+                    "transform"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{name} {key}")
+        np.testing.assert_allclose(got["ref_feats_c"], want["ref_feats_c"], atol=1e-3)

@@ -6,7 +6,7 @@
 Phases, each fatal on failure:
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: both kernels from ``rdmnet_tpu_torch/csrc`` with ``nvcc``, in
-   parallel, with the ``-Xptxas -v`` register/spill report;
+   parallel, with the ``-Xptxas -v`` register/spill report (no spills);
 3. kernels against their plain PyTorch versions at the main path's shapes:
    the 12 radius searches of one pair's graph build (plus the unbanded
    level-0 searches and a level-0 search over duplicated points, whose
@@ -77,8 +77,24 @@ Phases, each fatal on failure:
    per validation and test pair. Prints the Trainer's windowed steps/s beside
    phase 6's isolated step, the loader-wait share of each epoch, validation
    ms per pair, snapshot save/restore ms and size, test ms per pair (prep,
-   proc, the ``.npz`` write alone, wall) and eval ms per pair per method.
+   proc, the ``.npz`` write alone, wall) and eval ms per pair per method;
+11. the model surface at ``make_cfg()`` width, 0.7 bucket, on the phase-4
+   pair: ``make_parity_cfg()`` with a random kernel disposition per KPConv
+   layer, its 12 searches (9 at K 63-81, 3 at K = 1) against the plain
+   version with device and per-call ms beside the bound, ``pipeline`` ms per
+   pair, per-stage ms and peak memory with 12 kNN and 1 Sinkhorn launches per
+   pair; level-0 searches at K = 81 and K = 256 (the 128- and 256-entry
+   lists) against the plain version; an upstream-schema ``.pth.tar`` of the
+   parity model converted on load (``--torch_checkpoint``'s path) against the
+   same weights carried by ``params_from_jax`` (poses within 1e-6); then for
+   GeoTransformer, APE, ThDRoFormer with ``k2=(0.5,) * 4`` and the model
+   without the vote layer: ``pipeline`` ms per pair and peak memory (12/1
+   launches per pair), 3 train steps (finite losses and gradient, 12/0
+   launches per step, peak memory), and card against CPU at
+   ``make_tiny_cfg()`` for 2 weight draws (tables and node masks equal, the
+   same matched node pairs, plans within 1e-3).
 
+Phase 2 fails if ``-Xptxas -v`` reports a spilled register in any kernel.
 Prints a ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -1115,6 +1131,269 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, cli_args=()):
     return counts
 
 
+FAMILY_STEPS = 3                         # train steps per family in phase 11
+FAMILY_SEEDS = (1, 2)                    # weight draws of phase 11's card-vs-CPU check
+PARITY_WARM, PARITY_TIMED, PARITY_STAGE = 2, 6, 3  # parity pairs of phase 11
+
+
+def family_cfgs(base):
+    """Phase 11's model families over ``base``: the other coarse transformers,
+    ThDRoFormer with a sparse top-k schedule on every stage-2 layer, and the
+    model without the vote layer."""
+    r = dataclasses.replace
+    return {
+        "geotransformer": r(base, model=r(base.model, coarse_module="geotransformer")),
+        "ape": r(base, model=r(base.model, coarse_module="ape")),
+        "thdroformer_k2": r(base, thdroformer=r(base.thdroformer,
+                                                k2=(0.5,) * base.thdroformer.num_layers2)),
+        "vote_off": r(base, vote=r(base.vote, model_use_vote=False)),
+    }
+
+
+def upstream_key(key: str) -> str:
+    """A port ``state_dict`` key -> an upstream RDMNet key that
+    ``utils/torch_convert`` maps back to it (its rules inverted, with
+    upstream's nesting)."""
+    parts = key.split(".")
+    if parts[0] in ("transformer", "transformer2") and re.fullmatch(r"(self|cross)_\d+", parts[1]):
+        kind, idx = parts[1].rsplit("_", 1)
+        rest = parts[2:]
+        if rest[0] in ("attention", "linear", "norm"):
+            rest = ["attention"] + rest
+        return ".".join([parts[0], "transformer", "layers",
+                         str(2 * int(idx) + (kind == "cross"))] + rest)
+    if parts[0] in ("encoder", "decoder") and parts[-2] in ("norm", "norm_conv"):
+        return ".".join(parts[:-1] + ["norm", parts[-1]])
+    if parts[0] == "vote":
+        m = re.fullmatch(r"(mlp|mlp_norm)_(\d+)", parts[1])
+        if m:
+            return ".".join(["vote", "mlp_modules", str(3 * int(m[2]) + (m[1] == "mlp_norm"))]
+                            + parts[2:])
+        if parts[1] == "out_norm":
+            return ".".join(["vote", "out_proj", "1"] + parts[2:])
+    return key
+
+
+def rotate_kernel_points(model, seed):
+    """A random rotation of every KPConv layer's kernel disposition, one per
+    layer, as upstream draws them (the parity config reads each layer's own)."""
+    import torch
+
+    from rdmnet_tpu_torch.nn.kpconv import KPConv
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, KPConv):
+                q, _ = torch.linalg.qr(torch.randn(3, 3, generator=gen, dtype=torch.float64))
+                q = q * torch.sign(torch.linalg.det(q))
+                kp = mod.kernel_points
+                kp.copy_((kp.double().cpu() @ q).to(kp))
+
+
+def timed_pipeline(model, args, dev, warm, timed, n_stage, label):
+    """``warm`` + ``timed`` + ``n_stage`` pipeline calls on ``args`` (the
+    padded pair on the card); 12 kNN and 1 Sinkhorn launches per call or
+    fail. Returns (ms/pair, peak bytes, per-stage ms, the last outputs)."""
+    import torch
+
+    from rdmnet_tpu_torch.models import pipeline
+    from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    for _ in range(warm):
+        out = pipeline(model, *args, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        out = pipeline(model, *args, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / timed
+    peak = torch.cuda.max_memory_allocated()
+    stage_ms = {}
+    for _ in range(n_stage):
+        marks = []
+
+        def hook(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        prev = time.perf_counter()
+        out = pipeline(model, *args, device=dev, stage_hook=hook)
+        for name, t in marks:
+            stage_ms[name] = stage_ms.get(name, 0.0) + (t - prev) * 1e3 / n_stage
+            prev = t
+    n = warm + timed + n_stage
+    counts = launch_counts()
+    if counts != {"radius_knn": 12 * n, "sinkhorn": n}:
+        fail(f"{label}: launches {counts} over {n} pairs, expected 12 kNN and 1 Sinkhorn each")
+    tf = out["estimated_transform"]
+    if tf.shape != (4, 4) or not bool(torch.isfinite(tf).all()):
+        fail(f"{label}: non-finite or misshapen estimated_transform")
+    stages = (" stages " + json.dumps({k: round(v, 3) for k, v in stage_ms.items()})
+              if n_stage else "")
+    print(f"{label}: {ms:.3f} ms/pair over {timed} pairs, peak memory {peak / 2**20:.1f} MiB, "
+          f"launches {counts} over {n} pairs (12 kNN and 1 Sinkhorn per pair){stages}")
+    return ms, peak, stage_ms, out
+
+
+def aligned_plan_error(a, b):
+    """Max abs difference of two runs' log transport plans, patch by patch
+    through their matched (ref, src) node pairs (near-equal matching scores
+    may come out in another order); fails if the matched pairs differ."""
+    import torch
+
+    m = b["src_node_masks"].shape[0]
+    keys = [(o["ref_node_corr_indices"].long().cpu() * m + o["src_node_corr_indices"].long().cpu())
+            for o in (a, b)]
+    order = torch.argsort(keys[0], stable=True)[torch.argsort(torch.argsort(keys[1], stable=True))]
+    if not torch.equal(keys[0][order], keys[1]):
+        return None, 0
+    pa, pb = a["matching_scores"].cpu()[order], b["matching_scores"].cpu()
+    live = pb > -1e11
+    if not torch.equal(pa > -1e11, live):
+        return None, 0
+    return float((pa - pb)[live].abs().max()), int((order != torch.arange(len(order))).sum())
+
+
+def model_surface_phase(dev, kernels, ref, src, gt):
+    """Phase 11: the parity config, the other model families and the
+    converter on the card, at ``make_cfg()`` width and the 0.7 bucket, on the
+    phase-4 pair. Returns the launches per parity pair by kernel."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.cli.common import build_model_and_params
+    from rdmnet_tpu_torch.config import make_cfg, make_parity_cfg, make_tiny_cfg
+    from rdmnet_tpu_torch.data.procedural import procedural_pair
+    from rdmnet_tpu_torch.engine import batch_to_device, create_train_state, make_train_step
+    from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud, search_plan
+    from rdmnet_tpu_torch.models import RDMNet, pipeline
+    from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.kernels.radius_knn import knn_plan
+    from rdmnet_tpu_torch.utils.convert import params_from_jax, params_to_jax
+    from rdmnet_tpu_torch.utils.torch_convert import export_state_dict, port_key_and_kind
+
+    # ---- the parity config: 9 searches at K 63-81 ---------------------------
+    pcfg = make_parity_cfg()
+    pcfg = dataclasses.replace(pcfg, pyramid=pcfg.pyramid.scaled(0.7))
+    cap = pcfg.pyramid.caps[0]
+    args = (*pad_cloud(ref, cap, device=dev), *pad_cloud(src, cap, device=dev))
+    model = RDMNet(pcfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    rotate_kernel_points(model, SEED)
+    batch = build_pair_batch(*args, torch.eye(4, device=dev), pcfg.pyramid)
+    pts, cnts = pair_levels(batch, pcfg.pyramid.num_stages)
+    ks = [item.k for item in search_plan(pcfg.pyramid)]
+    knn_ms, knn_call_ms, knn_plain_ms, knn_bound = check_searches(pts, cnts, pcfg.pyramid,
+                                                                  kernels, prefix="parity ")
+    print(f"parity radius_knn per pair (12 searches, K {ks}): kernel {knn_ms:.4f} ms on the "
+          f"device, {knn_call_ms:.4f} ms in wrapper calls; plain {knn_plain_ms:.3f} ms, bound "
+          f"{knn_bound:.5f} ms; tables equal to the plain version's")
+    kernels["radius_knn"].update(parity_ms=knn_ms, parity_bound_ms=knn_bound)
+    ms, peak, stage_ms, out = timed_pipeline(model, args, dev, PARITY_WARM, PARITY_TIMED,
+                                             PARITY_STAGE, "parity pipeline (make_parity_cfg, "
+                                             "0.7 bucket, per-layer kernel points)")
+    per_pair = {"radius_knn": 12, "sinkhorn": 1}
+
+    # ---- the 256-entry list at level-0 shapes ----------------------------------
+    level0 = search_plan(pcfg.pyramid)[0]
+    for k in (81, 256):
+        sp = level0._replace(k=k)
+        ms_k, call_k, pms_k, bound_k, pairs, plan = check_knn(pts, cnts, sp, kernels)
+        print(knn_line(f"level-0 K={k} band={sp.band}", ms_k, call_k, pms_k, bound_k, plan, None)
+              + f"; candidate pairs {pairs}; table equal to the plain version's")
+        if plan.k_bucket != (128 if k <= 128 else 256):
+            fail(f"radius_knn K={k}: list bucket {plan.k_bucket}")
+        kernels["radius_knn"][f"level0_k{k}_ms"] = ms_k
+
+    # ---- converter on the card ---------------------------------------------------
+    state = model.state_dict()
+    schema = {upstream_key(k): tuple(v.shape) for k, v in state.items()}
+    if any(port_key_and_kind(up)[0] != k for up, k in zip(schema, state)):
+        fail("converter: the upstream schema does not map back onto the model")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rdmnet.pth.tar")
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in
+                              export_state_dict(state, schema).items()}, "epoch": 0}, path)
+        converted = build_model_and_params(pcfg, device=dev, torch_checkpoint=path)
+    carried = RDMNet(pcfg, device=dev, generator=torch.Generator().manual_seed(SEED + 1))
+    carried.load_state_dict(params_from_jax(params_to_jax(model)), strict=True)
+    tf_a = pipeline(converted, *args, device=dev)["estimated_transform"]
+    tf_b = pipeline(carried, *args, device=dev)["estimated_transform"]
+    diff = float((tf_a - tf_b).abs().max())
+    print(f"converter on the card: {len(schema)} upstream tensors through a .pth.tar, loaded "
+          f"strict; pose against the same weights through params_from_jax: max abs diff {diff:.3e}")
+    if diff > 1e-6 or not bool(torch.isfinite(tf_a).all()):
+        fail(f"converter: the converted checkpoint's pose differs by {diff}")
+    del model, converted, carried, batch
+    torch.cuda.empty_cache()
+
+    # ---- the other families at full width --------------------------------------
+    base = dataclasses.replace(make_cfg(), pyramid=make_cfg().pyramid.scaled(0.7))
+    host = host_pair(ref, src, gt, cap)
+    tiny = make_tiny_cfg()
+    small, _, _ = procedural_pair(SEED + 2, n_rings=16, n_azimuths=200)
+    small = small[np.random.RandomState(0).permutation(len(small))[:500]]
+    motion = np.eye(4, dtype=np.float32)
+    motion[:2, :2] = [[np.cos(0.05), -np.sin(0.05)], [np.sin(0.05), np.cos(0.05)]]
+    motion[:3, 3] = [0.5, 0.3, 0.1]
+    moved = ((small - motion[:3, 3]) @ motion[:3, :3]).astype(np.float32)
+    tcap = tiny.pyramid.caps[0]
+    for (name, cfg), (_, tcfg) in zip(family_cfgs(base).items(), family_cfgs(tiny).items()):
+        model = RDMNet(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+        timed_pipeline(model, args, dev, 1, 3, 0, f"{name} pipeline (0.7 bucket)")
+        state = create_train_state(cfg, model)
+        step = make_train_step(cfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(FAMILY_STEPS):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch_to_device(host, cfg.pyramid, device=dev), gen)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            step_ms = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts()
+            if counts != {"radius_knn": 12, "sinkhorn": 0}:
+                fail(f"{name} train step {i}: launches {counts}, expected 12 kNN and 0 Sinkhorn")
+            if not all(np.isfinite(v) for v in metrics.values()) or metrics["grad_norm"] <= 0:
+                fail(f"{name} train step {i}: non-finite losses or gradient: {metrics}")
+            print(f"{name} train step {i}: {step_ms:.3f} ms, "
+                  + ", ".join(f"{k} {v:.6g}" for k, v in metrics.items()))
+        print(f"{name} training: peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+              f"over {FAMILY_STEPS} steps, 12 kNN and 0 Sinkhorn launches per step")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+        for seed in FAMILY_SEEDS:
+            outs = []
+            for d in (dev, torch.device("cpu")):
+                m = RDMNet(tcfg, device=d, generator=torch.Generator().manual_seed(seed))
+                outs.append(pipeline(m, *pad_cloud(small, tcap, device=d),
+                                     *pad_cloud(moved, tcap, device=d), device=d))
+            o_gpu, o_cpu = outs
+            for side in ("ref", "src"):
+                g, c = getattr(o_gpu["batch"], side), getattr(o_cpu["batch"], side)
+                for field in ("points", "neighbors", "subsampling", "upsampling"):
+                    for lvl, (a, b) in enumerate(zip(getattr(g, field), getattr(c, field))):
+                        if not torch.equal(a.cpu(), b):
+                            fail(f"{name} card vs CPU (weights {seed}): {side} {field}[{lvl}]")
+            for key in ("nodes_ref_valid", "nodes_src_valid", "node_corr_valid"):
+                if not torch.equal(o_gpu[key].cpu(), o_cpu[key]):
+                    fail(f"{name} card vs CPU (weights {seed}): {key} differ")
+            err, swapped = aligned_plan_error(o_gpu, o_cpu)
+            if err is None or err > 1e-3:
+                fail(f"{name} card vs CPU (weights {seed}): matched patches or plans differ ({err})")
+            pose = float((o_gpu["estimated_transform"].cpu() - o_cpu["estimated_transform"])
+                         .abs().max())
+            print(f"{name} card vs CPU (tiny cfg, weights {seed}): tables and node masks equal, "
+                  f"matched node pairs equal ({swapped} patches in another order), plans within "
+                  f"{err:.3e}; pose {pose:.3e}")
+    return per_pair
+
+
 def main() -> None:
     import torch
 
@@ -1147,6 +1426,9 @@ def main() -> None:
         for line in b.wait().splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "built")):
                 print(f"[{b.name}] {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills and (int(spills[1]) or int(spills[2])):
+                fail(f"build: {b.name} spills registers: {line.strip()}")
     print(f"build: {time.perf_counter() - t0:.3f} s for {len(builds)} kernels")
 
     kernels = {
@@ -1404,6 +1686,10 @@ def main() -> None:
     for key, per in workflow_phase(dev, card, kernels, step_ms).items():
         for name, n in per.items():
             kernels[name][key] = n
+
+    # ---- 11. the model surface: parity config, families, converter -------------
+    for name, n in model_surface_phase(dev, kernels, ref, src, gt).items():
+        kernels[name]["launches_per_parity_pair"] = n
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

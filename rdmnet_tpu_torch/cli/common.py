@@ -4,7 +4,7 @@ forward, and padded -> dynamic output trimming.
 
 ``--device`` (``cuda`` or ``cpu``) takes the place of the JAX CLIs'
 ``--platform``. The port does not JIT, so there is no compile cache to set
-up. The parity config and upstream torch checkpoints come with their slice.
+up.
 """
 
 from __future__ import annotations
@@ -69,30 +69,78 @@ def apply_pyramid_overrides(cfg: Config, args) -> Config:
     return dataclasses.replace(cfg, pyramid=pyr) if pyr is not cfg.pyramid else cfg
 
 
-def make_cli_cfg(args) -> Config:
-    """``make_cfg()``, or ``make_tiny_cfg()`` under ``--cfg_preset tiny``,
-    with the pyramid overrides applied."""
-    from rdmnet_tpu_torch.config import make_cfg, make_tiny_cfg
+COARSE_MODULES = ("thdroformer", "geotransformer", "ape")
 
-    cfg = make_tiny_cfg() if getattr(args, "cfg_preset", None) == "tiny" else make_cfg()
+
+def add_coarse_module_flag(parser) -> None:
+    parser.add_argument("--coarse_module", default=None, choices=COARSE_MODULES,
+                        help="coarse transformer family (default thdroformer)")
+
+
+def add_model_overrides(parser, torch_checkpoint: bool = True) -> None:
+    """``--coarse_module``, ``--parity_cfg``, ``--no_parity_cfg`` and (unless
+    ``torch_checkpoint=False``) ``--torch_checkpoint``."""
+    if torch_checkpoint:
+        parser.add_argument("--torch_checkpoint", default=None,
+                            help="upstream RDMNet .pth.tar to load (converted at startup); "
+                                 "implies --parity_cfg unless --no_parity_cfg")
+        parser.add_argument("--no_parity_cfg", action="store_true",
+                            help="keep the default config with --torch_checkpoint")
+    parser.add_argument("--parity_cfg", action="store_true",
+                        help="the config of the upstream checkpoints (config.make_parity_cfg): "
+                             "neighbour limits 65,63,69,71,81, a kernel disposition per layer, "
+                             "NMS adjacency cut to 81; needed for weights converted by "
+                             "rdmnet-torch-convert")
+    add_coarse_module_flag(parser)
+
+
+def uses_parity_cfg(args) -> bool:
+    """``--parity_cfg``, or ``--torch_checkpoint`` without ``--no_parity_cfg``."""
+    return bool(getattr(args, "parity_cfg", False) or (
+        getattr(args, "torch_checkpoint", None) and not getattr(args, "no_parity_cfg", False)))
+
+
+def make_cli_cfg(args) -> Config:
+    """The config of a CLI run: ``make_tiny_cfg()`` under ``--cfg_preset
+    tiny``, else ``make_parity_cfg()`` when ``uses_parity_cfg(args)``, else
+    ``make_cfg()``; then ``--coarse_module`` and the pyramid overrides."""
+    from rdmnet_tpu_torch.config import make_cfg, make_parity_cfg, make_tiny_cfg
+
+    if getattr(args, "cfg_preset", None) == "tiny":
+        cfg = make_tiny_cfg()
+    elif uses_parity_cfg(args):
+        cfg = make_parity_cfg()
+    else:
+        cfg = make_cfg()
+    coarse = getattr(args, "coarse_module", None)
+    if coarse is not None:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, coarse_module=coarse))
     return apply_pyramid_overrides(cfg, args)
 
 
 def build_model_and_params(cfg: Config, snapshot_dir: Optional[str] = None,
-                           epoch: Optional[int] = None, device=None):
+                           epoch: Optional[int] = None, device=None,
+                           torch_checkpoint: Optional[str] = None):
     """The model on ``device`` (CUDA unless told otherwise) with the weights
-    of ``snapshot_dir``'s snapshot ``epoch`` (the latest if None), whatever
-    optimizer the snapshot was saved with; without a snapshot, weights drawn
-    from ``cfg.seed``. A missing ``snapshot_dir`` raises: a mistyped path
-    must not evaluate random weights. The port's model holds its
-    parameters, so it is returned alone."""
+    of an upstream ``torch_checkpoint`` (``.pth.tar``, through
+    ``utils/torch_convert``; use with ``make_parity_cfg()``), or of
+    ``snapshot_dir``'s snapshot ``epoch`` (the latest if None), whatever
+    optimizer the snapshot was saved with; with neither, weights drawn from
+    ``cfg.seed``. A missing ``snapshot_dir`` raises: a mistyped path must
+    not evaluate random weights. The port's model holds its parameters, so
+    it is returned alone."""
     from rdmnet_tpu_torch.engine.checkpoint import CheckpointManager
     from rdmnet_tpu_torch.models import RDMNet
 
     if snapshot_dir and not os.path.isdir(snapshot_dir):
         raise FileNotFoundError(f"snapshot_dir not found: {snapshot_dir}")
     model = RDMNet(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
-    if snapshot_dir:
+    if torch_checkpoint:
+        from rdmnet_tpu_torch.utils.torch_convert import convert_state_dict, load_torch_checkpoint
+
+        model.load_state_dict(convert_state_dict(load_torch_checkpoint(torch_checkpoint)),
+                              strict=True)
+    elif snapshot_dir:
         model.load_state_dict(CheckpointManager(snapshot_dir).restore_params(epoch), strict=True)
     return model
 

@@ -3,11 +3,13 @@
 
 Usage:
     rdmnet-torch-export --out_dir output/export [--snapshot_dir DIR [--test_epoch N]]
+                        [--torch_checkpoint F | --parity_cfg] [--coarse_module NAME]
                         [--buckets 0.5,0.7,1.0] [--check --asset_dir DIR] [--device cpu]
 
 The artifact (``weights.npz`` in the JAX artifact's layout + ``serving.json``,
-see ``rdmnet_tpu_torch/serving.py``) holds a snapshot's weights, or weights
-drawn from the config's seed without one. ``--check`` reloads it, registers the demo pair
+see ``rdmnet_tpu_torch/serving.py``) holds a snapshot's weights, an upstream
+checkpoint's, or weights drawn from the config's seed; its config records
+the coarse family, ``k2`` and the vote settings. ``--check`` reloads it, registers the demo pair
 ``000000.npy``/``000004.npy`` of ``--asset_dir`` through it and compares the
 pose with the live ``pipeline`` at the bucket the request was dispatched to.
 """
@@ -20,10 +22,11 @@ import numpy as np
 
 
 def main(argv=None):
-    from rdmnet_tpu_torch.cli.common import add_pyramid_overrides
+    from rdmnet_tpu_torch.cli.common import add_model_overrides, add_pyramid_overrides
 
     parser = argparse.ArgumentParser()
     add_pyramid_overrides(parser)
+    add_model_overrides(parser)
     parser.add_argument("--out_dir", default="output/export")
     parser.add_argument("--snapshot_dir", default=None)
     parser.add_argument("--test_epoch", type=int, default=None)
@@ -48,7 +51,8 @@ def main(argv=None):
     from rdmnet_tpu_torch.serving import export_inference, load_exported
 
     cfg = make_cli_cfg(args)
-    model = build_model_and_params(cfg, args.snapshot_dir, args.test_epoch, device=args.device)
+    model = build_model_and_params(cfg, args.snapshot_dir, args.test_epoch, device=args.device,
+                                   torch_checkpoint=args.torch_checkpoint)
     bucket_scales = tuple(float(s) for s in args.buckets.split(",") if s.strip())
     buckets = export_inference(cfg, model, args.out_dir, bucket_scales=bucket_scales)
     print(f"exported: {args.out_dir} (buckets={args.buckets}, caps="

@@ -6,10 +6,12 @@ correspondences beside the LGR pose.
 
 Usage:
     rdmnet-torch-infer --asset_dir DIR [--snapshot_dir DIR [--test_epoch N]]
+                       [--torch_checkpoint F | --parity_cfg] [--coarse_module NAME]
                        [--output_dir DIR] [--device cpu] [--ransac_iterations N]
 
 ``--asset_dir`` holds ``000000.npy``, ``000004.npy`` and ``000007.npy``.
-Without ``--snapshot_dir`` the weights are drawn from the config's seed.
+Without ``--snapshot_dir`` or ``--torch_checkpoint`` the weights are drawn
+from the config's seed.
 """
 
 from __future__ import annotations
@@ -30,13 +32,14 @@ def format_pose_line(ref_frame: int, src_frame: int, est: np.ndarray) -> str:
 
 
 def main(argv=None):
-    from rdmnet_tpu_torch.cli.common import (add_pyramid_overrides, build_model_and_params,
-                                             make_cli_cfg, make_forward, pad_pair_np,
-                                             trim_outputs)
+    from rdmnet_tpu_torch.cli.common import (add_model_overrides, add_pyramid_overrides,
+                                             build_model_and_params, make_cli_cfg, make_forward,
+                                             pad_pair_np, trim_outputs)
     from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset
 
     parser = argparse.ArgumentParser()
     add_pyramid_overrides(parser)
+    add_model_overrides(parser)
     parser.add_argument("--snapshot_dir", default=None)
     parser.add_argument("--test_epoch", type=int, default=None)
     parser.add_argument("--asset_dir", required=True)
@@ -50,7 +53,8 @@ def main(argv=None):
     dataset = RegistrationPairDataset(
         "kitti", root=args.asset_dir, subset="infer", demo_asset_dir=args.asset_dir
     )
-    model = build_model_and_params(cfg, args.snapshot_dir, args.test_epoch, device=args.device)
+    model = build_model_and_params(cfg, args.snapshot_dir, args.test_epoch, device=args.device,
+                                   torch_checkpoint=args.torch_checkpoint)
     forward = make_forward(cfg, model, with_gt=False, device=args.device)
 
     pose_lines = []

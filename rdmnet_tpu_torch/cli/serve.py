@@ -7,8 +7,9 @@ Usage:
 
 An artifact of the JAX package (no ``config`` in its ``serving.json``)
 serves when ``--buckets`` gives the scales it was exported with; the config
-then comes from ``--cfg_preset`` and the pyramid overrides, which are
-refused without ``--buckets`` (the port's artifact carries its config).
+then comes from ``--cfg_preset``, ``--parity_cfg``, ``--coarse_module`` and
+the pyramid overrides, which are refused without ``--buckets`` (the port's
+artifact carries its config).
 
 Protocol (npz over HTTP):
 
@@ -104,10 +105,12 @@ def make_handler(serve_fn, meta):
 
 
 def main(argv=None):
-    from rdmnet_tpu_torch.cli.common import add_pyramid_overrides, make_cli_cfg
+    from rdmnet_tpu_torch.cli.common import (add_model_overrides, add_pyramid_overrides,
+                                             make_cli_cfg)
 
     parser = argparse.ArgumentParser()
     add_pyramid_overrides(parser)
+    add_model_overrides(parser, torch_checkpoint=False)
     parser.add_argument("--artifact_dir", required=True,
                         help="directory written by rdmnet-torch-export (or rdmnet-export)")
     parser.add_argument("--host", default="127.0.0.1")
@@ -117,8 +120,9 @@ def main(argv=None):
     parser.add_argument("--buckets", default=None,
                         help="bucket scales of an artifact of the JAX package (comma floats)")
     args = parser.parse_args(argv)
-    given = [f"--{k}" for k in ("caps", "band_caps", "neighbor_limits", "cfg_preset")
-             if getattr(args, k) is not None]
+    given = [f"--{k}" for k in ("caps", "band_caps", "neighbor_limits", "cfg_preset",
+                                "coarse_module") if getattr(args, k) is not None]
+    given += ["--parity_cfg"] if args.parity_cfg else []
     if given and not args.buckets:
         # the port's artifact carries its config: only a JAX artifact reads these
         parser.error(f"{', '.join(given)} apply only with --buckets (an artifact of the "

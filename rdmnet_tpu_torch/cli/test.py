@@ -6,8 +6,12 @@ means, and writes the reference's ``.npz`` schema for ``rdmnet-torch-eval``.
 Usage:
     rdmnet-torch-test --dataset kitti --root /data/KITTI [--snapshot_dir DIR]
         [--test_epoch N] [--feature_dir DIR] [--buckets 0.7,1.0] [--device cpu]
+        [--torch_checkpoint F | --parity_cfg] [--coarse_module NAME]
 
-MulRan disables the vote branch at inference (reference test.py:107-108).
+An upstream ``.pth.tar`` (``--torch_checkpoint``) is converted at startup
+and runs under the parity config unless ``--no_parity_cfg``; a snapshot
+written by ``rdmnet-torch-convert`` needs ``--parity_cfg``. MulRan disables
+the vote branch at inference (reference test.py:107-108).
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import torch
 def main(argv=None):
     """Parse ``argv`` (``sys.argv`` if None), evaluate, and return the
     ``SummaryBoard`` of the run."""
-    from rdmnet_tpu_torch.cli.common import (add_pyramid_overrides, build_model_and_params,
-                                             make_cli_cfg)
+    from rdmnet_tpu_torch.cli.common import (add_model_overrides, add_pyramid_overrides,
+                                             build_model_and_params, make_cli_cfg,
+                                             uses_parity_cfg)
     from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset
 
     parser = argparse.ArgumentParser()
@@ -55,6 +60,7 @@ def main(argv=None):
                         help="vote branch at inference: auto disables it for "
                              "--dataset mulran (reference test.py:107-108)")
     add_pyramid_overrides(parser)
+    add_model_overrides(parser)
     parser.add_argument("--no_compress", action="store_true",
                         help="write uncompressed .npz dumps (rdmnet-torch-eval reads both)")
     args = parser.parse_args(argv)
@@ -62,6 +68,10 @@ def main(argv=None):
         parser.error(f"--shard_id {args.shard_id} outside 0..{args.num_shards - 1}")
 
     cfg = make_cli_cfg(args)
+    if uses_parity_cfg(args) and args.dataset != "kitti":
+        # the parity limits are KITTI's; upstream calibrates them per dataset
+        print(f"WARNING: the parity config uses KITTI-calibrated neighbor limits; for "
+              f"{args.dataset} calibrate them and pass --neighbor_limits")
     vote_on = (args.dataset != "mulran") if args.use_vote == "auto" else (args.use_vote == "on")
     if not vote_on:
         cfg = dataclasses.replace(cfg, vote=dataclasses.replace(cfg.vote, inference_use_vote=False))
@@ -79,7 +89,8 @@ def main(argv=None):
     extra = {"demo_asset_dir": args.root} if args.subset == "infer" else {}
     dataset = RegistrationPairDataset(args.dataset, root=args.root, subset=args.subset,
                                       point_limit=cfg.test.point_limit, **extra)
-    model = build_model_and_params(cfg, args.snapshot_dir, args.test_epoch, device=args.device)
+    model = build_model_and_params(cfg, args.snapshot_dir, args.test_epoch, device=args.device,
+                                   torch_checkpoint=args.torch_checkpoint)
     indices = list(range(args.shard_id, len(dataset), args.num_shards))
     board = run_eval_loop(cfg, model, dataset, indices, feature_dir,
                           compress=not args.no_compress, cfgs=cfgs, device=args.device)

@@ -6,8 +6,8 @@ Usage:
     rdmnet-torch-trainval --root /data/KITTI_odometry [--output_dir DIR]
         [--resume] [--max_epoch N] [--device cpu] [--cfg_preset tiny]
 
-One device (CUDA unless ``--device cpu``); data parallelism and the other
-coarse-module families are not ported yet.
+One device (CUDA unless ``--device cpu``); data parallelism is not ported
+yet. ``--coarse_module`` picks the coarse transformer family.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import dataclasses
 def main(argv=None):
     """Parse ``argv`` (``sys.argv`` if None), train, and return the
     ``Trainer``."""
-    from rdmnet_tpu_torch.cli.common import add_pyramid_overrides, make_cli_cfg
+    from rdmnet_tpu_torch.cli.common import (add_coarse_module_flag, add_pyramid_overrides,
+                                             make_cli_cfg)
     from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset
     from rdmnet_tpu_torch.data.loader import PairLoader
     from rdmnet_tpu_torch.engine.trainer import Trainer
@@ -60,6 +61,7 @@ def main(argv=None):
                         help="pyramid capacity-bucket factor for the whole run (0.7 "
                              "fits typical KITTI scans)")
     add_pyramid_overrides(parser)
+    add_coarse_module_flag(parser)
     parser.add_argument("--scheduler", default=None, choices=["step", "warmup_cosine"],
                         help="LR schedule family: step decay (default) or warmup-cosine")
     parser.add_argument("--warmup_steps", type=int, default=None,

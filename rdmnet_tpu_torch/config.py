@@ -5,9 +5,8 @@ inference, the train and eval steps, serving and RANSAC read, with the same
 field names and defaults so one set of numbers describes both
 implementations. Frozen dataclasses, as there.
 
-Left out until their slices: the dataset roots, the loader's worker count,
-parallel and the other coarse-module families' fields, and the n2p/p2p
-score gates that no port path reads. ``PyramidConfig`` has no ``approx_recall``: PyTorch has no
+Left out: the dataset roots, the loader's worker count, parallel, and the
+n2p/p2p score gates that no port path reads. ``PyramidConfig`` has no ``approx_recall``: PyTorch has no
 counterpart of ``lax.approx_max_k``, so the port's radius search is always
 exact.
 """
@@ -103,7 +102,7 @@ class ModelConfig:
     num_points_in_patch: int = 128
     num_sinkhorn_iterations: int = 100
     ground_truth_corres_radius: float = 2.4
-    # the port implements the ThDRoFormer family only
+    # coarse transformer family: "thdroformer", "geotransformer" or "ape"
     coarse_module: str = "thdroformer"
 
 
@@ -124,7 +123,8 @@ class ThDRoFormerConfig:
     num_layers: int = 4
     input_dim2: int = 256
     num_layers2: int = 4
-    # sparse top-k attention schedule for stage 2; the port runs dense only
+    # sparse top-k attention schedule for stage 2 (None = dense): the
+    # fraction of the nodes each self-attention layer keeps per query
     k2: Optional[Tuple[float, ...]] = None
 
 
@@ -141,6 +141,21 @@ class VoteConfig:
     n2n_overlap_threshold: float = 1.2
     n2p_overlap_threshold: float = 0.6
     p2p_overlap_threshold: float = 0.6
+
+
+@dataclasses.dataclass(frozen=True)
+class GeoTransformerConfig:
+    """The GeoTransformer stack (``coarse_module="geotransformer"``)."""
+
+    input_dim: int = 2048
+    hidden_dim: int = 128
+    output_dim: int = 256
+    num_heads: int = 4
+    blocks: Tuple[str, ...] = ("self", "cross", "self", "cross", "self", "cross")
+    sigma_d: float = 4.8
+    sigma_a: float = 15.0
+    angle_k: int = 3
+    reduction_a: str = "max"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,6 +268,7 @@ class Config:
     coarse_matching: CoarseMatchingConfig = dataclasses.field(default_factory=CoarseMatchingConfig)
     thdroformer: ThDRoFormerConfig = dataclasses.field(default_factory=ThDRoFormerConfig)
     vote: VoteConfig = dataclasses.field(default_factory=VoteConfig)
+    geotransformer: GeoTransformerConfig = dataclasses.field(default_factory=GeoTransformerConfig)
     fine_matching: FineMatchingConfig = dataclasses.field(default_factory=FineMatchingConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     ransac: RansacConfig = dataclasses.field(default_factory=RansacConfig)
@@ -297,6 +313,22 @@ def make_cfg(**overrides) -> Config:
     cfg = Config(**overrides)
     check_geometry_consistent(cfg)
     return cfg
+
+
+def make_parity_cfg(**overrides) -> Config:
+    """The config the upstream RDMNet checkpoints were trained under, for
+    weights converted by ``utils/torch_convert``: the neighbour limits the
+    upstream code calibrates on KITTI, (65, 63, 69, 71, 81); a kernel
+    disposition per KPConv layer (each restores its own ``kernel_points``);
+    and the NMS adjacency cut to the last limit, 81, as upstream cuts it.
+    The search is exact, as always in the port."""
+    cfg = Config(**overrides)
+    return dataclasses.replace(
+        cfg,
+        pyramid=dataclasses.replace(cfg.pyramid, neighbor_limits=(65, 63, 69, 71, 81)),
+        backbone=dataclasses.replace(cfg.backbone, shared_influence=False),
+        vote=dataclasses.replace(cfg.vote, nms_neighbor_limit=81),
+    )
 
 
 def make_tiny_cfg() -> Config:

@@ -25,7 +25,7 @@
 // and they are inserted one by one in lane order, which is index order.
 // The sorted list lives in registers spread over the warp (position
 // p = lane * SL + slot, SL = KB / 32 slots a lane, KB the list length
-// bucket 32, 64 or 128), so an insertion is the same few instructions on
+// bucket 32, 64, 128 or 256), so an insertion is the same few instructions on
 // every lane: one compare and one select per slot and one __shfl_up_sync to
 // carry the last slot of the lane below. Candidates arrive in increasing
 // index order, so every index in the list is below the newcomer's and
@@ -41,7 +41,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#define KNN_KMAX 128
+#define KNN_KMAX 256
 #define KNN_MAX_WARPS 16
 #define KNN_SMEM_MAX 232448
 #define FULL_MASK 0xffffffffu
@@ -220,7 +220,7 @@ static int launch(const float* q, const float* s, const int* s_count, const int*
 // q (B, Q, 3), s (B, S, 3) float32; s_count (B,) int32; win (B, n_chunks)
 // int32 window starts or NULL (then every query sees rows [0, S)); out
 // (B, Q, K) int32. The launch plan: `warps` queries per block (a divisor of
-// chunk), the list bucket `kb` (1 for K = 1, else 32, 64 or 128, >= K) and
+// chunk), the list bucket `kb` (1 for K = 1, else 32, 64, 128 or 256, >= K) and
 // `tile_rows` support rows staged in shared memory at once. Returns
 // cudaGetLastError() after the launch.
 extern "C" int radius_knn_launch(const float* q, const float* s, const int* s_count,
@@ -247,6 +247,9 @@ extern "C" int radius_knn_launch(const float* q, const float* s, const int* s_co
                        tile_rows, out, st);
     case 128:
       return launch<4>(q, s, s_count, win, B, Q, S, K, r2, chunk, band, n_chunks, warps,
+                       tile_rows, out, st);
+    case 256:
+      return launch<8>(q, s, s_count, win, B, Q, S, K, r2, chunk, band, n_chunks, warps,
                        tile_rows, out, st);
     default:
       return (int)cudaErrorInvalidValue;

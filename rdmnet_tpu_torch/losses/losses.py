@@ -198,10 +198,13 @@ class SingleSideChamferLoss:
 
 
 class OverallLoss:
-    """The weighted sum of the seven terms."""
+    """The weighted sum of the seven terms; without the vote layer
+    (``model_use_vote=False``) the vote, n2n and node-on-cloud terms are
+    left out."""
 
     def __init__(self, cfg: Config):
         self.weights = cfg.loss
+        self.use_vote = cfg.vote.model_use_vote
         self.coarse_loss = CoarseMatchingLoss(cfg)
         self.gap_loss = GapLoss(cfg)
         self.overlap_loss = OverlapLoss(cfg)
@@ -213,9 +216,12 @@ class OverallLoss:
         c_loss = self.coarse_loss(out)
         g_loss = self.gap_loss(out, batch)
         n_loss, p_loss = self.overlap_loss(out, batch)
-        v_loss, nn_loss = self.vote_loss(out, batch)
-        d_loss = self.node_on_pc_loss(out)
         loss = w.weight_coarse_loss * c_loss + w.weight_gap_loss * g_loss + n_loss + p_loss
-        loss = loss + (v_loss + d_loss) * w.weight_vote_loss + nn_loss
-        return {"c_loss": c_loss, "g_loss": g_loss, "n_loss": n_loss, "p_loss": p_loss,
-                "v_loss": v_loss, "nn_loss": nn_loss, "d_loss": d_loss, "loss": loss}
+        result = {"c_loss": c_loss, "g_loss": g_loss, "n_loss": n_loss, "p_loss": p_loss}
+        if self.use_vote:
+            v_loss, nn_loss = self.vote_loss(out, batch)
+            d_loss = self.node_on_pc_loss(out)
+            loss = loss + (v_loss + d_loss) * w.weight_vote_loss + nn_loss
+            result.update(v_loss=v_loss, nn_loss=nn_loss, d_loss=d_loss)
+        result["loss"] = loss
+        return result

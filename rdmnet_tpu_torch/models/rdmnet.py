@@ -1,8 +1,12 @@
 """RDMNet on one pair (twin of ``rdmnet_tpu/models/rdmnet.py``).
 
-Order: stacked-pair KPConv encoder -> ThDRoFormer #1 -> decoder -> vote,
-NMS -> ThDRoFormer #2 -> point-to-node partition -> superpoint matching ->
-patch Sinkhorn -> local-to-global registration. ``with_gt`` adds the
+Order: stacked-pair KPConv encoder -> coarse transformer #1 -> decoder ->
+vote, NMS -> coarse transformer #2 -> point-to-node partition -> superpoint
+matching -> patch Sinkhorn -> local-to-global registration. The coarse
+transformer family is ``cfg.model.coarse_module`` (ThDRoFormer, with the
+sparse ``k2`` schedule on stage 2 only; GeoTransformer; APE). Without the
+vote layer (``model_use_vote=False``) there is no vote, NMS or second
+transformer: the coarse points are the nodes. ``with_gt`` adds the
 ground-truth targets the losses read (vote masks, patch overlaps);
 ``training`` swaps the matched patches for sampled ground-truth ones, runs
 Sinkhorn under autograd and skips registration. Submodules carry the flax
@@ -24,16 +28,20 @@ from rdmnet_tpu_torch.config import Config, PyramidConfig
 from rdmnet_tpu_torch.device import resolve_device
 from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch, stack_pair_graph
 from rdmnet_tpu_torch.nn.backbone import Decoder, Encoder
+from rdmnet_tpu_torch.nn.geotransformer import GeometricTransformer
 from rdmnet_tpu_torch.nn.kpconv import KPConv
 from rdmnet_tpu_torch.nn.matching import superpoint_matching, superpoint_target_sample
 from rdmnet_tpu_torch.nn.sinkhorn import LearnableLogOptimalTransport
-from rdmnet_tpu_torch.nn.thdroformer import ThDRoFormer
+from rdmnet_tpu_torch.nn.thdroformer import APETransformer, ThDRoFormer
+from rdmnet_tpu_torch.nn.transformers import LearnablePositionalEmbedding
 from rdmnet_tpu_torch.nn.vote import VoteLayer
 from rdmnet_tpu_torch.ops.correspondences import (
     mutual_nearest_node_masks,
     node_correspondence_overlaps,
 )
 from rdmnet_tpu_torch.ops.geometry import take_padded
+from rdmnet_tpu_torch.ops.kernels.radius_knn import KMAX
+from rdmnet_tpu_torch.ops.kernels.sinkhorn import MAX_K1
 from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
 from rdmnet_tpu_torch.ops.nms import greedy_nms
 from rdmnet_tpu_torch.ops.partition import point_to_node_partition
@@ -44,7 +52,8 @@ STAGES = ("build", "encoder+T1", "decoder", "vote/NMS/T2", "matching", "OT", "LG
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from an explicit generator, flax's init families:
     Linear weight N(0, 1/fan_in) with zero bias, KPConv weights
-    U(+-sqrt(1/(K*Cin))) with zero bias, norms at scale 1, bias 0."""
+    U(+-sqrt(1/(K*Cin))) with zero bias, learnable positional embeddings
+    N(0, 1), norms at scale 1, bias 0."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
@@ -58,30 +67,73 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                   * bound)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, LearnablePositionalEmbedding):
+                mod.embeddings.copy_(torch.randn(mod.embeddings.shape, generator=generator))
+
+
+def coarse_transformer(cfg: Config, stage: int) -> nn.Module:
+    """The coarse transformer of ``stage`` (1: on the encoder's coarse
+    features; 2: on the voted NMS survivors) for ``cfg.model.coarse_module``.
+    Every family takes ``(ref_points, src_points, ref_feats, src_feats,
+    ref_valid, src_valid)``."""
+    kind = cfg.model.coarse_module
+    td = cfg.thdroformer
+    in_dim = td.input_dim if stage == 1 else td.input_dim2
+    layers = td.num_layers if stage == 1 else td.num_layers2
+    if kind == "thdroformer":
+        return ThDRoFormer(in_dim, td.output_dim, td.hidden_dim, td.num_heads, layers,
+                           k=None if stage == 1 else td.k2)
+    if kind == "geotransformer":
+        g = cfg.geotransformer
+        return GeometricTransformer(in_dim, g.output_dim, g.hidden_dim, g.num_heads, g.blocks,
+                                    g.sigma_d, g.sigma_a, g.angle_k, g.reduction_a)
+    if kind == "ape":
+        return APETransformer(in_dim, td.output_dim, td.hidden_dim, td.num_heads, layers)
+    raise ValueError(f"unknown coarse_module {kind!r}")
+
+
+def check_kernel_limits(cfg: Config) -> None:
+    """Raise when ``cfg`` asks the CUDA kernels for more than they take: a
+    radius search with k > ``KMAX`` or Sinkhorn patches of
+    ``num_points_in_patch + 1 > MAX_K1`` rows. The JAX package has no such
+    limits; on the card they would otherwise fail in the middle of a
+    forward (``RDMNet`` calls it when built on a card)."""
+    pyr = cfg.pyramid
+    fields = [(f"pyramid.neighbor_limits[{i}]", k) for i, k in enumerate(pyr.neighbor_limits)]
+    if pyr.upsampling_limit is not None:
+        fields.append(("pyramid.upsampling_limit", pyr.upsampling_limit))
+    for name, k in fields:
+        if k > KMAX:
+            raise ValueError(f"{name} = {k}: the CUDA radius-kNN kernel takes k <= {KMAX}")
+    k1 = cfg.model.num_points_in_patch + 1
+    if k1 > MAX_K1:
+        raise ValueError(f"model.num_points_in_patch = {cfg.model.num_points_in_patch}: the CUDA "
+                         f"Sinkhorn kernel takes patches of num_points_in_patch + 1 <= {MAX_K1} "
+                         "rows")
 
 
 class RDMNet(nn.Module):
     def __init__(self, cfg: Config, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.model.coarse_module != "thdroformer" or cfg.thdroformer.k2 is not None:
-            raise NotImplementedError("the port implements the dense ThDRoFormer only")
-        if not cfg.vote.model_use_vote:
-            raise NotImplementedError("the port implements models with the vote layer only")
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            check_kernel_limits(cfg)
         self.cfg = cfg
-        td = cfg.thdroformer
+        kind = cfg.model.coarse_module
+        out_dim = cfg.geotransformer.output_dim if kind == "geotransformer" \
+            else cfg.thdroformer.output_dim
         self.encoder = Encoder(cfg.backbone)
-        self.transformer = ThDRoFormer(td.input_dim, td.output_dim, td.hidden_dim,
-                                       td.num_heads, td.num_layers)
-        self.proj_n2p_score = nn.Linear(td.output_dim, 1)
+        self.transformer = coarse_transformer(cfg, 1)
+        self.proj_n2p_score = nn.Linear(out_dim, 1)
         self.decoder = Decoder(cfg.backbone)
-        self.vote = VoteLayer(cfg.vote, td.output_dim)
-        self.proj_n2n_score = nn.Linear(td.output_dim, 1)
-        self.transformer2 = ThDRoFormer(td.input_dim2, td.output_dim, td.hidden_dim,
-                                        td.num_heads, td.num_layers2)
+        if cfg.vote.model_use_vote:
+            self.vote = VoteLayer(cfg.vote, out_dim)
+            self.proj_n2n_score = nn.Linear(out_dim, 1)
+            self.transformer2 = coarse_transformer(cfg, 2)
         self.optimal_transport = LearnableLogOptimalTransport(cfg.model.num_sinkhorn_iterations)
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(cfg.seed))
-        self.to(resolve_device(device))
+        self.to(dev)
         self.eval()
 
     @property
@@ -140,18 +192,22 @@ class RDMNet(nn.Module):
         out["src_p2p_scores_c"] = torch.sigmoid(dec_f[1][:, -1])
         mark("decoder")
 
-        if with_gt:
-            out["vote_mask_mat"] = mutual_nearest_node_masks(
-                ref_points_c, src_points_c, batch.transform,
-                cfg.model.ground_truth_corres_radius, ref_mask_c, src_mask_c)
         points_c_pair = torch.stack([ref_points_c, src_points_c])
         mask_pair = torch.stack([ref_mask_c, src_mask_c])
-        shifted_pair, voted_feats = self.vote(points_c_pair, torch.stack([ref_feats_c, src_feats_c]))
-        shifted_pair = torch.where(mask_pair[..., None], shifted_pair, points_c_pair)
-        out["shifted_ref_points_c"], out["shifted_src_points_c"] = shifted_pair[0], shifted_pair[1]
-        n2n = self.proj_n2n_score(voted_feats)[..., 0]
-        out["ref_n2n_scores_c"], out["src_n2n_scores_c"] = torch.sigmoid(n2n[0]), torch.sigmoid(n2n[1])
-        if cfg.vote.inference_use_vote:
+        if cfg.vote.model_use_vote:
+            if with_gt:
+                out["vote_mask_mat"] = mutual_nearest_node_masks(
+                    ref_points_c, src_points_c, batch.transform,
+                    cfg.model.ground_truth_corres_radius, ref_mask_c, src_mask_c)
+            shifted_pair, voted_feats = self.vote(points_c_pair,
+                                                  torch.stack([ref_feats_c, src_feats_c]))
+            shifted_pair = torch.where(mask_pair[..., None], shifted_pair, points_c_pair)
+            out["shifted_ref_points_c"] = shifted_pair[0]
+            out["shifted_src_points_c"] = shifted_pair[1]
+            n2n = self.proj_n2n_score(voted_feats)[..., 0]
+            out["ref_n2n_scores_c"] = torch.sigmoid(n2n[0])
+            out["src_n2n_scores_c"] = torch.sigmoid(n2n[1])
+        if cfg.vote.model_use_vote and cfg.vote.inference_use_vote:
             # node selection and partition decide indices only: no gradient
             nodes_pair = shifted_pair.detach()
             keep_pair, rounds = greedy_nms(nodes_pair, mask_pair, cfg.vote.nms_radius,
@@ -163,9 +219,9 @@ class RDMNet(nn.Module):
                 ref_valid=node_valid[0], src_valid=node_valid[1])
             out["nodes_ref"], out["nodes_src"] = shifted_pair[0], shifted_pair[1]
         else:
-            # the vote branch still runs (its outputs feed the losses), but
-            # matching takes the unshifted nodes and the first transformer's
-            # features (the MulRan setting)
+            # no vote layer, or one whose outputs only feed the losses (the
+            # MulRan setting): matching takes the unshifted nodes and the
+            # first transformer's features
             nodes_pair, node_valid = points_c_pair, mask_pair
             out["nms_rounds"] = 0
             out["nodes_ref"], out["nodes_src"] = ref_points_c, src_points_c

@@ -2,8 +2,9 @@
 
 Masked, unbatched (N, C) attention for padded clouds. ``valid`` masks are
 True for real entries; invalid keys are set to -1e9 (not -inf) before the
-softmax, as in the JAX package, so a fully masked row stays finite. Dense
-attention only (the inference default).
+softmax, as in the JAX package, so a fully masked row stays finite.
+Rotary self-attention can keep only the top-k keys of each query (sparse
+top-k attention, ThDRoFormer's ``k2`` schedule).
 """
 
 from __future__ import annotations
@@ -38,12 +39,26 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(0, 1).reshape(n, h * d)
 
 
-def attend(q, k, v, kv_valid: Optional[torch.Tensor]) -> torch.Tensor:
-    """Masked softmax attention: (H, N, d), (H, M, d), (H, M, d) -> (H, N, d)."""
+def attend(q, k, v, kv_valid: Optional[torch.Tensor], topk: Optional[int] = None,
+           topk_count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked softmax attention: (H, N, d), (H, M, d), (H, M, d) -> (H, N, d).
+
+    ``topk`` (static) keeps each query's ``topk`` highest scores and zeroes
+    the rest; ranks at or beyond ``topk_count`` (a 0-d tensor <= topk, the
+    share of the valid keys) are masked before that softmax. The kept
+    probabilities are scattered into a zero (H, N, M) plan, the size of the
+    dense scores: no (H, N, topk, M) one-hot."""
     scores = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if kv_valid is not None:
         scores = torch.where(kv_valid[None, None, :], scores, torch.full_like(scores, NEG_INF))
-    return torch.softmax(scores, dim=-1) @ v
+    if topk is None:
+        return torch.softmax(scores, dim=-1) @ v
+    top_vals, top_idx = torch.topk(scores, topk, dim=-1)
+    if topk_count is not None:
+        rank_ok = torch.arange(topk, device=scores.device) < topk_count
+        top_vals = torch.where(rank_ok, top_vals, torch.full_like(top_vals, NEG_INF))
+    attn = torch.zeros_like(scores).scatter(-1, top_idx, torch.softmax(top_vals, dim=-1))
+    return attn @ v
 
 
 class MultiHeadAttention(nn.Module):
@@ -66,7 +81,8 @@ class RotaryMultiHeadAttention(MultiHeadAttention):
     """MHA with 3D rotary rotation of q and k: per-head angles
     sigmoid(pos_emb) * 2 pi, one per adjacent feature pair."""
 
-    def forward(self, input_q, input_k, input_v, pos_emb_q, pos_emb_k, kv_valid=None):
+    def forward(self, input_q, input_k, input_v, pos_emb_q, pos_emb_k, kv_valid=None,
+                topk=None, topk_count=None):
         h = self.num_heads
 
         def theta(pe):
@@ -76,7 +92,7 @@ class RotaryMultiHeadAttention(MultiHeadAttention):
         q = rotary_rotate(_split_heads(self.proj_q(input_q), h), theta(pos_emb_q))
         k = rotary_rotate(_split_heads(self.proj_k(input_k), h), theta(pos_emb_k))
         v = _split_heads(self.proj_v(input_v), h)
-        return _merge_heads(attend(q, k, v, kv_valid))
+        return _merge_heads(attend(q, k, v, kv_valid, topk, topk_count))
 
 
 class AttentionOutput(nn.Module):
@@ -118,8 +134,9 @@ class RotaryTransformerLayer(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=1e-5)
         self.output = AttentionOutput(d_model)
 
-    def forward(self, input_states, memory_states, pos_emb, memory_valid=None):
+    def forward(self, input_states, memory_states, pos_emb, memory_valid=None, topk=None,
+                topk_count=None):
         hidden = self.attention(input_states, memory_states, memory_states, pos_emb, pos_emb,
-                                kv_valid=memory_valid)
+                                kv_valid=memory_valid, topk=topk, topk_count=topk_count)
         x = self.norm(self.linear(hidden) + input_states)
         return self.output(x)

@@ -23,7 +23,7 @@ import torch
 from rdmnet_tpu_torch.ops.geometry import dot3, sq_norm3
 from rdmnet_tpu_torch.ops.kernels._build import check, load_library
 
-KMAX = 128  # largest k the kernel takes
+KMAX = 256  # largest k the kernel takes
 NUM_SMS = 132  # H100 SXM
 WINDOW_ROWS_MAX = 7168  # rows staged at once: 112 KB (the 1.0 bucket's level-0 band), 2 blocks/SM
 ROW_BYTES = 16  # a staged support row: float4 (x, y, z, |s|^2)
@@ -33,7 +33,7 @@ class KnnPlan(NamedTuple):
     """How ``csrc/radius_knn.cu`` runs one search."""
 
     warps: int  # queries (one warp each) per block; divides the query chunk
-    k_bucket: int  # length of the register-resident top-K list: 1, 32, 64 or 128
+    k_bucket: int  # length of the register-resident top-K list: 1, 32, 64, 128 or 256
     tile_rows: int  # support rows staged in shared memory at once
     tiled: bool  # the window is larger than one tile and is swept tile by tile
     smem_bytes: int
@@ -48,15 +48,15 @@ def knn_plan(batch: int, nq: int, ns: int, k: int, band: Optional[int] = None) -
     a larger one is swept in tiles of that many rows. Blocks hold 16, 8 or 4
     warps: the most that still makes at least two blocks per SM, so small
     searches spread over the card. Every choice divides 64, hence the query
-    chunk. The list bucket is the smallest of 32, 64, 128 that holds k (1
-    for k = 1, which keeps one best per lane instead).
+    chunk. The list bucket is the smallest of 32, 64, 128, 256 that holds k
+    (1 for k = 1, which keeps one best per lane instead).
     """
     if not 1 <= k <= KMAX:
         raise ValueError(f"radius_knn: k={k} outside [1, {KMAX}]")
     rows = ns if band is None else band
     tile_rows = max(1, min(rows, WINDOW_ROWS_MAX))
     warps = next((w for w in (16, 8) if batch * -(-nq // w) >= 2 * NUM_SMS), 4)
-    k_bucket = 1 if k == 1 else next(kb for kb in (32, 64, 128) if k <= kb)
+    k_bucket = 1 if k == 1 else next(kb for kb in (32, 64, 128, 256) if k <= kb)
     return KnnPlan(warps, k_bucket, tile_rows, rows > WINDOW_ROWS_MAX, tile_rows * ROW_BYTES)
 
 

@@ -94,9 +94,10 @@ def load_exported(out_dir: str, device=None, cfg=None,
     and returns a numpy dict of ``SERVE_OUTPUTS`` in their padded shapes;
     ``serve.last_cap`` is the bucket that served the last request.
 
-    ``cfg`` and ``bucket_scales`` default to the artifact's own; an artifact
-    of the JAX package has neither, so the caller passes the config and the
-    scales it was exported with. Raises if a bucket's capacity differs from
+    ``cfg`` and ``bucket_scales`` default to the artifact's own (its config
+    names the coarse family, ``k2`` and the vote settings); an artifact of
+    the JAX package has neither, so the caller passes the config (family
+    included) and the scales it was exported with. Raises if a bucket's capacity differs from
     the artifact's.
     """
     from rdmnet_tpu_torch.config import Config, config_from_dict
@@ -124,10 +125,10 @@ def load_exported(out_dir: str, device=None, cfg=None,
                          f"and scales {list(bucket_scales)} differ from the artifact's {caps}")
 
     weights = np.load(osp.join(out_dir, "weights.npz"))
-    model = RDMNet(cfg, device="cpu")
+    # built on the device (which checks the config against the kernels'
+    # limits) and loaded once; every bucket is a view over the same tensors
+    model = RDMNet(cfg, device=dev)
     load_flat_params(model, [weights[f"w{i}"] for i in range(meta["n_weights"])])
-    # on the device once; every bucket is a view over the same tensors
-    model.to(dev)
     calls = [(b["cap"], with_pyramid(model, b["cfg"].pyramid)) for b in buckets]
 
     def serve(ref_points: np.ndarray, src_points: np.ndarray) -> Dict[str, np.ndarray]:

@@ -1,2 +1,3 @@
 """Utilities: weights and train states from the JAX package's trees, its
-artifact's flat layout; host SE(3) helpers and augmentation; numpy metrics."""
+artifact's flat layout; upstream RDMNet checkpoints (``torch_convert``);
+host SE(3) helpers and augmentation; numpy metrics."""

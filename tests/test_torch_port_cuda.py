@@ -1,5 +1,7 @@
 """CUDA kernels of the port against their plain PyTorch versions, and the
-training, serving and evaluation paths against the CPU's, on the card.
+training, serving and evaluation paths against the CPU's, on the card; the
+model's construction-time check of the kernels' limits (k <= 256,
+num_points_in_patch + 1 <= 208).
 
 Imports no JAX, so it runs where only PyTorch is installed:
 
@@ -119,7 +121,7 @@ def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
     torch.testing.assert_close(got[live], want[live], rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("k", [1, 16, 40, 64, 128])
+@pytest.mark.parametrize("k", [1, 16, 40, 64, 128, 81, 200, 256])
 def test_radius_knn_kernel_exact_ties_in_tiled_window(cuda, k):
     """Duplicated support points in an unbanded window too large for one
     tile; s_count ends inside the last tile of cloud 0."""
@@ -135,7 +137,7 @@ def test_radius_knn_kernel_exact_ties_in_tiled_window(cuda, k):
     assert (want[..., :2] < n).all(dim=-1).float().mean() > 0.9  # most rows have a tie pair
 
 
-@pytest.mark.parametrize("k", [1, 16, 40, 64, 128])
+@pytest.mark.parametrize("k", [1, 16, 40, 64, 128, 81, 200, 256])
 def test_radius_knn_kernel_dense_cluster_banded(cuda, k):
     """More than k in-radius rows per query, banded windows, Q not a multiple
     of the block's query count, s_count ending inside a window, and
@@ -154,6 +156,47 @@ def test_radius_knn_kernel_dense_cluster_banded(cuda, k):
     want = radius_knn_plain(s, s, cnt, radius, k, win=win, chunk=chunk, band=band)
     assert torch.equal(got, want)
     assert (want < n).all(dim=-1).float().mean() > 0.5  # most queries keep k neighbours
+
+
+@pytest.mark.parametrize("k", [81, 200, 256])
+@pytest.mark.parametrize("level", [0, 4])
+def test_radius_knn_kernel_large_k_at_main_path_shapes(cuda, k, level):
+    """The 128- and 256-entry lists at the 0.7 bucket's level-0 (banded,
+    21504 rows) and level-4 (512 rows) neighbour searches of a ~20k-point
+    procedural scan pair."""
+    from rdmnet_tpu_torch.config import make_cfg
+    from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, search_plan
+
+    pyr = make_cfg().pyramid.scaled(0.7)
+    pyr = dataclasses.replace(pyr, neighbor_limits=(k,) * 5)
+    ref, src, _ = procedural_pair(7351, n_rings=80, n_azimuths=3000)
+    cap = pyr.caps[0]
+    batch = build_pair_batch(*pad_cloud(ref, cap, device=cuda), *pad_cloud(src, cap, device=cuda),
+                             torch.eye(4, device=cuda), pyr)
+    sp = next(p for p in search_plan(pyr) if p.table == "neighbors" and p.q_lvl == level)
+    pts = torch.stack([batch.ref.points[level], batch.src.points[level]]).contiguous()
+    cnt = torch.stack([batch.ref.counts[level], batch.src.counts[level]]).to(torch.int32)
+    kw = {}
+    if sp.band is not None:
+        win, _ = band_windows(pts, pts, cnt, sp.radius, sp.cell, sp.band, sp.chunk)
+        kw = dict(win=win, chunk=sp.chunk, band=sp.band)
+    assert knn_plan(2, pts.shape[1], pts.shape[1], k, sp.band).k_bucket == (128 if k <= 128
+                                                                              else 256)
+    got = radius_knn_cuda(pts, pts, cnt, sp.radius, k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, radius_knn_plain(pts, pts, cnt, sp.radius, k, **kw))
+
+
+def test_model_refuses_configs_beyond_the_kernels(cuda):
+    cfg = make_tiny_cfg()
+    with pytest.raises(ValueError, match=r"neighbor_limits\[0\] = 257"):
+        RDMNet(dataclasses.replace(cfg, pyramid=dataclasses.replace(
+            cfg.pyramid, neighbor_limits=(257, 16, 16, 16, 16))), device=cuda)
+    with pytest.raises(ValueError, match=r"num_points_in_patch = 256"):
+        RDMNet(dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, num_points_in_patch=256)), device=cuda)
+    RDMNet(dataclasses.replace(cfg, pyramid=dataclasses.replace(
+        cfg.pyramid, neighbor_limits=(256,) * 5)), device=cuda)
 
 
 def test_pipeline_on_card_launches_kernels_and_matches_cpu(cuda):

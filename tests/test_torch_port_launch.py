@@ -5,6 +5,8 @@
 search of the graph build. No card, no JAX.
 """
 
+from dataclasses import replace
+
 import pytest
 
 from rdmnet_tpu_torch.config import make_cfg, make_tiny_cfg
@@ -20,7 +22,7 @@ PYRAMIDS = {
 WINDOW_BYTES_MAX = 7168 * 16  # the 1.0 bucket's level-0 band as float4 rows
 
 
-@pytest.mark.parametrize("k", [1, 16, 40, 48, 128])
+@pytest.mark.parametrize("k", [1, 16, 40, 48, 81, 128, 200, 256])
 @pytest.mark.parametrize("pyramid", sorted(PYRAMIDS))
 def test_knn_plan_fits_every_search(pyramid, k):
     spec = PYRAMIDS[pyramid]
@@ -55,6 +57,38 @@ def test_knn_plan_spreads_small_searches():
 def test_knn_plan_refuses_k_out_of_range(k):
     with pytest.raises(ValueError, match="outside"):
         knn_plan(2, 64, 64, k)
+
+
+def test_knn_plan_list_buckets():
+    buckets = {k: knn_plan(2, 640, 640, k).k_bucket for k in (1, 2, 32, 33, 64, 65, 81, 128,
+                                                              129, 200, 256)}
+    assert buckets == {1: 1, 2: 32, 32: 32, 33: 64, 64: 64, 65: 128, 81: 128, 128: 128,
+                       129: 256, 200: 256, 256: 256}
+    assert KMAX == 256
+
+
+def test_kernel_limits_raise_at_construction():
+    """On a card ``RDMNet`` checks its config against the kernels' limits
+    before building anything; here the check is called directly (the CPU
+    runs the plain versions, which have no limits)."""
+    from rdmnet_tpu_torch.config import make_parity_cfg
+    from rdmnet_tpu_torch.models import RDMNet
+    from rdmnet_tpu_torch.models.rdmnet import check_kernel_limits
+
+    cfg = make_tiny_cfg()
+    check_kernel_limits(make_parity_cfg())
+    check_kernel_limits(replace(cfg, pyramid=replace(cfg.pyramid, neighbor_limits=(256,) * 5)))
+    check_kernel_limits(replace(cfg, model=replace(cfg.model, num_points_in_patch=207)))
+    big_k = replace(cfg, pyramid=replace(cfg.pyramid, neighbor_limits=(16, 16, 257, 16, 16)))
+    with pytest.raises(ValueError, match=r"pyramid\.neighbor_limits\[2\] = 257.*k <= 256"):
+        check_kernel_limits(big_k)
+    with pytest.raises(ValueError, match=r"pyramid\.upsampling_limit = 300"):
+        check_kernel_limits(replace(cfg, pyramid=replace(cfg.pyramid, upsampling_limit=300)))
+    big_patch = replace(cfg, model=replace(cfg.model, num_points_in_patch=256))
+    with pytest.raises(ValueError, match=r"model\.num_points_in_patch = 256.*<= 208"):
+        check_kernel_limits(big_patch)
+    for c in (big_k, big_patch):  # the CPU takes them
+        RDMNet(c, device="cpu")
 
 
 def test_library_path_covers_headers(tmp_path, monkeypatch):

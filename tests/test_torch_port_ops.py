@@ -71,7 +71,8 @@ def scan():
 # ---------------------------------------------------------------- host copies
 
 def test_config_twin_matches_jax():
-    for jc, tc in [(jcfg.make_cfg(), tcfg.make_cfg()), (jcfg.make_tiny_cfg(), tcfg.make_tiny_cfg())]:
+    for jc, tc in [(jcfg.make_cfg(), tcfg.make_cfg()), (jcfg.make_tiny_cfg(), tcfg.make_tiny_cfg()),
+                   (jcfg.make_parity_cfg(), tcfg.make_parity_cfg())]:
         for field in dataclasses.fields(tc):
             if field.name == "seed":
                 assert tc.seed == jc.seed
@@ -343,6 +344,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'rdmnet_tpu')]\n"
         "assert not bad, bad\n"
+        "for m in ('nn.transformers', 'nn.geotransformer', 'utils.torch_convert', 'cli.convert',\n"
+        "          'cli.test_sweep'):\n"
+        "    assert 'rdmnet_tpu_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('rdmnet_tpu_torch')]))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -92,7 +92,26 @@ Phases, each fatal on failure:
    launches per pair), 3 train steps (finite losses and gradient, 12/0
    launches per step, peak memory), and card against CPU at
    ``make_tiny_cfg()`` for 2 weight draws (tables and node masks equal, the
-   same matched node pairs, plans within 1e-3).
+   same matched node pairs, plans within 1e-3);
+12. ``compute_dtype="bfloat16"`` beside float32 at ``make_cfg()`` width, 0.7
+   bucket, on the phase-4 pair with one set of weights: ``pipeline`` in
+   turns (3 warm-up and 12 timed pairs each; ms/pair, per-stage ms, peak
+   memory; 12 kNN and 1 Sinkhorn launches per bf16 pair; the coarse features'
+   median cosine to float32 > 0.98); 1 + 3 train steps each in turns (finite
+   losses, ``grad_norm`` > 0, float32 weights, parts, peak memory; 12/0
+   launches per step); card against CPU at ``make_tiny_cfg()`` for 2 weight
+   draws (tables equal; the card's bf16 features no further from the CPU's
+   bf16 than twice the CPU's bf16 from its float32);
+13. data preparation through ``cli.preprocess.main``: a raw KITTI-layout
+   sequence (7 procedural scans of ~100k points 4 m apart, a non-identity
+   ``Tr``) written into a temporary directory; ``downsample``; ``pairs`` on
+   the card (ICP on the radius-kNN kernel) and with ``--device cpu`` (the
+   same pairs, ground truth within 1e-4, one kNN launch per ICP iteration);
+   the first ICP iteration's search against the plain version (equal on
+   every query, timed beside its bound) and against the native library (the
+   differing rows counted); ``calibrate`` on the card and on the CPU (equal
+   limits and band caps, equal neighbour counts per level), with the ms per
+   ICP pair and the seconds per ``calibrate`` on each.
 
 Phase 2 fails if ``-Xptxas -v`` reports a spilled register in any kernel.
 Prints a ``kernels`` JSON line, the card line, and as the last line
@@ -1394,6 +1413,455 @@ def model_surface_phase(dev, kernels, ref, src, gt):
     return per_pair
 
 
+BF16_WARM, BF16_TIMED, BF16_STAGE = 3, 12, 3  # pairs per dtype of phase 12, timed in turns
+BF16_STEPS = 3                                # timed train steps per dtype of phase 12, in turns
+BF16_STEP_WARM = 1                            # untimed first steps (bf16 GEMM set-up)
+BF16_SEEDS = (1, 2)                           # weight draws of phase 12's card-vs-CPU check
+BF16_BOUND = 2.0   # rel(card bf16, CPU bf16) <= 2 rel(CPU bf16, CPU f32), tests/test_torch_port_bf16.py
+# phase 13: a raw KITTI-layout sequence, frames ICP_STEP m apart, ~100k points a scan
+ICP_SEED, ICP_FRAMES, ICP_STEP = SEED + 20, 7, 4.0
+ICP_SCAN = dict(n_rings=64, n_azimuths=1800, voxel_size=0.01)
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rel_dist(a, b) -> float:
+    """|a - b| / |b| (Frobenius norms) in float64."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).norm() / b.norm())
+
+
+def bf16_phase(dev, cfg, ref, src, gt):
+    """Phase 12: ``compute_dtype="bfloat16"`` beside float32 at ``cfg`` (the
+    phase-4 config) on the phase-4 pair, with one set of weights: pipeline
+    ms/pair, stages and peak memory timed in turns, train steps in turns,
+    and card against CPU at ``make_tiny_cfg()``. Returns the launches per
+    bf16 pair by kernel."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.config import make_tiny_cfg
+    from rdmnet_tpu_torch.data.procedural import procedural_pair
+    from rdmnet_tpu_torch.engine import (TRAIN_STAGES, batch_to_device, create_train_state,
+                                         make_train_step)
+    from rdmnet_tpu_torch.graph.pyramid import pad_cloud
+    from rdmnet_tpu_torch.models import RDMNet, pipeline
+    from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfgs = {"float32": cfg, "bfloat16": dataclasses.replace(cfg, compute_dtype="bfloat16")}
+    models = {name: RDMNet(c, device=dev, generator=torch.Generator().manual_seed(SEED))
+              for name, c in cfgs.items()}
+    models["bfloat16"].load_state_dict(models["float32"].state_dict())
+    cap = cfg.pyramid.caps[0]
+    args = (*pad_cloud(ref, cap, device=dev), *pad_cloud(src, cap, device=dev))
+    per_pair = {"radius_knn": 12, "sinkhorn": 1}
+
+    def run(name, hook=None):
+        reset_launch_counts()
+        out = pipeline(models[name], *args, device=dev, stage_hook=hook)
+        counts = launch_counts()
+        if dev.type == "cuda" and counts != per_pair:
+            fail(f"{name} pipeline: launches {counts}, expected 12 kNN and 1 Sinkhorn per pair")
+        return out
+
+    ms = {name: [] for name in models}
+    for i in range(BF16_WARM + BF16_TIMED):
+        for name in (("float32", "bfloat16") if i % 2 == 0 else ("bfloat16", "float32")):
+            sync(dev)
+            t0 = time.perf_counter()
+            run(name)
+            sync(dev)
+            if i >= BF16_WARM:
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    stage_ms = {name: {} for name in models}
+    for _ in range(BF16_STAGE):
+        for name in models:
+            marks = []
+
+            def hook(stage):
+                sync(dev)
+                marks.append((stage, time.perf_counter()))
+
+            sync(dev)
+            prev = time.perf_counter()
+            run(name, hook)
+            for stage, t in marks:
+                stage_ms[name][stage] = stage_ms[name].get(stage, 0.0) + (t - prev) * 1e3 / BF16_STAGE
+                prev = t
+    outs, peak = {}, {}
+    for name in models:
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        outs[name] = run(name)
+        sync(dev)
+        peak[name] = torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else 0.0
+    for name in models:
+        t = sorted(ms[name])
+        print(f"bf16 phase, {name} pipeline (0.7 bucket, the phase-4 pair, timed in turns): "
+              f"{sum(t) / len(t):.3f} ms/pair (median {t[len(t) // 2]:.3f}, min {t[0]:.3f}, max "
+              f"{t[-1]:.3f}) over {BF16_TIMED} pairs after {BF16_WARM} warm-up; peak memory "
+              f"{peak[name]:.1f} MiB; stages "
+              + json.dumps({k: round(v, 3) for k, v in stage_ms[name].items()}))
+    if dev.type == "cuda":
+        # one profiled pair each: kernels launched and their device time
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        for name in models:
+            sync(dev)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(name)
+                sync(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)]
+            device_ms = sum(e.self_device_time_total for e in events) / 1e3
+            gemm = sum(e.self_device_time_total for e in events
+                       if "gemm" in e.key.lower() or "sm90" in e.key.lower()) / 1e3
+            print(f"bf16 phase, {name} profiled pair: {wall:.3f} ms wall, "
+                  f"{sum(e.count for e in events)} kernels, {device_ms:.3f} ms on the device "
+                  f"({100 * device_ms / wall:.1f}% busy under the profiler), of it {gemm:.3f} ms "
+                  "in GEMM kernels")
+    o16, o32 = outs["bfloat16"], outs["float32"]
+    v = (o16["nodes_ref_valid"] & o32["nodes_ref_valid"]).cpu()
+    a, b = o16["ref_feats_c"].cpu()[v], o32["ref_feats_c"].cpu()[v]
+    cos = float(torch.median((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1) + 1e-9)))
+    if cos <= 0.98 or not all(bool(torch.isfinite(o["estimated_transform"]).all())
+                              for o in (o16, o32)):
+        fail(f"bf16 pipeline: median cosine of coarse features to float32 {cos} or a pose "
+             "is not finite")
+    if {p.dtype for p in models["bfloat16"].parameters()} != {torch.float32}:
+        fail("bf16 model: weights are not float32")
+    print(f"bf16 phase: coarse features against float32 on the same weights, median cosine "
+          f"{cos:.5f} over {int(v.sum())} nodes; launches per pair {per_pair} for both dtypes")
+    del models, outs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- train steps in turns --------------------------------------------------
+    host = host_pair(ref, src, gt, cap)
+    states = {name: create_train_state(c, RDMNet(c, device=dev,
+                                                 generator=torch.Generator().manual_seed(SEED)))
+              for name, c in cfgs.items()}
+    steps = {name: make_train_step(c, device=dev) for name, c in cfgs.items()}
+    gens = {name: torch.Generator(device=dev).manual_seed(SEED) for name in cfgs}
+    step_ms = {name: [] for name in cfgs}
+    parts = {name: {k: 0.0 for k in TRAIN_STAGES} for name in cfgs}
+    tpeak = {name: 0.0 for name in cfgs}
+    for i in range(BF16_STEP_WARM + BF16_STEPS):
+        for name in (("bfloat16", "float32") if i % 2 == 0 else ("float32", "bfloat16")):
+            marks = []
+
+            def hook(stage):
+                sync(dev)
+                marks.append((stage, time.perf_counter()))
+
+            sync(dev)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            batch = batch_to_device(host, cfgs[name].pyramid, device=dev)
+            hook("build")
+            states[name], metrics = steps[name](states[name], batch, gens[name], stage_hook=hook)
+            counts = launch_counts()
+            metrics = {k: float(val) for k, val in metrics.items()}
+            if dev.type == "cuda" and counts != {"radius_knn": 12, "sinkhorn": 0}:
+                fail(f"{name} train step {i}: launches {counts}, expected 12 kNN and 0 Sinkhorn")
+            if not all(np.isfinite(val) for val in metrics.values()) or metrics["grad_norm"] <= 0:
+                fail(f"{name} train step {i}: non-finite losses or zero gradient: {metrics}")
+            kind = "warm-up" if i < BF16_STEP_WARM else "timed"
+            if kind == "timed":
+                step_ms[name].append((marks[-1][1] - t0) * 1e3)
+                prev = t0
+                for stage, t in marks:
+                    parts[name][stage] += (t - prev) * 1e3 / BF16_STEPS
+                    prev = t
+            if dev.type == "cuda":
+                tpeak[name] = max(tpeak[name], torch.cuda.max_memory_allocated(dev) / 2**20)
+            print(f"{name} train step {i} ({kind}): {(marks[-1][1] - t0) * 1e3:.3f} ms, "
+                  + ", ".join(f"{k} {val:.6g}" for k, val in metrics.items()))
+    for name in cfgs:
+        if {p.dtype for p in states[name].params} != {torch.float32}:
+            fail(f"{name} training: weights are not float32")
+        print(f"bf16 phase, {name} training: {sum(step_ms[name]) / BF16_STEPS:.3f} ms/step over "
+              f"{BF16_STEPS} steps in turns after {BF16_STEP_WARM} warm-up, peak memory {tpeak[name]:.1f} MiB, float32 weights; "
+              "parts " + json.dumps({k: round(val, 3) for k, val in parts[name].items()}))
+    del states, steps
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- card against CPU at the tiny config -----------------------------------
+    tiny = make_tiny_cfg()
+    small, _, _ = procedural_pair(SEED + 2, n_rings=16, n_azimuths=200)
+    small = small[np.random.RandomState(0).permutation(len(small))[:500]]
+    moved = (small + np.array([0.5, 0.3, 0.1], np.float32)).astype(np.float32)
+    tcap = tiny.pyramid.caps[0]
+    cpu = torch.device("cpu")
+    for seed in BF16_SEEDS:
+        o = {}
+        for d, dt in ((dev, "bfloat16"), (cpu, "bfloat16"), (cpu, "float32")):
+            m = RDMNet(dataclasses.replace(tiny, compute_dtype=dt), device=d,
+                       generator=torch.Generator().manual_seed(seed))
+            o[d.type, dt] = pipeline(m, *pad_cloud(small, tcap, device=d),
+                                     *pad_cloud(moved, tcap, device=d), device=d)
+        card, host16, host32 = o[dev.type, "bfloat16"], o["cpu", "bfloat16"], o["cpu", "float32"]
+        for side in ("ref", "src"):
+            g, c = getattr(card["batch"], side), getattr(host16["batch"], side)
+            for field in ("points", "neighbors", "subsampling", "upsampling"):
+                for lvl, (x, y) in enumerate(zip(getattr(g, field), getattr(c, field))):
+                    if not torch.equal(x.cpu(), y):
+                        fail(f"bf16 card vs CPU (weights {seed}): {side} {field}[{lvl}] differ")
+        vn = (host16["nodes_ref_valid"] & host32["nodes_ref_valid"]).cpu()
+        report = []
+        for key in ("ref_feats_c", "src_feats_c", "ref_feats_f", "src_feats_f"):
+            sel = vn if key == "ref_feats_c" else slice(None)
+            if key == "src_feats_c":
+                sel = (host16["nodes_src_valid"] & host32["nodes_src_valid"]).cpu()
+            gap = rel_dist(card[key].cpu()[sel], host16[key][sel])
+            yard = rel_dist(host16[key][sel], host32[key][sel])
+            report.append(f"{key} {gap:.3e} (bound {BF16_BOUND} x {yard:.3e})")
+            if not gap <= BF16_BOUND * yard:
+                fail(f"bf16 card vs CPU (weights {seed}): {key} {gap} > {BF16_BOUND} x {yard}")
+        print(f"bf16 card vs CPU (tiny cfg, weights {seed}): tables equal; card bf16 from CPU "
+              "bf16: " + ", ".join(report))
+    return per_pair
+
+
+def write_raw_kitti(root, seed, n_frames, step, **scan_kwargs):
+    """A raw KITTI odometry sequence 00 under ``root``: ``velodyne/*.bin``
+    xyzi scans of one procedural scene, frames ``step`` m apart,
+    ``poses/00.txt`` camera poses and a ``calib.txt`` with a non-identity
+    ``Tr``. Returns the velodyne poses (sensor to world)."""
+    import numpy as np
+
+    from rdmnet_tpu_torch.data.procedural import lidar_scan, make_scene, trajectory
+    from rdmnet_tpu_torch.utils.se3_np import euler_zyx_matrix
+
+    rng = np.random.RandomState(seed)
+    scene = make_scene(rng, corridor_length=max(60.0, n_frames * step + 30.0))
+    poses = trajectory(rng, n_frames, step=step)
+    velo2cam = np.eye(4)
+    velo2cam[:3, :3] = euler_zyx_matrix(-1.57, 0.01, -1.56)
+    velo2cam[:3, 3] = [-0.004, -0.076, -0.272]
+    seq_dir = os.path.join(root, "sequences", "00")
+    os.makedirs(os.path.join(seq_dir, "velodyne"))
+    os.makedirs(os.path.join(root, "poses"))
+    for k in range(n_frames):
+        scan = lidar_scan(scene, poses[k], rng, **scan_kwargs)
+        scan.astype(np.float32).tofile(os.path.join(seq_dir, "velodyne", f"{k:06d}.bin"))
+    cam = np.stack([(p @ np.linalg.inv(velo2cam))[:3].reshape(-1) for p in poses])
+    np.savetxt(os.path.join(root, "poses", "00.txt"), cam)
+    with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+        f.write("Tr: " + " ".join(repr(float(v)) for v in velo2cam[:3].reshape(-1)) + "\n")
+    return poses
+
+
+def icp_search_check(dev, kernels, cur, ref32, radius, extent):
+    """Phase 13: the first ICP iteration's search (``cur`` the float64 moved
+    points, ``ref32`` the reference cloud): the kernel's launch (K =
+    ``ICP_CANDIDATES`` within the widened radius) against its plain version
+    on every query, timed beside its bound; then, against the native
+    library on every query, the rows where the kernel's own nearest (its
+    first column, the graph build's rounding) and ``nearest_within`` (that
+    table re-ranked on exact distances) part from it."""
+    import torch
+
+    from rdmnet_tpu_torch.data.preprocess import (ICP_CANDIDATES, candidate_radius,
+                                                  nearest_within)
+    from rdmnet_tpu_torch.graph.native import radius_knn_native
+    from rdmnet_tpu_torch.graph.pyramid import SearchSpec
+    from rdmnet_tpu_torch.ops.radius_search import radius_knn
+
+    q = cur.to(torch.float32)[None].contiguous()
+    s = ref32[None].contiguous()
+    nq, ns = q.shape[1], s.shape[1]
+    counts = [torch.tensor([nq], dtype=torch.int32, device=dev),
+              torch.tensor([ns], dtype=torch.int32, device=dev)]
+    wide = candidate_radius(radius, extent)
+    spec = SearchSpec("icp", 0, 1, wide, ICP_CANDIDATES, None, 0, 0.0)
+    if dev.type == "cuda":
+        ms_k, call_k, pms_k, bound_k, pairs, plan = check_knn([q, s], counts, spec, kernels)
+        print(knn_line(f"ICP search (first iteration of the first pair, {nq} queries x {ns} "
+                       f"rows, K={ICP_CANDIDATES} within {wide:.5f} m, unbanded)", ms_k, call_k,
+                       pms_k, bound_k, plan, None)
+              + "; table equal to the plain version's on every query")
+        kernels["radius_knn"].update(icp_search_ms=ms_k, icp_search_bound_ms=bound_k,
+                                     icp_search_plain_ms=pms_k)
+    first_col = radius_knn(q[0], s[0], counts[1][0], radius, 1)[:, 0].cpu().long()
+    got = nearest_within(cur, ref32, radius, extent).cpu()
+    qh = q[0].cpu()
+    native = torch.from_numpy(radius_knn_native(qh.numpy(), ref32.cpu().numpy(), ns, radius,
+                                                1)[:, 0]).long()
+    sh = ref32.cpu().double()
+
+    def parted(idx):
+        differ = idx != native
+        both = differ & (idx < ns) & (native < ns)
+        d2 = lambda i: ((qh[both].double() - sh[i[both]]) ** 2).sum(1)  # noqa: E731
+        a, b = d2(idx), d2(native)
+        farther = int((a > b * (1 + 1e-6) + 1e-12).sum())
+        nearer = int((b > a * (1 + 1e-6) + 1e-12).sum())
+        return (int(differ.sum()), farther, nearer, int(both.sum()) - farther - nearer,
+                int((differ & ~both).sum()))
+
+    for name, idx in (("the kernel's K=1 search (graph-build distances)", first_col),
+                      ("nearest_within (re-ranked on exact distances)", got)):
+        n, farther, nearer, ties, edge = parted(idx)
+        print(f"data prep: first ICP search, {name} against the native library on all {nq} "
+              f"queries: {n} rows differ ({farther} pick a farther point, {nearer} a nearer "
+              f"one, {ties} one as near within 1e-6, {edge} at the radius boundary: one side "
+              "finds none)")
+    n, farther, _, _, _ = parted(got)
+    if farther:
+        fail(f"data prep: nearest_within picks a farther point than the native search in "
+             f"{farther} rows")
+
+
+def data_prep_phase(dev, kernels, frames=ICP_FRAMES, scan_kwargs=ICP_SCAN):
+    """Phase 13: ``rdmnet-torch-preprocess`` downsample -> pairs -> calibrate
+    on a raw KITTI-layout sequence written into a temporary directory, on
+    ``dev`` and again with ``--device cpu``. Returns the radius-kNN launches
+    per ICP iteration."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.cli import preprocess as cli
+    from rdmnet_tpu_torch.config import make_cfg
+    from rdmnet_tpu_torch.data import calibration, preprocess
+    from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset
+    from rdmnet_tpu_torch.ops.grid_subsample import grid_subsample
+    from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        t0 = time.perf_counter()
+        write_raw_kitti(root, ICP_SEED, frames, ICP_STEP, **scan_kwargs)
+        sizes = [os.path.getsize(os.path.join(root, "sequences", "00", "velodyne", f"{k:06d}.bin"))
+                 // 16 for k in range(frames)]
+        print(f"data prep: raw KITTI sequence 00 of {frames} frames {ICP_STEP} m apart, "
+              f"{min(sizes)}-{max(sizes)} points a scan ({scan_kwargs}), non-identity Tr; "
+              f"written in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            done = cli.main(["downsample", "--root", root, "--seqs", "0"])
+        down = [len(np.load(os.path.join(root, "downsampled_xyzi", "00", f"{k:06d}.npy")))
+                for k in range(frames)]
+        print(f"data prep: downsample {done} scans in {time.perf_counter() - t0:.3f} s (host), "
+              f"{min(down)}-{max(down)} points a scan at 0.3 m")
+
+        # ---- pairs: ICP on dev, then on the CPU ----------------------------------
+        search, icp = preprocess.nearest_within, preprocess.icp_point_to_point
+        first, calls, per_icp = [], [], []
+
+        def counted_search(cur, ref, radius, extent):
+            if not first:
+                first.append((cur.clone(), ref.clone(), radius, extent))
+            calls.append(1)
+            return search(cur, ref, radius, extent)
+
+        def timed_icp(*a, **kw):
+            n0 = len(calls)
+            reset_launch_counts()
+            sync(dev)
+            t = time.perf_counter()
+            out = icp(*a, **kw)
+            sync(dev)
+            per_icp.append(((time.perf_counter() - t) * 1e3, len(calls) - n0,
+                            launch_counts()["radius_knn"], torch.device(kw["device"]).type))
+            return out
+
+        preprocess.nearest_within, preprocess.icp_point_to_point = counted_search, timed_icp
+        lines = {}
+        try:
+            for d in (dev.type, "cpu"):
+                out_root = root if d == dev.type else os.path.join(tmp, "cpu")
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(["pairs", "--root", root, "--seqs", "0", "--out_root", out_root,
+                              "--device", d])
+                with open(os.path.join(out_root, "icp10", "00")) as f:
+                    lines[d] = f.read().splitlines()
+        finally:
+            preprocess.nearest_within, preprocess.icp_point_to_point = search, icp
+        on_dev = [r for r in per_icp if r[3] == dev.type]
+        on_cpu = [r for r in per_icp if r[3] == "cpu"]
+        if not lines[dev.type] or len(lines[dev.type]) != len(lines["cpu"]):
+            fail(f"data prep: pairs {lines}")
+        tf_err = 0.0
+        for a, b in zip(lines[dev.type], lines["cpu"]):
+            a, b = a.split(), b.split()
+            if a[:2] != b[:2]:
+                fail(f"data prep: pair {a[:2]} on {dev.type} against {b[:2]} on the CPU")
+            tf_err = max(tf_err, float(np.abs(np.float64(a[2:]) - np.float64(b[2:])).max()))
+        if tf_err > 1e-4:
+            fail(f"data prep: ground truth on {dev.type} and the CPU differ by {tf_err} > 1e-4")
+        for ms_, iters, launches, _ in on_dev:
+            if dev.type == "cuda" and launches != iters:
+                fail(f"data prep: {launches} kNN launches in an ICP of {iters} iterations")
+        print(f"data prep: pairs {[' '.join(x.split()[:2]) for x in lines[dev.type]]}, ground "
+              f"truth on {dev.type} against the CPU within {tf_err:.3e}; ICP per pair on "
+              f"{dev.type}: " + ", ".join(f"{r[0]:.3f} ms ({r[1]} iterations, {r[2]} kNN "
+                                          "launches)" for r in on_dev)
+              + "; on the CPU (native search): " + ", ".join(f"{r[0]:.3f} ms" for r in on_cpu))
+
+        # ---- the first ICP iteration's search against plain and native ------------
+        if dev.type == "cuda" and not first:
+            fail("data prep: the ICP on the card never reached the kNN kernel's search")
+        for args in first[:1]:
+            icp_search_check(dev, kernels, *args)
+
+        # ---- calibrate on dev and on the CPU ---------------------------------------
+        gt_dir = os.path.join(root, "icp10")
+        for seq in range(1, 6):  # the other train sequences of the KITTI schema, empty
+            open(os.path.join(gt_dir, f"{seq:02d}"), "a").close()
+        cal, secs = {}, {}
+        for d in (dev.type, "cpu"):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                cal[d] = cli.main(["calibrate", "--root", root, "--device", d])
+            secs[d] = time.perf_counter() - t0
+            print(f"data prep: calibrate on {d} in {secs[d]:.3f} s over {cal[d]['clouds']} "
+                  f"clouds: " + " | ".join(printed.getvalue().splitlines()))
+        if cal[dev.type] != cal["cpu"]:
+            fail(f"data prep: calibration on {dev.type} {cal[dev.type]} != CPU {cal['cpu']}")
+        cfg = make_cfg()
+        cloud = RegistrationPairDataset("kitti", root, "train",
+                                        point_limit=cfg.train.point_limit)[0]["ref_points"]
+        per_level = {}
+        for d in (dev, torch.device("cpu")):
+            spec_p = cfg.pyramid
+            pts = np.full((1, spec_p.caps[0], 3), 1e9, np.float32)
+            n = min(len(cloud), spec_p.caps[0])
+            pts[0, :n] = cloud[:n]
+            p = torch.from_numpy(pts).to(d)
+            c = torch.tensor([n], dtype=torch.int32, device=d)
+            voxel, radius_c = spec_p.voxel_size, spec_p.search_radius
+            per_level[d.type] = []
+            for lvl in range(spec_p.num_stages):
+                if lvl > 0:
+                    voxel *= 2
+                    p, c, _ = grid_subsample(p, c, voxel, spec_p.caps[lvl])
+                per_level[d.type].append(calibration._neighbor_counts(p[0], int(c[0]), radius_c))
+                radius_c *= 2
+        diffs = [int((a != b).sum()) if a.shape == b.shape else -1
+                 for a, b in zip(per_level[dev.type], per_level["cpu"])]
+        print(f"data prep: neighbour counts of the first calibration cloud, {dev.type} against "
+              f"the CPU, per level: {[len(a) for a in per_level['cpu']]} points, {diffs} differ; "
+              f"limits and band caps equal; calibrate {secs[dev.type]:.3f} s on {dev.type}, "
+              f"{secs['cpu']:.3f} s on the CPU")
+        if any(x != 0 for x in diffs):
+            fail(f"data prep: neighbour counts differ between {dev.type} and the CPU: {diffs}")
+        iters = sum(r[1] for r in on_dev)
+        return {"radius_knn": sum(r[2] for r in on_dev) / max(iters, 1), "sinkhorn": 0.0}
+
+
 def main() -> None:
     import torch
 
@@ -1690,6 +2158,14 @@ def main() -> None:
     # ---- 11. the model surface: parity config, families, converter -------------
     for name, n in model_surface_phase(dev, kernels, ref, src, gt).items():
         kernels[name]["launches_per_parity_pair"] = n
+
+    # ---- 12. bfloat16 beside float32 at full width ------------------------------
+    for name, n in bf16_phase(dev, cfg, ref, src, gt).items():
+        kernels[name]["launches_per_bf16_pair"] = n
+
+    # ---- 13. data preparation: downsample -> pairs (ICP) -> calibrate ----------------
+    for name, n in data_prep_phase(dev, kernels).items():
+        kernels[name]["launches_per_icp_iteration"] = n
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

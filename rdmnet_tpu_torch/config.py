@@ -260,6 +260,10 @@ class TestDataConfig:
 @dataclasses.dataclass(frozen=True)
 class Config:
     seed: int = 7351
+    # dtype of the backbone and ThDRoFormer products ("float32" or
+    # "bfloat16"); weights, norms, softmax, geometry, Sinkhorn and pose stay
+    # float32 (nn/precision.py)
+    compute_dtype: str = "float32"
     train: TrainDataConfig = dataclasses.field(default_factory=TrainDataConfig)
     test: TestDataConfig = dataclasses.field(default_factory=TestDataConfig)
     pyramid: PyramidConfig = dataclasses.field(default_factory=PyramidConfig)

@@ -17,26 +17,10 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from rdmnet_tpu_torch.data.preprocess import voxel_downsample_xyzi
 from rdmnet_tpu_torch.utils.se3_np import euler_zyx_matrix
 
 SENSOR_HEIGHT = 1.73  # KITTI velodyne mount height above ground (m)
-
-
-def voxel_downsample_xyzi(points: np.ndarray, voxel_size: float) -> np.ndarray:
-    """(N, 4) xyzi -> per-voxel centroid xyz + mean intensity."""
-    xyz = points[:, :3]
-    origin = np.floor(xyz.min(0) / voxel_size) * voxel_size
-    coords = np.floor((xyz - origin) / voxel_size).astype(np.int64)
-    order = np.lexsort((coords[:, 0], coords[:, 1], coords[:, 2]))
-    sc = coords[order]
-    sp = points[order]
-    new_seg = np.concatenate([[True], np.any(sc[1:] != sc[:-1], axis=1)])
-    seg_ids = np.cumsum(new_seg) - 1
-    n_seg = seg_ids[-1] + 1
-    sums = np.zeros((n_seg, points.shape[1]), np.float64)
-    np.add.at(sums, seg_ids, sp)
-    counts = np.bincount(seg_ids, minlength=n_seg)[:, None]
-    return (sums / counts).astype(np.float32)
 
 
 class Terrain(NamedTuple):

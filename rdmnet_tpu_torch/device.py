@@ -23,6 +23,8 @@ def resolve_device(device=None) -> torch.device:
 def set_precision() -> None:
     """Full float32 matrix products and convolutions on the card: geometry,
     Sinkhorn and pose math are float32 by contract, and TF32 keeps only
-    about three decimal digits."""
+    about three decimal digits. bfloat16 products (``compute_dtype``)
+    accumulate in float32 as XLA's do: no reduced-precision split-K sums."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

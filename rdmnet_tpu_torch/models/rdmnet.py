@@ -12,6 +12,11 @@ ground-truth targets the losses read (vote masks, patch overlaps);
 Sinkhorn under autograd and skips registration. Submodules carry the flax
 tree's names (``encoder``, ``transformer``, ``proj_n2p_score``, ``decoder``,
 ``vote``, ``proj_n2n_score``, ``transformer2``, ``optimal_transport``).
+
+``cfg.compute_dtype`` (``"float32"`` or ``"bfloat16"``) is the dtype of the
+encoder, decoder and both ThDRoFormers (``nn/precision.py``). Their outputs
+come back as float32, so the score heads, the vote layer, GeoTransformer and
+APE, matching, Sinkhorn and the pose stay float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from rdmnet_tpu_torch.nn.backbone import Decoder, Encoder
 from rdmnet_tpu_torch.nn.geotransformer import GeometricTransformer
 from rdmnet_tpu_torch.nn.kpconv import KPConv
 from rdmnet_tpu_torch.nn.matching import superpoint_matching, superpoint_target_sample
+from rdmnet_tpu_torch.nn.precision import compute_dtype
 from rdmnet_tpu_torch.nn.sinkhorn import LearnableLogOptimalTransport
 from rdmnet_tpu_torch.nn.thdroformer import APETransformer, ThDRoFormer
 from rdmnet_tpu_torch.nn.transformers import LearnablePositionalEmbedding
@@ -75,14 +81,15 @@ def coarse_transformer(cfg: Config, stage: int) -> nn.Module:
     """The coarse transformer of ``stage`` (1: on the encoder's coarse
     features; 2: on the voted NMS survivors) for ``cfg.model.coarse_module``.
     Every family takes ``(ref_points, src_points, ref_feats, src_feats,
-    ref_valid, src_valid)``."""
+    ref_valid, src_valid)``; only ThDRoFormer takes ``cfg.compute_dtype``."""
     kind = cfg.model.coarse_module
     td = cfg.thdroformer
     in_dim = td.input_dim if stage == 1 else td.input_dim2
     layers = td.num_layers if stage == 1 else td.num_layers2
     if kind == "thdroformer":
         return ThDRoFormer(in_dim, td.output_dim, td.hidden_dim, td.num_heads, layers,
-                           k=None if stage == 1 else td.k2)
+                           k=None if stage == 1 else td.k2,
+                           dtype=compute_dtype(cfg.compute_dtype))
     if kind == "geotransformer":
         g = cfg.geotransformer
         return GeometricTransformer(in_dim, g.output_dim, g.hidden_dim, g.num_heads, g.blocks,
@@ -122,10 +129,11 @@ class RDMNet(nn.Module):
         kind = cfg.model.coarse_module
         out_dim = cfg.geotransformer.output_dim if kind == "geotransformer" \
             else cfg.thdroformer.output_dim
-        self.encoder = Encoder(cfg.backbone)
+        dtype = compute_dtype(cfg.compute_dtype)
+        self.encoder = Encoder(cfg.backbone, dtype=dtype)
         self.transformer = coarse_transformer(cfg, 1)
         self.proj_n2p_score = nn.Linear(out_dim, 1)
-        self.decoder = Decoder(cfg.backbone)
+        self.decoder = Decoder(cfg.backbone, dtype=dtype)
         if cfg.vote.model_use_vote:
             self.vote = VoteLayer(cfg.vote, out_dim)
             self.proj_n2n_score = nn.Linear(out_dim, 1)
@@ -172,7 +180,9 @@ class RDMNet(nn.Module):
         graph = stack_pair_graph(ref_pyr, src_pyr)
         cap_c, cap_f = ref_points_c.shape[0], ref_points_f.shape[0]
         feats_list = self.encoder(torch.cat([batch.ref_feats, batch.src_feats]), graph)
-        feats_c = feats_list[-1].reshape(2, cap_c, -1)
+        # float32 into every family: GeoTransformer and APE compute in float32,
+        # ThDRoFormer casts to the compute dtype itself (bf16 -> f32 is exact)
+        feats_c = feats_list[-1].float().reshape(2, cap_c, -1)
         ref_feats_c, src_feats_c = self.transformer(
             ref_points_c, src_points_c, feats_c[0], feats_c[1],
             ref_valid=ref_mask_c, src_valid=src_mask_c)

@@ -4,7 +4,9 @@
 Channel schedule 1 -> 64 -> 128 -> 256 -> 512 -> 1024 -> 2048 on the
 encoder; the decoder takes the transformer-conditioned coarse features
 (output_dim + 1 score channel) and emits fine features (output_dim + 1).
-Runs on the stacked pair graph (``graph.pyramid.StackedGraph``).
+Runs on the stacked pair graph (``graph.pyramid.StackedGraph``). Both cast
+their input features to the compute ``dtype`` (``nn/precision.py``); the
+decoder's last head returns float32.
 """
 
 from __future__ import annotations
@@ -27,20 +29,23 @@ from rdmnet_tpu_torch.nn.kpconv import (
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: BackboneConfig):
+    def __init__(self, cfg: BackboneConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = c = cfg
+        self.dtype = dt = dtype
         d, r, s, ks, gn = c.init_dim, c.init_radius, c.init_sigma, c.kernel_size, c.group_norm
-        self.encoder1_1 = ConvBlock(c.input_dim, d, ks, r, s, gn)
-        self.encoder1_2 = ResidualBlock(d, d * 2, ks, r, s, gn)
+        self.encoder1_1 = ConvBlock(c.input_dim, d, ks, r, s, gn, dtype=dt)
+        self.encoder1_2 = ResidualBlock(d, d * 2, ks, r, s, gn, dtype=dt)
         stage_dims = [(d * 2, d * 4), (d * 4, d * 8), (d * 8, d * 16), (d * 16, d * 32)]
         for i, (din, dout) in enumerate(stage_dims):
             lvl = i + 1
             r1, s1 = r * 2 ** (i + 1), s * 2 ** (i + 1)
             setattr(self, f"encoder{lvl + 1}_1",
-                    ResidualBlock(din, din, ks, r * 2 ** i, s * 2 ** i, gn, strided=True))
-            setattr(self, f"encoder{lvl + 1}_2", ResidualBlock(din, dout, ks, r1, s1, gn))
-            setattr(self, f"encoder{lvl + 1}_3", ResidualBlock(dout, dout, ks, r1, s1, gn))
+                    ResidualBlock(din, din, ks, r * 2 ** i, s * 2 ** i, gn, strided=True,
+                                  dtype=dt))
+            setattr(self, f"encoder{lvl + 1}_2", ResidualBlock(din, dout, ks, r1, s1, gn, dtype=dt))
+            setattr(self, f"encoder{lvl + 1}_3",
+                    ResidualBlock(dout, dout, ks, r1, s1, gn, dtype=dt))
         # canonical kernel dispositions of the shared per-level influences
         for lvl in range(c.num_stages):
             self.register_buffer(
@@ -50,6 +55,7 @@ class Encoder(nn.Module):
     def forward(self, feats: torch.Tensor, pyr) -> List[torch.Tensor]:
         c = self.cfg
         r, s = c.init_radius, c.init_sigma
+        feats = feats.to(self.dtype)
         pts, nbrs, subs = pyr.points, pyr.neighbors, pyr.subsampling
         masks = [pyr.mask(i) for i in range(pyr.num_stages)]
 
@@ -88,16 +94,18 @@ class Decoder(nn.Module):
     transformer-conditioned coarse feature (output_dim + 1 channels).
     Returns [level-1, level-2, level-3] features."""
 
-    def __init__(self, cfg: BackboneConfig):
+    def __init__(self, cfg: BackboneConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         d, gn = cfg.init_dim, cfg.group_norm
-        self.decoder4 = UnaryBlock(cfg.output_dim + 1 + d * 16, d * 16, gn)
-        self.decoder3 = UnaryBlock(d * 16 + d * 8, d * 8, gn)
+        self.dtype = dtype
+        self.decoder4 = UnaryBlock(cfg.output_dim + 1 + d * 16, d * 16, gn, dtype=dtype)
+        self.decoder3 = UnaryBlock(d * 16 + d * 8, d * 8, gn, dtype=dtype)
         self.decoder2 = LastUnaryBlock(d * 8 + d * 4, cfg.output_dim + 1)
 
     def forward(self, feats_list: Sequence[torch.Tensor], pyr) -> List[torch.Tensor]:
         ups = pyr.upsampling
         masks = [pyr.mask(i) for i in range(pyr.num_stages)]
+        feats_list = [f.to(self.dtype) for f in feats_list]
         x4 = nearest_upsample(feats_list[4], ups[3])
         x4 = self.decoder4(torch.cat([x4, feats_list[3]], dim=1), masks[3])
         x3 = nearest_upsample(x4, ups[2])

@@ -4,6 +4,10 @@ Unbatched (N, C) point features over the padded/sentinel ABI: neighbour
 gathers use sentinel-index fill rows, GroupNorm statistics cover valid points
 only. Submodule and parameter names follow the flax tree so converted
 weights load by name (``utils/convert.py``).
+
+``dtype`` is the compute dtype (``nn/precision.py``): KPConv's two products
+take it with a float32 result, dense layers run in it, and the norms compute
+in float32 and cast their output to it.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from rdmnet_tpu_torch.nn.kernel_points import make_kernel_points
+from rdmnet_tpu_torch.nn.precision import Dense, matmul_f32
 from rdmnet_tpu_torch.ops.geometry import take_padded
 
 INF_POINT = 1.0e6  # coordinate of a missing neighbour
@@ -50,9 +55,11 @@ class KPConv(nn.Module):
     s_points (N, 3), neighbor_indices (M, H)) -> (M, Cout)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 15,
-                 radius: float = 1.275, sigma: float = 0.6, use_bias: bool = True):
+                 radius: float = 1.275, sigma: float = 0.6, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.sigma = sigma
+        self.dtype = dtype
         self.weights = nn.Parameter(torch.empty(kernel_size, in_channels, out_channels))
         self.register_buffer("kernel_points",
                              torch.from_numpy(make_kernel_points(radius, kernel_size)))
@@ -66,9 +73,10 @@ class KPConv(nn.Module):
                                          self.kernel_points, self.sigma)
         if nbr_feats is None:
             nbr_feats = gather_neighbors(s_feats, neighbor_indices, fill=0.0)  # (M, H, C)
-        m = influence.shape[0]
-        weighted = torch.bmm(influence.transpose(1, 2), nbr_feats)          # (M, K, C)
-        out = weighted.reshape(m, -1) @ self.weights.reshape(-1, self.weights.shape[-1])
+        m, dt = influence.shape[0], self.dtype
+        weighted = matmul_f32(influence.transpose(1, 2).to(dt), nbr_feats.to(dt))  # (M, K, C)
+        out = matmul_f32(weighted.reshape(m, -1).to(dt),
+                         self.weights.reshape(-1, self.weights.shape[-1]).to(dt))
         # neighbour-count normalisation: neighbours whose gathered row sums > 0
         nbr_num = (nbr_feats.sum(-1) > 0.0).sum(-1).to(out.dtype)
         out = out / torch.clamp_min(nbr_num, 1.0)[:, None]
@@ -80,10 +88,12 @@ class KPConv(nn.Module):
 class MaskedGroupNorm(nn.Module):
     """GroupNorm over a point cloud with statistics over valid points only."""
 
-    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         assert num_channels % num_groups == 0
         self.num_groups = num_groups
+        self.dtype = dtype
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
@@ -99,16 +109,17 @@ class MaskedGroupNorm(nn.Module):
         centered = (x.reshape(n, g, c // g) - mean[None, :, None]) * m[:, :, None]
         var = (centered * centered).sum(dim=(0, 2)) / count
         out = centered * torch.rsqrt(var + self.eps)[None, :, None]
-        return out.reshape(n, c) * self.weight + self.bias
+        return (out.reshape(n, c) * self.weight + self.bias).to(self.dtype)
 
 
 class UnaryBlock(nn.Module):
     """Linear -> masked GroupNorm -> LeakyReLU(0.1)."""
 
-    def __init__(self, in_channels: int, out_channels: int, group_norm: int, has_relu: bool = True):
+    def __init__(self, in_channels: int, out_channels: int, group_norm: int, has_relu: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = nn.Linear(in_channels, out_channels)
-        self.norm = MaskedGroupNorm(group_norm, out_channels)
+        self.mlp = Dense(in_channels, out_channels, dtype=dtype)
+        self.norm = MaskedGroupNorm(group_norm, out_channels, dtype=dtype)
         self.has_relu = has_relu
 
     def forward(self, x, mask):
@@ -117,23 +128,25 @@ class UnaryBlock(nn.Module):
 
 
 class LastUnaryBlock(nn.Module):
-    """Plain linear head."""
+    """Plain linear head in float32: flax's ``Dense`` without a dtype computes
+    in the promoted type of its input and float32 weights."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.mlp = nn.Linear(in_channels, out_channels)
 
     def forward(self, x):
-        return self.mlp(x)
+        return self.mlp(x.float())
 
 
 class ConvBlock(nn.Module):
     """KPConv -> masked GroupNorm -> LeakyReLU(0.1)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, radius, sigma, group_norm):
+    def __init__(self, in_channels, out_channels, kernel_size, radius, sigma, group_norm,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.KPConv = KPConv(in_channels, out_channels, kernel_size, radius, sigma)
-        self.norm = MaskedGroupNorm(group_norm, out_channels)
+        self.KPConv = KPConv(in_channels, out_channels, kernel_size, radius, sigma, dtype=dtype)
+        self.norm = MaskedGroupNorm(group_norm, out_channels, dtype=dtype)
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask,
                 influence=None, nbr_feats=None):
@@ -146,16 +159,17 @@ class ResidualBlock(nn.Module):
     """Bottleneck residual KPConv block."""
 
     def __init__(self, in_channels, out_channels, kernel_size, radius, sigma, group_norm,
-                 strided: bool = False):
+                 strided: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         mid = out_channels // 4
         self.strided = strided
-        self.unary1 = (UnaryBlock(in_channels, mid, group_norm)
+        self.unary1 = (UnaryBlock(in_channels, mid, group_norm, dtype=dtype)
                        if in_channels != mid else None)
-        self.KPConv = KPConv(mid, mid, kernel_size, radius, sigma)
-        self.norm_conv = MaskedGroupNorm(group_norm, mid)
-        self.unary2 = UnaryBlock(mid, out_channels, group_norm, has_relu=False)
-        self.unary_shortcut = (UnaryBlock(in_channels, out_channels, group_norm, has_relu=False)
+        self.KPConv = KPConv(mid, mid, kernel_size, radius, sigma, dtype=dtype)
+        self.norm_conv = MaskedGroupNorm(group_norm, mid, dtype=dtype)
+        self.unary2 = UnaryBlock(mid, out_channels, group_norm, has_relu=False, dtype=dtype)
+        self.unary_shortcut = (UnaryBlock(in_channels, out_channels, group_norm, has_relu=False,
+                                          dtype=dtype)
                                if in_channels != out_channels else None)
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask, s_mask,

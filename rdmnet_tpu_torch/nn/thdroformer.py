@@ -5,7 +5,10 @@ Interleaved [rotary self-attention, vanilla cross-attention] layers over the
 two clouds, with positional angles from raw xyz by Linear(3 -> hidden/2).
 ``k`` (one fraction per layer) makes the self-attention sparse: each query
 keeps its top ``int(cap * frac)`` keys, of which the first
-``floor(valid * frac)`` carry weight.
+``floor(valid * frac)`` carry weight. ThDRoFormer computes in ``dtype``
+(``nn/precision.py``) from ``in_proj`` to ``out_proj`` and returns float32;
+the positional embedding stays float32. The APE variant, like the JAX one,
+takes no dtype.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from torch import nn
 
 from rdmnet_tpu_torch.nn.attention import RotaryTransformerLayer, TransformerLayer
+from rdmnet_tpu_torch.nn.precision import Dense
 from rdmnet_tpu_torch.nn.transformers import PEConditionalTransformer
 
 
@@ -34,16 +38,18 @@ def dyn_count(valid: Optional[torch.Tensor], frac: float, kmax: int) -> Optional
 
 class ThDRoFormer(nn.Module):
     def __init__(self, input_dim: int, output_dim: int, hidden_dim: int, num_heads: int,
-                 num_layers: int, k: Optional[Sequence[float]] = None):
+                 num_layers: int, k: Optional[Sequence[float]] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = num_layers
         self.k = None if k is None else tuple(k)
         self.embedding = nn.Linear(3, hidden_dim // 2)
-        self.in_proj = nn.Linear(input_dim, hidden_dim)
+        self.in_proj = Dense(input_dim, hidden_dim, dtype=dtype)
         for layer in range(num_layers):
-            setattr(self, f"self_{layer}", RotaryTransformerLayer(hidden_dim, num_heads))
-            setattr(self, f"cross_{layer}", TransformerLayer(hidden_dim, num_heads))
-        self.out_proj = nn.Linear(hidden_dim, output_dim)
+            setattr(self, f"self_{layer}",
+                    RotaryTransformerLayer(hidden_dim, num_heads, dtype=dtype))
+            setattr(self, f"cross_{layer}", TransformerLayer(hidden_dim, num_heads, dtype=dtype))
+        self.out_proj = Dense(hidden_dim, output_dim, dtype=dtype)
 
     def forward(self, ref_points, src_points, ref_feats, src_feats,
                 ref_valid: Optional[torch.Tensor] = None,
@@ -70,7 +76,7 @@ class ThDRoFormer(nn.Module):
             # sequential cross: src attends the already-updated ref
             ref_x = cross_layer(ref_x, src_x, memory_valid=src_valid)
             src_x = cross_layer(src_x, ref_x, memory_valid=ref_valid)
-        return self.out_proj(ref_x), self.out_proj(src_x)
+        return self.out_proj(ref_x).float(), self.out_proj(src_x).float()
 
 
 class APETransformer(nn.Module):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from rdmnet_tpu_torch.ops.geometry import f32_reciprocal
@@ -50,6 +51,20 @@ def voxel_sort_key(points: torch.Tensor, valid: torch.Tensor, cell: float) -> Tu
     key = (cx << 20) | (cy << 10) | cz
     key = torch.where(valid, key, torch.full_like(key, INVALID_KEY))
     return key, clipped.sum(dim=1).to(torch.int32)
+
+
+def voxel_sort_key_np(points, cell: float):
+    """Numpy twin of the JAX package's ``voxel_sort_key_np`` for host paths
+    (``graph/native.py``): the anchor, bit layout and ``_CLIP`` of
+    ``voxel_sort_key``, in float32 with a true division as numpy computes
+    it. All points are valid (host callers truncate instead of padding)."""
+    anchor = np.floor(points.min(axis=0) / cell) * cell
+    coords = np.floor((points - anchor) / cell).astype(np.int64)
+    return (
+        (np.clip(coords[:, 0], 0, _CLIP[0]) << 20)
+        | (np.clip(coords[:, 1], 0, _CLIP[1]) << 10)
+        | np.clip(coords[:, 2], 0, _CLIP[2])
+    )
 
 
 def grid_subsample(points: torch.Tensor, num_valid: torch.Tensor, voxel_size: float, cap: int):

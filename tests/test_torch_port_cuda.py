@@ -425,3 +425,160 @@ def test_eval_loop_on_card_matches_cpu(cuda, tmp_path):
                     "transform"):
             np.testing.assert_array_equal(got[key], want[key], err_msg=f"{name} {key}")
         np.testing.assert_allclose(got["ref_feats_c"], want["ref_feats_c"], atol=1e-3)
+
+
+# ------------------------------------------------- bfloat16 and data preparation
+
+def _rel(a, b):
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).norm() / b.norm())
+
+
+def test_bf16_pipeline_on_card_matches_cpu(cuda):
+    """bfloat16 on the card against bfloat16 on the CPU, with the bound of
+    ``test_torch_port_bf16.py``: no further apart than twice the CPU's
+    bfloat16 distance from its float32."""
+    cfg = make_tiny_cfg()
+    ref, src, _ = procedural_pair(3, n_rings=16, n_azimuths=200)
+    ref, src = ref[:500], src[:500]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        for dt in ("float32", "bfloat16"):
+            model = RDMNet(dataclasses.replace(cfg, compute_dtype=dt), device=dev,
+                           generator=torch.Generator().manual_seed(1))
+            reset_launch_counts()
+            outs[dev.type, dt] = pipeline(model, *pad_cloud(ref, 512, device=dev),
+                                          *pad_cloud(src, 512, device=dev), device=dev)
+            if dev.type == "cuda":
+                assert launch_counts() == {"radius_knn": 12, "sinkhorn": 1}
+            assert {p.dtype for p in model.parameters()} == {torch.float32}
+    card, cpu = outs["cuda", "bfloat16"], outs["cpu", "bfloat16"]
+    for side in ("ref", "src"):
+        for field in ("points", "neighbors", "subsampling", "upsampling"):
+            for a, b in zip(getattr(getattr(card["batch"], side), field),
+                            getattr(getattr(cpu["batch"], side), field)):
+                assert torch.equal(a.cpu(), b)
+    v = cpu["nodes_ref_valid"] & outs["cpu", "float32"]["nodes_ref_valid"]
+    for key in ("ref_feats_c", "ref_feats_f", "ref_n2p_scores_c"):
+        sel = v if key == "ref_feats_c" else slice(None)
+        assert card[key].dtype == torch.float32 and torch.isfinite(card[key]).all()
+        yard = _rel(cpu[key][sel], outs["cpu", "float32"][key][sel])
+        assert _rel(card[key][sel].cpu(), cpu[key][sel]) <= 2 * yard, key
+    assert torch.isfinite(card["estimated_transform"]).all()
+
+
+def test_bf16_gemm_on_card_matches_widened_products(cuda):
+    from rdmnet_tpu_torch.nn.precision import matmul_f32
+
+    rng = np.random.RandomState(2)
+    for sa, sb in (((300, 960), (960, 64)), ((64, 15, 40), (64, 40, 32))):
+        a = torch.from_numpy(rng.randn(*sa).astype(np.float32)).to(torch.bfloat16)
+        b = torch.from_numpy(rng.randn(*sb).astype(np.float32)).to(torch.bfloat16)
+        g = torch.from_numpy(rng.randn(*(sa[:-1] + sb[-1:])).astype(np.float32))
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            x, y = a.to(dev).requires_grad_(), b.to(dev).requires_grad_()
+            c = matmul_f32(x, y)
+            c.backward(g.to(dev))
+            out[dev.type] = (c.detach().cpu(), x.grad.cpu(), y.grad.cpu())
+            assert c.dtype == torch.float32 and x.grad.dtype == torch.bfloat16
+        # products are exact in float32: only the summation order differs
+        torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-4)
+        for gc, gh in zip(out["cuda"][1:], out["cpu"][1:]):
+            torch.testing.assert_close(gc.float(), gh.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_bf16_train_step_on_card(cuda):
+    cfg = dataclasses.replace(make_tiny_cfg(), compute_dtype="bfloat16")
+    model = RDMNet(cfg, device=cuda, generator=torch.Generator().manual_seed(1))
+    state = create_train_state(cfg, model, steps_per_epoch=10)
+    reset_launch_counts()
+    batch = _train_pair(cfg, cuda)  # the graph build: the step's 12 searches
+    metrics, grads = make_value_and_grad(cfg, device=cuda)(
+        state, batch, torch.Generator(device=cuda).manual_seed(1))
+    assert launch_counts() == {"radius_knn": 12, "sinkhorn": 0}
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert float(metrics["grad_norm"]) > 0
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in grads)
+    assert state.apply_gradients(grads)
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+
+
+def test_icp_search_on_card_matches_plain_and_native(cuda):
+    """ICP's search on the card: one kernel launch whose table equals the
+    plain version's, re-ranked so that no row picks a farther point than the
+    native library (``test_torch_port_preprocess.py`` shows why the kernel's
+    own nearest is not enough far from the origin)."""
+    from rdmnet_tpu_torch.data.preprocess import ICP_CANDIDATES, candidate_radius, nearest_within
+    from rdmnet_tpu_torch.graph.native import radius_knn_native
+
+    scan = procedural_sequence(5, 1, n_rings=64, n_azimuths=1800)[0][0][:, :3]
+    moved = scan + np.random.RandomState(0).randn(*scan.shape) * 0.05
+    extent = float(np.linalg.norm(moved, axis=1).max())
+    ref, n = torch.from_numpy(scan).to(cuda), len(scan)
+    reset_launch_counts()
+    got = nearest_within(torch.from_numpy(moved).to(cuda), ref, 0.5, extent).cpu().numpy()
+    assert launch_counts()["radius_knn"] == 1
+    q = torch.from_numpy(moved.astype(np.float32))
+    wide = candidate_radius(0.5, extent)
+    table = radius_knn_cuda(q[None].to(cuda), ref[None], torch.tensor([n], dtype=torch.int32,
+                                                                      device=cuda),
+                            wide, ICP_CANDIDATES)
+    want = radius_knn_plain(q[None, :4096], torch.from_numpy(scan)[None], torch.tensor([n]),
+                            wide, ICP_CANDIDATES)
+    assert torch.equal(table[:, :4096].cpu(), want)
+    native = radius_knn_native(q.numpy(), scan, n, 0.5, 1)[:, 0]
+    d2 = lambda idx: ((q.numpy().astype(np.float64)  # noqa: E731
+                       - scan.astype(np.float64)[np.minimum(idx, n - 1)]) ** 2).sum(1)
+    both = (got < n) & (native < n)
+    assert not (both & (d2(got) > d2(native) * (1 + 1e-6))).any()
+    assert (got != native).sum() <= 1e-3 * n
+
+
+def test_icp_and_calibration_on_card_match_cpu(cuda, monkeypatch):
+    """ICP: each iteration's pairing on the card against the CPU's (the same
+    pair count; cross-covariance within 1e-6 of its size, the source
+    centroid 1e-9, the reference centroid 1e-5: the CPU takes the JAX
+    package's float32 mean of the reference points, measured 1.9e-6 from
+    the card's float64 one), one kNN launch per iteration, and the final
+    transforms within 1e-3 (over tens of iterations on a sparse pair 10 m
+    apart the two means move the optimum by ~1e-4; phase 13 of
+    ``chip_smoke.py`` holds the ground truth of its pairs to 1e-4).
+    Calibration: equal limits, band caps and neighbour counts."""
+    from rdmnet_tpu_torch.config import PyramidConfig
+    from rdmnet_tpu_torch.data import calibration
+    from rdmnet_tpu_torch.data import preprocess
+
+    scans, poses = procedural_sequence(5, 2, n_rings=32, n_azimuths=900)
+    src, ref = scans[0][:, :3], scans[1][:, :3]
+    init = np.linalg.inv(poses[1]) @ poses[0]
+    extent = (float(np.linalg.norm(src, axis=1).max()), float(np.linalg.norm(ref, axis=1).max()))
+    clouds = (torch.from_numpy(src).double().to(cuda), torch.from_numpy(ref).to(cuda))
+    tf = init
+    for _ in range(3):
+        n_c, h_c, a_c, b_c = preprocess._pair_stats_card(*clouds, tf, 0.5, extent)
+        n_h, h_h, a_h, b_h = preprocess._pair_stats_host(src, ref, tf, 0.5)
+        assert n_c == n_h > 10
+        for x, y, tol in ((h_c, h_h, 1e-6), (a_c, a_h, 1e-9), (b_c, b_h, 1e-5)):
+            np.testing.assert_allclose(x, y, rtol=0, atol=tol * np.abs(y).max())
+        tf = np.eye(4)
+        tf[:3, 3] = b_h - a_h
+        tf = tf @ init  # move on by the centroid shift: another pairing
+    calls = []
+    search = preprocess.nearest_within
+    monkeypatch.setattr(preprocess, "nearest_within",
+                        lambda *a: calls.append(1) or search(*a))
+    reset_launch_counts()
+    on_card = preprocess.icp_point_to_point(src, ref, init=init, device=cuda)
+    assert launch_counts()["radius_knn"] == len(calls) >= 2
+    on_cpu = preprocess.icp_point_to_point(src, ref, init=init, device="cpu")
+    np.testing.assert_allclose(on_card, on_cpu, atol=1e-3)
+
+    spec = PyramidConfig(caps=(4096, 2048, 1024, 512, 256), neighbor_limits=(40,) * 5)
+    clouds = [s[:, :3] for s in scans]
+    for fn in (calibration.calibrate_neighbor_limits, calibration.calibrate_band_caps):
+        assert fn(clouds, spec, device=cuda) == fn(clouds, spec, device="cpu")
+    pts = torch.from_numpy(clouds[0])
+    np.testing.assert_array_equal(
+        calibration._neighbor_counts(pts.to(cuda), len(pts), 0.75),
+        calibration._neighbor_counts(pts, len(pts), 0.75))

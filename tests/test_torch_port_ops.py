@@ -74,13 +74,17 @@ def test_config_twin_matches_jax():
     for jc, tc in [(jcfg.make_cfg(), tcfg.make_cfg()), (jcfg.make_tiny_cfg(), tcfg.make_tiny_cfg()),
                    (jcfg.make_parity_cfg(), tcfg.make_parity_cfg())]:
         for field in dataclasses.fields(tc):
-            if field.name == "seed":
-                assert tc.seed == jc.seed
-                continue
             tsub, jsub = getattr(tc, field.name), getattr(jc, field.name)
+            if not dataclasses.is_dataclass(tsub):  # seed, compute_dtype
+                assert tsub == jsub, field.name
+                continue
             for f in dataclasses.fields(tsub):
                 assert getattr(tsub, f.name) == getattr(jsub, f.name), (field.name, f.name)
     tb, jb = tcfg.make_cfg().pyramid.scaled(0.7), jcfg.make_cfg().pyramid.scaled(0.7)
+    bf16 = dataclasses.asdict(tcfg.make_cfg(compute_dtype="bfloat16"))
+    tbf = tcfg.config_from_dict(tcfg.Config, bf16)
+    assert tbf.compute_dtype == jcfg.make_cfg(compute_dtype="bfloat16").compute_dtype == "bfloat16"
+    assert tcfg.config_from_dict(tcfg.Config, {"seed": 1}).compute_dtype == "float32"
     assert tb.caps == jb.caps == (21504, 8704, 3584, 1280, 512)
     assert tb.band_caps == jb.band_caps == (5120, 2560, 1664, None, None)
     assert [tb.band_chunk_for(i) for i in range(5)] == [jb.band_chunk_for(i) for i in range(5)]
@@ -345,7 +349,8 @@ def test_port_imports_no_jax():
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'rdmnet_tpu')]\n"
         "assert not bad, bad\n"
         "for m in ('nn.transformers', 'nn.geotransformer', 'utils.torch_convert', 'cli.convert',\n"
-        "          'cli.test_sweep'):\n"
+        "          'cli.test_sweep', 'nn.precision', 'graph.native', 'data.preprocess',\n"
+        "          'data.calibration', 'data.transforms', 'cli.preprocess'):\n"
         "    assert 'rdmnet_tpu_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('rdmnet_tpu_torch')]))\n"
     )

@@ -264,7 +264,8 @@ def test_sweep_raises_when_a_worker_dies(upstream, snapshots, tmp_path, capfd):
 
 # ------------------------------------------------------------ CLI modules
 
-CLIS = ("trainval", "test", "eval", "export", "serve", "infer", "convert", "test_sweep")
+CLIS = ("trainval", "test", "eval", "export", "serve", "infer", "convert", "test_sweep",
+        "preprocess")
 
 
 @pytest.mark.parametrize("name", CLIS)
@@ -277,4 +278,5 @@ def test_console_scripts_name_cli_mains():
         scripts = dict(re.findall(r'^(rdmnet-torch-[\w-]+) = "([\w.]+):main"$', f.read(), re.M))
     assert scripts["rdmnet-torch-convert"] == "rdmnet_tpu_torch.cli.convert"
     assert scripts["rdmnet-torch-test-sweep"] == "rdmnet_tpu_torch.cli.test_sweep"
+    assert scripts["rdmnet-torch-preprocess"] == "rdmnet_tpu_torch.cli.preprocess"
     assert sorted(m.rsplit(".", 1)[1] for m in scripts.values()) == sorted(CLIS)

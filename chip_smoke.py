@@ -74,7 +74,11 @@ Phases, each fatal on failure:
    equal to ``make_forward`` + ``trim_outputs`` at its bucket); ``cli.eval.main``
    with lgr, svd and ransac on the card (the JAX CLI's JSON keys, 2 pairs,
    finite numbers); 12 kNN and 0 Sinkhorn launches per train step, 12 and 1
-   per validation and test pair. Prints the Trainer's windowed steps/s beside
+   per validation and test pair; ``cli.test.main --vis`` (each pair's PLY
+   exports and ``viewer.html``) and ``cli.eval.main --figures --baselines
+   kitti`` (the JAX CLI's three PNGs, readable; where matplotlib is not
+   installed the flag must refuse at once, and the figures' ATE and recall
+   numbers are computed without drawing). Prints the Trainer's windowed steps/s beside
    phase 6's isolated step, the loader-wait share of each epoch, validation
    ms per pair, snapshot save/restore ms and size, test ms per pair (prep,
    proc, the ``.npz`` write alone, wall) and eval ms per pair per method;
@@ -111,7 +115,29 @@ Phases, each fatal on failure:
    every query, timed beside its bound) and against the native library (the
    differing rows counted); ``calibrate`` on the card and on the CPU (equal
    limits and band caps, equal neighbour counts per level), with the ms per
-   ICP pair and the seconds per ``calibrate`` on each.
+   ICP pair and the seconds per ``calibrate`` on each;
+14. data parallelism, world 2 through a ``file://`` store: NCCL with a card
+   per rank where there are two, else gloo with both ranks on card 0 (asked
+   for explicitly: placement and collectives, not a scaling figure). (a) the
+   dp train step at ``make_cfg()`` width, 0.7 bucket, one pair a rank (the
+   phase-4 pair and its src moved by a seeded rigid motion), rank 1's
+   different weights replaced by rank 0's broadcast, each rank's target
+   generator at the state the one-process two-pair step had at its pair:
+   gradients and losses within max(2 x the distance between two one-process
+   runs, 1e-6 of the global norm / the loss), gradients and weights after the
+   step bit-equal across ranks, 12 kNN and 0 Sinkhorn launches per rank per
+   step, an eval step's Sinkhorn against the plain version, ms/step (1
+   warm-up, 3 timed) beside the one process's and peak memory per rank;
+   (b) the phase-4 pair's build with its searches of 2048 query rows or more
+   sharded: every table equal to the unsharded build, each shard's table
+   equal to the plain version, launches per rank, build ms beside the whole
+   build in turns; (c) ``cli.trainval.main --dp 2`` on phase 10's root for an
+   epoch and a resumed one: weights bit-equal across ranks, 12 kNN and 0
+   Sinkhorn launches per train step, 12 and 1 per validation pair, the
+   validation means within 1e-5 of one process validating the snapshot.
+
+``python3 chip_smoke.py --dp-only`` runs phases 1, 2 and 14 alone (with two
+cards or more, the NCCL path).
 
 Phase 2 fails if ``-Xptxas -v`` reports a spilled register in any kernel.
 Prints a ``kernels`` JSON line, the card line, and as the last line
@@ -548,27 +574,38 @@ def serve_checked(serve, r, s, kernels):
     finally:
         handle.remove()
     (args, kwargs, got), = seen
+    err = sinkhorn_against_plain(ot, args, kwargs, got, "serving", "a served request's")
+    kernels["sinkhorn"]["max_abs_err"] = max(kernels["sinkhorn"]["max_abs_err"], err)
+    return direct
+
+
+def sinkhorn_against_plain(ot, args, kwargs, got, where, whose) -> float:
+    """One call of the optimal-transport module ``ot`` (its ``args``,
+    ``kwargs`` and output ``got``, the kernel's) held against the plain
+    version in float32 and float64 as ``serve_checked`` says. Prints a line
+    and returns the max abs error against the float32 plain version."""
+    import torch
+
     if not kwargs.get("use_kernel", True):
-        fail("serving: the served request did not take the Sinkhorn kernel")
+        fail(f"{where}: the call did not take the Sinkhorn kernel")
     with torch.no_grad():
         want = ot(*args, use_kernel=False)
         exact = ot(args[0].double(), *args[1:], use_kernel=False)
     live = want > -1e11
     if not torch.isfinite(got).all() or not torch.equal(got > -1e11, live):
-        fail("serving: Sinkhorn kernel output non-finite or masked entries differ")
+        fail(f"{where}: Sinkhorn kernel output non-finite or masked entries differ")
     ref = exact[live]
     tol = 1e-4 + 1e-4 * ref.abs()
     worst_k = float(((got[live] - ref).abs() / tol).max())
     worst_p = float(((want[live] - ref).abs() / tol).max())
     err = float((got - want)[live].abs().max())
-    kernels["sinkhorn"]["max_abs_err"] = max(kernels["sinkhorn"]["max_abs_err"], err)
-    print(f"serving: sinkhorn on the request's own inputs {tuple(args[0].shape)}: max abs err "
+    print(f"{where}: sinkhorn on {whose} own inputs {tuple(args[0].shape)}: max abs err "
           f"{err:.3e} against the plain version; against the float64 run (entries up to "
           f"{float(ref.abs().max()):.3f} in magnitude) the kernel's worst entry is at "
           f"{worst_k:.3f} of the tolerance, the float32 plain version's at {worst_p:.3f}")
     if worst_k > max(1.0, 2.0 * worst_p):
-        fail("serving: sinkhorn outside its tolerance on a served request's inputs")
-    return direct
+        fail(f"{where}: sinkhorn outside its tolerance on {whose} inputs")
+    return err
 
 
 def serving_phase(dev, card, kernels):
@@ -862,11 +899,28 @@ def _per_event(events):
     return out
 
 
-def workflow_phase(dev, card, kernels, isolated_step_ms, cli_args=()):
+def write_workflow_root(root, sequences=WORKFLOW_SEQUENCES, scan=WORKFLOW_SCAN):
+    """Phase 10's KITTI-layout root of procedural scans (phase 14 trains on
+    it too)."""
+    import numpy as np
+
+    from rdmnet_tpu_torch.data.datasets import write_procedural_root
+
+    t0 = time.perf_counter()
+    write_procedural_root(root, "kitti", sequences, **scan)
+    sizes = [len(np.load(os.path.join(root, "downsampled_xyzi", f"{seq:02d}", f"{i:06d}.npy")))
+             for seq, (_, n) in sequences.items() for i in range(n)]
+    print(f"workflow: root of {len(sizes)} procedural scans ({min(sizes)}-{max(sizes)} "
+          f"points) written in {time.perf_counter() - t0:.3f} s")
+
+
+def workflow_phase(dev, card, kernels, isolated_step_ms, root, cli_args=()):
     """Phase 10: train -> snapshot -> test -> eval through the CLIs' ``main``
-    on a procedural KITTI-layout root, on ``dev``. ``cli_args`` go to every
-    CLI (``--cfg_preset tiny`` rehearses the phase on the CPU). Returns
-    launches per trainer step, validation pair and test pair by kernel."""
+    on the procedural KITTI-layout root ``root`` (``write_workflow_root``),
+    on ``dev``; then test with ``--vis`` and eval with ``--figures``.
+    ``cli_args`` go to every CLI (``--cfg_preset tiny`` rehearses the phase
+    on the CPU). Returns launches per trainer step, validation pair and test
+    pair by kernel."""
     import numpy as np
     import torch
 
@@ -876,7 +930,7 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, cli_args=()):
     from rdmnet_tpu_torch.cli import trainval
     from rdmnet_tpu_torch.cli.common import (build_model_and_params, make_forward, pad_pair_np,
                                              trim_outputs)
-    from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset, write_procedural_root
+    from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset
     from rdmnet_tpu_torch.data.loader import PairLoader, choose_bucket
     from rdmnet_tpu_torch.engine import create_train_state
     from rdmnet_tpu_torch.engine.checkpoint import CheckpointManager, state_to_host
@@ -929,14 +983,7 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, cli_args=()):
     test_cli.run_eval_loop = timed_loop
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            root, run = os.path.join(tmp, "kitti"), os.path.join(tmp, "run")
-            t0 = time.perf_counter()
-            write_procedural_root(root, "kitti", WORKFLOW_SEQUENCES, **WORKFLOW_SCAN)
-            sizes = [len(np.load(os.path.join(root, "downsampled_xyzi", f"{seq:02d}",
-                                              f"{i:06d}.npy")))
-                     for seq, (_, n) in WORKFLOW_SEQUENCES.items() for i in range(n)]
-            print(f"workflow: root of {len(sizes)} procedural scans ({min(sizes)}-{max(sizes)} "
-                  f"points) written in {time.perf_counter() - t0:.3f} s")
+            run = os.path.join(tmp, "run")
             argv = ["--root", root, "--output_dir", run, "--bucket_scale", "0.7",
                     "--log_steps", "2", "--keep_snapshots", "1", *cli_args]
 
@@ -1138,6 +1185,19 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, cli_args=()):
                       f"RR {written['RR']}, RRE {written['RRE_deg']} deg, RTE {written['RTE_m']} m, "
                       f"PIR {written['PIR']:.4f}, IR {written['IR']:.4f} (a model trained for 12 "
                       f"steps: a plumbing check, not accuracy; {card})")
+
+            # ---- the same test with --vis, its dumps through eval --figures
+            vis_dir = os.path.join(tmp, "featureskitti")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                test_cli.main(["--root", root, "--snapshot_dir", os.path.join(run, "snapshots_best"),
+                               "--buckets", "0.7,1.0", "--subset", "test", "--feature_dir",
+                               vis_dir, "--vis", *cli_args])
+            vis_s = time.perf_counter() - t0
+            check_vis_exports(vis_dir, names)
+            figures_check(vis_dir, dev, card)
+            print(f"workflow test --vis: {vis_s:.3f} s for {len(names)} pairs, each pair's PLY "
+                  f"exports and viewer.html present ({card})")
     finally:
         (trainer_mod.make_train_step, trainer_mod.make_eval_step, trainer_mod.Trainer.resume,
          test_cli._make_eval_forward, test_cli.run_eval_loop) = orig
@@ -1148,6 +1208,89 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, cli_args=()):
         got = [c for k, c in events_of if k == kind]
         counts[key] = {name: sum(c[name] for c in got) / len(got) for name in got[0]}
     return counts
+
+
+VIS_FILES = {"viewer.html", "ref_points.ply", "src_points.ply", "ref_grouping.ply",
+             "src_grouping.ply", "ref_vote_offsets.ply", "src_vote_offsets.ply",
+             "ref_shifted_nodes.ply", "src_shifted_nodes.ply"}
+FIGURE_FILES = ["method_comparison_lgr.png", "recall_curves_lgr.png", "traj_seq8_lgr.png"]
+
+
+def check_vis_exports(feature_dir, dumps):
+    """``test --vis`` wrote ``VIS_FILES`` and correspondence lines for each
+    dump, and no export into the ``.npz`` schema."""
+    import numpy as np
+
+    got = sorted(n for n in os.listdir(feature_dir) if n.endswith(".npz"))
+    if got != sorted(dumps):
+        fail(f"test --vis wrote dumps {got}, the plain run {sorted(dumps)}")
+    for name in got:
+        files = set(os.listdir(os.path.join(feature_dir, "vis", name[:-4])))
+        lines = files & {"correspondences_correct.ply", "correspondences_wrong.ply"}
+        if not VIS_FILES <= files or not lines:
+            fail(f"test --vis: {name} has {sorted(files)}")
+        with np.load(os.path.join(feature_dir, name)) as d:
+            if any(k.startswith("vis_") for k in d.files):
+                fail(f"test --vis: {name} holds vis_* keys")
+        with open(os.path.join(feature_dir, "vis", name[:-4], "viewer.html")) as f:
+            if "const LAYERS = [" not in f.read():
+                fail(f"test --vis: {name}'s viewer.html holds no layers")
+
+
+def figures_check(feature_dir, dev, card):
+    """``eval --figures --baselines kitti`` on ``feature_dir``: the JAX CLI's
+    file names, each PNG readable. Where matplotlib is not installed the flag
+    must refuse at once; the figures' numbers (ATE per sequence, recall
+    curves) are then computed without drawing."""
+    import importlib.util
+
+    import numpy as np
+
+    from rdmnet_tpu_torch.cli import eval as eval_cli
+    from rdmnet_tpu_torch.utils.eval_figures import (absolute_trajectory_error,
+                                                     compose_trajectory, recall_vs_threshold)
+
+    args = ["--feature_dir", feature_dir, "--figures", "--baselines", "kitti",
+            "--device", dev.type]
+    if importlib.util.find_spec("matplotlib") is None:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            try:
+                eval_cli.main(args)
+                fail("eval --figures ran without matplotlib")
+            except SystemExit as e:
+                if e.code != 2 or "matplotlib" not in err.getvalue():
+                    fail(f"eval --figures without matplotlib: exit {e.code}, {err.getvalue()}")
+        summary = eval_cli.main(["--feature_dir", feature_dir, "--device", dev.type])
+        pairs = sorted(summary["per_pair"], key=lambda p: p["src_frame"])
+        ests, gts = [], []
+        for p in pairs:
+            with np.load(os.path.join(feature_dir, f"{p['seq_id']}_{p['src_frame']}_"
+                                                   f"{p['ref_frame']}.npz")) as d:
+                ests.append(d["estimated_transform"])
+                gts.append(d["transform"])
+        ate, _ = absolute_trajectory_error(compose_trajectory(ests), compose_trajectory(gts))
+        rr, _ = recall_vs_threshold([p["rre"] for p in pairs], [p["rte"] for p in pairs],
+                                    np.linspace(0.25, 5, 20), np.linspace(0.1, 2, 20), 5.0, 2.0)
+        if not all(np.isfinite(v) for v in ate.values()) or not np.isfinite(rr).all():
+            fail(f"figure numbers: ATE {ate}, recall {rr}")
+        print(f"eval --figures: matplotlib is not installed on this machine, so the flag "
+              f"refuses at once (exit 2); the figures' numbers without drawing: ATE "
+              f"{ {k: round(v, 4) for k, v in ate.items()} }, recall by RRE "
+              f"{rr.round(3).tolist()} ({card})")
+        return
+    with contextlib.redirect_stdout(io.StringIO()):
+        eval_cli.main(args)
+    figure_dir = os.path.join(feature_dir, "figures")
+    got = sorted(os.listdir(figure_dir))
+    if got != FIGURE_FILES:
+        fail(f"eval --figures wrote {got}")
+    import matplotlib.image
+
+    for name in got:
+        if matplotlib.image.imread(os.path.join(figure_dir, name)).ndim != 3:
+            fail(f"eval --figures: {name} is not an image")
+    print(f"eval --figures: {got} written and readable ({card})")
 
 
 FAMILY_STEPS = 3                         # train steps per family in phase 11
@@ -1862,6 +2005,378 @@ def data_prep_phase(dev, kernels, frames=ICP_FRAMES, scan_kwargs=ICP_SCAN):
         return {"radius_knn": sum(r[2] for r in on_dev) / max(iters, 1), "sinkhorn": 0.0}
 
 
+DP_WORLD = 2                 # ranks of phase 14
+DP_WARM, DP_TIMED = 1, 3     # train steps of phase 14 (a), per rank and for the one process
+SP_MIN_QUERIES = 2048        # phase 14 (b): query levels of at least this many rows shard
+
+
+def _sha1(tensors) -> str:
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_rank(rank, world, backend, store, spec):
+    """One rank of phase 14 (a spawned process): (a) the dp train step, an
+    eval step and timed steps, (b) the sp-sharded build, (c) ``trainval --dp``
+    for an epoch and a resumed one. Its findings go to ``<out>/rank<r>.pt``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import rdmnet_tpu_torch.engine.trainer as trainer_mod
+    import rdmnet_tpu_torch.ops.radius_search as search_mod
+    from rdmnet_tpu_torch.cli import trainval
+    from rdmnet_tpu_torch.engine import (batch_to_device, create_train_state, make_eval_step,
+                                         make_train_step, make_value_and_grad)
+    from rdmnet_tpu_torch.graph.pyramid import build_pair_batch
+    from rdmnet_tpu_torch.models import RDMNet
+    from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.kernels.radius_knn import radius_knn_plain
+    from rdmnet_tpu_torch.parallel import initialize_distributed, replicate
+
+    torch.set_num_threads(2)
+    on_card = spec["device_type"] == "cuda"
+    if on_card and backend == "gloo":
+        torch.cuda.set_device(0)  # one card: both ranks on it, asked for explicitly
+    initialize_distributed(backend=backend, init_method=f"file://{store}", world_size=world,
+                           rank=rank, local_rank=rank)
+    dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+    group = dist.group.WORLD
+    cfg = spec["cfg"]
+    res = {"rank": rank, "device": str(dev)}
+    try:
+        # ---- (a) the dp train step against the one-process two-pair step
+        model = RDMNet(cfg, device=dev, generator=torch.Generator().manual_seed(1000 + rank))
+        if rank == 0:
+            model.load_state_dict(torch.load(spec["weights"], weights_only=True), strict=True)
+        replicate(model, group)
+        res["replicated"] = _sha1(model.state_dict().values())
+        state = create_train_state(cfg, model, steps_per_epoch=10, dp_size=world)
+        gen = torch.Generator(device=dev)
+        gen.set_state(spec["gen_states"][rank])
+        reset_launch_counts()
+        batch = batch_to_device(spec["pairs"][rank], cfg.pyramid, dev)
+        metrics, grads = make_value_and_grad(cfg, dev, group)(state, batch, gen)
+        sync(dev)
+        res["step_launches"] = launch_counts()
+        res["metrics"] = {k: float(v) for k, v in metrics.items()}
+        res["grad_sha1"] = _sha1(grads)
+        if rank == 0:
+            torch.save(torch.cat([g.reshape(-1) for g in grads]).cpu(), spec["grads_out"])
+        state.apply_gradients(grads)
+        res["params_sha1"] = _sha1(state.params)
+        # an eval step: its Sinkhorn launch against the plain version
+        ot, seen = state.model.optimal_transport, []
+        hook = ot.register_forward_hook(
+            lambda mod, args, kwargs, out: seen.append((args, kwargs, out)), with_kwargs=True)
+        reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            make_eval_step(cfg, dev)(state, batch)
+            hook.remove()
+            sync(dev)
+            res["eval_launches"] = launch_counts()
+            res["sinkhorn_err"] = sinkhorn_against_plain(ot, *seen[0], f"dp rank {rank}",
+                                                         "its eval step's")
+        res["sinkhorn_line"] = out.getvalue().strip()
+        # timed steps, every rank in lockstep
+        step = make_train_step(cfg, dev, group)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        ms = []
+        for i in range(DP_WARM + DP_TIMED):
+            sync(dev)
+            t0 = time.perf_counter()
+            state, _ = step(state, batch_to_device(spec["pairs"][rank], cfg.pyramid, dev), gen)
+            sync(dev)
+            if i >= DP_WARM:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        res["step_ms"] = ms
+        res["peak"] = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        res["params_after_timed_sha1"] = _sha1(state.params)
+        del state, model, batch, grads
+
+        # ---- (b) the sp-sharded build against the unsharded one
+        rp, rc, sp, sc = (torch.as_tensor(x, device=dev) for x in spec["padded"])
+        eye = torch.eye(4, device=dev)
+        calls = []
+        batched = search_mod.radius_knn_batched
+
+        def record(q, s, cnt, radius, k, **kw):
+            out = batched(q, s, cnt, radius, k, **kw)
+            calls.append((q, s, cnt, radius, k, kw, out))
+            return out
+
+        search_mod.radius_knn_batched = record
+        try:
+            reset_launch_counts()
+            got = build_pair_batch(rp, rc, sp, sc, eye, cfg.pyramid, sp_group=group,
+                                   sp_min_queries=SP_MIN_QUERIES)
+            sync(dev)
+            res["sp_launches"] = launch_counts()
+        finally:
+            search_mod.radius_knn_batched = batched
+        want = build_pair_batch(rp, rc, sp, sc, eye, cfg.pyramid)
+        res["sp_equal"] = all(
+            torch.equal(a, b) for side in ("ref", "src")
+            for field in ("points", "counts", "neighbors", "subsampling", "upsampling")
+            for a, b in zip(getattr(getattr(got, side), field), getattr(getattr(want, side), field))
+        ) and torch.equal(got.ref.dropped, want.ref.dropped) \
+            and torch.equal(got.src.dropped, want.src.dropped)
+        res["sp_plain_equal"] = all(
+            torch.equal(out, radius_knn_plain(q, s, cnt, radius, k, kw.get("win"),
+                                              kw.get("chunk", 0), kw.get("band", 0)))
+            for q, s, cnt, radius, k, kw, out in calls)
+        res["sp_shards"] = sorted({(tuple(c[0].shape), tuple(c[1].shape)) for c in calls})
+        del calls
+        build_ms = {"sharded": [], "whole": []}
+        for turn in ("sharded", "whole", "whole", "sharded") * 2:
+            sync(dev)
+            dist.barrier(group=group)
+            t0 = time.perf_counter()
+            build_pair_batch(rp, rc, sp, sc, eye, cfg.pyramid,
+                             sp_group=group if turn == "sharded" else None,
+                             sp_min_queries=SP_MIN_QUERIES)
+            sync(dev)
+            build_ms[turn].append((time.perf_counter() - t0) * 1e3)
+        res["build_ms"] = build_ms
+
+        # ---- (c) trainval --dp on phase 10's root, one epoch and a resumed one
+        events = []
+        orig = trainer_mod.make_train_step, trainer_mod.make_eval_step
+        trainer_mod.make_train_step = _launch_recorder(events, "train")(orig[0])
+        trainer_mod.make_eval_step = _launch_recorder(events, "val")(orig[1])
+        try:
+            argv = ["--root", spec["root"], "--output_dir", spec["run"], "--bucket_scale", "0.7",
+                    "--log_steps", "2", "--keep_snapshots", "1", "--dp", str(world),
+                    "--device", dev.type, *spec["cli_args"]]
+            reset_launch_counts()
+            runs = []
+            with contextlib.redirect_stdout(io.StringIO()):
+                for extra in (["--max_epoch", "1"], ["--max_epoch", "2", "--resume"]):
+                    t0 = time.perf_counter()
+                    trainer = trainval.main(argv + extra)
+                    runs.append(dict(seconds=time.perf_counter() - t0,
+                                     params_sha1=_sha1(trainer.state.params),
+                                     epoch=trainer.epoch, count=trainer.state.count,
+                                     epochs=trainer.epoch_timings, vals=trainer.val_timings))
+        finally:
+            trainer_mod.make_train_step, trainer_mod.make_eval_step = orig
+        res["runs"] = runs
+        res["workflow_launches"] = _per_event(events)
+        torch.save(res, os.path.join(spec["out"], f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phase(dev, card, kernels, cfg, ref, src, gt, root, cli_args=()):
+    """Phase 14: data parallelism on the card, world 2 (NCCL with a card per
+    rank where there are two, else gloo with both ranks on card 0): the dp
+    train step against the one-process two-pair step, the sp-sharded build,
+    ``trainval --dp 2`` on ``root`` (phase 10's) and its validation against
+    one process. Returns the launches per rank and pair by kernel. On the CPU
+    (gloo, ``cli_args=["--cfg_preset", "tiny"]`` with the tiny config) it
+    rehearses the phase; only its launch checks fail there."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from rdmnet_tpu_torch.config import Config, config_from_dict
+    from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset
+    from rdmnet_tpu_torch.data.loader import PairLoader
+    from rdmnet_tpu_torch.engine import (Trainer, batch_to_device, create_train_state,
+                                         make_train_step, make_value_and_grad)
+    from rdmnet_tpu_torch.engine.checkpoint import CheckpointManager
+    from rdmnet_tpu_torch.graph.pyramid import pad_cloud
+    from rdmnet_tpu_torch.models import RDMNet
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend = "nccl" if n_cards >= DP_WORLD else "gloo"
+    print(f"dp phase: backend {backend}, {n_cards} card(s), world {DP_WORLD}"
+          + ("" if n_cards >= DP_WORLD else
+             " (both ranks on card 0: placement and collectives, not a scaling figure)")
+          + f" ({card})")
+    cap = cfg.pyramid.caps[0]
+    # the second pair: the phase-4 pair's src moved by a seeded rigid motion
+    rng = np.random.RandomState(SEED + 14)
+    a = rng.uniform(-0.3, 0.3)
+    motion = np.eye(4)
+    motion[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+    motion[:3, 3] = rng.uniform(-2, 2, 3)
+    src2 = (src @ motion[:3, :3].T + motion[:3, 3]).astype(np.float32)
+    pairs = [host_pair(ref, src, gt, cap), host_pair(ref, src2, gt @ np.linalg.inv(motion), cap)]
+    both = {k: np.concatenate([p[k] for p in pairs]) for k in pairs[0]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = RDMNet(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+        weights = os.path.join(tmp, "weights.pt")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, weights)
+        # the one-process two-pair step, twice: the card's own distance
+        state = create_train_state(cfg, model, steps_per_epoch=10, dp_size=DP_WORLD)
+        vag = make_value_and_grad(cfg, dev)
+        gen = torch.Generator(device=dev)
+        runs, gen_states = [], []
+
+        def mark(stage):  # the generator's state after each pair: rank r starts at pair r's
+            if stage == "backward":
+                gen_states.append(gen.get_state())
+
+        for _ in range(2):
+            gen.manual_seed(cfg.seed + 1)
+            gen_states[:] = [gen.get_state()]
+            m, g = vag(state, batch_to_device(both, cfg.pyramid, dev), gen, stage_hook=mark)
+            runs.append(({k: float(v) for k, v in m.items()},
+                         torch.cat([x.reshape(-1) for x in g])))
+            del g
+        step = make_train_step(cfg, dev)
+        sync(dev)
+        if n_cards:
+            torch.cuda.reset_peak_memory_stats()
+        one_ms = []
+        for i in range(DP_WARM + DP_TIMED):
+            sync(dev)
+            t0 = time.perf_counter()
+            state, _ = step(state, batch_to_device(both, cfg.pyramid, dev), gen)
+            sync(dev)
+            if i >= DP_WARM:
+                one_ms.append((time.perf_counter() - t0) * 1e3)
+        one_peak = torch.cuda.max_memory_allocated() if n_cards else 0
+        del state, model, step, vag
+        if n_cards:
+            torch.cuda.empty_cache()
+
+        padded = [x.numpy() for x in (*pad_cloud(ref, cap), *pad_cloud(src, cap))]
+        spec = dict(cfg=cfg, weights=weights, pairs=pairs, gen_states=gen_states[:DP_WORLD],
+                    grads_out=os.path.join(tmp, "grads.pt"), padded=padded, root=root,
+                    run=os.path.join(tmp, "run"), out=tmp, device_type=dev.type,
+                    cli_args=list(cli_args))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_dp_rank, args=(DP_WORLD, backend, os.path.join(tmp, "store"),
+                                                 spec), nprocs=DP_WORLD, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > 600:
+                    fail("dp phase: the ranks ran past 600 s")
+        except Exception as e:  # a rank's failure, with its traceback
+            fail(f"dp phase: a rank failed: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks_s = time.perf_counter() - t0
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+               for r in range(DP_WORLD)]
+        dp_grads = torch.load(spec["grads_out"], weights_only=True)
+
+        # ---- (a)
+        (m1, g1), (m2, g2) = runs
+        norm = float(g1.norm())
+        run_dist = float((g1 - g2).abs().max())
+        err = float((dp_grads - g1.cpu()).abs().max())
+        bound = max(2 * run_dist, 1e-6 * norm)
+        print(f"dp step: ranks on {[r['device'] for r in res]}; gradients max abs diff to the "
+              f"one-process two-pair step {err:.3e} (two one-process runs {run_dist:.3e}, "
+              f"bound {bound:.3e}, global norm {norm:.6g})")
+        if err > bound:
+            fail(f"dp step: gradients {err} from the one-process step, bound {bound}")
+        for name, want in m1.items():
+            lb = max(2 * abs(m1[name] - m2[name]), 1e-6 * abs(want))
+            for r in res:
+                if abs(r["metrics"][name] - want) > lb:
+                    fail(f"dp step: rank {r['rank']} {name} {r['metrics'][name]} against one "
+                         f"process's {want} (bound {lb})")
+        for key in ("replicated", "grad_sha1", "params_sha1", "params_after_timed_sha1"):
+            if len({r[key] for r in res}) != 1:
+                fail(f"dp step: the ranks' {key} differ")
+        for r in res:
+            if r["step_launches"] != {"radius_knn": 12, "sinkhorn": 0} or \
+                    r["eval_launches"] != {"radius_knn": 0, "sinkhorn": 1}:
+                fail(f"dp step: rank {r['rank']} launches {r['step_launches']} per step, "
+                     f"{r['eval_launches']} per eval step (batch built before it)")
+            print("  " + r["sinkhorn_line"])
+            kernels["sinkhorn"]["max_abs_err"] = max(kernels["sinkhorn"]["max_abs_err"],
+                                                     r["sinkhorn_err"])
+        print(f"dp step: {[round(x, 3) for x in res[0]['step_ms']]} ms/step on rank 0, "
+              f"{[round(x, 3) for x in res[1]['step_ms']]} on rank 1 (one pair a rank, the "
+              f"gradient all-reduced); one process on both pairs "
+              f"{[round(x, 3) for x in one_ms]} ms/step; peak memory per rank "
+              f"{[round(r['peak'] / 2**20, 1) for r in res]} MiB, one process "
+              f"{one_peak / 2**20:.1f} MiB; launches per rank per step {res[0]['step_launches']};"
+              f" weights bit-equal across ranks after the step ({backend}, {card})")
+
+        # ---- (b)
+        for r in res:
+            if not (r["sp_equal"] and r["sp_plain_equal"]):
+                fail(f"sp build: rank {r['rank']} tables equal to the unsharded build "
+                     f"{r['sp_equal']}, shard tables equal to the plain version "
+                     f"{r['sp_plain_equal']}")
+        b = res[0]["build_ms"]
+        print(f"sp build (sp_min_queries {SP_MIN_QUERIES}): every table equal to the unsharded "
+              f"build on both ranks, each rank's shard tables equal to the plain version; "
+              f"launches per rank {res[0]['sp_launches']} (shards q/s {res[0]['sp_shards']}); "
+              f"build ms sharded {[round(x, 3) for x in b['sharded']]}, whole "
+              f"{[round(x, 3) for x in b['whole']]} on rank 0, in turns ({backend}, {card})")
+
+        # ---- (c)
+        run_dir = spec["run"]
+        for i in range(2):
+            if len({r["runs"][i]["params_sha1"] for r in res}) != 1:
+                fail(f"trainval --dp: the ranks' weights differ after run {i + 1}")
+        per = res[0]["workflow_launches"]
+        train_l = [c for k, c in per if k == "train"]
+        val_l = [c for k, c in per if k == "val"]
+        if any(c != {"radius_knn": 12, "sinkhorn": 0} for c in train_l) or \
+                any(c != {"radius_knn": 12, "sinkhorn": 1} for c in val_l) or not val_l:
+            fail(f"trainval --dp: launches per train step {train_l}, per val pair {val_l}")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        with open(os.path.join(run_dir, "config.json")) as f:
+            run_cfg = config_from_dict(Config, json.load(f))
+        if run_cfg.parallel.dp != DP_WORLD or [(x["phase"], x["epoch"]) for x in records] != [
+                ("train", 0), ("val", 0), ("train", 1), ("val", 1)]:
+            fail(f"trainval --dp: parallel {run_cfg.parallel}, records {records}")
+        one_cfg = dataclasses.replace(run_cfg, parallel=dataclasses.replace(run_cfg.parallel,
+                                                                            dp=1))
+        t = one_cfg.train
+        loaders = [PairLoader(RegistrationPairDataset("kitti", root, subset,
+                                                      point_limit=t.point_limit),
+                              cap=one_cfg.pyramid.caps[0]) for subset in ("train", "val")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            single = Trainer(one_cfg, *loaders, output_dir=os.path.join(tmp, "single"),
+                             device=dev)
+            single.state.model.load_state_dict(
+                CheckpointManager(os.path.join(run_dir, "snapshots")).restore_params(2))
+            got = single.validate()
+        want = records[-1]
+        worst = max(abs(got[k] - want[k]) for k in got)
+        if set(got) != set(want) - {"phase", "epoch"} or worst > 1e-5:
+            fail(f"trainval --dp: validation {want} against one process's {got}")
+        r0 = res[0]["runs"]
+        epochs = [e for run in r0 for e in run["epochs"]]
+        vals = [v for run in r0 for v in run["vals"]]
+        print(f"trainval --dp {DP_WORLD}: {r0[0]['seconds']:.3f} s (1 epoch) and "
+              f"{r0[1]['seconds']:.3f} s resumed (1 epoch) on rank 0; per epoch "
+              f"{[round(e['seconds'] / e['steps'] * 1e3, 3) for e in epochs]} ms/step "
+              f"({[e['steps'] for e in epochs]} steps a rank), validation "
+              f"{[round(v['seconds'] / v['pairs'] * 1e3, 3) for v in vals]} ms/pair over "
+              f"{[v['pairs'] for v in vals]} pairs in all; weights bit-equal across ranks after "
+              f"each run; launches per train step {train_l[0]}, per val pair {val_l[0]}; "
+              f"validation means within {worst:.3e} of one process on snapshot 2 "
+              f"({backend}, {card})")
+        print(f"dp phase: {time.perf_counter() - t_phase:.3f} s in all, of it the ranks "
+              f"{ranks_s:.3f} s, their start-up included")
+    return {"launches_per_dp_train_step_rank": res[0]["step_launches"],
+            "launches_per_sp_build_rank": res[0]["sp_launches"],
+            "launches_per_dp_val_pair": val_l[0]}
+
+
 def main() -> None:
     import torch
 
@@ -1922,6 +2437,18 @@ def main() -> None:
     model = RDMNet(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
     rp, rc = pad_cloud(ref, cap, device=dev)
     sp, sc = pad_cloud(src, cap, device=dev)
+
+    if "--dp-only" in sys.argv[1:]:
+        # phase 14 alone (a card per rank where there are two): the path that
+        # exists only across cards, without the one-card phases
+        with tempfile.TemporaryDirectory() as tmp:
+            write_workflow_root(os.path.join(tmp, "kitti"))
+            dp_phase(dev, card, kernels, cfg, ref, src, gt, os.path.join(tmp, "kitti"))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
 
     # ---- 3. kernels vs plain at main-path shapes -------------------------
     batch = build_pair_batch(rp, rc, sp, sc, torch.eye(4, device=dev), cfg.pyramid)
@@ -2151,7 +2678,10 @@ def main() -> None:
 
     # ---- 10. train -> snapshot -> test -> eval ---------------------------------
     step_ms = sum(tr["step_ms"]) / len(tr["step_ms"])
-    for key, per in workflow_phase(dev, card, kernels, step_ms).items():
+    workflow_tmp = tempfile.TemporaryDirectory()  # its root serves phase 14 too
+    workflow_root = os.path.join(workflow_tmp.name, "kitti")
+    write_workflow_root(workflow_root)
+    for key, per in workflow_phase(dev, card, kernels, step_ms, workflow_root).items():
         for name, n in per.items():
             kernels[name][key] = n
 
@@ -2166,6 +2696,12 @@ def main() -> None:
     # ---- 13. data preparation: downsample -> pairs (ICP) -> calibrate ----------------
     for name, n in data_prep_phase(dev, kernels).items():
         kernels[name]["launches_per_icp_iteration"] = n
+
+    # ---- 14. data parallelism: dp step, sp-sharded build, trainval --dp ----------------
+    for key, per in dp_phase(dev, card, kernels, cfg, ref, src, gt, workflow_root).items():
+        for name, n in per.items():
+            kernels[name][key] = n
+    workflow_tmp.cleanup()
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

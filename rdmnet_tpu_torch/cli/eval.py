@@ -13,6 +13,11 @@ The reference's reporting quirks, kept:
 Usage:
     rdmnet-torch-eval --feature_dir DIR
         [--method lgr|svd|ransac|ransac_featurematch|teaser] [--json_out FILE]
+        [--figures [--figure_dir DIR] [--baselines kitti|kitti360|apollo|mulran|none]]
+
+``--figures`` writes per-sequence trajectories (Umeyama-aligned, with their
+ATE), recall-vs-threshold curves and, with published results for the
+dataset, a method comparison, under the JAX CLI's file names.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import argparse
 import functools
 import glob
+import importlib.util
 import json
 import os.path as osp
 
@@ -130,7 +136,19 @@ def main(argv=None):
     parser.add_argument("--json_out", default=None,
                         help="write the summary (RR/RRE/RTE/PIR..., per-pair errors, "
                              "failed pairs) as JSON")
+    parser.add_argument("--figures", action="store_true",
+                        help="write trajectory (Umeyama/ATE) and recall-vs-threshold figures")
+    parser.add_argument("--figure_dir", default=None,
+                        help="where --figures go (default <feature_dir>/figures)")
+    parser.add_argument("--baselines", default=None,
+                        choices=["kitti", "kitti360", "apollo", "mulran", "none"],
+                        help="overlay the bundled published results (utils/baselines.py) "
+                             "on the figures and write a method comparison. Default: "
+                             "the dataset key in the feature_dir's name, if any; 'none' "
+                             "disables")
     args = parser.parse_args(argv)
+    if args.figures and importlib.util.find_spec("matplotlib") is None:
+        parser.error("--figures draws with matplotlib, which is not installed here")
 
     cfg = make_cfg()
     ransac_fn = (functools.partial(ransac_device, device=args.device)
@@ -197,6 +215,7 @@ def main(argv=None):
 
         rre, rte, rx, ry, rz = compute_registration_error(gt_transform, est)
         all_pairs.append({"seq_id": seq_id, "src_frame": src_frame, "ref_frame": ref_frame,
+                          "estimated_transform": est, "gt_transform": gt_transform,
                           "rre": rre, "rte": rte, "pir": c["precision"],
                           "ir": f["inlier_ratio"], "overlap": f["overlap"]})
         accepted = rre < cfg.eval.rre_threshold and rte < cfg.eval.rte_threshold
@@ -243,7 +262,53 @@ def main(argv=None):
         with open(args.json_out, "w") as f:
             json.dump(summary, f, indent=1)
         print(f"summary JSON written to {args.json_out}")
+    if args.figures and all_pairs:
+        write_figures(args, cfg, all_pairs, float(reg_meter.mean("recall")), accepted_rre,
+                      accepted_rte)
     return summary
+
+
+def default_baselines(feature_dir: str):
+    """The dataset key in ``feature_dir``'s name (``rdmnet-torch-test``
+    writes ``output/features<dataset>``), or None."""
+    base = osp.basename(osp.normpath(feature_dir)).lower()
+    for key in ("kitti360", "mulran", "apollo", "kitti"):
+        if key in base:
+            return key
+    return None
+
+
+def write_figures(args, cfg, all_pairs, recall, accepted_rre, accepted_rte) -> str:
+    """The ``--figures`` outputs; returns their directory."""
+    from rdmnet_tpu_torch.utils.baselines import published_for
+    from rdmnet_tpu_torch.utils.eval_figures import (plot_method_comparison, plot_recall_curves,
+                                                     sequence_trajectory_report)
+
+    baselines = args.baselines if args.baselines is not None else default_baselines(
+        args.feature_dir)
+    published = published_for(baselines) if baselines not in (None, "none") else {}
+    figure_dir = args.figure_dir or osp.join(args.feature_dir, "figures")
+    ate = sequence_trajectory_report(all_pairs, figure_dir, method=args.method)
+    for seq, errors in ate.items():
+        print(f"traj seq {seq}:", ", ".join(f"{k}: {v:.3f}" for k, v in errors.items()))
+    plot_recall_curves(
+        osp.join(figure_dir, f"recall_curves_{args.method}.png"),
+        {args.method: (np.array([p["rre"] for p in all_pairs]),
+                       np.array([p["rte"] for p in all_pairs]))},
+        rre_fixed=cfg.eval.rre_threshold, rte_fixed=cfg.eval.rte_threshold, published=published)
+    if published:
+        ours = f"ours ({args.method})"
+        rows = {ours: {
+            "rr": recall * 100,
+            "rre_deg": float(np.mean(accepted_rre)) if accepted_rre else float("nan"),
+            "rte_cm": float(np.mean(accepted_rte)) * 100 if accepted_rte else float("nan"),
+        }}
+        rows.update(published)
+        plot_method_comparison(osp.join(figure_dir, f"method_comparison_{args.method}.png"),
+                               rows, highlight=ours,
+                               title=f"{baselines}: this run vs published results")
+    print(f"figures written to {figure_dir}")
+    return figure_dir
 
 
 if __name__ == "__main__":

@@ -6,12 +6,13 @@ means, and writes the reference's ``.npz`` schema for ``rdmnet-torch-eval``.
 Usage:
     rdmnet-torch-test --dataset kitti --root /data/KITTI [--snapshot_dir DIR]
         [--test_epoch N] [--feature_dir DIR] [--buckets 0.7,1.0] [--device cpu]
-        [--torch_checkpoint F | --parity_cfg] [--coarse_module NAME]
+        [--torch_checkpoint F | --parity_cfg] [--coarse_module NAME] [--vis]
 
 An upstream ``.pth.tar`` (``--torch_checkpoint``) is converted at startup
 and runs under the parity config unless ``--no_parity_cfg``; a snapshot
 written by ``rdmnet-torch-convert`` needs ``--parity_cfg``. MulRan disables
-the vote branch at inference (reference test.py:107-108).
+the vote branch at inference (reference test.py:107-108). ``--vis`` writes
+per-pair PLY exports and an HTML viewer under ``<feature_dir>/vis/<pair>``.
 """
 
 from __future__ import annotations
@@ -63,6 +64,10 @@ def main(argv=None):
     add_model_overrides(parser)
     parser.add_argument("--no_compress", action="store_true",
                         help="write uncompressed .npz dumps (rdmnet-torch-eval reads both)")
+    parser.add_argument("--vis", action="store_true",
+                        help="per-pair PLY exports (clouds, green/red correspondence lines, "
+                             "vote offsets, groupings) and a self-contained HTML viewer under "
+                             "<feature_dir>/vis")
     args = parser.parse_args(argv)
     if not 0 <= args.shard_id < args.num_shards:
         parser.error(f"--shard_id {args.shard_id} outside 0..{args.num_shards - 1}")
@@ -93,10 +98,61 @@ def main(argv=None):
                                    torch_checkpoint=args.torch_checkpoint)
     indices = list(range(args.shard_id, len(dataset), args.num_shards))
     board = run_eval_loop(cfg, model, dataset, indices, feature_dir,
-                          compress=not args.no_compress, cfgs=cfgs, device=args.device)
+                          compress=not args.no_compress, cfgs=cfgs, device=args.device,
+                          vis_dir=osp.join(feature_dir, "vis") if args.vis else None)
     print("== summary ==")
     print(board.format())
     return board
+
+
+def _nearest_owner(points: np.ndarray, nodes: np.ndarray, chunk=4096):
+    """Owner node id per point (argmin distance), chunked host numpy."""
+    owners = np.empty(len(points), np.int64)
+    for s in range(0, len(points), chunk):
+        d = np.linalg.norm(points[s:s + chunk, None] - nodes[None], axis=2)
+        owners[s:s + chunk] = d.argmin(axis=1)
+    return owners
+
+
+def _export_pair_vis(pair_dir, dumped, vis, transform, acceptance_radius):
+    """One pair's exports, the headless counterparts of the reference's three
+    cfg.test.vis renderings (model.py:224-231 vote, :275-276 grouping,
+    :369-384 correspondences): PLY files, and one self-contained HTML viewer
+    with src aligned by the estimated transform, correspondence lines green
+    or red by their ground-truth residual and the NMS survivors as layers."""
+    from rdmnet_tpu_torch.utils.html_viewer import export_pair_html
+    from rdmnet_tpu_torch.utils.se3_np import apply_transform
+    from rdmnet_tpu_torch.utils.visualization import (export_correspondences, export_grouping,
+                                                      export_votes)
+
+    resid = np.linalg.norm(apply_transform(dumped["src_corr_points"], transform)
+                           - dumped["ref_corr_points"], axis=1)
+    export_correspondences(pair_dir, dumped["ref_points"], dumped["src_points"],
+                           dumped["ref_corr_points"], dumped["src_corr_points"],
+                           corr_correct=resid < acceptance_radius)
+    est = dumped["estimated_transform"]
+    extra = {}
+    for side in ("ref", "src"):
+        if f"vis_{side}_shifted" in vis:
+            nodes = vis[f"vis_{side}_shifted"][vis[f"vis_{side}_keep"]]
+            if side == "src":
+                nodes = apply_transform(nodes, est)
+            extra[f"{side} NMS survivors"] = nodes
+    export_pair_html(osp.join(pair_dir, "viewer.html"), dumped["ref_points"],
+                     apply_transform(dumped["src_points"], est),
+                     corr_ref=dumped["ref_corr_points"],
+                     corr_src_aligned=apply_transform(dumped["src_corr_points"], est),
+                     corr_correct=resid < acceptance_radius, extra_layers=extra,
+                     title=osp.basename(pair_dir))
+    for side in ("ref", "src"):
+        if f"vis_{side}_shifted" in vis:
+            export_votes(pair_dir, vis[f"vis_{side}_nodes"], vis[f"vis_{side}_shifted"],
+                         keep_mask=vis[f"vis_{side}_keep"], prefix=f"{side}_")
+        # grouping over the final node set, the one the matcher consumes
+        points = dumped[f"{side}_points_f"]
+        nodes = dumped[f"{side}_points_c"]
+        if len(nodes):
+            export_grouping(pair_dir, points, _nearest_owner(points, nodes), prefix=f"{side}_")
 
 
 def _make_eval_forward(cfg, model, evaluator, dev):
@@ -122,9 +178,10 @@ def _make_eval_forward(cfg, model, evaluator, dev):
 
 
 def run_eval_loop(cfg, model, dataset, indices, feature_dir, compress=True, log=print,
-                  cfgs=None, device=None):
+                  cfgs=None, device=None, vis_dir=None):
     """Dump features and metrics for ``indices`` of ``dataset`` on ``device``
-    (CUDA unless told otherwise). Returns the ``SummaryBoard``.
+    (CUDA unless told otherwise). Returns the ``SummaryBoard``. ``vis_dir``:
+    each pair's visual exports go to ``<vis_dir>/<pair>`` on the writers.
 
     One pair in flight: pair i+1's forward is issued before pair i's outputs
     are read back and trimmed, and the ``.npz`` writes run on two worker
@@ -156,9 +213,14 @@ def run_eval_loop(cfg, model, dataset, indices, feature_dir, compress=True, log=
         metrics = to_floats(metrics)
         metrics["dropped"] += trunc0
         board.update_from_dict(metrics)
-        dumped = trim_outputs(out, item["transform"])
+        dumped = trim_outputs(out, item["transform"], vis=vis_dir is not None)
         name = f"{item['seq_id']}_{item['src_frame']}_{item['ref_frame']}"
+        # the vis_* extras feed the exports only, never the npz schema
+        vis = {k: dumped.pop(k) for k in list(dumped) if k.startswith("vis_")}
         writes.append(writer.submit(savez, osp.join(feature_dir, name + ".npz"), **dumped))
+        if vis_dir:
+            writes.append(writer.submit(_export_pair_vis, osp.join(vis_dir, name), dumped, vis,
+                                        item["transform"], cfg.eval.acceptance_radius))
         # each queued write holds a whole dump: wait on the oldest past four
         while len(writes) > 4:
             writes.pop(0).result()

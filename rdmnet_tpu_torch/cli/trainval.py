@@ -6,14 +6,24 @@ Usage:
     rdmnet-torch-trainval --root /data/KITTI_odometry [--output_dir DIR]
         [--resume] [--max_epoch N] [--device cpu] [--cfg_preset tiny]
 
-One device (CUDA unless ``--device cpu``); data parallelism is not ported
-yet. ``--coarse_module`` picks the coarse transformer family.
+Data parallel, one process per card (NCCL; gloo with ``--device cpu``):
+    torchrun --nproc_per_node N -m rdmnet_tpu_torch.cli.trainval --dp N ...
+or, without torchrun, the same command on every process with
+``--multihost --coordinator_address HOST:PORT --num_processes N
+--process_id I`` (``LOCAL_RANK`` names the card, else the process id).
+Each rank loads its own shard (``PairLoader(num_hosts, host_id)``) with
+augmentation seeded ``seed + rank``; rank 0 writes the files. The lr is
+multiplied by the world size (``parallel.scale_lr_by_dp``).
+
+CUDA unless ``--device cpu``. ``--coarse_module`` picks the coarse
+transformer family.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 
 def main(argv=None):
@@ -66,6 +76,16 @@ def main(argv=None):
                         help="LR schedule family: step decay (default) or warmup-cosine")
     parser.add_argument("--warmup_steps", type=int, default=None,
                         help="warmup micro-steps for --scheduler warmup_cosine")
+    parser.add_argument("--dp", type=int, default=None,
+                        help="data-parallel ranks: N, -1 = the world, 1 = one process "
+                             "(default: the world of a started process group, else 1)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a process group from the flags below (torchrun's "
+                             "environment joins one without it)")
+    parser.add_argument("--coordinator_address", default=None,
+                        help="HOST:PORT of rank 0 (or a torch.distributed init URL)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     args = parser.parse_args(argv)
 
     cfg = make_cli_cfg(args)
@@ -96,6 +116,8 @@ def main(argv=None):
     if args.bucket_scale != 1.0:
         cfg = dataclasses.replace(cfg, pyramid=cfg.pyramid.scaled(args.bucket_scale))
     batch_size = args.batch_size or cfg.train.batch_size
+    group, rank, world = join_data_parallel(args)
+    cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, dp=world))
 
     t = cfg.train
     train_dataset = RegistrationPairDataset(
@@ -104,21 +126,48 @@ def main(argv=None):
         augmentation_min_scale=t.augmentation_min_scale,
         augmentation_max_scale=t.augmentation_max_scale,
         augmentation_shift=t.augmentation_shift,
-        augmentation_rotation=t.augmentation_rotation, seed=cfg.seed)
+        augmentation_rotation=t.augmentation_rotation, seed=cfg.seed + rank)
     val_dataset = RegistrationPairDataset(args.dataset, root=args.root, subset="val",
                                           point_limit=t.point_limit)
     cap = cfg.pyramid.caps[0]
     train_loader = PairLoader(train_dataset, cap=cap, batch_size=batch_size, shuffle=True,
-                              drop_last=True, seed=cfg.seed)
-    val_loader = PairLoader(val_dataset, cap=cap, batch_size=batch_size)
+                              drop_last=True, seed=cfg.seed, num_hosts=world, host_id=rank)
+    val_loader = PairLoader(val_dataset, cap=cap, batch_size=batch_size, num_hosts=world,
+                            host_id=rank)
 
     trainer = Trainer(cfg, train_loader, val_loader, output_dir=args.output_dir,
                       log_steps=args.log_steps, keep_snapshots=args.keep_snapshots,
-                      device=args.device)
+                      device=args.device, group=group)
     if args.init_from and not args.resume:
         trainer.warm_start(args.init_from)
     trainer.run(resume=args.resume)
     return trainer
+
+
+def join_data_parallel(args):
+    """(group, rank, world) of the run. Joins a process group first under
+    ``--multihost`` or torchrun's environment, unless this process has one.
+    A ``--dp`` other than 1 without a group, or one that disagrees with the
+    world, raises: nothing falls back to one process."""
+    import torch.distributed as dist
+
+    from rdmnet_tpu_torch.parallel import initialize_distributed, rank, world
+
+    if not dist.is_initialized() and (args.multihost or "WORLD_SIZE" in os.environ):
+        addr = args.coordinator_address
+        initialize_distributed(
+            backend="gloo" if args.device == "cpu" else None,
+            init_method=None if addr is None else (addr if "://" in addr else f"tcp://{addr}"),
+            world_size=args.num_processes, rank=args.process_id)
+    n = world()
+    dp = args.dp if args.dp is not None else n
+    if dp not in (-1, n):
+        raise ValueError(f"--dp {dp} disagrees with the world of {n} processes"
+                         + ("" if dist.is_initialized() else
+                            " (no process group: start the ranks with torchrun or --multihost)"))
+    if n == 1:
+        return None, 0, 1
+    return dist.group.WORLD, rank(), n
 
 
 if __name__ == "__main__":

@@ -5,8 +5,8 @@ inference, the train and eval steps, serving and RANSAC read, with the same
 field names and defaults so one set of numbers describes both
 implementations. Frozen dataclasses, as there.
 
-Left out: the dataset roots, the loader's worker count, parallel, and the
-n2p/p2p score gates that no port path reads. ``PyramidConfig`` has no ``approx_recall``: PyTorch has no
+Left out: the dataset roots, the loader's worker count, and the n2p/p2p
+score gates that no port path reads. ``PyramidConfig`` has no ``approx_recall``: PyTorch has no
 counterpart of ``lax.approx_max_k``, so the port's radius search is always
 exact.
 """
@@ -258,6 +258,14 @@ class TestDataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Data parallelism over ``torch.distributed`` (``parallel/``)."""
+
+    dp: int = 1                  # ranks: N, -1 = the whole world, 1 = one process
+    scale_lr_by_dp: bool = True  # lr x dp, as the reference under DDP
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     seed: int = 7351
     # dtype of the backbone and ThDRoFormer products ("float32" or
@@ -280,6 +288,7 @@ class Config:
     coarse_loss: CoarseLossConfig = dataclasses.field(default_factory=CoarseLossConfig)
     gap_loss: GapLossConfig = dataclasses.field(default_factory=GapLossConfig)
     loss: LossWeights = dataclasses.field(default_factory=LossWeights)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
 
 
 def config_from_dict(cls, values: dict):

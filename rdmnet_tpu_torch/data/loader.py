@@ -77,6 +77,14 @@ class PairLoader:
             idx = np.concatenate([idx, idx[: total - len(idx)]])
         return idx[self.host_id:: self.num_hosts]
 
+    def repeated(self, batch: int) -> np.ndarray:
+        """(batch_size,) bool: the rows of this host's batch ``batch`` that
+        repeat an item to fill the hosts' shards to one length (the padded
+        order's head). Under one host, none."""
+        pos = self.host_id + self.num_hosts * (batch * self.batch_size
+                                               + np.arange(self.batch_size))
+        return pos >= len(self.dataset)
+
     def _make_batch(self, items) -> dict:
         ref = [pad_points_np(it["ref_points"], self.cap) for it in items]
         src = [pad_points_np(it["src_points"], self.cap) for it in items]

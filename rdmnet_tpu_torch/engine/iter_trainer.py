@@ -40,7 +40,8 @@ def iteration_seed(seed: int, iteration: int) -> int:
 class IterBasedTrainer(Trainer):
     """Trains for ``max_iterations`` steps instead of epochs: a log line every
     ``log_steps``, validation every ``val_every`` and a snapshot (metadata
-    ``iteration``) every ``snapshot_every`` iterations."""
+    ``iteration``) every ``snapshot_every`` iterations. Data parallel with a
+    ``group`` as the ``Trainer``."""
 
     def __init__(self, *args, max_iterations: int = 100000, snapshot_every: int = 1000,
                  val_every: int = 1000, **kwargs):
@@ -55,8 +56,9 @@ class IterBasedTrainer(Trainer):
             step = self.snapshots.latest_step()
             if step is not None:
                 self.state, meta = self.snapshots.restore(self.state, step)
+                self._replicate()
                 self.iteration = int(meta.get("iteration", step))
-                self.generator.manual_seed(iteration_seed(self.cfg.seed + 1, self.iteration))
+                self.generator.manual_seed(iteration_seed(self.target_seed, self.iteration))
                 self.logger.info(f"resumed at iteration {self.iteration}")
 
         stream = iter(CycleLoader(self.train_loader, start_iteration=self.iteration))
@@ -71,9 +73,12 @@ class IterBasedTrainer(Trainer):
                 if self.iteration % self.val_every == 0:
                     self.validate()
                 if self.iteration % self.snapshot_every == 0:
-                    self.snapshots.save(self.iteration, self.state,
-                                        metadata={"iteration": self.iteration})
+                    if self.is_main:
+                        self.snapshots.save(self.iteration, self.state,
+                                            metadata={"iteration": self.iteration})
+                    self._barrier()
         finally:
             stream.close()  # ends the loader's prefetch thread
         self.snapshots.wait_until_finished()
+        self._barrier()
 

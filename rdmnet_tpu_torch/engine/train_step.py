@@ -18,7 +18,14 @@ The optimizer is the JAX package's optax chain, rebuilt on ``torch.optim``:
   trains again. This departs from optax on purpose: its ``(1 - emit) * acc``
   keeps a NaN, and the JAX chain skips every later group.
 
-One process, one device: data parallelism is not ported yet.
+Data parallelism: with a process group, ``make_value_and_grad`` all-reduces
+one flat buffer of the rank's gradients (SUM, then / world), the counterpart
+of the psum XLA inserts under the JAX package's ``dp`` mesh, and averages
+the metrics with one stacked all-reduce. Every rank then holds the same
+gradients, so the non-finite guard and the update agree on every rank.
+``DistributedDataParallel`` does not apply: its reducer sees only gradients
+that accumulate into ``.grad``, and the step takes them with
+``torch.autograd.grad``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from rdmnet_tpu_torch.config import Config
@@ -62,27 +70,30 @@ def warmup_cosine_schedule(base_lr: float, total_steps: int, warmup_steps: int,
     return schedule
 
 
-def make_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
+def make_schedule(cfg: Config, steps_per_epoch: int, dp_size: int = 1) -> Callable[[int], float]:
     """The learning rate as a function of the applied-update count. Under
     accumulation an epoch holds steps_per_epoch // grad_acc_steps updates, so
-    "decay every lr_decay_steps epochs" stays in epochs."""
+    "decay every lr_decay_steps epochs" stays in epochs. The base lr is
+    multiplied by ``dp_size`` when ``cfg.parallel.scale_lr_by_dp``, as the
+    reference does under DDP."""
     o = cfg.optim
+    lr = o.lr * (dp_size if cfg.parallel.scale_lr_by_dp else 1)
     applied_per_epoch = max(1, steps_per_epoch // max(1, o.grad_acc_steps))
     if o.scheduler == "step":
         every = o.lr_decay_steps * applied_per_epoch
-        return lambda count: o.lr * o.lr_decay ** (count // every)
+        return lambda count: lr * o.lr_decay ** (count // every)
     if o.scheduler == "warmup_cosine":
-        return warmup_cosine_schedule(o.lr, o.max_epoch * applied_per_epoch,
+        return warmup_cosine_schedule(lr, o.max_epoch * applied_per_epoch,
                                       o.warmup_steps // max(1, o.grad_acc_steps),
                                       o.eta_init, o.eta_min)
     raise ValueError(f"unknown optim.scheduler {o.scheduler!r} (expected 'step' or "
                      "'warmup_cosine')")
 
 
-def create_optimizer(cfg: Config, params: Sequence[torch.Tensor], steps_per_epoch: int
-                     ) -> Tuple[torch.optim.Adam, Callable[[int], float]]:
+def create_optimizer(cfg: Config, params: Sequence[torch.Tensor], steps_per_epoch: int,
+                     dp_size: int = 1) -> Tuple[torch.optim.Adam, Callable[[int], float]]:
     """Adam with coupled L2 decay over ``params``, and its schedule."""
-    schedule = make_schedule(cfg, steps_per_epoch)
+    schedule = make_schedule(cfg, steps_per_epoch, dp_size)
     # fused: one multi-tensor kernel per step over all 475 tensors at make_cfg()
     return torch.optim.Adam(params, lr=schedule(0), weight_decay=cfg.optim.weight_decay,
                             fused=True), schedule
@@ -144,9 +155,10 @@ class TrainState:
         return True
 
 
-def create_train_state(cfg: Config, model: nn.Module, steps_per_epoch: int = 1000) -> TrainState:
+def create_train_state(cfg: Config, model: nn.Module, steps_per_epoch: int = 1000,
+                       dp_size: int = 1) -> TrainState:
     optimizer, schedule = create_optimizer(
-        cfg, [p for p in model.parameters() if p.requires_grad], steps_per_epoch)
+        cfg, [p for p in model.parameters() if p.requires_grad], steps_per_epoch, dp_size)
     return TrainState(model, optimizer, schedule, cfg.optim.grad_acc_steps)
 
 
@@ -155,14 +167,18 @@ def _check_device(state: TrainState, dev: torch.device) -> None:
         raise ValueError(f"the model lives on {state.device}, the step was made for {dev}")
 
 
-def make_value_and_grad(cfg: Config, device=None) -> Callable:
+def make_value_and_grad(cfg: Config, device=None, group=None) -> Callable:
     """``value_and_grad(state, batch, generator, stage_hook=None) ->
     (metrics, grads)`` without the update. ``batch`` is a sequence of
     ``PairBatch`` (``batch_to_device``); the loss is the mean of the pairs'
     losses, each pair drawing its targets from ``generator`` in turn.
     ``metrics`` holds the eight loss values, PIR and ``grad_norm`` (the global
     norm), as 0-d tensors; ``grads`` follow ``state.params``. Runs on CUDA
-    unless ``device`` names another device; raises without a card."""
+    unless ``device`` names another device; raises without a card.
+
+    ``group``: a data-parallel process group whose ranks each hold an equal
+    share of the global batch. The gradients and metrics come back as the
+    means over the ranks, the same on every rank."""
     dev = resolve_device(device)
     loss_module, evaluator = OverallLoss(cfg), Evaluator(cfg)
 
@@ -193,17 +209,40 @@ def make_value_and_grad(cfg: Config, device=None) -> Callable:
         # float32 sum stays pairwise on the CPU (its vector_norm of a
         # 4M-entry tensor is ~1e-4 off)
         flat = torch.cat([g.reshape(-1) for g in grads])
+        if group is not None:
+            flat, grads, sums = _all_reduce_mean(flat, grads, sums, group)
         sums["grad_norm"] = torch.sqrt((flat * flat).sum())
         return sums, grads
 
     return value_and_grad
 
 
-def make_train_step(cfg: Config, device=None) -> Callable:
+def _all_reduce_mean(flat: torch.Tensor, grads: List[torch.Tensor],
+                     metrics: Dict[str, torch.Tensor], group):
+    """The means over ``group``'s ranks of the flat gradient buffer (one
+    all-reduce; ``grads`` come back as views into it) and of the metrics (one
+    stacked all-reduce)."""
+    from rdmnet_tpu_torch.parallel.mesh import check_collective_device
+
+    check_collective_device(flat, group)
+    n = dist.get_world_size(group)
+    dist.all_reduce(flat, group=group)
+    flat /= n
+    grads = [part.view_as(g) for part, g in zip(torch.split(flat, [g.numel() for g in grads]),
+                                                grads)]
+    names = list(metrics)  # one insertion order on every rank
+    stacked = torch.stack([metrics[k] for k in names])
+    dist.all_reduce(stacked, group=group)
+    stacked /= n
+    return flat, grads, dict(zip(names, stacked.unbind()))
+
+
+def make_train_step(cfg: Config, device=None, group=None) -> Callable:
     """``step(state, batch, generator, stage_hook=None) -> (state, metrics)``:
-    ``make_value_and_grad``, then ``state.apply_gradients``. ``stage_hook(name)``
-    is called after each part of ``TRAIN_STAGES[1:]``."""
-    value_and_grad = make_value_and_grad(cfg, device)
+    ``make_value_and_grad`` (over ``group``, see there), then
+    ``state.apply_gradients``. ``stage_hook(name)`` is called after each part
+    of ``TRAIN_STAGES[1:]``."""
+    value_and_grad = make_value_and_grad(cfg, device, group)
 
     def step(state: TrainState, batch: Sequence[PairBatch], generator: torch.Generator,
              stage_hook: Optional[Callable[[str], None]] = None):

@@ -3,19 +3,22 @@ geotransformer/engine/epoch_based_trainer.py:16-198, base_trainer.py:32-259):
 host batches to pyramids on the device, the train step, validation, rolling
 snapshots, the best-by-validation snapshot, resume, ``metrics.jsonl``.
 
-One device: data parallelism is not ported yet.
+Data parallel with a process group: one rank per card, each on its own
+loader shard, the gradients all-reduced in the step (``train_step.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import time
 from typing import List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rdmnet_tpu_torch.config import Config, PyramidConfig
 from rdmnet_tpu_torch.device import resolve_device
@@ -25,6 +28,9 @@ from rdmnet_tpu_torch.engine.meters import SummaryBoard, Timer, to_floats
 from rdmnet_tpu_torch.engine.train_step import create_train_state, make_eval_step, make_train_step
 from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch
 from rdmnet_tpu_torch.models import RDMNet
+from rdmnet_tpu_torch.parallel.mesh import is_main, replicate
+from rdmnet_tpu_torch.parallel.mesh import rank as group_rank
+from rdmnet_tpu_torch.parallel.mesh import world as group_world
 
 
 @torch.no_grad()
@@ -71,24 +77,42 @@ class Trainer:
     ``epoch_timings`` gets one record per training epoch: its wall seconds,
     the seconds the loop waited on the loader, the steps and the windowed
     steps/s of each log line; ``val_timings`` one per validation: its
-    seconds and pairs."""
+    seconds and pairs.
+
+    ``group``: the data-parallel process group (``cfg.parallel.dp`` ranks,
+    or any number with dp = -1), whose rank r holds shard r of each loader
+    (``PairLoader(num_hosts=world, host_id=r)``). Rank 0's weights are
+    broadcast after the initialisation, ``resume`` and ``warm_start``; the
+    lr is multiplied by the world size when ``cfg.parallel.scale_lr_by_dp``;
+    rank r draws its targets from a generator of its own; validation means
+    cover every rank's pairs once. Rank 0 of the world alone writes files,
+    each write followed by a barrier."""
 
     def __init__(self, cfg: Config, train_loader, val_loader=None, output_dir: str = "output",
-                 log_steps: int = 10, keep_snapshots: Optional[int] = None, device=None):
+                 log_steps: int = 10, keep_snapshots: Optional[int] = None, device=None,
+                 group=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.output_dir = output_dir
         self.log_steps = log_steps
-        self.logger = create_logger(os.path.join(output_dir, "logs", "train.log"))
+        self.group = group
+        self.rank, self.dp = check_dp_layout(cfg, group, train_loader, val_loader)
+        self.is_main = group is None or is_main()
+        self.logger = create_logger(os.path.join(output_dir, "logs", "train.log")
+                                    if self.is_main else None)
+        if not self.is_main:
+            self.logger.setLevel(logging.WARNING)
         self.snapshots = CheckpointManager(os.path.join(output_dir, "snapshots"),
                                            max_to_keep=keep_snapshots)
         self.best_snapshots = CheckpointManager(os.path.join(output_dir, "snapshots_best"),
                                                 max_to_keep=1)
         self._best_score = None
-        with open(os.path.join(output_dir, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=1, default=str)
+        if self.is_main:
+            with open(os.path.join(output_dir, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=1, default=str)
+        self._barrier()
 
         # the first batch, read as the JAX Trainer reads it to initialise: the
         # same seeds then give both packages the same epochs
@@ -97,11 +121,14 @@ class Trainer:
             raise ValueError(f"the train loader pads to {example['ref_points'].shape[1]} points, "
                              f"the pyramid's level 0 holds {cfg.pyramid.caps[0]}")
         model = RDMNet(cfg, device=self.device, generator=torch.Generator().manual_seed(cfg.seed))
-        self.state = create_train_state(cfg, model, steps_per_epoch=max(len(train_loader), 1))
-        self.train_step = make_train_step(cfg, self.device)
+        self.state = create_train_state(cfg, model, steps_per_epoch=max(len(train_loader), 1),
+                                        dp_size=self.dp)
+        self._replicate()
+        self.train_step = make_train_step(cfg, self.device, group)
         self.eval_step = make_eval_step(cfg, self.device)
         self.epoch = 0
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self.target_seed = rank_seed(cfg.seed + 1, self.rank)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.target_seed)
         self.epoch_timings: List[dict] = []
         self.val_timings: List[dict] = []
 
@@ -111,6 +138,7 @@ class Trainer:
             self.logger.info("no snapshot found; training from scratch")
             return
         self.state, meta = self.snapshots.restore(self.state, step)
+        self._replicate()
         self.epoch = int(meta.get("epoch", step))
         try:
             self._best_score = tuple(self.best_snapshots.read_metadata()["score"])
@@ -124,7 +152,16 @@ class Trainer:
         schedule stay fresh, whatever the source run's optimizer was."""
         params = CheckpointManager(snapshot_dir).restore_params(step)
         self.state.model.load_state_dict(params, strict=True)
+        self._replicate()
         self.logger.info(f"warm-started params from {snapshot_dir}")
+
+    def _replicate(self):
+        if self.group is not None:
+            replicate(self.state.model, self.group)
+
+    def _barrier(self):
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def train_epoch(self) -> dict:
         board = SummaryBoard(last_n=self.log_steps)
@@ -176,15 +213,25 @@ class Trainer:
         sums: dict = {}
         denom = 0.0
         t0 = time.perf_counter()
-        for np_batch in self.val_loader:
+        for b, np_batch in enumerate(self.val_loader):
             batch = batch_to_device(np_batch, self.cfg.pyramid, self.device)
             valid = np_batch.get("batch_valid")
+            if self.group is not None:
+                # a shard's repeats of the head count on the rank that owns it
+                valid = (np.ones(len(batch), bool) if valid is None else valid) \
+                    & ~self.val_loader.repeated(b)
             metrics, _ = self.eval_step(
                 self.state, batch, None if valid is None else torch.as_tensor(valid))
             n_valid = float(np.sum(valid)) if valid is not None else float(len(batch))
             for k, v in to_floats(metrics).items():
                 sums[k] = sums.get(k, 0.0) + v * n_valid
             denom += n_valid
+        if self.group is not None:
+            names = sorted(sums)  # the same keys on every rank
+            total = torch.tensor([sums[k] for k in names] + [denom], dtype=torch.float64,
+                                 device=self.device)
+            dist.all_reduce(total, group=self.group)
+            sums, denom = dict(zip(names, total[:-1].tolist())), float(total[-1])
         self.val_timings.append({"epoch": self.epoch, "seconds": time.perf_counter() - t0,
                                  "pairs": denom})
         summary = {k: v / max(denom, 1.0) for k, v in sums.items()}
@@ -207,18 +254,22 @@ class Trainer:
         if self._best_score is not None and tuple(score) <= tuple(self._best_score):
             return
         self._best_score = score
-        self.best_snapshots.save(
-            self.epoch, self.state,
-            metadata={"epoch": self.epoch, "score": list(score),
-                      **{k: float(v) for k, v in val_summary.items()
-                         if isinstance(v, (int, float))}})
+        if self.is_main:
+            self.best_snapshots.save(
+                self.epoch, self.state,
+                metadata={"epoch": self.epoch, "score": list(score),
+                          **{k: float(v) for k, v in val_summary.items()
+                             if isinstance(v, (int, float))}})
+        self._barrier()
         self.logger.info(f"new best val snapshot at epoch {self.epoch} "
                          f"(RR {score[0]:.4f}, RRE {-score[1]:.4f}, RTE {-score[2]:.4f})")
 
     def _write_metrics(self, phase: str, summary: dict):
-        """Append one record to ``metrics.jsonl``."""
-        with open(os.path.join(self.output_dir, "metrics.jsonl"), "a") as f:
-            f.write(json.dumps({"phase": phase, "epoch": self.epoch, **summary}) + "\n")
+        """Append one record to ``metrics.jsonl`` (rank 0)."""
+        if self.is_main:
+            with open(os.path.join(self.output_dir, "metrics.jsonl"), "a") as f:
+                f.write(json.dumps({"phase": phase, "epoch": self.epoch, **summary}) + "\n")
+        self._barrier()
 
     def run(self, resume: bool = False):
         if resume:
@@ -231,9 +282,11 @@ class Trainer:
             if val_summary:
                 self._write_metrics("val", val_summary)
             self.epoch += 1
-            self.snapshots.save(self.epoch, self.state,
-                                metadata={"epoch": self.epoch,
-                                          "loss": float(train_summary.get("loss", np.nan))})
+            if self.is_main:  # the host copy here, the write on the writer thread
+                self.snapshots.save(self.epoch, self.state,
+                                    metadata={"epoch": self.epoch,
+                                              "loss": float(train_summary.get("loss", np.nan))})
+            self._barrier()
             if val_summary:
                 self._maybe_save_best(val_summary)
             t = self.epoch_timings[-1]
@@ -242,3 +295,33 @@ class Trainer:
                              "loader); snapshot saved")
         self.snapshots.wait_until_finished()
         self.best_snapshots.wait_until_finished()
+        self._barrier()  # every rank returns with the snapshots on disk
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The target generator's seed on data-parallel rank ``rank``: ``seed``
+    on rank 0 (a one-process run's), a stream of its own on the others."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+
+
+def check_dp_layout(cfg: Config, group, *loaders):
+    """(rank, world) of ``group``, checked against ``cfg.parallel.dp`` and the
+    loaders' shards: a data-parallel config without a group, a group of
+    another size, or a loader that is not this rank's shard raises."""
+    dp = cfg.parallel.dp
+    if group is None:
+        if dp != 1:
+            raise RuntimeError(f"parallel.dp={dp} needs a process group (initialize_distributed, "
+                               "then Trainer(..., group=...)); none was given")
+        return 0, 1
+    rank, world = group_rank(group), group_world(group)
+    if dp not in (-1, world):
+        raise ValueError(f"parallel.dp={dp} disagrees with the group's {world} ranks")
+    for loader in loaders:
+        if loader is not None and (getattr(loader, "num_hosts", 1), getattr(loader, "host_id", 0)) \
+                != (world, rank):
+            raise ValueError(f"rank {rank} of {world} needs the loader shard "
+                             f"num_hosts={world}, host_id={rank}")
+    return rank, world

@@ -151,12 +151,17 @@ def search_plan(spec: PyramidConfig) -> List[SearchSpec]:
 
 
 def build_cloud_pyramid(points: torch.Tensor, count: torch.Tensor, spec: PyramidConfig,
-                        dropped0=None) -> CloudPyramid:
+                        dropped0=None, sp_group=None, sp_min_queries: int = 2048) -> CloudPyramid:
     """Build the pyramids of a batch of padded clouds.
 
     points (B, cap_0, 3) float32, count (B,) int32; dropped0 (B,) host
     truncation counts. Returns a CloudPyramid whose tensors carry the batch
     axis first.
+
+    ``sp_group``: a process group whose ranks all build the same clouds; the
+    searches whose query level holds ``sp_min_queries`` rows or more run
+    query-sharded over it (``parallel.sharded_radius_knn``), the rest whole
+    on every rank. The tables equal the unsharded build's.
     """
     bsz, n0, _ = points.shape
     assert n0 == spec.caps[0], f"level-0 capacity mismatch: {n0} vs {spec.caps[0]}"
@@ -185,7 +190,15 @@ def build_cloud_pyramid(points: torch.Tensor, count: torch.Tensor, spec: Pyramid
     band_over = [torch.zeros(bsz, dtype=torch.int32, device=dev) for _ in range(spec.num_stages)]
     tables = {"neighbors": neighbors, "subsampling": subsampling, "upsampling": upsampling}
     for sp in search_plan(spec):
-        if sp.band is None:
+        if sp_group is not None and spec.caps[sp.q_lvl] >= sp_min_queries:
+            from rdmnet_tpu_torch.parallel.sharded_search import sharded_radius_knn
+
+            out, ov = sharded_radius_knn(
+                pts[sp.q_lvl], pts[sp.s_lvl], cnts[sp.s_lvl], sp.radius, sp.k, sp_group,
+                q_count=cnts[sp.q_lvl], cell=sp.cell, band_cap=sp.band, chunk_size=sp.chunk,
+                return_overflow=True)
+            band_over[sp.s_lvl] = band_over[sp.s_lvl] + ov
+        elif sp.band is None:
             out = radius_knn(pts[sp.q_lvl], pts[sp.s_lvl], cnts[sp.s_lvl], sp.radius, sp.k)
         else:
             out, ov = radius_knn_banded(
@@ -221,25 +234,33 @@ def pad_cloud(points, cap: int, pad_coord: float = PAD_COORD, device=None):
 
 def build_pair_batch(ref_points, ref_count, src_points, src_count, transform,
                      spec: PyramidConfig, input_dim: int = 1,
-                     ref_dropped0=0, src_dropped0=0) -> PairBatch:
+                     ref_dropped0=0, src_dropped0=0, sp_group=None,
+                     sp_min_queries: int = 2048) -> PairBatch:
     """Build both pyramids of a registration pair in one batched pass.
 
     Input features are all-ones on valid rows, zero on pad rows.
-    ``*_dropped0`` record host-side level-0 truncation.
+    ``*_dropped0`` record host-side level-0 truncation. With ``sp_group``
+    (see ``build_cloud_pyramid``) the two clouds build one after the other,
+    as the JAX package drops its pair ``vmap`` under a mesh.
     """
     dev = ref_points.device
-    both = build_cloud_pyramid(
-        torch.stack([ref_points, src_points]).float(),
-        torch.stack([torch.as_tensor(ref_count, device=dev),
-                     torch.as_tensor(src_count, device=dev)]).to(torch.int32),
-        spec,
-        dropped0=torch.tensor([int(ref_dropped0), int(src_dropped0)],
-                              dtype=torch.int32, device=dev),
-    )
+    points = torch.stack([ref_points, src_points]).float()
+    counts = torch.stack([torch.as_tensor(ref_count, device=dev),
+                          torch.as_tensor(src_count, device=dev)]).to(torch.int32)
+    dropped0 = torch.tensor([int(ref_dropped0), int(src_dropped0)], dtype=torch.int32,
+                            device=dev)
+    if sp_group is None:
+        both = build_cloud_pyramid(points, counts, spec, dropped0=dropped0)
+        ref, src = both.select(0), both.select(1)
+    else:
+        ref, src = (build_cloud_pyramid(points[b:b + 1], counts[b:b + 1], spec,
+                                        dropped0=dropped0[b:b + 1], sp_group=sp_group,
+                                        sp_min_queries=sp_min_queries).select(0)
+                    for b in range(2))
     cap0 = spec.caps[0]
     ar = torch.arange(cap0, device=dev)[:, None]
     ref_feats = (ar < ref_count).float().repeat(1, input_dim)
     src_feats = (ar < src_count).float().repeat(1, input_dim)
-    return PairBatch(ref=both.select(0), src=both.select(1), ref_feats=ref_feats,
+    return PairBatch(ref=ref, src=src, ref_feats=ref_feats,
                      src_feats=src_feats,
                      transform=torch.as_tensor(transform, dtype=torch.float32, device=dev))

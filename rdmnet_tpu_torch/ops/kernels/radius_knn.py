@@ -108,11 +108,14 @@ def _launcher():
 
 
 def radius_knn_cuda(q, s, s_count, radius, k, win=None, chunk=0, band=0) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (one launch per call)."""
+    """Launch the CUDA kernel on the current stream of the tensors' card (one
+    launch per call), whichever device is current."""
     for name, t, dt in (("q", q, torch.float32), ("s", s, torch.float32),
                         ("s_count", s_count, torch.int32)):
         if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"radius_knn_cuda: {name} must be a contiguous CUDA {dt} tensor")
+    if s.device != q.device or s_count.device != q.device:
+        raise ValueError("radius_knn_cuda: q, s and s_count must lie on one card")
     bsz, nq, _ = q.shape
     ns = s.shape[1]
     if q.shape[-1] != 3 or s.shape[-1] != 3 or s.shape[0] != bsz or s_count.shape != (bsz,):
@@ -126,11 +129,14 @@ def radius_knn_cuda(q, s, s_count, radius, k, win=None, chunk=0, band=0) -> torc
         n_chunks = win.shape[1]
     plan = knn_plan(bsz, nq, ns, k, None if win is None else band)
     out = torch.empty((bsz, nq, k), dtype=torch.int32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launcher()(q.data_ptr(), s.data_ptr(), s_count.data_ptr(),
-                      None if win is None else win.data_ptr(),
-                      bsz, nq, ns, k, _radius_sq(radius), chunk, band, n_chunks,
-                      plan.warps, plan.k_bucket, plan.tile_rows, out.data_ptr(), stream)
+    # the launch goes to the current device: make it the tensors' card, whose
+    # stream it is handed
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _launcher()(q.data_ptr(), s.data_ptr(), s_count.data_ptr(),
+                          None if win is None else win.data_ptr(),
+                          bsz, nq, ns, k, _radius_sq(radius), chunk, band, n_chunks,
+                          plan.warps, plan.k_bucket, plan.tile_rows, out.data_ptr(), stream)
     check(err, "radius_knn")
     radius_knn_cuda.launches += 1
     return out

@@ -48,8 +48,8 @@ def _launcher():
 
 def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
                   num_iterations: int) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (one launch per call).
-    The kernel has no backward: with grad mode on, inputs that require grad
+    """Launch the CUDA kernel on the current stream of the tensors' card (one
+    launch per call), whichever device is current. The kernel has no backward: with grad mode on, inputs that require grad
     raise instead of returning a result cut off from the graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (scores, log_mu, log_nu)):
         raise RuntimeError("sinkhorn_cuda has no backward: call it under torch.no_grad(), "
@@ -57,15 +57,18 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
     for name, t in (("scores", scores), ("log_mu", log_mu), ("log_nu", log_nu)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"sinkhorn_cuda: {name} must be a contiguous CUDA float32 tensor")
+    if log_mu.device != scores.device or log_nu.device != scores.device:
+        raise ValueError("sinkhorn_cuda: scores, log_mu and log_nu must lie on one card")
     p, k1, k2 = scores.shape
     if k1 != k2 or log_mu.shape != (p, k1) or log_nu.shape != (p, k1):
         raise ValueError("sinkhorn_cuda: expected scores (P, K1, K1), log_mu/log_nu (P, K1)")
     if k1 > MAX_K1:
         raise ValueError(f"sinkhorn_cuda: K1={k1} exceeds {MAX_K1}")
     out = torch.empty_like(scores)
-    stream = torch.cuda.current_stream(scores.device).cuda_stream
-    err = _launcher()(scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), p, k1,
-                      num_iterations, out.data_ptr(), stream)
+    with torch.cuda.device(scores.device):  # launch on the tensors' card
+        stream = torch.cuda.current_stream(scores.device).cuda_stream
+        err = _launcher()(scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), p, k1,
+                          num_iterations, out.data_ptr(), stream)
     check(err, "sinkhorn")
     sinkhorn_cuda.launches += 1
     return out

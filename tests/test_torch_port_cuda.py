@@ -582,3 +582,29 @@ def test_icp_and_calibration_on_card_match_cpu(cuda, monkeypatch):
     np.testing.assert_array_equal(
         calibration._neighbor_counts(pts.to(cuda), len(pts), 0.75),
         calibration._neighbor_counts(pts, len(pts), 0.75))
+
+
+def test_kernels_launch_on_the_tensors_card(cuda):
+    """With card 0 current, both kernels on tensors of card 1 launch there
+    and equal their plain versions (the wrappers hand the launch the tensors'
+    stream and make their card current for it)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    q = torch.from_numpy(_lidar_like(3, 4096)).to(other)[None]
+    count = torch.tensor([4000], dtype=torch.int32, device=other)
+    before = radius_knn_cuda.launches
+    got = radius_knn_cuda(q, q, count, 1.275, 40)
+    assert got.device == other and radius_knn_cuda.launches == before + 1
+    torch.cuda.synchronize(other)
+    assert torch.equal(got, radius_knn_plain(q, q, count, 1.275, 40))
+    rng = np.random.RandomState(4)
+    args = [torch.from_numpy(x).to(other) for x in (
+        (rng.randn(16, 129, 129) * 3).astype(np.float32),
+        (rng.randn(16, 129) * 0.1).astype(np.float32),
+        (rng.randn(16, 129) * 0.1).astype(np.float32))]
+    out = sinkhorn_cuda(*args, 100)
+    torch.cuda.synchronize(other)
+    assert out.device == other and torch.cuda.current_device() == 0
+    torch.testing.assert_close(out, sinkhorn_plain(*args, 100), rtol=1e-4, atol=1e-4)

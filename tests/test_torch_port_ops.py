@@ -350,7 +350,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "for m in ('nn.transformers', 'nn.geotransformer', 'utils.torch_convert', 'cli.convert',\n"
         "          'cli.test_sweep', 'nn.precision', 'graph.native', 'data.preprocess',\n"
-        "          'data.calibration', 'data.transforms', 'cli.preprocess'):\n"
+        "          'data.calibration', 'data.transforms', 'cli.preprocess', 'parallel.mesh',\n"
+        "          'parallel.sharded_search', 'utils.common', 'utils.visualization',\n"
+        "          'utils.html_viewer', 'utils.eval_figures', 'utils.baselines'):\n"
         "    assert 'rdmnet_tpu_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('rdmnet_tpu_torch')]))\n"
     )

@@ -135,6 +135,22 @@ Phases, each fatal on failure:
    epoch and a resumed one: weights bit-equal across ranks, 12 kNN and 0
    Sinkhorn launches per train step, 12 and 1 per validation pair, the
    validation means within 1e-5 of one process validating the snapshot.
+15. the library surface no model path calls: (a) ``run_fast_contracts()``
+   on the card, three ``pass`` and one launch of each kernel, each kernel's
+   device time at the contract shapes; (b) the correspondence toolkit, the
+   geometry, partition and KPConv helpers, ``log_sinkhorn``,
+   ``point_matching`` and ``ConvBlock`` (Linear + GroupNorm, Conv2d 3x2
+   stride 2 "SAME" + BatchNorm in train then eval, Conv1d + InstanceNorm) on
+   the card and the CPU on the same seeded inputs: masks and indices equal,
+   floats within 1e-5 of max |y|; (c) ``group_and_aggregate`` at level-1
+   shapes of the phase-4 pair: one kNN launch per call, equal to the plain
+   version, k = 257 refused before a launch; (d) the phase-4 pair's pyramid
+   and its ref against a moved copy repacked into the reference's stacked
+   layout, split by ``pair_batch_from_stacked`` (rows and tables equal to
+   the batch's) and run through the model: one Sinkhorn launch, fine
+   features within 1e-4 of max |y|, the pose difference from the batch's
+   printed, and held to ``SPLIT_POSE_LIMIT`` for the moved copy when both
+   poses register.
 
 ``python3 chip_smoke.py --dp-only`` runs phases 1, 2 and 14 alone (with two
 cards or more, the NCCL path).
@@ -2377,6 +2393,320 @@ def dp_phase(dev, card, kernels, cfg, ref, src, gt, root, cli_args=()):
             "launches_per_dp_val_pair": val_l[0]}
 
 
+# ---- phase 15: the library surface -------------------------------------------------------
+SPLIT_POSE_LIMIT = 1e-4  # phase 15 (d): split pose against the batch's, max abs entry
+GA_REPS = 20             # timed group_and_aggregate calls of phase 15 (c)
+
+
+def _flat(out):
+    """A tensor or a (named) tuple of tensors -> a list of tensors."""
+    return [out] if hasattr(out, "shape") else list(out)
+
+
+def card_vs_cpu(dev, name, fn, *args, worst=None):
+    """``fn`` on the card and on the CPU on the same inputs (numpy arrays become
+    tensors, other arguments pass as they are): bool and integer outputs equal,
+    float outputs within 1e-5 of the CPU's max |y|. Returns the card's outputs."""
+    import numpy as np
+    import torch
+
+    cpu = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args]
+    card = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in cpu]
+    got, want = _flat(fn(*card)), _flat(fn(*cpu))
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.detach().cpu()
+        w = w.detach()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"library phase: {name}[{i}] {tuple(g.shape)} {g.dtype} on the card, "
+                 f"{tuple(w.shape)} {w.dtype} on the CPU")
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                fail(f"library phase: {name}[{i}] differs between the card and the CPU")
+            continue
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        err = float((g - w).abs().max()) if w.numel() else 0.0
+        if not err <= 1e-5 * max(scale, 1e-30):
+            fail(f"library phase: {name}[{i}] card vs CPU {err:.3e} > 1e-5 x {scale:.3e}")
+        if worst is not None:
+            worst[name] = max(worst.get(name, 0.0), err / max(scale, 1e-30))
+    if worst is not None:
+        worst.setdefault(name, 0.0)
+    return got
+
+
+def library_phase(dev, card, kernels, cfg, model, batch):
+    """Phase 15: the library surface no model path calls. (a) the fast
+    contracts on the card; (b) the correspondence toolkit, the geometry,
+    partition and KPConv helpers, ``log_sinkhorn``, ``point_matching`` and
+    ``ConvBlock`` on the card and the CPU on the same seeded inputs; (c)
+    ``group_and_aggregate`` at level-1 shapes of the phase-4 pair against its
+    plain version, and k = 257 refused before a launch; (d) the phase-4 pair's
+    pyramid repacked into the reference's stacked layout, split by
+    ``pair_batch_from_stacked`` and run through the model. Returns the launches
+    per contracts run and per ``group_and_aggregate`` call by kernel."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud, search_plan
+    from rdmnet_tpu_torch.nn import kpconv, layers
+    from rdmnet_tpu_torch.nn.point_matching import group_and_aggregate, point_matching
+    from rdmnet_tpu_torch.nn.sinkhorn import log_sinkhorn
+    from rdmnet_tpu_torch.ops import correspondences as corr
+    from rdmnet_tpu_torch.ops import geometry as geo
+    from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.kernels.radius_knn import radius_knn_cuda
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda
+    from rdmnet_tpu_torch.ops.partition import knn_partition
+    from rdmnet_tpu_torch.utils import contracts
+    from rdmnet_tpu_torch.utils.golden import pair_batch_from_stacked, stack_pair_batch
+
+    t_phase = time.perf_counter()
+    # ---- (a) the fast contracts: one kNN and one Sinkhorn launch ----------------
+    scan = contracts.default_scan()
+    reset_launch_counts()
+    results = contracts.run_fast_contracts(dev, scan=scan)
+    per_contracts = launch_counts()
+    for name, verdict in results.items():
+        print(f"library phase: contract {name}: {verdict}")
+    if results != {"knn_exact": "pass", "sinkhorn": "pass", "horn_pose_recovery": "pass"}:
+        fail(f"library phase: contracts {results}")
+    if per_contracts != {"radius_knn": 1, "sinkhorn": 1}:
+        fail(f"library phase: a contracts run launched {per_contracts}, not one of each kernel")
+    q = torch.from_numpy(scan[:contracts.KNN_QUERIES]).to(dev)[None]
+    s = torch.from_numpy(scan[:contracts.KNN_SUPPORT]).to(dev)[None]
+    cnt = torch.tensor([contracts.KNN_COUNT], dtype=torch.int32, device=dev)
+    knn_ms = graph_ms(lambda: radius_knn_cuda(q, s, cnt, contracts.KNN_RADIUS, contracts.KNN_K),
+                      reps=20)
+    pairs = contracts.KNN_QUERIES * contracts.KNN_COUNT
+    knn_bound = max((q.numel() + s.numel() + contracts.KNN_QUERIES * contracts.KNN_K) * 4
+                    / HBM_BYTES_PER_S, pairs * KNN_OPS_PER_PAIR / F32_FLOPS) * 1e3
+    sk = [torch.from_numpy(a).to(dev) for a in contracts.sinkhorn_inputs()]
+    sk_ms = graph_ms(lambda: sinkhorn_cuda(*sk, contracts.SINKHORN_ITERS), reps=20)
+    # as phase 3's bound: each half-step's exp per entry on the SFU, its f32
+    # ops, or the scores, marginals and plan through memory
+    entries = int(np.prod(contracts.SINKHORN_SHAPE))
+    half_steps = 2 * contracts.SINKHORN_ITERS * entries
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    sk_bound = max(half_steps / (NUM_SMS * SFU_PER_SM_CLK * clock_hz),
+                   half_steps * SINKHORN_OPS_PER_ENTRY / F32_FLOPS,
+                   (2 * sk[0].numel() + sk[1].numel() + sk[2].numel()) * 4 / HBM_BYTES_PER_S) * 1e3
+    kernels["radius_knn"]["contract_ms"] = knn_ms
+    kernels["sinkhorn"]["contract_ms"] = sk_ms
+    print(f"library phase: contract shapes on the device ({card}): radius_knn 256 x 2048 rows, "
+          f"k 8: {knn_ms:.4f} ms (bound {knn_bound:.5f}); sinkhorn (8, 17, 17), 20 it.: "
+          f"{sk_ms:.4f} ms (bound {sk_bound:.5f})")
+
+    # ---- (b) card against CPU on seeded inputs ------------------------------------
+    rng = np.random.RandomState(SEED + 15)
+    f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)  # noqa: E731
+    worst = {}
+    both = lambda name, fn, *a: card_vs_cpu(dev, name, fn, *a, worst=worst)  # noqa: E731
+    pts = f32(rng.rand(4000, 3) * [70.0, 40.0, 4.0] - [35.0, 20.0, 2.0])
+    pmask = rng.rand(4000) > 0.1
+    nodes = f32(pts[rng.permutation(4000)[:256]] + rng.randn(256, 3) * 0.3)
+    nmask = rng.rand(256) > 0.1
+    rot = geo.rodrigues_rotation(torch.from_numpy(f32(rng.randn(3))), torch.tensor(0.4)).numpy()
+    tf = np.eye(4, dtype=np.float32)
+    tf[:3, :3], tf[:3, 3] = rot, [1.5, -0.7, 0.2]
+    both("apply_rotation", geo.apply_rotation, pts, rot)
+    both("apply_rotation batched", geo.apply_rotation, f32(rng.randn(8, 500, 3) * 30),
+         np.stack([rot] * 8))
+    axis, angle = f32(rng.randn(64, 3)), f32(rng.uniform(-3, 3, 64))
+    both("skew_symmetric", geo.skew_symmetric, axis)
+    both("rodrigues_rotation", geo.rodrigues_rotation, axis, angle)
+    both("vector_angle", geo.vector_angle, axis, f32(rng.randn(64, 3)))
+    both("masked_min", lambda v, m: geo.masked_min(v, m, 1),
+         f32(rng.randint(0, 50, (256, 300))), rng.rand(256, 300) > 0.3)
+    both("knn_partition", lambda p, n, m: knn_partition(p, n, 32, m), pts, nodes, pmask)
+    nbr = rng.randint(0, 4000, (1000, 16))
+    nbr[rng.rand(1000, 16) < 0.2] = 4000
+    feats = f32(rng.randn(4000, 64))
+    both("knn_interpolate", lambda f, q_, p, i: kpconv.knn_interpolate(f, q_, p, i, 8), feats,
+         pts[:1000], pts, nbr)
+    both("global_avgpool", kpconv.global_avgpool, feats, pmask)
+    both("log_sinkhorn", lambda a, b, c: log_sinkhorn(a, b, c, 20), f32(rng.randn(4, 65, 65)),
+         f32(rng.randn(4, 65) * 0.1), f32(rng.randn(4, 65) * 0.1))
+    score = f32(rng.randn(129, 129) * 2)
+    for mutual, bilateral, dustbin, thr in ((False, False, False, 0.0), (True, False, True, 0.05),
+                                            (False, True, False, 0.05)):
+        both(f"masks_from_scores {mutual}/{bilateral}/{dustbin}",
+             lambda sm: corr.correspondence_masks_from_scores(sm, mutual, bilateral, dustbin, thr),
+             score)
+    both("masks_threshold", lambda sm: corr.correspondence_masks_threshold(sm, 0.5, True), score)
+    both("top_k_correspondences", lambda sm: corr.top_k_correspondences(sm, 256, True), score)
+    # features on a 1/8 grid: their products and sums are exact in float32 on
+    # both devices, so argmin decisions cannot part on rounding
+    both("masks_from_feats", lambda a, b: corr.correspondence_masks_from_feats(a, b, mutual=True),
+         f32(rng.randint(-16, 17, (200, 32)) / 8), f32(rng.randint(-16, 17, (220, 32)) / 8))
+    both("nearest_node_assignment", corr.nearest_node_assignment, pts, nodes, pmask, nmask)
+    src_pts = f32((pts - tf[:3, 3]) @ rot)
+    corr_idx = np.stack([rng.randint(0, 4000, 5000), rng.randint(0, 4000, 5000)], 1)
+    corr_idx[-50:] = 4000  # rows past the clouds: dropped by the scatter
+    both("dense_to_node", lambda *a: corr.dense_to_node_correspondences(*a[:5], corr_mask=a[5]),
+         pts, src_pts, nodes, nodes, corr_idx, rng.rand(5000) > 0.1)
+    p_, k_ = 256, 64
+    rki = rng.randint(0, 4000, (p_, k_))
+    rki[rng.rand(p_, k_) < 0.2] = 4000
+    rkm = rki < 4000
+    rkp = f32(pts[np.minimum(rki, 3999)])
+    skp = f32(src_pts[np.minimum(rki, 3999)] + rng.randn(p_, k_, 3) * 0.05)
+    ncorr = np.stack([np.arange(p_), rng.permutation(p_)], 1)
+    ncm = rng.rand(p_) > 0.1
+    both("node_to_dense", lambda *a: corr.node_to_dense_correspondences(
+        *a[:6], 0.3, node_corr_mask=a[6], ref_knn_masks=a[7], src_knn_masks=a[7]),
+        rkp, skp, rki, rki, ncorr, tf, ncm, rkm)
+    both("node_pair_overlaps", lambda *a: corr.node_pair_overlaps(a[0], a[1], a[2], 0.3, a[3], a[3]),
+         rkp, skp, tf, rkm)
+    for fn in (corr.node_overlap_ratios, corr.node_occlusion_ratios):
+        both(fn.__name__, lambda *a, fn=fn: fn(4000, 4000, *a[:6], 0.3, a[7], a[7],
+                                                node_corr_mask=a[6]),
+             rkp, skp, rki, rki, ncorr, tf, ncm, rkm)
+    both("point_matching", lambda *a: point_matching(*a, cfg.fine_matching), rkp, skp, rkm, rkm,
+         f32(rng.randn(p_, k_ + 1, k_ + 1) * 2 - 4), ncm)
+    # ConvBlock: seeded torch init on the CPU, the same weights copied to the card
+    torch.manual_seed(SEED)
+    blocks = [
+        ("Linear+GroupNorm", layers.ConvBlock(64, 256, "Linear", norm_cfg="GroupNorm",
+                                              act_cfg="LeakyReLU"), (4096, 64)),
+        ("Conv2d 3x2 s2 SAME+BatchNorm", layers.ConvBlock(
+            16, 32, "Conv2d", kernel_size=(3, 2), stride=2, padding="SAME",
+            norm_cfg="BatchNorm2d", act_cfg="ReLU"), (4, 64, 63, 16)),  # uneven SAME pads
+        ("Conv1d+InstanceNorm", layers.ConvBlock(32, 64, "Conv1d", kernel_size=3, padding=1,
+                                                 norm_cfg="InstanceNorm1d", act_cfg="GELU"),
+         (8, 512, 32)),
+    ]
+    for name, block, shape in blocks:
+        pair = {"cpu": block, "card": copy.deepcopy(block).to(dev)}
+        run = lambda x, train, pair=pair: pair["card" if x.is_cuda else "cpu"](x, train=train)  # noqa: E731
+        x = f32(rng.randn(*shape))
+        if "BatchNorm" in name:
+            both(f"{name} train", lambda t: run(t, True), x)
+            bn = {k: dict(m.BatchNorm_0.named_buffers()) for k, m in pair.items()}
+            for key in ("running_mean", "running_var"):
+                err = float((bn["card"][key].cpu() - bn["cpu"][key]).abs().max())
+                if err > 1e-5 * float(bn["cpu"][key].abs().max()):
+                    fail(f"library phase: {name} {key} card vs CPU {err:.3e}")
+        with torch.no_grad():
+            both(f"{name} eval", lambda t: run(t, False), f32(rng.randn(*shape) * 2 + 0.5))
+    print(f"library phase: {len(worst)} calls equal on the card and the CPU (masks and "
+          f"indices exact); worst float error / max |y|: {max(worst.values()):.3e} "
+          f"({max(worst, key=worst.get)})")
+
+    # ---- (c) group_and_aggregate at level-1 shapes of the phase-4 pair ------------
+    lvl1 = [sp for sp in search_plan(cfg.pyramid) if sp.table == "neighbors" and sp.q_lvl == 1][0]
+    q1, c1 = batch.ref.points[1], batch.ref.counts[1]
+    f1 = torch.from_numpy(f32(rng.randn(q1.shape[0], 128))).to(dev)
+    reset_launch_counts()
+    got = group_and_aggregate(q1, q1, f1, c1, lvl1.radius, lvl1.k)
+    per_ga = launch_counts()
+    if per_ga != {"radius_knn": 1, "sinkhorn": 0}:
+        fail(f"library phase: group_and_aggregate launched {per_ga}")
+    want = group_and_aggregate(q1.cpu(), q1.cpu(), f1.cpu(), c1.cpu(), lvl1.radius, lvl1.k)
+    if not (torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])):
+        fail("library phase: group_and_aggregate on the card differs from its plain version")
+    ga = lambda: group_and_aggregate(q1, q1, f1, c1, lvl1.radius, lvl1.k)  # noqa: E731
+    ga_ms = cuda_ms(ga, reps=GA_REPS)
+    t0 = time.perf_counter()
+    group_and_aggregate(q1.cpu(), q1.cpu(), f1.cpu(), c1.cpu(), lvl1.radius, lvl1.k)
+    ga_plain_ms = (time.perf_counter() - t0) * 1e3
+    before, refused = radius_knn_cuda.launches, None
+    try:
+        group_and_aggregate(q1, q1, f1, c1, lvl1.radius, 257)
+    except ValueError as e:
+        refused = str(e)
+    if refused is None:
+        fail("library phase: group_and_aggregate took k = 257 on the card")
+    if radius_knn_cuda.launches != before:
+        fail("library phase: k = 257 reached a launch")
+    print(f"library phase: group_and_aggregate at level 1 ({q1.shape[0]} x {q1.shape[0]} rows, "
+          f"{int(c1)} valid, r {lvl1.radius}, k {lvl1.k}, 128 channels): {ga_ms:.4f} ms per call "
+          f"on the card ({card}), plain on the CPU {ga_plain_ms:.3f} ms; {per_ga['radius_knn']} "
+          f"kNN launch per call; equal to the plain version; k = 257 refused before a launch "
+          f"({refused})")
+
+    # ---- (d) the phase-4 pairs through the reference's stacked layout ------------
+    # The split holds the batch's valid rows and tables at smaller capacities
+    # (round8 of the larger cloud), so every sum over padded rows rounds
+    # otherwise. Held: the split's rows and tables equal to the batch's, its
+    # fine features within 1e-4 of max |y| (the golden test's bound), one
+    # Sinkhorn launch, a finite rigid pose. With random weights NMS, the
+    # superpoint top-k and LGR's few-correspondence hypotheses sit on near-ties
+    # (on the card the phase-4 pair's node correspondences part), so the
+    # pose difference is only printed; a scan against a rigidly moved copy is
+    # held to SPLIT_POSE_LIMIT when both its poses register (phase 5's 0.05).
+    motion = np.eye(4, dtype=np.float32)
+    motion[:2, :2] = [[np.cos(0.05), -np.sin(0.05)], [np.sin(0.05), np.cos(0.05)]]
+    motion[:3, 3] = [0.5, 0.3, 0.1]
+    ref0 = batch.ref.points[0][:int(batch.ref.counts[0])].cpu().numpy()
+    moved = f32((ref0 - motion[:3, 3]) @ motion[:3, :3])
+    cap = cfg.pyramid.caps[0]
+    moved_batch = build_pair_batch(*pad_cloud(ref0, cap, device=dev),
+                                   *pad_cloud(moved, cap, device=dev), torch.eye(4, device=dev),
+                                   cfg.pyramid)
+    for label, b, known in (("the phase-4 pair", batch, None),
+                            ("its ref against a moved copy", moved_batch, motion)):
+        split = pair_batch_from_stacked(**stack_pair_batch(b),
+                                        transform=np.eye(4, dtype=np.float32), device=dev)
+        for side in ("ref", "src"):
+            x, y = getattr(b, side), getattr(split, side)
+            counts = [int(c) for c in x.counts]
+            for lvl, n in enumerate(counts):
+                if int(y.counts[lvl]) != n or not torch.equal(x.points[lvl][:n], y.points[lvl][:n]):
+                    fail(f"library phase: {label}: {side} points[{lvl}] of the split differ")
+            for field, q_off, s_off in (("neighbors", 0, 0), ("subsampling", 1, 0),
+                                        ("upsampling", 0, 1)):
+                for lvl, (tx, ty) in enumerate(zip(getattr(x, field), getattr(y, field))):
+                    nq, ns_ = counts[lvl + q_off], counts[lvl + s_off]
+                    want_t = torch.where(tx[:nq] < ns_, tx[:nq], y.points[lvl + s_off].shape[0])
+                    if not torch.equal(ty[:nq], want_t.to(ty.dtype)):
+                        fail(f"library phase: {label}: {side} {field}[{lvl}] of the split differ")
+        reset_launch_counts()
+        with torch.no_grad():
+            out_split = model(split)
+        per_split = launch_counts()
+        with torch.no_grad():
+            out = model(b)
+        if per_split != {"radius_knn": 0, "sinkhorn": 1}:
+            fail(f"library phase: {label} split launched {per_split}, not one Sinkhorn")
+        feat_err = 0.0
+        for side, key in (("ref", "ref_feats_f"), ("src", "src_feats_f")):
+            n1 = int(getattr(b, side).counts[1])
+            a, w = out_split[key][:n1], out[key][:n1]
+            feat_err = max(feat_err, float((a - w).abs().max()) / float(w.abs().max()))
+        if not feat_err <= 1e-4:
+            fail(f"library phase: {label}: split fine features {feat_err:.3e} of max |y| apart")
+        tf_split, tf = out_split["estimated_transform"], out["estimated_transform"]
+        rot = tf_split[:3, :3]
+        ortho = float((rot.T @ rot - torch.eye(3, device=dev)).abs().max())
+        if not (bool(torch.isfinite(tf_split).all()) and ortho < 1e-4):
+            fail(f"library phase: {label}: split pose not a finite rigid transform ({ortho:.3e})")
+        pose_diff = float((tf_split - tf).abs().max())
+        same_nodes = all(torch.equal(out_split[k], out[k]) for k in (
+            "ref_node_corr_indices", "src_node_corr_indices", "node_corr_valid"))
+        line = (f"library phase: {label} split from the reference's stacked layout (caps "
+                f"{[p.shape[0] for p in split.ref.points]} against "
+                f"{[p.shape[0] for p in b.ref.points]}): tables equal, fine features within "
+                f"{feat_err:.3e} of max |y|, node correspondences "
+                f"{'equal' if same_nodes else 'parted'}, pose differs from the batch's by "
+                f"{pose_diff:.3e}; launches {per_split}")
+        if known is None:
+            line += " (pose not held: random weights)"
+        else:
+            reg = [float((t.cpu() - torch.from_numpy(known)).abs().max()) for t in (tf, tf_split)]
+            held = max(reg) <= 0.05
+            line += (f"; poses against the known motion {reg[0]:.3e} (batch), {reg[1]:.3e} "
+                     f"(split): " + (f"both register, difference held to {SPLIT_POSE_LIMIT}"
+                                     if held else "not both registered, difference not held"))
+            if held and not pose_diff <= SPLIT_POSE_LIMIT:
+                fail(f"library phase: {label}: split pose differs by {pose_diff} > "
+                     f"{SPLIT_POSE_LIMIT}")
+        print(line)
+    print(f"library phase: {time.perf_counter() - t_phase:.3f} s")
+    return {"launches_per_contracts_run": per_contracts, "launches_per_group_and_aggregate": per_ga}
+
+
 def main() -> None:
     import torch
 
@@ -2702,6 +3032,11 @@ def main() -> None:
         for name, n in per.items():
             kernels[name][key] = n
     workflow_tmp.cleanup()
+
+    # ---- 15. the library surface: contracts, toolkit, layers, splitter -------------------
+    for key, per in library_phase(dev, card, kernels, cfg, model, batch).items():
+        for name, n in per.items():
+            kernels[name][key] = n
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -167,6 +167,33 @@ def _check_device(state: TrainState, dev: torch.device) -> None:
         raise ValueError(f"the model lives on {state.device}, the step was made for {dev}")
 
 
+def make_batch_loss(cfg: Config, device=None) -> Callable:
+    """``batch_loss(model, batch, generator) -> (loss, metrics)``: the mean
+    over the pairs of ``batch`` (a sequence of ``PairBatch``) of the training
+    forward's ``OverallLoss`` terms and PIR, each pair drawing its targets
+    from ``generator`` in turn. ``loss`` carries the graph for a backward;
+    ``make_value_and_grad`` keeps its own per-pair backward instead, so that
+    only one pair's graph is alive at a time."""
+    dev = resolve_device(device)
+    loss_module, evaluator = OverallLoss(cfg), Evaluator(cfg)
+
+    def batch_loss(model: nn.Module, batch: Sequence[PairBatch], generator: torch.Generator):
+        if next(model.parameters()).device.type != dev.type:
+            raise ValueError(f"the model lives on {next(model.parameters()).device}, "
+                             f"the loss was made for {dev}")
+        scale = 1.0 / len(batch)
+        means: Dict[str, torch.Tensor] = {}
+        for pair in batch:
+            out = model(pair, training=True, with_gt=True, generator=generator)
+            losses = loss_module(out, pair)
+            losses["PIR"] = evaluator(out, pair, evaling=False)["PIR"]
+            for name, value in losses.items():  # summed as make_value_and_grad sums
+                means[name] = means.get(name, 0.0) + value * scale
+        return means["loss"], means
+
+    return batch_loss
+
+
 def make_value_and_grad(cfg: Config, device=None, group=None) -> Callable:
     """``value_and_grad(state, batch, generator, stage_hook=None) ->
     (metrics, grads)`` without the update. ``batch`` is a sequence of

@@ -2,4 +2,11 @@
 
 from rdmnet_tpu_torch.models.rdmnet import RDMNet, pipeline, with_pyramid
 
-__all__ = ["RDMNet", "pipeline", "with_pyramid"]
+
+def create_model(cfg, device=None) -> RDMNet:
+    """The flagship model for ``cfg`` (the reference's ``create_model``), on
+    CUDA unless ``device`` names another device."""
+    return RDMNet(cfg, device=device)
+
+
+__all__ = ["RDMNet", "create_model", "pipeline", "with_pyramid"]

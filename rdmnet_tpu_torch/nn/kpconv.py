@@ -40,6 +40,27 @@ def nearest_upsample(x: torch.Tensor, upsample_indices: torch.Tensor) -> torch.T
     return take_padded(x, upsample_indices[:, 0], fill_value=0.0)
 
 
+def knn_interpolate(s_feats: torch.Tensor, q_points: torch.Tensor, s_points: torch.Tensor,
+                    neighbor_indices: torch.Tensor, k: int, eps: float = 1e-8) -> torch.Tensor:
+    """Inverse-distance interpolation of ``s_feats`` (N, C) at ``q_points``
+    (M, 3) over the first ``k`` columns of ``neighbor_indices`` (M, H);
+    missing neighbours weigh 0 -> (M, C)."""
+    knn_indices = neighbor_indices[:, :k]
+    knn_points = gather_neighbors(s_points, knn_indices, fill=0.0)
+    knn_feats = gather_neighbors(s_feats, knn_indices, fill=0.0)
+    sq = ((q_points[:, None] - knn_points) ** 2).sum(-1)
+    masks = (knn_indices < s_points.shape[0]).to(s_feats.dtype)
+    w = masks / (sq + eps)
+    w = w / (w.sum(dim=1, keepdim=True) + eps)
+    return (knn_feats * w[..., None]).sum(dim=1)
+
+
+def global_avgpool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of the valid rows of a padded cloud (N, C) -> (C,); 0 if none."""
+    m = mask.to(x.dtype)[:, None]
+    return (x * m).sum(dim=0) / torch.clamp_min(m.sum(), 1.0)
+
+
 def kpconv_influence(q_points, s_points, neighbor_indices, kernel_points, sigma: float) -> torch.Tensor:
     """Linear-correlation influence of each kernel point for every
     (query, neighbour) pair -> (M, H, K). Depends on geometry only."""

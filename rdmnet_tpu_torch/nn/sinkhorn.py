@@ -1,7 +1,8 @@
 """Learnable log-domain Sinkhorn optimal transport
 (twin of ``rdmnet_tpu/nn/sinkhorn.py``).
 
-The iterations run in ``ops/kernels/sinkhorn``. Inference (``use_kernel``):
+The iterations run in ``ops/kernels/sinkhorn``; ``log_sinkhorn`` is the
+plain iteration under the JAX package's public name. Inference (``use_kernel``):
 the fused CUDA kernel for CUDA tensors, its plain version for CPU tensors.
 Training: the plain version under autograd on either device, as the JAX
 package trains through its scan. Float32 throughout.
@@ -12,9 +13,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn
+from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn, sinkhorn_plain
 
 INF = 1.0e12  # masks are -1e12, not -inf: fully masked patches stay finite
+
+
+def log_sinkhorn(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
+                 num_iterations: int) -> torch.Tensor:
+    """The plain log-domain iteration on any leading dims, no dustbin:
+    (*, M, N), (*, M), (*, N) -> (*, M, N). Plain PyTorch on every device
+    (the JAX package's ``lax.scan`` path); the kernel route is
+    ``LearnableLogOptimalTransport``."""
+    return sinkhorn_plain(scores, log_mu, log_nu, num_iterations)
 
 
 class LearnableLogOptimalTransport(nn.Module):

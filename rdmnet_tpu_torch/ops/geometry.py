@@ -64,12 +64,17 @@ def sq_dist3(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor, normalized: bool = False) -> torch.Tensor:
     """Squared euclidean distances between rows of x (*, N, C) and y (*, M, C),
     clamped at zero. Points (C = 3) take the exact path of ``sq_dist3``;
-    unit-norm feature rows (``normalized``) ``2 - 2 x.y``, a float32 matmul."""
+    unit-norm feature rows (``normalized``) ``2 - 2 x.y``, and feature rows of
+    any other width ``|x|^2 - 2 x.y + |y|^2``, float32 matmuls."""
+    if x.dim() < 2:
+        raise ValueError(f"pairwise_sq_dist: expected (*, N, C) rows, got {tuple(x.shape)}")
     if normalized:
         return torch.clamp_min(2.0 - 2.0 * (x @ y.transpose(-1, -2)), 0.0)
-    if x.dim() < 2 or x.shape[-1] != 3:
-        raise ValueError(f"pairwise_sq_dist: expected (*, N, 3) points, got {tuple(x.shape)}")
-    return sq_dist3(x, y)
+    if x.shape[-1] == 3:
+        return sq_dist3(x, y)
+    xy = x @ y.transpose(-1, -2)
+    sq = ((x * x).sum(-1)[..., :, None] - 2.0 * xy) + (y * y).sum(-1)[..., None, :]
+    return torch.clamp_min(sq, 0.0)
 
 
 def take_padded(x: torch.Tensor, indices: torch.Tensor, fill_value: float = 0.0) -> torch.Tensor:
@@ -120,6 +125,14 @@ def apply_transform(points: torch.Tensor, transform: torch.Tensor) -> torch.Tens
     return points @ rotation.transpose(-1, -2) + translation[..., None, :]
 
 
+def apply_rotation(points: torch.Tensor, rotation: torch.Tensor) -> torch.Tensor:
+    """(*, 3) points with one (3, 3) rotation (the fused chain of ``dot3``, as
+    ``apply_transform``), or (B, N, 3) with (B, 3, 3) (a matmul)."""
+    if rotation.dim() == 2:
+        return dot3(points[..., None, :], rotation)
+    return points @ rotation.transpose(-1, -2)
+
+
 def inverse_transform(transform: torch.Tensor) -> torch.Tensor:
     """Invert (*, 4, 4) rigid transform(s)."""
     rotation, translation = get_rotation_translation_from_transform(transform)
@@ -134,3 +147,37 @@ def masked_mean(values: torch.Tensor, mask: torch.Tensor, dim=None, eps: float =
     total = (values * mask).sum() if dim is None else (values * mask).sum(dim)
     count = mask.sum() if dim is None else mask.sum(dim)
     return total / torch.clamp_min(count, eps)
+
+
+def skew_symmetric(v: torch.Tensor) -> torch.Tensor:
+    """(*, 3) -> (*, 3, 3) cross-product matrix."""
+    zeros = torch.zeros_like(v[..., 0])
+    rows = [torch.stack([zeros, -v[..., 2], v[..., 1]], dim=-1),
+            torch.stack([v[..., 2], zeros, -v[..., 0]], dim=-1),
+            torch.stack([-v[..., 1], v[..., 0], zeros], dim=-1)]
+    return torch.stack(rows, dim=-2)
+
+
+def rodrigues_rotation(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Axis (*, 3) and angle (*) -> rotation matrix (*, 3, 3)."""
+    axis = axis / (torch.linalg.norm(axis, dim=-1, keepdim=True) + 1e-12)
+    k = skew_symmetric(axis)
+    eye = torch.eye(3, dtype=axis.dtype, device=axis.device)
+    angle = torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    sin = torch.sin(angle)[..., None, None]
+    cos = torch.cos(angle)[..., None, None]
+    return eye + sin * k + (1.0 - cos) * (k @ k)
+
+
+def vector_angle(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Angle between vectors along the last axis, ``atan2(|x × y|, x · y)``."""
+    cross = torch.linalg.norm(torch.linalg.cross(x, y, dim=-1), dim=-1)
+    return torch.atan2(cross, (x * y).sum(-1))
+
+
+def masked_min(values: torch.Tensor, mask: torch.Tensor, dim: int,
+               big: float = 1e12) -> Tuple[torch.Tensor, torch.Tensor]:
+    """min and argmin along ``dim`` with ``mask == False`` entries read as
+    ``big``; argmin returns the first minimum, as ``jnp.argmin``."""
+    masked = torch.where(mask, values, torch.full_like(values, big))
+    return masked.amin(dim=dim), torch.argmin(masked, dim=dim)

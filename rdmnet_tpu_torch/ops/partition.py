@@ -3,17 +3,32 @@
 
 Each point is owned by its nearest valid node; each node keeps up to K of
 its owned points, nearest first; missing slots carry the sentinel N.
+``knn_partition`` keeps each node's k nearest points, owned or not.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from rdmnet_tpu_torch.ops.geometry import pairwise_sq_dist
+from rdmnet_tpu_torch.ops.select import top_k
 
 BIG = 1.0e12
+
+
+def knn_partition(points: torch.Tensor, nodes: torch.Tensor, k: int,
+                  points_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest valid points of each node: points (N, 3), nodes (M, 3)
+    -> (knn_sq_dists (M, k), knn_indices (M, k) int32), ascending; equal
+    distances keep the lower index first (``ops/select.top_k``), masked
+    points read as ``BIG``."""
+    sq = pairwise_sq_dist(nodes, points)                                  # (M, N)
+    if points_mask is not None:
+        sq = torch.where(points_mask[None, :], sq, torch.full_like(sq, BIG))
+    neg, idx = top_k(-sq, k)
+    return -neg, idx.to(torch.int32)
 
 
 def point_to_node_partition(points: torch.Tensor, points_mask: torch.Tensor,

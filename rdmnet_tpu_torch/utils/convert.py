@@ -2,9 +2,12 @@
 
 The port names its submodules after the flax parameter tree, so conversion
 is a tree walk: the path joins with "." and each leaf maps by name —
-Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in), transposed; norm
-``scale`` -> ``weight``; ``bias``, KPConv ``weights`` and ``kernel_points``
-and the dustbin ``alpha`` verbatim. The result loads with ``strict=True``.
+Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in), transposed; Conv
+``kernel`` (*spatial, Cin/groups, Cout) -> Conv{1,2,3}d ``weight`` (Cout,
+Cin/groups, *spatial); norm ``scale`` -> ``weight``; ``bias``, KPConv
+``weights`` and ``kernel_points`` and the dustbin ``alpha`` verbatim; the
+``batch_stats`` collection's ``mean``/``var`` -> BatchNorm's
+``running_mean``/``running_var``. The result loads with ``strict=True``.
 
 The JAX package's serving artifact stores the tree flat (``weights.npz``,
 keys ``w{i}``) in ``jax.tree_util.tree_flatten`` order: dict keys sorted at
@@ -25,47 +28,69 @@ import torch
 from torch import nn
 
 
+BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _kernel_perm(rank: int) -> Tuple[int, ...]:
+    """Axes of a flax kernel -> the torch weight: (in, out) -> (out, in);
+    (*spatial, Cin/groups, Cout) -> (Cout, Cin/groups, *spatial)."""
+    return (rank - 1, rank - 2) + tuple(range(rank - 2))
+
+
 def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree (nested dicts of arrays, with or without the
-    top-level ``"params"`` collection) -> torch state_dict."""
-    if set(params.keys()) == {"params"}:
-        params = params["params"]
+    """Flax variables -> torch state_dict: a parameter tree (nested dicts of
+    arrays), or the collections ``{"params": ...}`` with, optionally,
+    ``"batch_stats"``."""
+    collections = set(params.keys())
+    stats: Mapping = {}
+    if "params" in collections and collections <= {"params", "batch_stats"}:
+        params, stats = params["params"], params.get("batch_stats", {})
     state: Dict[str, torch.Tensor] = {}
 
-    def walk(node: Mapping, prefix: str) -> None:
+    def walk(node: Mapping, prefix: str, rename) -> None:
         for name, value in node.items():
             if isinstance(value, Mapping):
-                walk(value, f"{prefix}{name}.")
+                walk(value, f"{prefix}{name}.", rename)
                 continue
-            arr = np.asarray(value, dtype=np.float32)
-            if name == "kernel":
-                name, arr = "weight", arr.T
-            elif name == "scale":
-                name = "weight"
+            name, arr = rename(name, np.asarray(value, dtype=np.float32))
             # a writable C-order copy that keeps 0-d shapes (the dustbin alpha)
             state[prefix + name] = torch.from_numpy(np.array(arr, order="C"))
 
-    walk(params, "")
+    def param(name, arr):
+        if name == "kernel":
+            return "weight", arr.transpose(_kernel_perm(arr.ndim))
+        return ("weight" if name == "scale" else name), arr
+
+    walk(params, "", param)
+    walk(stats, "", lambda name, arr: (BATCH_STATS[name], arr))
     return state
 
 
 def params_to_jax(model: nn.Module) -> dict:
     """Inverse of ``params_from_jax``: the model's state_dict as the flax
-    variable tree ``{"params": {...}}`` of float32 numpy arrays. A Linear's
-    ``weight`` becomes its transposed ``kernel``, any other ``weight`` a
-    norm's ``scale``."""
-    linear = {name for name, mod in model.named_modules() if isinstance(mod, nn.Linear)}
-    tree: dict = {}
+    variables ``{"params": {...}}`` of float32 numpy arrays, plus
+    ``"batch_stats"`` where the model holds running statistics. A Linear's
+    or a convolution's ``weight`` becomes its ``kernel``, any other
+    ``weight`` a norm's ``scale``."""
+    kernels = {name for name, mod in model.named_modules()
+               if isinstance(mod, (nn.Linear, nn.modules.conv._ConvNd))}
+    stat_names = {v: k for k, v in BATCH_STATS.items()}
+    variables: dict = {}
     for key, value in model.state_dict().items():
         prefix, _, leaf = key.rpartition(".")
         arr = value.detach().cpu().numpy()
-        if leaf == "weight":
-            leaf, arr = ("kernel", arr.T) if prefix in linear else ("scale", arr)
-        node = tree
+        collection = "batch_stats" if leaf in stat_names else "params"
+        if leaf == "weight" and prefix in kernels:
+            leaf, arr = "kernel", arr.transpose(np.argsort(_kernel_perm(arr.ndim)))
+        elif leaf == "weight":
+            leaf = "scale"
+        leaf = stat_names.get(leaf, leaf)
+        node = variables.setdefault(collection, {})
         for part in prefix.split(".") if prefix else ():
             node = node.setdefault(part, {})
         node[leaf] = np.array(arr, dtype=np.float32, order="C")  # keeps 0-d shapes
-    return {"params": tree}
+    variables.setdefault("params", {})
+    return variables
 
 
 def flat_leaf_paths(tree: Mapping) -> List[Tuple[str, ...]]:

@@ -608,3 +608,37 @@ def test_kernels_launch_on_the_tensors_card(cuda):
     torch.cuda.synchronize(other)
     assert out.device == other and torch.cuda.current_device() == 0
     torch.testing.assert_close(out, sinkhorn_plain(*args, 100), rtol=1e-4, atol=1e-4)
+
+
+def test_fast_contracts_on_card(cuda):
+    """The contracts launch both kernels on the card (one kNN, one Sinkhorn
+    launch) and all three pass."""
+    from rdmnet_tpu_torch.utils.contracts import run_fast_contracts
+
+    before = launch_counts()
+    assert run_fast_contracts() == {"knn_exact": "pass", "sinkhorn": "pass",
+                                    "horn_pose_recovery": "pass"}
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {"radius_knn": 1, "sinkhorn": 1}
+
+
+@pytest.mark.parametrize("k", [8, 256])
+def test_group_and_aggregate_on_card_matches_plain(cuda, k):
+    from rdmnet_tpu_torch.nn.point_matching import group_and_aggregate
+
+    rng = np.random.RandomState(12)
+    s = _lidar_like(5, 6000)
+    q = torch.from_numpy(s[rng.permutation(len(s))[:1500]])
+    feats = torch.from_numpy(rng.randn(len(s), 32).astype(np.float32))
+    count = torch.tensor(5800, dtype=torch.int32)
+    want = group_and_aggregate(q, torch.from_numpy(s), feats, count, 2.4, k)
+    before = radius_knn_cuda.launches
+    got = group_and_aggregate(q.to(cuda), torch.from_numpy(s).to(cuda), feats.to(cuda),
+                              count.to(cuda), 2.4, k)
+    assert radius_knn_cuda.launches == before + 1
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])  # a max of the same rows: exact
+    with pytest.raises(ValueError, match="k=257"):
+        group_and_aggregate(q.to(cuda), torch.from_numpy(s).to(cuda), feats.to(cuda),
+                            count.to(cuda), 2.4, 257)
+    assert radius_knn_cuda.launches == before + 1  # refused before any launch

@@ -14,7 +14,14 @@ Phases, each fatal on failure:
    K1=129, 100 iterations with masked patches and rows; each kernel's device
    time (CUDA-graph replay) and time per wrapper call (CUDA events around
    eager calls) beside its bound, its launch plan and the time per call of
-   the kernels' first design (v1);
+   the kernels' first design (v1); then each kernel's second path against
+   its plain version: the kNN's select path (k > 256) at k = 257, 512, 2048,
+   4096 and k above the support count, on dense windows where the lists
+   fill (banded, unbanded, tiled, a batch of two clouds, duplicated points;
+   tables exact, one select launch each), and Sinkhorn's streaming path
+   (K1 > 208) at P = 256, K1 = 209, 257, 513, 100 iterations with masked
+   rows and patches (within 1e-4), each with its device time, time per
+   call, plain time, bound and plan;
 4. the main path at ``make_cfg()`` full width, 0.7 bucket: a seeded ~20k
    point procedural pair through ``pipeline`` (graph build to pose), 3
    warm-up pairs, 12 timed pairs, 5 pairs with a per-stage breakdown; every
@@ -144,13 +151,25 @@ Phases, each fatal on failure:
    the card and the CPU on the same seeded inputs: masks and indices equal,
    floats within 1e-5 of max |y|; (c) ``group_and_aggregate`` at level-1
    shapes of the phase-4 pair: one kNN launch per call, equal to the plain
-   version, k = 257 refused before a launch; (d) the phase-4 pair's pyramid
+   version, and at k = 257 one select-path launch, equal too; (d) the phase-4 pair's pyramid
    and its ref against a moved copy repacked into the reference's stacked
    layout, split by ``pair_batch_from_stacked`` (rows and tables equal to
    the batch's) and run through the model: one Sinkhorn launch, fine
    features within 1e-4 of max |y|, the pose difference from the batch's
    printed, and held to ``SPLIT_POSE_LIMIT`` for the moved copy when both
-   poses register.
+   poses register;
+16. the model at shapes past the kernels' first paths: ``make_cfg()`` at the
+   0.7 bucket with neighbour limits (320, 40, 40, 40, 40) and 256 points a
+   patch, on the phase-4 pair: ``pipeline`` builds and runs on the card (2
+   warm-up, 6 timed pairs, 2 with a per-stage breakdown; ms/pair, peak
+   memory), both second paths launch inside the window (2 select-path kNN
+   and 1 streaming Sinkhorn launch a pair), its 12 searches equal the plain
+   version's, and against the CPU port on the same weights: tables and node
+   masks equal, the matched node pairs equal but for near-ties at the top-256
+   boundary (within 1e-4 of the lowest matched score), plans through the
+   common pairs within 1e-3, LGR on the
+   CPU's plans with equal correspondence sets and residuals within 1e-4 m,
+   the pose within 1e-4 when the CPU's registers the pair.
 
 ``python3 chip_smoke.py --dp-only`` runs phases 1, 2 and 14 alone (with two
 cards or more, the NCCL path).
@@ -2440,7 +2459,7 @@ def library_phase(dev, card, kernels, cfg, model, batch):
     partition and KPConv helpers, ``log_sinkhorn``, ``point_matching`` and
     ``ConvBlock`` on the card and the CPU on the same seeded inputs; (c)
     ``group_and_aggregate`` at level-1 shapes of the phase-4 pair against its
-    plain version, and k = 257 refused before a launch; (d) the phase-4 pair's
+    plain version, at its k and at k = 257 (the select path); (d) the phase-4 pair's
     pyramid repacked into the reference's stacked layout, split by
     ``pair_batch_from_stacked`` and run through the model. Returns the launches
     per contracts run and per ``group_and_aggregate`` call by kernel."""
@@ -2455,7 +2474,7 @@ def library_phase(dev, card, kernels, cfg, model, batch):
     from rdmnet_tpu_torch.nn.sinkhorn import log_sinkhorn
     from rdmnet_tpu_torch.ops import correspondences as corr
     from rdmnet_tpu_torch.ops import geometry as geo
-    from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.kernels import launch_counts, path_launch_counts, reset_launch_counts
     from rdmnet_tpu_torch.ops.kernels.radius_knn import radius_knn_cuda
     from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda
     from rdmnet_tpu_torch.ops.partition import knn_partition
@@ -2611,20 +2630,20 @@ def library_phase(dev, card, kernels, cfg, model, batch):
     t0 = time.perf_counter()
     group_and_aggregate(q1.cpu(), q1.cpu(), f1.cpu(), c1.cpu(), lvl1.radius, lvl1.k)
     ga_plain_ms = (time.perf_counter() - t0) * 1e3
-    before, refused = radius_knn_cuda.launches, None
-    try:
-        group_and_aggregate(q1, q1, f1, c1, lvl1.radius, 257)
-    except ValueError as e:
-        refused = str(e)
-    if refused is None:
-        fail("library phase: group_and_aggregate took k = 257 on the card")
-    if radius_knn_cuda.launches != before:
-        fail("library phase: k = 257 reached a launch")
+    # k = 257: the kNN kernel's select path over the tiled 8704-row window
+    reset_launch_counts()
+    got = group_and_aggregate(q1, q1, f1, c1, lvl1.radius, 257)
+    per_257 = path_launch_counts()["radius_knn"]
+    if per_257 != {"list": 0, "select": 1}:
+        fail(f"library phase: group_and_aggregate at k = 257 launched {per_257}")
+    want = group_and_aggregate(q1.cpu(), q1.cpu(), f1.cpu(), c1.cpu(), lvl1.radius, 257)
+    if not (torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])):
+        fail("library phase: group_and_aggregate at k = 257 differs from its plain version")
     print(f"library phase: group_and_aggregate at level 1 ({q1.shape[0]} x {q1.shape[0]} rows, "
           f"{int(c1)} valid, r {lvl1.radius}, k {lvl1.k}, 128 channels): {ga_ms:.4f} ms per call "
           f"on the card ({card}), plain on the CPU {ga_plain_ms:.3f} ms; {per_ga['radius_knn']} "
-          f"kNN launch per call; equal to the plain version; k = 257 refused before a launch "
-          f"({refused})")
+          f"kNN launch per call; equal to the plain version; at k = 257 one select-path launch, "
+          f"equal to the plain version (largest group {int(got[1].max())})")
 
     # ---- (d) the phase-4 pairs through the reference's stacked layout ------------
     # The split holds the batch's valid rows and tables at smaller capacities
@@ -2707,6 +2726,360 @@ def library_phase(dev, card, kernels, cfg, model, batch):
     return {"launches_per_contracts_run": per_contracts, "launches_per_group_and_aggregate": per_ga}
 
 
+# ---- phase 3's large shapes and phase 16: every shape the JAX package runs -------------
+LARGE_K1 = (209, 257, 513)        # phase 3: Sinkhorn patches on the streaming path
+LARGE_P, LARGE_ITERS = 256, 100   # phase 3: patches and iterations of each
+LARGE_REPS = 5                    # timed calls per phase-3 large-shape instance
+LARGE_LIMITS = (320, 40, 40, 40, 40)  # phase 16: neighbour limits, level 0 past the register list
+LARGE_PATCH = 256                     # phase 16: num_points_in_patch (K1 = 257)
+LARGE_WARM, LARGE_TIMED, LARGE_STAGE = 2, 6, 2  # phase 16 pairs
+
+
+def dense_cloud(seed, n, box):
+    """``n`` points uniform in a box at the origin, x-cell sorted (0.6 m, the
+    pyramid's order): far more rows inside a search radius than any k."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    pts = (rng.rand(n, 3) * np.asarray(box)).astype(np.float32)
+    return pts[np.argsort(np.floor(pts[:, 0] / 0.6), kind="stable")]
+
+
+def sinkhorn_inputs(seed, p, k1):
+    """Phase 3's Sinkhorn inputs: scores N(0, 9), uniform marginals with a
+    dustbin, 10% of the patches and 10% of the other rows masked (-1e12)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    scores = (rng.randn(p, k1, k1) * 3).astype(np.float32)
+    log_mu = np.full((p, k1), -np.log(2 * (k1 - 1)), np.float32)
+    log_nu = log_mu.copy()
+    masked_patch = rng.rand(p) < 0.1
+    scores[masked_patch] = -1e12
+    log_mu[masked_patch, :-1] = -1e12
+    log_nu[masked_patch, :-1] = -1e12
+    rows = (rng.rand(p, k1) < 0.1) & ~masked_patch[:, None]
+    rows[:, -1] = False
+    scores[rows] = -1e12
+    log_mu[rows] = -1e12
+    return scores, log_mu, log_nu
+
+
+def sinkhorn_bounds(p, k1, iters, max_clock_mhz):
+    """(bound ms, bound_by, SFU ms, f32-ops ms, bytes ms, streaming ms): the
+    least time for the function (each exp on the SFU, 4 f32 ops beside it,
+    inputs and output moved once) and the streaming design's traffic (the
+    patch read every half-step)."""
+    entries = p * k1 * k1
+    exp_s = 2 * iters * entries / (NUM_SMS * SFU_PER_SM_CLK * max_clock_mhz * 1e6)
+    ops_s = 2 * iters * entries * SINKHORN_OPS_PER_ENTRY / F32_FLOPS
+    bytes_s = (2 * entries + 2 * p * k1) * 4 / HBM_BYTES_PER_S
+    stream_s = 2 * iters * entries * 4 / HBM_BYTES_PER_S
+    by = "operations" if max(exp_s, ops_s) >= bytes_s else "bytes"
+    return (max(exp_s, ops_s, bytes_s) * 1e3, by, exp_s * 1e3, ops_s * 1e3, bytes_s * 1e3,
+            stream_s * 1e3)
+
+
+def large_knn_case(dev, kernels, name, s_np, counts, radius, k, band=None, chunk=256,
+                   queries=None):
+    """One select-path search (k > 256) through ``check_knn``: tables equal
+    to the plain version, every launch on the select path, the share of
+    queries whose list fills. ``queries``: search the first rows only."""
+    import torch
+
+    from rdmnet_tpu_torch.graph.pyramid import SearchSpec
+    from rdmnet_tpu_torch.ops.kernels import path_launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.kernels.radius_knn import radius_knn_plain
+    from rdmnet_tpu_torch.ops.radius_search import band_windows
+
+    s = torch.from_numpy(s_np).to(dev).contiguous()
+    cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+    q, q_cnt = s, cnt
+    if queries is not None:
+        q = s[:, :queries].contiguous()
+        q_cnt = torch.full_like(cnt, queries)
+    # level 0 the support, level 1 the queries (the SearchSpec's indices)
+    sp = SearchSpec("dense", 1, 0, radius, k, band, chunk, 0.6)
+    reset_launch_counts()
+    ms, call_ms, plain_ms, bound, _, plan = check_knn([s, q], [cnt, q_cnt], sp, kernels)
+    paths = path_launch_counts()["radius_knn"]
+    if paths["list"] or not paths["select"]:
+        fail(f"radius_knn {name} k={k}: launched {paths}, not the select path alone")
+    kw = {}
+    if band is not None:
+        win, _ = band_windows(q, s, q_cnt, radius, sp.cell, band, chunk)
+        kw = dict(win=win, chunk=chunk, band=band)
+    found = (radius_knn_plain(q, s, cnt, radius, k, **kw) < s.shape[1]).sum(-1)
+    print(knn_line(f"select path {name} Q={q.shape[1]} S={s.shape[1]} K={k} band={band} "
+                   f"r={radius}", ms, call_ms, plain_ms, bound, plan, None)
+          + f" sort_rows={plan.sort_rows}; table equal to the plain version, neighbours per "
+          f"query {int(found.min())}-{int(found.max())}, "
+          f"{float((found == min(k, s.shape[1])).float().mean()):.3f} of the queries with a "
+          "full list")
+
+
+def large_shapes_check(dev, kernels, max_clock_mhz):
+    """Phase 3's large shapes: the kNN kernel's select path (k = 257, 512,
+    2048, 4096, and k above the support count) on dense windows, banded,
+    unbanded, tiled, a batch of two clouds and duplicated points; Sinkhorn's
+    streaming path at K1 = 209, 257 and 513 with masked rows and patches.
+    Fills the kernels' ``select_path`` / ``stream_path`` entries with the
+    Sinkhorn time at phase 16's shape (P = 256, K1 = 257, 100 iterations)."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.ops.kernels import path_launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain, sinkhorn_plan
+
+    # banded, a batch of two clouds with different counts, the band staged whole
+    two = np.stack([dense_cloud(SEED + 20, 12000, (12.0, 3.0, 2.0)),
+                    dense_cloud(SEED + 21, 12000, (12.0, 3.0, 2.0))])
+    for k in (257, 512):
+        large_knn_case(dev, kernels, "banded batch", two, [11000, 12000], 1.5, k, band=4096)
+    # every point twice: the (distance, index) tie order
+    twin = np.ascontiguousarray(two[:1, (np.arange(12000) + 1) // 2])
+    large_knn_case(dev, kernels, "banded duplicated points", twin, [12000], 1.5, 512, band=4096)
+    # k = 2048 on a band of 8192 rows (tiled) and unbanded over 16000 rows (tiled)
+    big = dense_cloud(SEED + 22, 16000, (10.0, 3.0, 2.0))[None]
+    large_knn_case(dev, kernels, "banded tiled", big, [16000], 2.0, 2048, band=8192)
+    for k in (2048, 4096):
+        large_knn_case(dev, kernels, "unbanded tiled", big, [15500], 2.0, k, queries=4096)
+    # unbanded, the window staged whole
+    mid = dense_cloud(SEED + 23, 6000, (4.0, 3.0, 2.0))[None]
+    large_knn_case(dev, kernels, "unbanded", mid, [6000], 1.5, 512)
+    # k above the support count: sentinels past the in-radius rows
+    small = dense_cloud(SEED + 24, 300, (1.0, 1.0, 1.0))[None]
+    large_knn_case(dev, kernels, "k above the support count", small, [300], 2.0, 512)
+    few = dense_cloud(SEED + 25, 3000, (2.0, 2.0, 1.5))[None]
+    large_knn_case(dev, kernels, "k above the support count, two sort chunks", few, [3000], 2.0,
+                   4096)
+
+    for k1 in LARGE_K1:
+        s_np, mu_np, nu_np = sinkhorn_inputs(SEED + k1, LARGE_P, k1)
+        s_t, mu_t, nu_t = (torch.from_numpy(x).to(dev) for x in (s_np, mu_np, nu_np))
+        plan = sinkhorn_plan(k1)
+        reset_launch_counts()
+        got = sinkhorn_cuda(s_t, mu_t, nu_t, LARGE_ITERS)
+        torch.cuda.synchronize()
+        paths = path_launch_counts()["sinkhorn"]
+        if paths != {"register": 0, "stream": 1}:
+            fail(f"sinkhorn K1={k1}: launched {paths}, not one streaming-path launch")
+        want = sinkhorn_plain(s_t, mu_t, nu_t, LARGE_ITERS)
+        live = want > -1e11
+        if not torch.isfinite(got).all() or not torch.equal(got > -1e11, live):
+            fail(f"sinkhorn K1={k1}: non-finite output or masked entries differ")
+        err = float((got - want)[live].abs().max())
+        if err > 1e-4:
+            fail(f"sinkhorn K1={k1}: max abs error {err} > 1e-4")
+        kernels["sinkhorn"]["max_abs_err"] = max(kernels["sinkhorn"]["max_abs_err"], err)
+        call = lambda: sinkhorn_cuda(s_t, mu_t, nu_t, LARGE_ITERS)  # noqa: E731
+        ms, call_ms = graph_ms(call, reps=LARGE_REPS), cuda_ms(call, reps=LARGE_REPS)
+        plain_ms = cuda_ms(lambda: sinkhorn_plain(s_t, mu_t, nu_t, LARGE_ITERS), reps=1,
+                           warmup=0)
+        bound, by, exp_ms, ops_ms, bytes_ms, stream_ms = sinkhorn_bounds(
+            LARGE_P, k1, LARGE_ITERS, max_clock_mhz)
+        print(f"sinkhorn streaming path P={LARGE_P} K1={k1} iters={LARGE_ITERS}: kernel "
+              f"{ms:.4f} ms on the device, {call_ms:.4f} ms per call; plain {plain_ms:.3f} ms, "
+              f"bound {bound:.5f} ms (exp {exp_ms:.5f}, f32 ops {ops_ms:.5f}, bytes "
+              f"{bytes_ms:.5f}); the design's traffic (the patch read every half-step) "
+              f"{stream_ms:.5f} ms; plan {plan}; max abs err {err:.3e}")
+        if k1 == LARGE_PATCH + 1:
+            kernels["sinkhorn"]["stream_path"] = dict(
+                shape=f"P={LARGE_P} K1={k1} iters={LARGE_ITERS}", ms=ms, ms_per_call=call_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by, design_bound_ms=stream_ms,
+                max_abs_err=err, library_ms=None)
+
+
+NEAR_TIE_RTOL = 1e-4  # phase 16: a node pair matched on one device only, above that side's floor
+
+
+def near_tie_plan_error(a, b):
+    """Two runs' (a: card, b: CPU) matched node pairs: (max abs difference of
+    their log transport plans through the pairs both matched, the number of
+    those, the number matched on one side only, the largest relative height
+    of such a pair's score above its side's lowest matched score). None for
+    the error when the common pairs' patches mask other rows."""
+    import torch
+
+    m = b["src_node_masks"].shape[0]
+    runs = []
+    for o in (a, b):
+        valid = o["node_corr_valid"].cpu()
+        keys = (o["ref_node_corr_indices"].long().cpu() * m
+                + o["src_node_corr_indices"].long().cpu()).tolist()
+        runs.append(({k: i for i, k in enumerate(keys) if valid[i]},
+                     o["node_corr_scores"].cpu(), valid))
+    common = sorted(runs[0][0].keys() & runs[1][0].keys())
+    gap, parted = 0.0, 0
+    for (mine, scores, valid), (other, _, _) in (runs, runs[::-1]):
+        floor = float(scores[valid].min())
+        for k, i in mine.items():
+            if k not in other:
+                parted += 1
+                gap = max(gap, (float(scores[i]) - floor) / floor)
+    pa = a["matching_scores"].cpu()[[runs[0][0][k] for k in common]]
+    pb = b["matching_scores"].cpu()[[runs[1][0][k] for k in common]]
+    live = pb > -1e11
+    if not torch.equal(pa > -1e11, live):
+        return None, len(common), parted, gap
+    return float((pa - pb)[live].abs().max()), len(common), parted, gap
+
+
+def record_large_phase(per_pair, kernels):
+    """Phase 16's launches into the kernels line: per pair by kernel, and in
+    its timed window by the large-shape path."""
+    for name, path in (("radius_knn", "select_path"), ("sinkhorn", "stream_path")):
+        kernels[name]["launches_per_large_shape_pair"] = sum(per_pair[name].values())
+        big = "select" if name == "radius_knn" else "stream"
+        kernels[name][path].update(launches=round(per_pair[name][big] * LARGE_TIMED),
+                                   launches_per_pair=per_pair[name][big])
+
+
+def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
+    """Phase 16: ``pipeline`` at ``cfg``'s width (``make_cfg()``, the phase-4
+    bucket) with ``neighbor_limits`` ``LARGE_LIMITS`` and ``num_points_in_patch``
+    ``LARGE_PATCH`` on the phase-4 pair: the model builds on the card, both
+    kernels' large-shape paths launch inside the timed window, its 12
+    searches equal the plain version, and the card's run against the CPU
+    port's with the same weights: every table and node mask equal, the
+    matched node pairs equal but for near-ties at the top-k boundary (a pair
+    matched on one side only scores within ``NEAR_TIE_RTOL`` of that side's
+    lowest matched score), log transport plans through the pairs both matched
+    within 1e-3, LGR on the CPU's plans with
+    equal correspondence sets and hypothesis residuals within 1e-4 m, the pose
+    within 1e-4 when the CPU's registers the pair (phase 5's tolerances).
+    Returns the launches per pair by kernel and path."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud, search_plan
+    from rdmnet_tpu_torch.models import RDMNet, pipeline
+    from rdmnet_tpu_torch.models.rdmnet import STAGES
+    from rdmnet_tpu_torch.ops.kernels import path_launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
+
+    t_phase = time.perf_counter()
+    big = dataclasses.replace(
+        cfg, pyramid=dataclasses.replace(cfg.pyramid, neighbor_limits=LARGE_LIMITS),
+        model=dataclasses.replace(cfg.model, num_points_in_patch=LARGE_PATCH))
+    cap = big.pyramid.caps[0]
+    model = RDMNet(big, device=dev, generator=torch.Generator().manual_seed(SEED))
+    rp, rc = pad_cloud(ref, cap, device=dev)
+    sp, sc = pad_cloud(src, cap, device=dev)
+    for i in range(LARGE_WARM):
+        pipeline(model, rp + 1e-6 * (i + 1), rc, sp, sc, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [pipeline(model, rp + 1e-6 * (i + 1), rc, sp, sc, device=dev)["estimated_transform"]
+            for i in range(LARGE_TIMED)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / LARGE_TIMED
+    paths = path_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if paths["radius_knn"]["select"] == 0 or paths["sinkhorn"]["stream"] == 0:
+        fail(f"large-shape phase: a large-shape path was not launched in the window: {paths}")
+    if not all(bool(torch.isfinite(t).all()) for t in outs):
+        fail("large-shape phase: non-finite estimated_transform")
+    per_pair = {name: {path: n / LARGE_TIMED for path, n in per.items()}
+                for name, per in paths.items()}
+    stage_ms = {name: 0.0 for name in STAGES}
+    for _ in range(LARGE_STAGE):
+        marks = []
+
+        def hook(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        prev = time.perf_counter()
+        pipeline(model, rp, rc, sp, sc, device=dev, stage_hook=hook)
+        for name, t in marks:
+            stage_ms[name] += (t - prev) * 1e3 / LARGE_STAGE
+            prev = t
+    print(f"large-shape phase (neighbor_limits {LARGE_LIMITS}, num_points_in_patch "
+          f"{LARGE_PATCH}, caps {big.pyramid.caps}, band caps {big.pyramid.band_caps}; {card}): "
+          f"{dt * 1e3:.3f} ms/pair over {LARGE_TIMED} pairs, peak memory {peak / 2**20:.1f} MiB; "
+          f"launches per pair {per_pair}; stages (ms, mean of {LARGE_STAGE} synchronised pairs) "
+          + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}))
+
+    # its 12 searches against the plain version; the select-path ones summed
+    batch = build_pair_batch(rp, rc, sp, sc, torch.eye(4, device=dev), big.pyramid)
+    pts, cnts = pair_levels(batch, big.pyramid.num_stages)
+    select = [0.0, 0.0, 0.0, 0.0]
+    for item in search_plan(big.pyramid):
+        ms, call_ms, pms, bound, pairs, plan = check_knn(pts, cnts, item, kernels)
+        print(knn_line(f"large-shape {item.table}[{item.q_lvl}->{item.s_lvl}] "
+                       f"Q={pts[item.q_lvl].shape[1]} S={pts[item.s_lvl].shape[1]} K={item.k} "
+                       f"band={item.band}", ms, call_ms, pms, bound, plan, None)
+              + f" sort_rows={plan.sort_rows}; candidate pairs {pairs}")
+        if plan.sort_rows:
+            select = [a + b for a, b in zip(select, (ms, call_ms, pms, bound))]
+    kernels["radius_knn"]["select_path"] = dict(
+        shape=f"the {int(per_pair['radius_knn']['select'])} searches of a phase-16 pair at k = "
+              f"{LARGE_LIMITS[0]}", ms=select[0], ms_per_call=select[1], plain_ms=select[2],
+        bound_ms=select[3], bound_by="operations", library_ms=None)
+
+    # the card against the CPU port, same weights and inputs
+    m_cpu = RDMNet(big, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    o_gpu = pipeline(model, rp, rc, sp, sc, device=dev)
+    t0 = time.perf_counter()
+    o_cpu = pipeline(m_cpu, *pad_cloud(ref, cap), *pad_cloud(src, cap), device="cpu")
+    print(f"large-shape phase: the CPU port's pipeline {time.perf_counter() - t0:.3f} s")
+    for side in ("ref", "src"):
+        g, c = getattr(o_gpu["batch"], side), getattr(o_cpu["batch"], side)
+        for field in ("points", "neighbors", "subsampling", "upsampling"):
+            for lvl, (a, b) in enumerate(zip(getattr(g, field), getattr(c, field))):
+                if not torch.equal(a.cpu(), b):
+                    fail(f"large-shape phase: card vs CPU {side} {field}[{lvl}] differ")
+    for key in ("dropped", "nodes_ref_valid", "nodes_src_valid", "ref_node_masks",
+                "src_node_masks"):
+        if not torch.equal(o_gpu[key].cpu(), o_cpu[key]):
+            fail(f"large-shape phase: card vs CPU {key} differ")
+    # the matched node pairs: at full width with random weights the top-256
+    # of ~10^5 node-pair scores has near-ties at its boundary, which the two
+    # devices' roundings may break either way; a pair only one side matched
+    # must sit at that side's boundary, and the plans agree through the rest
+    ms_err, common, parted, gap = near_tie_plan_error(o_gpu, o_cpu)
+    if ms_err is None:
+        fail("large-shape phase: card vs CPU patches of the common node pairs mask other rows")
+    if gap > NEAR_TIE_RTOL:
+        fail(f"large-shape phase: a node pair matched on one side only stands {gap:.3e} (relative) "
+             f"above that side's lowest matched score, more than {NEAR_TIE_RTOL}")
+    if ms_err > 1e-3:
+        fail(f"large-shape phase: card vs CPU matching scores differ by {ms_err} > 1e-3")
+    lgr_in = [o_cpu[key] for key in LGR_INPUTS]
+    corr_c, tf_c = local_to_global_registration(*lgr_in, big.fine_matching)
+    corr_g, tf_g = local_to_global_registration(*[x.to(dev) for x in lgr_in], big.fine_matching)
+    if not (torch.equal(corr_g.ref_points.cpu(), corr_c.ref_points)
+            and torch.equal(corr_g.src_points.cpu(), corr_c.src_points)):
+        fail("large-shape phase: card vs CPU LGR correspondence sets differ")
+    sc_err = float((corr_g.scores.cpu() - corr_c.scores).abs().max())
+    if sc_err > 1e-6:
+        fail(f"large-shape phase: card vs CPU correspondence scores differ by {sc_err} > 1e-6")
+    (res_g, _), (res_c, n_c) = hypothesis_residuals(corr_g), hypothesis_residuals(corr_c)
+    posed = n_c >= big.fine_matching.correspondence_threshold
+    hyp_err = float((res_g.cpu() - res_c)[posed].abs().max()) if bool(posed.any()) else 0.0
+    if hyp_err > 1e-4:
+        fail(f"large-shape phase: card vs CPU hypothesis residuals differ by {hyp_err} m")
+    tf_err = float((o_gpu["estimated_transform"].cpu() - o_cpu["estimated_transform"]).abs().max())
+    lgr_err = float((tf_g.cpu() - tf_c).abs().max())
+    reg_err = float(np.abs(o_cpu["estimated_transform"].numpy() - gt).max())
+    held = reg_err <= 0.05
+    if held and max(tf_err, lgr_err) > 1e-4:
+        fail(f"large-shape phase: registered card and CPU poses differ by {max(tf_err, lgr_err)}")
+    print(f"large-shape phase, card vs CPU: tables and node masks equal; {common} matched node "
+          f"pairs on both, {parted} on one side only (each within {gap:.3e} of its side's lowest "
+          f"matched score, relative), matching scores (K1 {o_cpu['matching_scores'].shape[-1]}) "
+          f"through the common pairs max abs diff {ms_err:.3e}; LGR on "
+          f"the same plans: correspondence sets equal, scores {sc_err:.3e}, {int(posed.sum())} "
+          f"hypotheses' residuals within {hyp_err:.3e} m, pose {lgr_err:.3e}; whole-path pose "
+          f"{tf_err:.3e} ({'held to 1e-4' if held else 'not held'}: CPU pose vs ground truth "
+          f"{reg_err:.3e}); phase {time.perf_counter() - t_phase:.3f} s")
+    return per_pair
+
+
 def main() -> None:
     import torch
 
@@ -2722,7 +3095,7 @@ def main() -> None:
     from rdmnet_tpu_torch.models import RDMNet, pipeline
     from rdmnet_tpu_torch.models.rdmnet import STAGES
     from rdmnet_tpu_torch.ops.kernels import _build, launch_counts, reset_launch_counts
-    from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain, sinkhorn_plan
     from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
 
     card = smi("name,power.limit")
@@ -2805,20 +3178,8 @@ def main() -> None:
           f"plain {knn_plain_ms:.3f} ms, bound {knn_bound:.5f} ms, tables equal to the plain "
           f"version's (max abs index difference {kernels['radius_knn']['max_abs_err']})")
 
-    rng = np.random.RandomState(SEED)
     p, k1, iters = 256, 129, 100
-    scores = (rng.randn(p, k1, k1) * 3).astype(np.float32)
-    log_mu = np.full((p, k1), -np.log(2 * (k1 - 1)), np.float32)
-    log_nu = log_mu.copy()
-    masked_patch = rng.rand(p) < 0.1
-    scores[masked_patch] = -1e12
-    log_mu[masked_patch, :-1] = -1e12
-    log_nu[masked_patch, :-1] = -1e12
-    rows = (rng.rand(p, k1) < 0.1) & ~masked_patch[:, None]
-    rows[:, -1] = False
-    scores[rows] = -1e12
-    log_mu[rows] = -1e12
-    s_t, mu_t, nu_t = (torch.from_numpy(x).to(dev) for x in (scores, log_mu, log_nu))
+    s_t, mu_t, nu_t = (torch.from_numpy(x).to(dev) for x in sinkhorn_inputs(SEED, p, k1))
     got = sinkhorn_cuda(s_t, mu_t, nu_t, iters)
     torch.cuda.synchronize()
     want = sinkhorn_plain(s_t, mu_t, nu_t, iters)
@@ -2832,19 +3193,17 @@ def main() -> None:
     s_ms = graph_ms(lambda: sinkhorn_cuda(s_t, mu_t, nu_t, iters), reps=20)
     s_call_ms = cuda_ms(lambda: sinkhorn_cuda(s_t, mu_t, nu_t, iters), reps=20)
     s_plain = cuda_ms(lambda: sinkhorn_plain(s_t, mu_t, nu_t, iters), reps=3)
-    entries = p * k1 * k1
-    exp_s = 2 * iters * entries / (NUM_SMS * SFU_PER_SM_CLK * max_clock_mhz * 1e6)
-    ops_s = 2 * iters * entries * SINKHORN_OPS_PER_ENTRY / F32_FLOPS
-    bytes_s = (2 * entries + 2 * p * k1) * 4 / HBM_BYTES_PER_S
-    s_bound = max(exp_s, ops_s, bytes_s) * 1e3
+    s_bound, s_by, exp_ms, ops_ms, bytes_ms, _ = sinkhorn_bounds(p, k1, iters, max_clock_mhz)
     print(f"sinkhorn P={p} K1={k1} iters={iters}: kernel {s_ms:.4f} ms on the device, "
           f"{s_call_ms:.4f} ms per call, v1 design {V1_SINKHORN_MS:.4f} ms per call; plain "
-          f"{s_plain:.3f} ms, bound {s_bound:.5f} ms (exp {exp_s * 1e3:.5f}, f32 ops "
-          f"{ops_s * 1e3:.5f}, bytes {bytes_s * 1e3:.5f}), max abs err {err:.3e}")
+          f"{s_plain:.3f} ms, bound {s_bound:.5f} ms (exp {exp_ms:.5f}, f32 ops "
+          f"{ops_ms:.5f}, bytes {bytes_ms:.5f}), max abs err {err:.3e}; plan {sinkhorn_plan(k1)}")
     kernels["radius_knn"].update(ms=knn_ms, ms_per_call=knn_call_ms, plain_ms=knn_plain_ms,
                                  bound_ms=knn_bound, bound_by="operations")
     kernels["sinkhorn"].update(ms=s_ms, ms_per_call=s_call_ms, plain_ms=s_plain, bound_ms=s_bound,
-                               bound_by="operations" if max(exp_s, ops_s) >= bytes_s else "bytes")
+                               bound_by=s_by)
+    # the kernels' large-shape paths (k > 256, K1 > 208) against their plain versions
+    large_shapes_check(dev, kernels, max_clock_mhz)
 
     # ---- 4. main path -----------------------------------------------------
     n_warm, n_timed, n_stage = 3, 12, 5
@@ -3037,6 +3396,9 @@ def main() -> None:
     for key, per in library_phase(dev, card, kernels, cfg, model, batch).items():
         for name, n in per.items():
             kernels[name][key] = n
+
+    # ---- 16. the model at shapes past the kernels' first paths -------------------------
+    record_large_phase(large_model_phase(dev, card, kernels, cfg, ref, src, gt), kernels)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -36,13 +36,34 @@
 // -use_fast_math). Up to N = 9 (K1 <= 144) a thread fits in 128 registers
 // without spilling, so two CTAs share an SM and the 256 patches of the main
 // path run in one wave on 132 SMs; N = 13 (K1 <= 208) runs one CTA an SM.
+//
+// K1 > 208, the streaming path (sinkhorn_stream_launch): a patch no longer
+// fits in the registers of a CTA (at K1 = 257 it is 264 KB, above the 227 KB
+// of shared memory too), so one CTA of 512 threads per patch reads the patch
+// from device memory in every half-step. Row half-step: a warp per row, each
+// lane an online (max, exp-sum) over its columns, 8 loads in flight a step
+// (rescaled once a step), then a 5-step shuffle merge. Column half-step:
+// warp g takes rows g + 16 i and lane l column c0 + l, so each load of a
+// warp is 32 consecutive floats of one row; each (warp, column) keeps an
+// online partial, and after a barrier thread c merges column c's 16
+// partials with the online-softmax rescale into v[c]. u, v and the
+// partials live in a scratch buffer the wrapper allocates ((2 + 2 x 16) K1
+// floats a patch), so K1 is bounded by device memory alone. Three barriers
+// an iteration. What bounds this design: bytes, since every half-step
+// reads the patch again: at P = 256, K1 = 257, 100 iterations, 200 x 67.6
+// MB ~ 4.0 ms at 3.35 TB/s. The function itself stays bound by operations:
+// its 3.38e9 exponentials take ~0.81 ms on the SFU (inputs and output once:
+// ~0.04 ms).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #define SK_THREADS 256
 #define SK_GRID 16  // SK_GRID x SK_GRID threads
-#define SK_MAX_K1 208
+#define SK_MAX_K1 208  // the register path's largest patch; above it the streaming path
+#define SK_STREAM_THREADS 512
+#define SK_STREAM_WARPS (SK_STREAM_THREADS / 32)
+#define SK_STREAM_CH 8  // loads in flight per lane and step
 #define FULL_MASK 0xffffffffu
 #define LOG2E 1.4426950408889634f
 #define LN2 0.6931471805599453f
@@ -232,4 +253,118 @@ extern "C" int sinkhorn_launch(const float* scores, const float* log_mu, const f
   if (K1 <= 80) return launch<5>(scores, log_mu, log_nu, P, K1, iters, out, st);
   if (K1 <= 144) return launch<9>(scores, log_mu, log_nu, P, K1, iters, out, st);
   return launch<13>(scores, log_mu, log_nu, P, K1, iters, out, st);
+}
+
+// ---- K1 > 208: the streaming path ----------------------------------------------------
+
+// Fold a step's values x (their max cm) into an online (m, sum) in log2
+// units: sum of 2^(x - m). Entries outside the patch hold -inf; a state that
+// has seen nothing else stays (-inf, 0).
+template <int N>
+__device__ __forceinline__ void lse_fold(float& m, float& sum, const float (&x)[N], float cm) {
+  const float mn = fmaxf(m, cm);
+  if (mn == -CUDART_INF_F) return;
+  float add = 0.f;
+#pragma unroll
+  for (int t = 0; t < N; ++t) add += ex2(x[t] - mn);
+  sum = sum * ex2(m - mn) + add;  // 2^-inf = 0 while m is -inf
+  m = mn;
+}
+
+// scratch: per patch u[K1], v[K1], then 16 x K1 partial maxima and sums
+__global__ void __launch_bounds__(SK_STREAM_THREADS)
+sinkhorn_stream_kernel(const float* __restrict__ scores, const float* __restrict__ log_mu,
+                       const float* __restrict__ log_nu, int K1, int iters, float* scratch,
+                       float* __restrict__ out) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int p = blockIdx.x;
+  const float* sp = scores + (size_t)p * K1 * K1;
+  const float* mu = log_mu + (size_t)p * K1;
+  const float* nu = log_nu + (size_t)p * K1;
+  float* u = scratch + (size_t)p * K1 * (2 + 2 * SK_STREAM_WARPS);
+  float* v = u + K1;
+  float* part_m = v + K1;
+  float* part_s = part_m + (size_t)SK_STREAM_WARPS * K1;
+
+  for (int c = tid; c < K1; c += SK_STREAM_THREADS) u[c] = v[c] = 0.f;  // iters = 0: s
+  __syncthreads();
+  for (int it = 0; it < iters; ++it) {
+    // u: a warp per row
+    for (int r = warp; r < K1; r += SK_STREAM_WARPS) {
+      const float* row = sp + (size_t)r * K1;
+      float m = -CUDART_INF_F, sum = 0.f;
+      for (int c0 = 0; c0 < K1; c0 += 32 * SK_STREAM_CH) {
+        float x[SK_STREAM_CH], cm = -CUDART_INF_F;
+#pragma unroll
+        for (int t = 0; t < SK_STREAM_CH; ++t) {
+          const int c = c0 + 32 * t + lane;
+          x[t] = c < K1 ? __fmul_rn(row[c], LOG2E) + v[c] : -CUDART_INF_F;
+          cm = fmaxf(cm, x[t]);
+        }
+        lse_fold(m, sum, x, cm);
+      }
+      float mx = m;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, o));
+      float tot = m == -CUDART_INF_F ? 0.f : sum * ex2(m - mx);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) tot += __shfl_xor_sync(FULL_MASK, tot, o);
+      if (lane == 0) u[r] = __fmul_rn(mu[r], LOG2E) - (mx + lg2(tot));
+    }
+    __syncthreads();
+
+    // v: per-(warp, column) partials over rows warp + 16 i, then merged
+    for (int c0 = 0; c0 < K1; c0 += 32) {
+      const int c = c0 + lane;
+      if (c >= K1) break;
+      float m = -CUDART_INF_F, sum = 0.f;
+      for (int r0 = warp; r0 < K1; r0 += SK_STREAM_WARPS * SK_STREAM_CH) {
+        float x[SK_STREAM_CH], cm = -CUDART_INF_F;
+#pragma unroll
+        for (int t = 0; t < SK_STREAM_CH; ++t) {
+          const int r = r0 + SK_STREAM_WARPS * t;
+          x[t] = r < K1 ? __fmul_rn(sp[(size_t)r * K1 + c], LOG2E) + u[r] : -CUDART_INF_F;
+          cm = fmaxf(cm, x[t]);
+        }
+        lse_fold(m, sum, x, cm);
+      }
+      part_m[(size_t)warp * K1 + c] = m;
+      part_s[(size_t)warp * K1 + c] = sum;
+    }
+    __syncthreads();
+    for (int c = tid; c < K1; c += SK_STREAM_THREADS) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int g = 0; g < SK_STREAM_WARPS; ++g) mx = fmaxf(mx, part_m[(size_t)g * K1 + c]);
+      float tot = 0.f;
+#pragma unroll
+      for (int g = 0; g < SK_STREAM_WARPS; ++g) {
+        const float pm = part_m[(size_t)g * K1 + c];
+        if (pm != -CUDART_INF_F) tot += part_s[(size_t)g * K1 + c] * ex2(pm - mx);
+      }
+      v[c] = __fmul_rn(nu[c], LOG2E) - (mx + lg2(tot));
+    }
+    __syncthreads();
+  }
+
+  float* op = out + (size_t)p * K1 * K1;
+  for (int r = warp; r < K1; r += SK_STREAM_WARPS) {
+    const float ur = u[r];
+    for (int c = lane; c < K1; c += 32)
+      op[(size_t)r * K1 + c] = ((__fmul_rn(sp[(size_t)r * K1 + c], LOG2E) + ur) + v[c]) * LN2;
+  }
+}
+
+// The streaming path, for any K1 >= 1 (the wrapper takes it for K1 > 208):
+// scores (P, K1, K1), log_mu / log_nu (P, K1), out (P, K1, K1) float32 and
+// contiguous; scratch P x (2 + 2 x 16) x K1 float32, written and read by the
+// kernel only. Returns cudaGetLastError() after the launch.
+extern "C" int sinkhorn_stream_launch(const float* scores, const float* log_mu,
+                                      const float* log_nu, int P, int K1, int iters,
+                                      float* scratch, float* out, void* stream) {
+  if (K1 < 1 || iters < 0) return (int)cudaErrorInvalidValue;
+  if (P == 0) return 0;
+  sinkhorn_stream_kernel<<<P, SK_STREAM_THREADS, 0, (cudaStream_t)stream>>>(
+      scores, log_mu, log_nu, K1, iters, scratch, out);
+  return (int)cudaGetLastError();
 }

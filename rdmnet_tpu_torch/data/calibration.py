@@ -4,8 +4,8 @@
 ``calibrate_neighbor_limits`` histograms exact within-radius neighbour counts
 per level over sample clouds and keeps the smallest K covering
 ``keep_ratio`` of the neighbourhoods (the reference's rule); the limits go
-into ``PyramidConfig.neighbor_limits``, which the radius-kNN kernel holds to
-k <= 256 on the card. ``calibrate_band_caps`` replays every search of the
+into ``PyramidConfig.neighbor_limits`` (any size: above 256 the radius-kNN
+kernel takes its select path). ``calibrate_band_caps`` replays every search of the
 pyramid build with the runtime's sort, chunk and margin rules and sizes the
 banded windows (``PyramidConfig.band_caps``). Both run on the device they are
 given (default CUDA): the counts, the subsampled levels and the sort keys

@@ -46,8 +46,6 @@ from rdmnet_tpu_torch.ops.correspondences import (
     node_correspondence_overlaps,
 )
 from rdmnet_tpu_torch.ops.geometry import take_padded
-from rdmnet_tpu_torch.ops.kernels.radius_knn import KMAX
-from rdmnet_tpu_torch.ops.kernels.sinkhorn import MAX_K1
 from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
 from rdmnet_tpu_torch.ops.nms import greedy_nms
 from rdmnet_tpu_torch.ops.partition import point_to_node_partition
@@ -99,32 +97,10 @@ def coarse_transformer(cfg: Config, stage: int) -> nn.Module:
     raise ValueError(f"unknown coarse_module {kind!r}")
 
 
-def check_kernel_limits(cfg: Config) -> None:
-    """Raise when ``cfg`` asks the CUDA kernels for more than they take: a
-    radius search with k > ``KMAX`` or Sinkhorn patches of
-    ``num_points_in_patch + 1 > MAX_K1`` rows. The JAX package has no such
-    limits; on the card they would otherwise fail in the middle of a
-    forward (``RDMNet`` calls it when built on a card)."""
-    pyr = cfg.pyramid
-    fields = [(f"pyramid.neighbor_limits[{i}]", k) for i, k in enumerate(pyr.neighbor_limits)]
-    if pyr.upsampling_limit is not None:
-        fields.append(("pyramid.upsampling_limit", pyr.upsampling_limit))
-    for name, k in fields:
-        if k > KMAX:
-            raise ValueError(f"{name} = {k}: the CUDA radius-kNN kernel takes k <= {KMAX}")
-    k1 = cfg.model.num_points_in_patch + 1
-    if k1 > MAX_K1:
-        raise ValueError(f"model.num_points_in_patch = {cfg.model.num_points_in_patch}: the CUDA "
-                         f"Sinkhorn kernel takes patches of num_points_in_patch + 1 <= {MAX_K1} "
-                         "rows")
-
-
 class RDMNet(nn.Module):
     def __init__(self, cfg: Config, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        if dev.type == "cuda":
-            check_kernel_limits(cfg)
         self.cfg = cfg
         kind = cfg.model.coarse_module
         out_dim = cfg.geotransformer.output_dim if kind == "geotransformer" \

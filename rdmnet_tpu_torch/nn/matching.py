@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -15,10 +15,16 @@ NEG = -1.0e9
 
 def superpoint_matching(ref_feats: torch.Tensor, src_feats: torch.Tensor,
                         ref_masks: torch.Tensor, src_masks: torch.Tensor,
-                        num_correspondences: int, dual_normalization: bool = True
-                        ) -> Tuple[torch.Tensor, ...]:
+                        num_correspondences: int, dual_normalization: bool = True,
+                        ref_n2p_scores: Optional[torch.Tensor] = None,
+                        src_n2p_scores: Optional[torch.Tensor] = None,
+                        n2p_score_threshold: float = 0.1) -> Tuple[torch.Tensor, ...]:
     """Top-k superpoint correspondences by dual-normalised similarity of
     L2-normalised node features (M, C), (N, C) with masks (M,), (N,).
+
+    ``ref_n2p_scores`` (M,) and ``src_n2p_scores`` (N,), when given, gate the
+    scores: a pair scores 0 unless both nodes' overlap scores exceed
+    ``n2p_score_threshold`` (the model's call leaves the gate off).
 
     Returns (ref_corr_indices int32, src_corr_indices int32, corr_scores,
     corr_valid), each (num_correspondences,). Invalid pairs rank last.
@@ -30,6 +36,10 @@ def superpoint_matching(ref_feats: torch.Tensor, src_feats: torch.Tensor,
         ref_norm = scores / (scores.sum(dim=1, keepdim=True) + 1e-12)
         src_norm = scores / (scores.sum(dim=0, keepdim=True) + 1e-12)
         scores = ref_norm * src_norm
+    if ref_n2p_scores is not None:
+        gate = ((ref_n2p_scores > n2p_score_threshold)[:, None]
+                & (src_n2p_scores > n2p_score_threshold)[None, :])
+        scores = torch.where(gate, scores, torch.zeros_like(scores))
     flat = torch.where(pair_valid, scores, torch.full_like(scores, NEG)).reshape(-1)
     corr_scores, corr_indices = top_k(flat, num_correspondences)
     n = src_feats.shape[0]

@@ -38,9 +38,8 @@ def group_and_aggregate(q_points: torch.Tensor, s_points: torch.Tensor, s_feats:
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The up-to-``k`` nearest support rows within ``radius`` of each query,
     their features max-pooled: (q_feats (Q, C), group_sizes (Q,) int32); an
-    empty group pools to 0. On a CUDA tensor ``k`` is the kernel's, at most
-    ``KMAX`` = 256: a larger one raises in ``knn_plan`` before any launch.
-    The CPU has no limit."""
+    empty group pools to 0. Any ``k``: above 256 the kernel takes its select
+    path."""
     idx = radius_knn(q_points, s_points, s_count, radius, k)             # (Q, k)
     feats = take_padded(s_feats, idx, fill_value=float("-inf"))
     group_sizes = (idx < s_points.shape[0]).sum(dim=1).to(torch.int32)

@@ -9,6 +9,10 @@ ascending (distance, index) order, sentinel ``S`` where missing.
 Windows: ``win`` (B, n_chunks) int32 gives the first support row seen by
 each chunk of ``chunk`` consecutive queries, which then see ``band`` rows;
 ``win=None`` searches all S rows.
+
+The kernel has two paths, chosen by ``knn_plan``: k <= ``LIST_KMAX`` keeps a
+sorted list in a warp's registers; a larger k takes the select path (count,
+radix select, emit, bitonic sort in shared memory), for any k.
 """
 
 from __future__ import annotations
@@ -23,20 +27,24 @@ import torch
 from rdmnet_tpu_torch.ops.geometry import dot3, sq_norm3
 from rdmnet_tpu_torch.ops.kernels._build import check, load_library
 
-KMAX = 256  # largest k the kernel takes
+LIST_KMAX = 256  # longest register list; a larger k takes the select path
 NUM_SMS = 132  # H100 SXM
 WINDOW_ROWS_MAX = 7168  # rows staged at once: 112 KB (the 1.0 bucket's level-0 band), 2 blocks/SM
 ROW_BYTES = 16  # a staged support row: float4 (x, y, z, |s|^2)
+SORT_ROWS_MAX = 2048  # select path: keys in a warp's sort buffer (16 KB)
+SELECT_BINS = 256  # select path: a warp's radix histogram
+SMEM_MAX = 232_448  # dynamic shared memory a block may take (227 KB)
 
 
 class KnnPlan(NamedTuple):
     """How ``csrc/radius_knn.cu`` runs one search."""
 
     warps: int  # queries (one warp each) per block; divides the query chunk
-    k_bucket: int  # length of the register-resident top-K list: 1, 32, 64, 128 or 256
+    k_bucket: int  # length of the register-resident top-K list: 1, 32, 64, 128, 256; 0: select
     tile_rows: int  # support rows staged in shared memory at once
     tiled: bool  # the window is larger than one tile and is swept tile by tile
     smem_bytes: int
+    sort_rows: int = 0  # select path: keys of a warp's sort buffer (0 on the register path)
 
 
 @functools.lru_cache(maxsize=256)
@@ -50,14 +58,29 @@ def knn_plan(batch: int, nq: int, ns: int, k: int, band: Optional[int] = None) -
     searches spread over the card. Every choice divides 64, hence the query
     chunk. The list bucket is the smallest of 32, 64, 128, 256 that holds k
     (1 for k = 1, which keeps one best per lane instead).
+
+    k > ``LIST_KMAX`` takes the select path: each warp gets a sort buffer of
+    ``sort_rows`` = min(next_pow2(k), ``SORT_ROWS_MAX``) keys and a
+    ``SELECT_BINS`` histogram beside the staged window, so the block holds
+    as many of 16, 8, 4 warps as spread the search and fit in shared memory.
     """
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"radius_knn: k={k} outside [1, {KMAX}]")
+    if k < 1:
+        raise ValueError(f"radius_knn: k={k} must be at least 1")
     rows = ns if band is None else band
     tile_rows = max(1, min(rows, WINDOW_ROWS_MAX))
-    warps = next((w for w in (16, 8) if batch * -(-nq // w) >= 2 * NUM_SMS), 4)
-    k_bucket = 1 if k == 1 else next(kb for kb in (32, 64, 128, 256) if k <= kb)
-    return KnnPlan(warps, k_bucket, tile_rows, rows > WINDOW_ROWS_MAX, tile_rows * ROW_BYTES)
+    tile_bytes = tile_rows * ROW_BYTES
+    tiled = rows > WINDOW_ROWS_MAX
+    spread = lambda w: batch * -(-nq // w) >= 2 * NUM_SMS  # noqa: E731
+    if k <= LIST_KMAX:
+        warps = next((w for w in (16, 8) if spread(w)), 4)
+        k_bucket = 1 if k == 1 else next(kb for kb in (32, 64, 128, 256) if k <= kb)
+        return KnnPlan(warps, k_bucket, tile_rows, tiled, tile_bytes)
+    sort_rows = min(1 << (k - 1).bit_length(), SORT_ROWS_MAX)
+    per_warp = sort_rows * 8 + SELECT_BINS * 4
+    # the kernel's one static int beside the dynamic bytes
+    fits = lambda w: tile_bytes + w * per_warp + 4 <= SMEM_MAX  # noqa: E731
+    warps = next((w for w in (16, 8) if spread(w) and fits(w)), 4)
+    return KnnPlan(warps, 0, tile_rows, tiled, tile_bytes + warps * per_warp, sort_rows)
 
 
 def _radius_sq(radius: float) -> float:
@@ -99,8 +122,9 @@ def radius_knn_plain(q, s, s_count, radius, k, win=None, chunk=0, band=0,
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = load_library("radius_knn").radius_knn_launch
+def _launcher(select: bool):
+    lib = load_library("radius_knn")
+    fn = lib.radius_knn_select_launch if select else lib.radius_knn_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] \
         + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
@@ -109,7 +133,8 @@ def _launcher():
 
 def radius_knn_cuda(q, s, s_count, radius, k, win=None, chunk=0, band=0) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream of the tensors' card (one
-    launch per call), whichever device is current."""
+    launch per call), whichever device is current. ``launches`` counts every
+    launch, ``path_launches`` each path's ("list", "select")."""
     for name, t, dt in (("q", q, torch.float32), ("s", s, torch.float32),
                         ("s_count", s_count, torch.int32)):
         if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
@@ -131,18 +156,22 @@ def radius_knn_cuda(q, s, s_count, radius, k, win=None, chunk=0, band=0) -> torc
     out = torch.empty((bsz, nq, k), dtype=torch.int32, device=q.device)
     # the launch goes to the current device: make it the tensors' card, whose
     # stream it is handed
+    select = plan.sort_rows > 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _launcher()(q.data_ptr(), s.data_ptr(), s_count.data_ptr(),
-                          None if win is None else win.data_ptr(),
-                          bsz, nq, ns, k, _radius_sq(radius), chunk, band, n_chunks,
-                          plan.warps, plan.k_bucket, plan.tile_rows, out.data_ptr(), stream)
+        err = _launcher(select)(q.data_ptr(), s.data_ptr(), s_count.data_ptr(),
+                                None if win is None else win.data_ptr(),
+                                bsz, nq, ns, k, _radius_sq(radius), chunk, band, n_chunks,
+                                plan.warps, plan.sort_rows if select else plan.k_bucket,
+                                plan.tile_rows, out.data_ptr(), stream)
     check(err, "radius_knn")
     radius_knn_cuda.launches += 1
+    radius_knn_cuda.path_launches["select" if select else "list"] += 1
     return out
 
 
 radius_knn_cuda.launches = 0
+radius_knn_cuda.path_launches = {"list": 0, "select": 0}
 
 
 def radius_knn_batched(q, s, s_count, radius, k, win: Optional[torch.Tensor] = None,

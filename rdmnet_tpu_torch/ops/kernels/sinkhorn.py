@@ -4,18 +4,41 @@ Kernel: ``csrc/sinkhorn.cu`` (replaces ``rdmnet_tpu/ops/pallas/sinkhorn.py``
 sinkhorn_pallas). Both versions run ``num_iterations`` of
 ``u = log_mu - LSE_j(s + v)``, ``v = log_nu - LSE_i(s + u)`` from u = v = 0
 and return ``s + u + v``; masked entries carry -1e12.
+
+The kernel has two paths, chosen by ``sinkhorn_plan``: K1 <=
+``REGISTER_K1_MAX`` holds the patch in registers; a larger K1 streams it from
+device memory every half-step, with u, v and the column partials in a
+scratch buffer the wrapper allocates.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from rdmnet_tpu_torch.ops.kernels._build import check, load_library
 
-MAX_K1 = 208  # a patch lives in the registers of 256 threads: K1 <= 16 * 13
+REGISTER_K1_MAX = 208  # a patch lives in the registers of 256 threads: K1 <= 16 * 13
+STREAM_WARPS = 16  # streaming path: a CTA of 16 warps per patch, one column partial each
+
+
+class SinkhornPlan(NamedTuple):
+    """How ``csrc/sinkhorn.cu`` runs one call."""
+
+    route: str  # "register" or "stream"
+    scratch_floats: int  # per patch: u, v and the warps' column partials (max, sum); 0 in registers
+
+
+def sinkhorn_plan(k1: int) -> SinkhornPlan:
+    """Launch plan of one call (pure; the CPU tests call it)."""
+    if k1 < 1:
+        raise ValueError(f"sinkhorn: K1={k1} must be at least 1")
+    if k1 <= REGISTER_K1_MAX:
+        return SinkhornPlan("register", 0)
+    return SinkhornPlan("stream", k1 * (2 + 2 * STREAM_WARPS))
 
 
 def _lse(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -39,9 +62,11 @@ def sinkhorn_plain(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Ten
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = load_library("sinkhorn").sinkhorn_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+def _launcher(stream: bool):
+    lib = load_library("sinkhorn")
+    fn = lib.sinkhorn_stream_launch if stream else lib.sinkhorn_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * (3 if stream else 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -49,8 +74,10 @@ def _launcher():
 def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
                   num_iterations: int) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream of the tensors' card (one
-    launch per call), whichever device is current. The kernel has no backward: with grad mode on, inputs that require grad
-    raise instead of returning a result cut off from the graph."""
+    launch per call), whichever device is current. ``launches`` counts every
+    launch, ``path_launches`` each path's ("register", "stream"). The kernel
+    has no backward: with grad mode on, inputs that require grad raise
+    instead of returning a result cut off from the graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (scores, log_mu, log_nu)):
         raise RuntimeError("sinkhorn_cuda has no backward: call it under torch.no_grad(), "
                            "or take the plain version (use_kernel=False) to train")
@@ -62,19 +89,26 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
     p, k1, k2 = scores.shape
     if k1 != k2 or log_mu.shape != (p, k1) or log_nu.shape != (p, k1):
         raise ValueError("sinkhorn_cuda: expected scores (P, K1, K1), log_mu/log_nu (P, K1)")
-    if k1 > MAX_K1:
-        raise ValueError(f"sinkhorn_cuda: K1={k1} exceeds {MAX_K1}")
+    plan = sinkhorn_plan(k1)
     out = torch.empty_like(scores)
+    streamed = plan.route == "stream"
+    args = [scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), p, k1, num_iterations]
+    if streamed:
+        # held until the launch is queued; the allocator reuses it in stream order
+        scratch = torch.empty((p, plan.scratch_floats), dtype=torch.float32,
+                              device=scores.device)
+        args.append(scratch.data_ptr())
     with torch.cuda.device(scores.device):  # launch on the tensors' card
         stream = torch.cuda.current_stream(scores.device).cuda_stream
-        err = _launcher()(scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), p, k1,
-                          num_iterations, out.data_ptr(), stream)
+        err = _launcher(streamed)(*args, out.data_ptr(), stream)
     check(err, "sinkhorn")
     sinkhorn_cuda.launches += 1
+    sinkhorn_cuda.path_launches[plan.route] += 1
     return out
 
 
 sinkhorn_cuda.launches = 0
+sinkhorn_cuda.path_launches = {"register": 0, "stream": 0}
 
 
 def sinkhorn(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,

@@ -1,7 +1,8 @@
 """CUDA kernels of the port against their plain PyTorch versions, and the
-training, serving and evaluation paths against the CPU's, on the card; the
-model's construction-time check of the kernels' limits (k <= 256,
-num_points_in_patch + 1 <= 208).
+training, serving and evaluation paths against the CPU's, on the card; both
+paths of each kernel (the kNN's register list and, for k > 256, its select
+path; Sinkhorn's register patch and, for K1 > 208, its streaming path) and
+the model at such shapes.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 
@@ -36,7 +37,7 @@ from rdmnet_tpu_torch.data.procedural import procedural_pair, procedural_sequenc
 from rdmnet_tpu_torch.engine import batch_to_device, create_train_state, make_value_and_grad
 from rdmnet_tpu_torch.graph.pyramid import pad_cloud
 from rdmnet_tpu_torch.models import RDMNet, pipeline
-from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from rdmnet_tpu_torch.ops.kernels import launch_counts, path_launch_counts, reset_launch_counts
 from rdmnet_tpu_torch.ops.kernels.radius_knn import (WINDOW_ROWS_MAX, knn_plan, radius_knn_cuda,
                                                      radius_knn_plain)
 from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain
@@ -97,10 +98,11 @@ def test_radius_knn_kernel_matches_plain(cuda, k, band, chunk):
     assert torch.equal(got, radius_knn_plain(pts, pts, cnt, 1.275, k, **kw))
 
 
-@pytest.mark.parametrize("k1", [17, 65, 129, 200])
+@pytest.mark.parametrize("k1", [17, 65, 129, 200, 209, 257, 513])
 def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
     """Masked rows, masked columns, both, and a fully masked patch at every
-    register layout of the kernel (K1 <= 32, 80, 144, 208)."""
+    register layout of the kernel (K1 <= 32, 80, 144, 208) and on its
+    streaming path (K1 > 208)."""
     rng = np.random.RandomState(k1)
     p = 12
     s = (rng.randn(p, k1, k1) * 3).astype(np.float32)
@@ -112,8 +114,11 @@ def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
     s[2, :, cols], nu[2, cols] = -1e12, -1e12
     s[3, rows], mu[3, rows], s[3, :, cols], nu[3, cols] = -1e12, -1e12, -1e12, -1e12
     args = [torch.from_numpy(x).to(cuda) for x in (s, mu, nu)]
+    reset_launch_counts()
     got = sinkhorn_cuda(*args, 100)
     torch.cuda.synchronize()
+    route = "stream" if k1 > 208 else "register"
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "stream": 0, route: 1}
     want = sinkhorn_plain(*args, 100)
     live = want > -1e11
     assert torch.isfinite(got).all()
@@ -121,7 +126,7 @@ def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
     torch.testing.assert_close(got[live], want[live], rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("k", [1, 16, 40, 64, 128, 81, 200, 256])
+@pytest.mark.parametrize("k", [1, 16, 40, 64, 128, 81, 200, 256, 257, 600, 2048])
 def test_radius_knn_kernel_exact_ties_in_tiled_window(cuda, k):
     """Duplicated support points in an unbanded window too large for one
     tile; s_count ends inside the last tile of cloud 0."""
@@ -137,7 +142,7 @@ def test_radius_knn_kernel_exact_ties_in_tiled_window(cuda, k):
     assert (want[..., :2] < n).all(dim=-1).float().mean() > 0.9  # most rows have a tie pair
 
 
-@pytest.mark.parametrize("k", [1, 16, 40, 64, 128, 81, 200, 256])
+@pytest.mark.parametrize("k", [1, 16, 40, 64, 128, 81, 200, 256, 257, 512])
 def test_radius_knn_kernel_dense_cluster_banded(cuda, k):
     """More than k in-radius rows per query, banded windows, Q not a multiple
     of the block's query count, s_count ending inside a window, and
@@ -158,19 +163,19 @@ def test_radius_knn_kernel_dense_cluster_banded(cuda, k):
     assert (want < n).all(dim=-1).float().mean() > 0.5  # most queries keep k neighbours
 
 
-@pytest.mark.parametrize("k", [81, 200, 256])
+@pytest.mark.parametrize("k", [81, 200, 256, 320, 2048])
 @pytest.mark.parametrize("level", [0, 4])
 def test_radius_knn_kernel_large_k_at_main_path_shapes(cuda, k, level):
-    """The 128- and 256-entry lists at the 0.7 bucket's level-0 (banded,
-    21504 rows) and level-4 (512 rows) neighbour searches of a ~20k-point
-    procedural scan pair."""
+    """The 128- and 256-entry lists and the select path (k = 320, 2048) at
+    the 0.7 bucket's level-0 (banded, 21504 rows) and level-4 (512 rows)
+    neighbour searches of a ~20k-point procedural scan pair."""
     from rdmnet_tpu_torch.config import make_cfg
     from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, search_plan
 
     pyr = make_cfg().pyramid.scaled(0.7)
-    pyr = dataclasses.replace(pyr, neighbor_limits=(k,) * 5)
     ref, src, _ = procedural_pair(7351, n_rings=80, n_azimuths=3000)
     cap = pyr.caps[0]
+    # the pyramid at its own limits (a banded level holds k <= its band cap)
     batch = build_pair_batch(*pad_cloud(ref, cap, device=cuda), *pad_cloud(src, cap, device=cuda),
                              torch.eye(4, device=cuda), pyr)
     sp = next(p for p in search_plan(pyr) if p.table == "neighbors" and p.q_lvl == level)
@@ -180,23 +185,63 @@ def test_radius_knn_kernel_large_k_at_main_path_shapes(cuda, k, level):
     if sp.band is not None:
         win, _ = band_windows(pts, pts, cnt, sp.radius, sp.cell, sp.band, sp.chunk)
         kw = dict(win=win, chunk=sp.chunk, band=sp.band)
-    assert knn_plan(2, pts.shape[1], pts.shape[1], k, sp.band).k_bucket == (128 if k <= 128
-                                                                              else 256)
+    plan = knn_plan(2, pts.shape[1], pts.shape[1], k, sp.band)
+    assert (plan.k_bucket, plan.sort_rows) == ((128, 0) if k <= 128 else (256, 0) if k <= 256
+                                               else (0, min(1 << (k - 1).bit_length(), 2048)))
+    reset_launch_counts()
     got = radius_knn_cuda(pts, pts, cnt, sp.radius, k, **kw)
     torch.cuda.synchronize()
+    assert path_launch_counts()["radius_knn"]["select" if k > 256 else "list"] == 1
     assert torch.equal(got, radius_knn_plain(pts, pts, cnt, sp.radius, k, **kw))
 
 
-def test_model_refuses_configs_beyond_the_kernels(cuda):
+def test_model_past_the_first_paths_on_card_matches_cpu(cuda):
+    """The tiny model with level-0 limit 300 and 256 points a patch, on a
+    scan shrunk into a dense scene (the level-0 lists fill past 256): it
+    builds on the card, its two level-0 searches take the kNN's select path
+    and its Sinkhorn the streaming path, its tables equal the CPU's, and its
+    plans match the CPU's through the same matched node pairs within 1e-3."""
     cfg = make_tiny_cfg()
-    with pytest.raises(ValueError, match=r"neighbor_limits\[0\] = 257"):
-        RDMNet(dataclasses.replace(cfg, pyramid=dataclasses.replace(
-            cfg.pyramid, neighbor_limits=(257, 16, 16, 16, 16))), device=cuda)
-    with pytest.raises(ValueError, match=r"num_points_in_patch = 256"):
-        RDMNet(dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, num_points_in_patch=256)), device=cuda)
-    RDMNet(dataclasses.replace(cfg, pyramid=dataclasses.replace(
-        cfg.pyramid, neighbor_limits=(256,) * 5)), device=cuda)
+    cfg = dataclasses.replace(
+        cfg, pyramid=dataclasses.replace(cfg.pyramid, neighbor_limits=(300, 16, 16, 16, 16)),
+        model=dataclasses.replace(cfg.model, num_points_in_patch=256))
+    ref, src, _ = procedural_pair(3, n_rings=16, n_azimuths=200)
+    ref, src = ref[:500] * np.float32(0.08), src[:500] * np.float32(0.08)
+    m_gpu = RDMNet(cfg, device=cuda, generator=torch.Generator().manual_seed(1))
+    m_cpu = RDMNet(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    reset_launch_counts()
+    out = pipeline(m_gpu, *pad_cloud(ref, 512, device=cuda), *pad_cloud(src, 512, device=cuda),
+                   device=cuda)
+    assert path_launch_counts() == {"radius_knn": {"list": 10, "select": 2},
+                                    "sinkhorn": {"register": 0, "stream": 1}}
+    assert torch.isfinite(out["estimated_transform"]).all()
+    ref_out = pipeline(m_cpu, *pad_cloud(ref, 512), *pad_cloud(src, 512), device="cpu")
+    for side in ("ref", "src"):
+        for field in ("points", "neighbors", "subsampling", "upsampling"):
+            for a, b in zip(getattr(getattr(out["batch"], side), field),
+                            getattr(getattr(ref_out["batch"], side), field)):
+                assert torch.equal(a.cpu(), b)
+    assert (out["batch"].ref.neighbors[0][:, 256] < 512).any()
+    # node pairs matched on one side only must be near-ties at that side's
+    # top-k boundary; the plans agree through the pairs both matched
+    m = ref_out["src_node_masks"].shape[0]
+    runs = []
+    for o in (out, ref_out):
+        valid, scores = o["node_corr_valid"].cpu(), o["node_corr_scores"].cpu()
+        keys = (o["ref_node_corr_indices"].long().cpu() * m
+                + o["src_node_corr_indices"].long().cpu()).tolist()
+        runs.append(({k: i for i, k in enumerate(keys) if valid[i]}, scores,
+                     float(scores[valid].min())))
+    common = sorted(runs[0][0].keys() & runs[1][0].keys())
+    for (mine, scores, floor), (other, _, _) in (runs, runs[::-1]):
+        for key, i in mine.items():
+            assert key in other or float(scores[i]) - floor <= 1e-4 * floor
+    assert len(common) >= 4
+    got = out["matching_scores"].cpu()[[runs[0][0][k] for k in common]]
+    want = ref_out["matching_scores"][[runs[1][0][k] for k in common]]
+    live = want > -1e11
+    assert got.shape[-1] == 257 and torch.equal(got > -1e11, live)
+    torch.testing.assert_close(got[live], want[live], rtol=0, atol=1e-3)
 
 
 def test_pipeline_on_card_launches_kernels_and_matches_cpu(cuda):
@@ -622,7 +667,7 @@ def test_fast_contracts_on_card(cuda):
     assert {k: after[k] - before[k] for k in after} == {"radius_knn": 1, "sinkhorn": 1}
 
 
-@pytest.mark.parametrize("k", [8, 256])
+@pytest.mark.parametrize("k", [8, 256, 257])
 def test_group_and_aggregate_on_card_matches_plain(cuda, k):
     from rdmnet_tpu_torch.nn.point_matching import group_and_aggregate
 
@@ -638,7 +683,3 @@ def test_group_and_aggregate_on_card_matches_plain(cuda, k):
     assert radius_knn_cuda.launches == before + 1
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(got[0].cpu(), want[0])  # a max of the same rows: exact
-    with pytest.raises(ValueError, match="k=257"):
-        group_and_aggregate(q.to(cuda), torch.from_numpy(s).to(cuda), feats.to(cuda),
-                            count.to(cuda), 2.4, 257)
-    assert radius_knn_cuda.launches == before + 1  # refused before any launch

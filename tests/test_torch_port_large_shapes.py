@@ -1,0 +1,301 @@
+"""Shapes past the kernels' first paths, on the CPU: radius kNN at k > 256
+(the CUDA kernel's select path) and Sinkhorn at K1 = num_points_in_patch + 1
+> 208 (its streaming path), the plain versions against the JAX package, the
+tiny model at such shapes against JAX's, and the launch plans of both paths.
+The CUDA paths against their plain versions are in ``test_torch_port_cuda.py``
+(card only).
+
+Tolerances, as in ``test_torch_port_kernels.py`` and
+``test_torch_port_model.py``: radius kNN exact (the plain version reproduces
+JAX's float32 distance rounding and its (distance, index) tie order);
+Sinkhorn at rtol/atol 1e-4 (float32 log-domain iterations summed in another
+order than XLA's); the tiny model's tables, node masks and indices exact, its
+features, scores, plans and pose at rtol/atol 1e-4.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rdmnet_tpu.config import make_tiny_cfg as jax_tiny_cfg
+from rdmnet_tpu.data.procedural import procedural_sequence
+from rdmnet_tpu.graph.pyramid import build_pair_batch as jax_build_pair_batch
+from rdmnet_tpu.graph.pyramid import pad_cloud as jax_pad_cloud
+from rdmnet_tpu.models import RDMNet as JaxRDMNet
+from rdmnet_tpu.ops.pallas.radius_knn import radius_knn_pallas
+from rdmnet_tpu.ops.pallas.sinkhorn import sinkhorn_pallas
+from rdmnet_tpu.ops.radius_search import radius_knn as jax_radius_knn
+from rdmnet_tpu.ops.radius_search import radius_knn_banded as jax_radius_knn_banded
+from rdmnet_tpu_torch.config import make_cfg, make_tiny_cfg
+from rdmnet_tpu_torch.graph.pyramid import pad_cloud, search_plan
+from rdmnet_tpu_torch.models import RDMNet, pipeline
+from rdmnet_tpu_torch.ops.kernels import launch_counts
+from rdmnet_tpu_torch.ops.kernels.radius_knn import (LIST_KMAX, SMEM_MAX, SORT_ROWS_MAX,
+                                                     WINDOW_ROWS_MAX, knn_plan)
+from rdmnet_tpu_torch.ops.kernels.sinkhorn import REGISTER_K1_MAX, sinkhorn_plain, sinkhorn_plan
+from rdmnet_tpu_torch.ops.radius_search import radius_knn, radius_knn_banded
+from rdmnet_tpu_torch.utils.convert import params_from_jax
+
+T = torch.from_numpy
+TOL = dict(rtol=1e-4, atol=1e-4)
+LIMITS = (300, 16, 16, 16, 16)  # the tiny model's level-0 limit past the register list
+PATCH = 256                     # num_points_in_patch: K1 = 257
+CAP = 512
+SHRINK = np.float32(0.08)       # the tiny model's scans, scaled into a dense scene
+
+
+def _dense(seed, n, box):
+    """``n`` points uniform in a box, x-cell sorted (0.6 m, the pyramid's
+    order): hundreds of rows inside a 2 m radius."""
+    rng = np.random.RandomState(seed)
+    pts = (rng.rand(n, 3) * np.asarray(box)).astype(np.float32)
+    return pts[np.argsort(np.floor(pts[:, 0] / 0.6), kind="stable")]
+
+
+# ------------------------------------------------------------ radius kNN
+
+@pytest.mark.parametrize("k", [257, 300, 600])
+def test_radius_knn_plain_matches_jax_exact_past_the_list(k):
+    pts = _dense(1, 2000, (6.0, 3.0, 2.0))
+    q, s = pts[:700], pts
+    want = np.asarray(jax.jit(lambda q, s: jax_radius_knn(
+        q, s, jnp.int32(1900), 2.0, k, chunk_size=256, approx_recall=None))(q, s))
+    got = radius_knn(T(q), T(s), torch.tensor(1900), 2.0, k).numpy()
+    np.testing.assert_array_equal(got, want)
+    full = (got < len(s)).all(axis=1)
+    assert full.mean() > 0.3 and (k < 600 or not full.all())  # lists fill; some run short
+
+
+@pytest.mark.parametrize("k", [257, 300, 600])
+@pytest.mark.parametrize("band_cap,expect_overflow", [(2560, False), (1536, True)])
+def test_radius_knn_banded_matches_jax_past_the_list(k, band_cap, expect_overflow):
+    pts = _dense(2, 4000, (12.0, 3.0, 2.0))
+    q_count = 3900
+    kw = dict(cell=0.6, band_cap=band_cap, chunk_size=128)
+    want, want_ov = jax.jit(lambda q, s: jax_radius_knn_banded(
+        q, s, jnp.int32(3950), 2.0, k, q_count=jnp.int32(q_count), return_overflow=True,
+        **kw))(pts, pts)
+    got, got_ov = radius_knn_banded(T(pts), T(pts), torch.tensor(3950), 2.0, k,
+                                    q_count=torch.tensor(q_count), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got_ov) == int(want_ov)
+    assert (int(got_ov) > 0) == expect_overflow
+    assert ((got.numpy() < len(pts)).all(axis=1)).mean() > 0.3
+
+
+@pytest.mark.parametrize("k", [300, 600])
+def test_radius_knn_batched_past_the_list_and_beyond_support(k):
+    """A batch of two clouds equals two single searches at k > 256; the
+    400-row cloud holds fewer rows than k, so its lists end in sentinels."""
+    a, b = _dense(3, 400, (2.0, 2.0, 1.0)), _dense(4, 400, (2.5, 2.0, 1.0))
+    both = radius_knn(T(np.stack([a, b])), T(np.stack([a, b])), torch.tensor([380, 400]), 2.0, k)
+    for i, (pts, cnt) in enumerate([(a, 380), (b, 400)]):
+        want = np.asarray(jax.jit(lambda p: jax_radius_knn(
+            p, p, jnp.int32(cnt), 2.0, k, approx_recall=None))(pts))
+        np.testing.assert_array_equal(both[i].numpy(), want)
+    got = both.numpy()
+    assert (got[..., LIST_KMAX] < 400).any()  # lists run past 256
+    assert k < 400 or (got == 400).any(axis=-1).all()  # k above the support count
+
+
+def test_radius_knn_plain_matches_pallas_interpret_at_k300():
+    pts = _dense(5, 1024, (4.0, 3.0, 2.0))
+    q = pts[::21][:48]
+    want = np.asarray(radius_knn_pallas(jnp.asarray(q), jnp.asarray(pts), jnp.int32(1000), 2.0,
+                                        300, tile_q=16, block_s=512, interpret=True))
+    got = radius_knn(T(q), T(pts), torch.tensor(1000), 2.0, 300).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got < len(pts)).all(axis=1).any()
+
+
+# ------------------------------------------------------------ Sinkhorn
+
+def _sinkhorn_inputs(seed, p, k1):
+    rng = np.random.RandomState(seed)
+    s = rng.randn(p, k1, k1).astype(np.float32)
+    mu = (rng.randn(p, k1) * 0.1).astype(np.float32)
+    nu = (rng.randn(p, k1) * 0.1).astype(np.float32)
+    # a fully masked patch (a padded correspondence), masked rows and columns
+    s[0] = -1e12
+    mu[0, :-1] = -1e12
+    nu[0, :-1] = -1e12
+    s[1, :40, :] = -1e12
+    mu[1, :40] = -1e12
+    s[2, :, 30:90] = -1e12
+    nu[2, 30:90] = -1e12
+    return s, mu, nu
+
+
+@pytest.mark.parametrize("k1", [209, 257])
+def test_sinkhorn_plain_matches_pallas_interpret_past_the_registers(k1):
+    s, mu, nu = _sinkhorn_inputs(k1, 4, k1)
+    want = np.asarray(sinkhorn_pallas(jnp.asarray(s), jnp.asarray(mu), jnp.asarray(nu), 10,
+                                      block_patches=8, interpret=True))
+    got = sinkhorn_plain(T(s), T(mu), T(nu), 10).numpy()
+    assert np.isfinite(got).all()
+    masked = want <= -1e11
+    np.testing.assert_array_equal(got <= -1e11, masked)
+    np.testing.assert_allclose(got[~masked], want[~masked], **TOL)
+
+
+# ------------------------------------------------------------ launch plans
+
+@pytest.mark.parametrize("k", [257, 300, 320, 512, 600, 2048, 2049, 4096, 20000])
+@pytest.mark.parametrize("rows", [512, 5120, 7168, 7169, 21504])
+def test_knn_plan_select_path(k, rows):
+    """Every k past the list takes the select path: a power-of-two sort
+    buffer holding min(k, 2048) keys, blocks of 16, 8 or 4 warps that fit in
+    shared memory beside the staged window, tiled past 7168 rows."""
+    for band in (None, rows):
+        plan = knn_plan(2, 21504, 21504 if band else rows, k, band)
+        sr = plan.sort_rows
+        assert plan.k_bucket == 0 and sr & (sr - 1) == 0 and sr >= min(k, SORT_ROWS_MAX)
+        assert sr == min(1 << (k - 1).bit_length(), SORT_ROWS_MAX)
+        assert plan.warps in (4, 8, 16) and 64 % plan.warps == 0
+        assert plan.tiled == (rows > WINDOW_ROWS_MAX)
+        assert plan.tile_rows == min(rows, WINDOW_ROWS_MAX)
+        assert plan.smem_bytes == plan.tile_rows * 16 + plan.warps * (sr * 8 + 256 * 4)
+        assert plan.smem_bytes + 4 <= SMEM_MAX
+
+
+def test_knn_plan_select_path_spreads_and_fits():
+    assert knn_plan(2, 21504, 21504, 320, 5120).warps == 16  # phase 16's level-0 search
+    assert knn_plan(2, 21504, 21504, 2048, 8192).warps == 4  # 16 KB a warp beside 112 KB
+    assert knn_plan(1, 300, 300, 512).warps == 4             # too few queries to spread
+    # the list path's plans are unchanged: the same buckets, no sort buffer
+    assert knn_plan(2, 21504, 21504, LIST_KMAX, 5120) == knn_plan(2, 21504, 21504, 256, 5120)
+    assert knn_plan(2, 21504, 21504, 40, 5120).sort_rows == 0
+
+
+@pytest.mark.parametrize("k1", [1, 17, 32, 33, 80, 81, 129, 144, 145, 208, 209, 257, 513, 4097])
+def test_sinkhorn_plan_routes(k1):
+    plan = sinkhorn_plan(k1)
+    if k1 <= REGISTER_K1_MAX:
+        assert plan == ("register", 0)
+    else:
+        # u, v and 16 warps' column partials (max, sum), K1 floats each
+        assert plan == ("stream", k1 * (2 + 2 * 16))
+    assert sinkhorn_plan(129).route == "register"  # the main path's patch
+
+
+def test_sinkhorn_plan_refuses_empty_patch():
+    with pytest.raises(ValueError, match="at least 1"):
+        sinkhorn_plan(0)
+
+
+def test_full_width_config_at_large_shapes_plans():
+    """The configuration ``chip_smoke.py`` phase 16 runs: ``make_cfg()`` at the
+    0.7 bucket with level-0 neighbour limit 320 and 256 points a patch. Its
+    two level-0 searches take the select path, the other ten the list path
+    as before, and its Sinkhorn streams."""
+    cfg = make_cfg()
+    pyr = dataclasses.replace(cfg.pyramid.scaled(0.7), neighbor_limits=(320, 40, 40, 40, 40))
+    routes = []
+    for sp in search_plan(pyr):
+        plan = knn_plan(2, pyr.caps[sp.q_lvl], pyr.caps[sp.s_lvl], sp.k, sp.band)
+        base = knn_plan(2, pyr.caps[sp.q_lvl], pyr.caps[sp.s_lvl], min(sp.k, 40), sp.band)
+        routes.append(plan.sort_rows > 0)
+        if sp.k <= LIST_KMAX:
+            assert plan == base
+    assert routes == [sp.k > LIST_KMAX for sp in search_plan(pyr)] and sum(routes) == 2
+    assert sinkhorn_plan(257).route == "stream"
+
+
+# ------------------------------------------------------------ the tiny model
+
+def _pairs():
+    """Pair A: two frames of a procedural sequence; pair B: frame 0 and a
+    rigidly moved copy (as in ``test_torch_port_model.py``). The scans are
+    shrunk by ``SHRINK`` into a compact scene: at the 1.275 m search radius
+    most level-0 neighbourhoods then hold 250-380 rows, so the level-0 lists
+    of 300 fill past 256."""
+    scans, _ = procedural_sequence(11, 2, n_rings=16, n_azimuths=200)
+    rng = np.random.RandomState(0)
+    ref = scans[0][rng.permutation(len(scans[0]))[:500], :3] * SHRINK
+    src = scans[1][rng.permutation(len(scans[1]))[:480], :3] * SHRINK
+    motion = np.eye(4, dtype=np.float32)
+    motion[:2, :2] = [[np.cos(0.05), -np.sin(0.05)], [np.sin(0.05), np.cos(0.05)]]
+    motion[:3, 3] = [0.5, 0.3, 0.1]
+    moved = ((ref - motion[:3, 3]) @ motion[:3, :3]).astype(np.float32)
+    return {"A": (ref, src), "B": (ref, moved)}
+
+
+def _large(cfg):
+    return dataclasses.replace(
+        cfg, pyramid=dataclasses.replace(cfg.pyramid, neighbor_limits=LIMITS),
+        model=dataclasses.replace(cfg.model, num_points_in_patch=PATCH))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jcfg = _large(jax_tiny_cfg())
+    jcfg = dataclasses.replace(jcfg, pyramid=dataclasses.replace(jcfg.pyramid, approx_recall=None))
+    jmodel = JaxRDMNet(jcfg)
+
+    @jax.jit
+    def build(rp, rc, sp, sc):
+        return jax_build_pair_batch(rp, rc, sp, sc, jnp.eye(4), jcfg.pyramid)
+
+    apply = jax.jit(lambda p, b: jmodel.apply(p, b, training=False, with_gt=False))
+    pairs = _pairs()
+    jb = build(*jax_pad_cloud(jnp.asarray(pairs["A"][0]), CAP),
+               *jax_pad_cloud(jnp.asarray(pairs["A"][1]), CAP))
+    params = jax.jit(lambda b: jmodel.init(jax.random.PRNGKey(0), b, training=False,
+                                           with_gt=False))(jb)
+    model = RDMNet(_large(make_tiny_cfg()), device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)), strict=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # reproducible sums (test_torch_port_model.py's docstring)
+    out = {}
+    for name, (ref, src) in pairs.items():
+        batch = build(*jax_pad_cloud(jnp.asarray(ref), CAP), *jax_pad_cloud(jnp.asarray(src), CAP))
+        jout = jax.tree.map(np.asarray, apply(params, batch))
+        before = launch_counts()
+        tout = pipeline(model, *pad_cloud(ref, CAP), *pad_cloud(src, CAP), device="cpu")
+        assert launch_counts() == before
+        out[name] = (jax.tree.map(np.asarray, batch), jout, tout)
+    torch.set_num_threads(threads)
+    return out
+
+
+@pytest.mark.parametrize("pair", ["A", "B"])
+def test_large_shape_model_tables_equal(runs, pair):
+    jb, _, tout = runs[pair]
+    tb = tout["batch"]
+    for side in ("ref", "src"):
+        jp, tp = getattr(jb, side), getattr(tb, side)
+        for field in ("points", "counts", "neighbors", "subsampling", "upsampling"):
+            for lvl, (j, t) in enumerate(zip(getattr(jp, field), getattr(tp, field))):
+                np.testing.assert_array_equal(t.numpy(), j, err_msg=f"{side} {field}[{lvl}]")
+    neighbors0 = tb.ref.neighbors[0].numpy()
+    assert neighbors0.shape[1] == LIMITS[0]
+    assert (neighbors0[:, LIST_KMAX] < CAP).any()  # some level-0 lists run past 256
+
+
+@pytest.mark.parametrize("pair", ["A", "B"])
+def test_large_shape_model_matching_and_plans(runs, pair):
+    _, jout, tout = runs[pair]
+    for key in ("ref_feats_f", "src_feats_f", "ref_feats_c", "src_feats_c"):
+        np.testing.assert_allclose(tout[key].numpy(), jout[key], err_msg=key, **TOL)
+    for key in ("nodes_ref_valid", "nodes_src_valid", "ref_node_corr_indices",
+                "src_node_corr_indices", "node_corr_valid", "ref_node_corr_knn_masks",
+                "src_node_corr_knn_masks"):
+        np.testing.assert_array_equal(tout[key].numpy(), jout[key], err_msg=key)
+    got, want = tout["matching_scores"].numpy(), jout["matching_scores"]
+    assert got.shape[-1] == PATCH + 1
+    masked = want <= -1e11
+    np.testing.assert_array_equal(got <= -1e11, masked)
+    np.testing.assert_allclose(got[~masked], want[~masked], **TOL)
+    np.testing.assert_array_equal(tout["ref_corr_points"].numpy(), jout["ref_corr_points"])
+    np.testing.assert_allclose(tout["corr_scores"].numpy(), jout["corr_scores"], **TOL)
+
+
+def test_large_shape_model_pose(runs):
+    _, jout, tout = runs["B"]
+    np.testing.assert_allclose(tout["estimated_transform"].numpy(), jout["estimated_transform"],
+                               **TOL)
+    assert np.isfinite(runs["A"][2]["estimated_transform"].numpy()).all()

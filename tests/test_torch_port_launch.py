@@ -2,7 +2,8 @@
 
 ``knn_plan`` is the pure function that sizes every launch of
 ``csrc/radius_knn.cu``; these tests hold it to the kernel's limits for every
-search of the graph build. No card, no JAX.
+search of the graph build. No card, no JAX. The large-shape paths' plans
+(k > 256, K1 > 208) are in ``test_torch_port_large_shapes.py``.
 """
 
 from dataclasses import replace
@@ -12,7 +13,7 @@ import pytest
 from rdmnet_tpu_torch.config import make_cfg, make_tiny_cfg
 from rdmnet_tpu_torch.graph.pyramid import search_plan
 from rdmnet_tpu_torch.ops.kernels import _build
-from rdmnet_tpu_torch.ops.kernels.radius_knn import KMAX, knn_plan
+from rdmnet_tpu_torch.ops.kernels.radius_knn import LIST_KMAX, knn_plan
 
 PYRAMIDS = {
     "make_cfg": make_cfg().pyramid,
@@ -53,9 +54,9 @@ def test_knn_plan_spreads_small_searches():
     assert 2 * -(-1280 // knn_plan(2, 1280, 1280, 40).warps) >= 2 * 132
 
 
-@pytest.mark.parametrize("k", [0, KMAX + 1])
+@pytest.mark.parametrize("k", [0, -1])
 def test_knn_plan_refuses_k_out_of_range(k):
-    with pytest.raises(ValueError, match="outside"):
+    with pytest.raises(ValueError, match="at least 1"):
         knn_plan(2, 64, 64, k)
 
 
@@ -64,31 +65,34 @@ def test_knn_plan_list_buckets():
                                                               129, 200, 256)}
     assert buckets == {1: 1, 2: 32, 32: 32, 33: 64, 64: 64, 65: 128, 81: 128, 128: 128,
                        129: 256, 200: 256, 256: 256}
-    assert KMAX == 256
+    assert LIST_KMAX == 256
+    # one past the longest list: the select path, with no register list
+    plan = knn_plan(2, 640, 640, 257)
+    assert (plan.k_bucket, plan.sort_rows) == (0, 512)
+    assert all(knn_plan(2, 640, 640, k).sort_rows == 0 for k in (1, 40, 256))
 
 
-def test_kernel_limits_raise_at_construction():
-    """On a card ``RDMNet`` checks its config against the kernels' limits
-    before building anything; here the check is called directly (the CPU
-    runs the plain versions, which have no limits)."""
-    from rdmnet_tpu_torch.config import make_parity_cfg
+def test_model_builds_at_shapes_past_the_first_paths():
+    """Configs the register list and the register Sinkhorn do not hold build
+    (``RDMNet`` checks no kernel limit on any device), and every search of
+    their graph build and their Sinkhorn get a launch plan."""
     from rdmnet_tpu_torch.models import RDMNet
-    from rdmnet_tpu_torch.models.rdmnet import check_kernel_limits
+    from rdmnet_tpu_torch.models import rdmnet
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_plan
 
+    assert not hasattr(rdmnet, "check_kernel_limits")
     cfg = make_tiny_cfg()
-    check_kernel_limits(make_parity_cfg())
-    check_kernel_limits(replace(cfg, pyramid=replace(cfg.pyramid, neighbor_limits=(256,) * 5)))
-    check_kernel_limits(replace(cfg, model=replace(cfg.model, num_points_in_patch=207)))
-    big_k = replace(cfg, pyramid=replace(cfg.pyramid, neighbor_limits=(16, 16, 257, 16, 16)))
-    with pytest.raises(ValueError, match=r"pyramid\.neighbor_limits\[2\] = 257.*k <= 256"):
-        check_kernel_limits(big_k)
-    with pytest.raises(ValueError, match=r"pyramid\.upsampling_limit = 300"):
-        check_kernel_limits(replace(cfg, pyramid=replace(cfg.pyramid, upsampling_limit=300)))
-    big_patch = replace(cfg, model=replace(cfg.model, num_points_in_patch=256))
-    with pytest.raises(ValueError, match=r"model\.num_points_in_patch = 256.*<= 208"):
-        check_kernel_limits(big_patch)
-    for c in (big_k, big_patch):  # the CPU takes them
+    configs = [replace(cfg, pyramid=replace(cfg.pyramid, neighbor_limits=(16, 16, 257, 16, 16))),
+               replace(cfg, pyramid=replace(cfg.pyramid, upsampling_limit=300)),
+               replace(cfg, model=replace(cfg.model, num_points_in_patch=256))]
+    for c in configs:
         RDMNet(c, device="cpu")
+        for sp in search_plan(c.pyramid):
+            plan = knn_plan(2, c.pyramid.caps[sp.q_lvl], c.pyramid.caps[sp.s_lvl], sp.k, sp.band)
+            assert (plan.sort_rows > 0) == (sp.k > LIST_KMAX), (sp, plan)
+            assert plan.smem_bytes <= 232_448 and sp.chunk % plan.warps == 0
+        route = sinkhorn_plan(c.model.num_points_in_patch + 1).route
+        assert route == ("stream" if c.model.num_points_in_patch + 1 > 208 else "register")
 
 
 def test_library_path_covers_headers(tmp_path, monkeypatch):

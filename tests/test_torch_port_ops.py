@@ -211,6 +211,33 @@ def test_superpoint_matching_matches_jax():
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), **TOL)
 
 
+@pytest.mark.parametrize("gate", ["off", "on"])
+def test_superpoint_matching_n2p_gate_matches_jax(gate):
+    """JAX's keywords: overlap scores gate the pairs (off when not given)."""
+    rng = np.random.RandomState(14)
+    ref = rng.randn(48, 32).astype(np.float32)
+    src = rng.randn(40, 32).astype(np.float32)
+    ref /= np.linalg.norm(ref, axis=1, keepdims=True)
+    src /= np.linalg.norm(src, axis=1, keepdims=True)
+    rm, sm = rng.rand(48) > 0.2, rng.rand(40) > 0.2
+    rs, ss = rng.rand(48).astype(np.float32), rng.rand(40).astype(np.float32)
+    kw = dict(n2p_score_threshold=0.4)
+    if gate == "on":
+        want = jax.jit(lambda a, b, c, d, e, f: jax_matching(
+            a, b, c, d, 96, ref_n2p_scores=e, src_n2p_scores=f, **kw))(ref, src, rm, sm, rs, ss)
+        got = superpoint_matching(T(ref), T(src), T(rm), T(sm), 96, ref_n2p_scores=T(rs),
+                                  src_n2p_scores=T(ss), **kw)
+    else:
+        want = jax.jit(lambda a, b, c, d: jax_matching(a, b, c, d, 96, **kw))(ref, src, rm, sm)
+        got = superpoint_matching(T(ref), T(src), T(rm), T(sm), 96, **kw)
+    for i in (0, 1, 3):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), **TOL)
+    scored = got[3].numpy() & (got[2].numpy() > 0)
+    gated = (rs[got[0].numpy()] > 0.4) & (ss[got[1].numpy()] > 0.4)
+    assert scored.sum() > 10 and gated[scored].all() == (gate == "on")
+
+
 # --------------------------------------------------------------------- pose
 
 def test_weighted_procrustes_matches_jax():

@@ -14,13 +14,18 @@ Phases, each fatal on failure:
    K1=129, 100 iterations with masked patches and rows; each kernel's device
    time (CUDA-graph replay) and time per wrapper call (CUDA events around
    eager calls) beside its bound, its launch plan and the time per call of
-   the kernels' first design (v1); then each kernel's second path against
-   its plain version: the kNN's select path (k > 256) at k = 257, 512, 2048,
-   4096 and k above the support count, on dense windows where the lists
-   fill (banded, unbanded, tiled, a batch of two clouds, duplicated points;
-   tables exact, one select launch each), and Sinkhorn's streaming path
-   (K1 > 208) at P = 256, K1 = 209, 257, 513, 100 iterations with masked
-   rows and patches (within 1e-4), each with its device time, time per
+   the kernels' first design (v1); then each kernel's other paths against
+   its plain version: the kNN's select paths at the k the plan sends each
+   (the warp select path at k = 257 to 1024, the block select path at k =
+   2048 to 6144), on dense windows where the lists fill (banded, unbanded,
+   tiled, a batch of two clouds, duplicated points, k above the support
+   count, two sort chunks, a window that overflows the block path's key
+   cache; tables exact, every launch on the plan's route); Sinkhorn's
+   cluster path (208 < K1 <= 546) at P = 256, K1 = 209, 257, 304, 412, 513, 546 (each
+   cluster size's first and last among them) and its streaming path at
+   P = 32, K1 = 600, 100 iterations with masked rows and patches (within
+   1e-4; 0 iterations give the scores), with cudaOccupancyMaxActiveClusters
+   for each cluster size; each instance with its device time, time per
    call, plain time, bound and plan;
 4. the main path at ``make_cfg()`` full width, 0.7 bucket: a seeded ~20k
    point procedural pair through ``pipeline`` (graph build to pose), 3
@@ -163,8 +168,10 @@ Phases, each fatal on failure:
    patch, on the phase-4 pair: ``pipeline`` builds and runs on the card (2
    warm-up, 6 timed pairs, 2 with a per-stage breakdown; ms/pair, peak
    memory), both second paths launch inside the window (2 select-path kNN
-   and 1 streaming Sinkhorn launch a pair), its 12 searches equal the plain
-   version's, and against the CPU port on the same weights: tables and node
+   and 1 cluster-path Sinkhorn launch a pair), its 12 searches equal the plain
+   version's, the graph build at level-0 limit 2048 launches the block path
+   twice (tables equal), and against the CPU port on the same weights:
+   tables and node
    masks equal, the matched node pairs equal but for near-ties at the top-256
    boundary (within 1e-4 of the lowest matched score), plans through the
    common pairs within 1e-3, LGR on the
@@ -334,7 +341,7 @@ def check_knn(pts, cnts, sp, kernels):
     kw = {}
     if sp.band is not None:
         win, _ = band_windows(q, s, cnts[sp.q_lvl], sp.radius, sp.cell, sp.band, sp.chunk)
-        kw = dict(win=win, chunk=sp.chunk, band=sp.band)
+        kw.update(win=win, chunk=sp.chunk, band=sp.band)
     got = radius_knn_cuda(q, s, scnt, sp.radius, sp.k, **kw)
     torch.cuda.synchronize()
     want = radius_knn_plain(q, s, scnt, sp.radius, sp.k, **kw)
@@ -369,8 +376,10 @@ def check_knn(pts, cnts, sp, kernels):
 
 
 def knn_line(name: str, ms, call_ms, pms, bound, plan, v1) -> str:
-    p = (f"plan warps={plan.warps} k_bucket={plan.k_bucket} tile_rows={plan.tile_rows} "
-         f"tiled={plan.tiled} smem={plan.smem_bytes}")
+    p = (f"plan route={plan.route} warps={plan.warps} k_bucket={plan.k_bucket} "
+         f"tile_rows={plan.tile_rows} tiled={plan.tiled} smem={plan.smem_bytes}")
+    if plan.route != "list":
+        p += f" sort_rows={plan.sort_rows} cache_keys={plan.cache_keys}"
     old = "not recorded" if v1 is None else f"{v1:.4f} ms per call"
     return (f"radius_knn {name}: kernel {ms:.4f} ms on the device, {call_ms:.4f} ms per call, "
             f"v1 design {old}; plain {pms:.3f} ms, bound {bound:.5f} ms; {p}")
@@ -2634,7 +2643,7 @@ def library_phase(dev, card, kernels, cfg, model, batch):
     reset_launch_counts()
     got = group_and_aggregate(q1, q1, f1, c1, lvl1.radius, 257)
     per_257 = path_launch_counts()["radius_knn"]
-    if per_257 != {"list": 0, "select": 1}:
+    if per_257 != {"list": 0, "select": 1, "block": 0}:
         fail(f"library phase: group_and_aggregate at k = 257 launched {per_257}")
     want = group_and_aggregate(q1.cpu(), q1.cpu(), f1.cpu(), c1.cpu(), lvl1.radius, 257)
     if not (torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])):
@@ -2727,10 +2736,14 @@ def library_phase(dev, card, kernels, cfg, model, batch):
 
 
 # ---- phase 3's large shapes and phase 16: every shape the JAX package runs -------------
-LARGE_K1 = (209, 257, 513)        # phase 3: Sinkhorn patches on the streaming path
+LARGE_K1 = (209, 257, 304, 412, 513, 546)  # phase 3: cluster-path patches (C's limits among them)
 LARGE_P, LARGE_ITERS = 256, 100   # phase 3: patches and iterations of each
+STREAM_K1, STREAM_P = 600, 32     # phase 3: a streaming-path patch past the C = 8 limit
 LARGE_REPS = 5                    # timed calls per phase-3 large-shape instance
+SELECT_KS = (320, 512, 1024)       # phase 3: k on the warp select path, the tiled band
+BLOCK_KS = (2048,)                 # phase 3: k on the block select path, the tiled band
 LARGE_LIMITS = (320, 40, 40, 40, 40)  # phase 16: neighbour limits, level 0 past the register list
+BLOCK_LIMITS = (2048, 40, 40, 40, 40)  # phase 16: a graph build whose level 0 takes the block path
 LARGE_PATCH = 256                     # phase 16: num_points_in_patch (K1 = 257)
 LARGE_WARM, LARGE_TIMED, LARGE_STAGE = 2, 6, 2  # phase 16 pairs
 
@@ -2781,10 +2794,12 @@ def sinkhorn_bounds(p, k1, iters, max_clock_mhz):
 
 
 def large_knn_case(dev, kernels, name, s_np, counts, radius, k, band=None, chunk=256,
-                   queries=None):
-    """One select-path search (k > 256) through ``check_knn``: tables equal
-    to the plain version, every launch on the select path, the share of
-    queries whose list fills. ``queries``: search the first rows only."""
+                   queries=None, route="select"):
+    """One search past the register list (k > 256) through ``check_knn``:
+    the plan's path is ``route``, tables equal to the plain version, every
+    launch on that path, the share of queries whose list fills. ``queries``:
+    search the first rows only. Returns (device ms, ms per call, plain ms,
+    bound ms, plan)."""
     import torch
 
     from rdmnet_tpu_torch.graph.pyramid import SearchSpec
@@ -2802,68 +2817,98 @@ def large_knn_case(dev, kernels, name, s_np, counts, radius, k, band=None, chunk
     sp = SearchSpec("dense", 1, 0, radius, k, band, chunk, 0.6)
     reset_launch_counts()
     ms, call_ms, plain_ms, bound, _, plan = check_knn([s, q], [cnt, q_cnt], sp, kernels)
+    if plan.route != route:
+        fail(f"radius_knn {name} k={k}: planned on the {plan.route} path, not the {route} path")
     paths = path_launch_counts()["radius_knn"]
-    if paths["list"] or not paths["select"]:
-        fail(f"radius_knn {name} k={k}: launched {paths}, not the select path alone")
+    if any(n for r, n in paths.items() if r != plan.route) or not paths[plan.route]:
+        fail(f"radius_knn {name} k={k}: launched {paths}, not the {plan.route} path alone")
     kw = {}
     if band is not None:
         win, _ = band_windows(q, s, q_cnt, radius, sp.cell, band, chunk)
         kw = dict(win=win, chunk=chunk, band=band)
     found = (radius_knn_plain(q, s, cnt, radius, k, **kw) < s.shape[1]).sum(-1)
-    print(knn_line(f"select path {name} Q={q.shape[1]} S={s.shape[1]} K={k} band={band} "
+    print(knn_line(f"{plan.route} path {name} Q={q.shape[1]} S={s.shape[1]} K={k} band={band} "
                    f"r={radius}", ms, call_ms, plain_ms, bound, plan, None)
-          + f" sort_rows={plan.sort_rows}; table equal to the plain version, neighbours per "
-          f"query {int(found.min())}-{int(found.max())}, "
+          + f"; table equal to the plain version, neighbours per query "
+          f"{int(found.min())}-{int(found.max())}, "
           f"{float((found == min(k, s.shape[1])).float().mean()):.3f} of the queries with a "
           "full list")
+    return ms, call_ms, plain_ms, bound, plan
 
 
 def large_shapes_check(dev, kernels, max_clock_mhz):
-    """Phase 3's large shapes: the kNN kernel's select path (k = 257, 512,
-    2048, 4096, and k above the support count) on dense windows, banded,
-    unbanded, tiled, a batch of two clouds and duplicated points; Sinkhorn's
-    streaming path at K1 = 209, 257 and 513 with masked rows and patches.
-    Fills the kernels' ``select_path`` / ``stream_path`` entries with the
-    Sinkhorn time at phase 16's shape (P = 256, K1 = 257, 100 iterations)."""
+    """Phase 3's large shapes: the kNN kernel's select paths at the k the
+    plan sends each (the warp select path at k = 257 to 1024, the block
+    select path at k = 2048 to 6144, and k above the support count) on dense
+    windows, banded, unbanded, tiled, a batch of two clouds, duplicated
+    points, two sort chunks and an overflowing key cache; Sinkhorn's cluster
+    path at K1 in ``LARGE_K1``
+    and its streaming path at ``STREAM_K1``, with masked rows and patches.
+    Fills the kernels' ``block_path`` entry (k = 2048, the tiled band), and
+    ``cluster_path`` (P = 256, K1 = 257, 100 iterations, phase 16's shape)
+    and ``stream_path`` entries."""
     import numpy as np
     import torch
 
     from rdmnet_tpu_torch.ops.kernels import path_launch_counts, reset_launch_counts
-    from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain, sinkhorn_plan
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import (cluster_occupancy, sinkhorn_cuda,
+                                                       sinkhorn_plain, sinkhorn_plan)
 
     # banded, a batch of two clouds with different counts, the band staged whole
     two = np.stack([dense_cloud(SEED + 20, 12000, (12.0, 3.0, 2.0)),
                     dense_cloud(SEED + 21, 12000, (12.0, 3.0, 2.0))])
-    for k in (257, 512):
-        large_knn_case(dev, kernels, "banded batch", two, [11000, 12000], 1.5, k, band=4096)
-    # every point twice: the (distance, index) tie order
+    for k, route in ((257, "select"), (512, "select"), (1024, "select"), (2048, "block")):
+        large_knn_case(dev, kernels, "banded batch", two, [11000, 12000], 1.5, k, band=4096,
+                       route=route)
+    # every point twice: the (distance, index) tie order, on both select paths
     twin = np.ascontiguousarray(two[:1, (np.arange(12000) + 1) // 2])
-    large_knn_case(dev, kernels, "banded duplicated points", twin, [12000], 1.5, 512, band=4096)
-    # k = 2048 on a band of 8192 rows (tiled) and unbanded over 16000 rows (tiled)
+    for k, route in ((512, "select"), (2048, "block")):
+        large_knn_case(dev, kernels, "banded duplicated points", twin, [12000], 1.5, k,
+                       band=4096, route=route)
+    # a band of 8192 rows (tiled on the warp select path)
     big = dense_cloud(SEED + 22, 16000, (10.0, 3.0, 2.0))[None]
-    large_knn_case(dev, kernels, "banded tiled", big, [16000], 2.0, 2048, band=8192)
+    for k in SELECT_KS + BLOCK_KS:
+        ms, call_ms, pms, bound, plan = large_knn_case(
+            dev, kernels, "banded tiled", big, [16000], 2.0, k, band=8192,
+            route="block" if k in BLOCK_KS else "select")
+        if k == 2048:
+            kernels["radius_knn"]["block_path"] = dict(
+                shape=f"Q=16000 S=16000 K={k} band=8192 r=2.0", ms=ms, ms_per_call=call_ms,
+                plain_ms=pms, bound_ms=bound, bound_by="operations", library_ms=None)
     for k in (2048, 4096):
-        large_knn_case(dev, kernels, "unbanded tiled", big, [15500], 2.0, k, queries=4096)
+        large_knn_case(dev, kernels, "unbanded tiled", big, [15500], 2.0, k, queries=4096,
+                       route="block")
     # unbanded, the window staged whole
     mid = dense_cloud(SEED + 23, 6000, (4.0, 3.0, 2.0))[None]
     large_knn_case(dev, kernels, "unbanded", mid, [6000], 1.5, 512)
     # k above the support count: sentinels past the in-radius rows
     small = dense_cloud(SEED + 24, 300, (1.0, 1.0, 1.0))[None]
-    large_knn_case(dev, kernels, "k above the support count", small, [300], 2.0, 512)
-    few = dense_cloud(SEED + 25, 3000, (2.0, 2.0, 1.5))[None]
-    large_knn_case(dev, kernels, "k above the support count, two sort chunks", few, [3000], 2.0,
-                   4096)
+    for k, route in ((512, "select"), (1024, "select"), (4096, "block")):
+        large_knn_case(dev, kernels, "k above the support count", small, [300], 2.0, k,
+                       route=route)
+    # the block path's output in two sort chunks of 4096 ranks, the keys cached
+    few = dense_cloud(SEED + 25, 7000, (2.0, 2.0, 1.5))[None]
+    large_knn_case(dev, kernels, "two sort chunks", few, [7000], 3.0, 6144, queries=512,
+                   route="block")
+    # a window whose in-radius rows overflow the block path's key cache, in
+    # one sort chunk and in two
+    wide = dense_cloud(SEED + 26, 12000, (3.0, 3.0, 2.0))[None]
+    for k in (2048, 6144):
+        large_knn_case(dev, kernels, "overflowing the key cache", wide, [12000], 3.0, k,
+                       queries=512, route="block")
 
-    for k1 in LARGE_K1:
-        s_np, mu_np, nu_np = sinkhorn_inputs(SEED + k1, LARGE_P, k1)
+    cases = [(k1, LARGE_P) for k1 in LARGE_K1] + [(STREAM_K1, STREAM_P)]
+    occupancy = {}
+    for k1, p in cases:
+        s_np, mu_np, nu_np = sinkhorn_inputs(SEED + k1, p, k1)
         s_t, mu_t, nu_t = (torch.from_numpy(x).to(dev) for x in (s_np, mu_np, nu_np))
         plan = sinkhorn_plan(k1)
         reset_launch_counts()
         got = sinkhorn_cuda(s_t, mu_t, nu_t, LARGE_ITERS)
         torch.cuda.synchronize()
         paths = path_launch_counts()["sinkhorn"]
-        if paths != {"register": 0, "stream": 1}:
-            fail(f"sinkhorn K1={k1}: launched {paths}, not one streaming-path launch")
+        if paths != {**dict.fromkeys(paths, 0), plan.route: 1} or plan.route == "register":
+            fail(f"sinkhorn K1={k1}: launched {paths}, not one {plan.route}-path launch")
         want = sinkhorn_plain(s_t, mu_t, nu_t, LARGE_ITERS)
         live = want > -1e11
         if not torch.isfinite(got).all() or not torch.equal(got > -1e11, live):
@@ -2871,23 +2916,38 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
         err = float((got - want)[live].abs().max())
         if err > 1e-4:
             fail(f"sinkhorn K1={k1}: max abs error {err} > 1e-4")
+        zero = sinkhorn_cuda(s_t, mu_t, nu_t, 0)  # u = v = 0: the scores
+        zero_err = float((zero - s_t)[s_t > -1e11].abs().max())
+        if zero_err > 1e-4 or not torch.equal(zero > -1e11, s_t > -1e11):
+            fail(f"sinkhorn K1={k1}, 0 iterations: {zero_err} from the scores")
         kernels["sinkhorn"]["max_abs_err"] = max(kernels["sinkhorn"]["max_abs_err"], err)
         call = lambda: sinkhorn_cuda(s_t, mu_t, nu_t, LARGE_ITERS)  # noqa: E731
         ms, call_ms = graph_ms(call, reps=LARGE_REPS), cuda_ms(call, reps=LARGE_REPS)
         plain_ms = cuda_ms(lambda: sinkhorn_plain(s_t, mu_t, nu_t, LARGE_ITERS), reps=1,
                            warmup=0)
         bound, by, exp_ms, ops_ms, bytes_ms, stream_ms = sinkhorn_bounds(
-            LARGE_P, k1, LARGE_ITERS, max_clock_mhz)
-        print(f"sinkhorn streaming path P={LARGE_P} K1={k1} iters={LARGE_ITERS}: kernel "
+            p, k1, LARGE_ITERS, max_clock_mhz)
+        extra = ""
+        if plan.route == "cluster":
+            if plan.cluster not in occupancy:
+                occupancy[plan.cluster] = cluster_occupancy(k1)
+            extra = (f"; {plan.cluster} CTAs a cluster, {plan.cta_bytes} bytes a CTA, "
+                     f"cudaOccupancyMaxActiveClusters {cluster_occupancy(k1)}")
+        else:
+            extra = f"; the design's traffic (the patch read every half-step) {stream_ms:.5f} ms"
+        print(f"sinkhorn {plan.route} path P={p} K1={k1} iters={LARGE_ITERS}: kernel "
               f"{ms:.4f} ms on the device, {call_ms:.4f} ms per call; plain {plain_ms:.3f} ms, "
               f"bound {bound:.5f} ms (exp {exp_ms:.5f}, f32 ops {ops_ms:.5f}, bytes "
-              f"{bytes_ms:.5f}); the design's traffic (the patch read every half-step) "
-              f"{stream_ms:.5f} ms; plan {plan}; max abs err {err:.3e}")
+              f"{bytes_ms:.5f}){extra}; max abs err {err:.3e}, 0 iterations {zero_err:.3e}")
+        entry = dict(shape=f"P={p} K1={k1} iters={LARGE_ITERS}", ms=ms, ms_per_call=call_ms,
+                     plain_ms=plain_ms, bound_ms=bound, bound_by=by, max_abs_err=err,
+                     library_ms=None)
         if k1 == LARGE_PATCH + 1:
-            kernels["sinkhorn"]["stream_path"] = dict(
-                shape=f"P={LARGE_P} K1={k1} iters={LARGE_ITERS}", ms=ms, ms_per_call=call_ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by, design_bound_ms=stream_ms,
-                max_abs_err=err, library_ms=None)
+            kernels["sinkhorn"]["cluster_path"] = dict(entry, cluster=plan.cluster)
+        if plan.route == "stream":
+            kernels["sinkhorn"]["stream_path"] = dict(entry, design_bound_ms=stream_ms)
+    print("sinkhorn cluster path: cudaOccupancyMaxActiveClusters by cluster size "
+          + json.dumps(occupancy))
 
 
 NEAR_TIE_RTOL = 1e-4  # phase 16: a node pair matched on one device only, above that side's floor
@@ -2925,14 +2985,16 @@ def near_tie_plan_error(a, b):
     return float((pa - pb)[live].abs().max()), len(common), parted, gap
 
 
-def record_large_phase(per_pair, kernels):
+def record_large_phase(per_pair, block_launches, kernels):
     """Phase 16's launches into the kernels line: per pair by kernel, and in
-    its timed window by the large-shape path."""
-    for name, path in (("radius_knn", "select_path"), ("sinkhorn", "stream_path")):
+    its timed window by the large-shape path; the block path's in its graph
+    build at ``BLOCK_LIMITS``."""
+    for name, path in (("radius_knn", "select_path"), ("sinkhorn", "cluster_path")):
         kernels[name]["launches_per_large_shape_pair"] = sum(per_pair[name].values())
-        big = "select" if name == "radius_knn" else "stream"
+        big = path.split("_")[0]
         kernels[name][path].update(launches=round(per_pair[name][big] * LARGE_TIMED),
                                    launches_per_pair=per_pair[name][big])
+    kernels["radius_knn"]["block_path"]["launches"] = block_launches
 
 
 def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
@@ -2978,7 +3040,7 @@ def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
     dt = (time.perf_counter() - t0) / LARGE_TIMED
     paths = path_launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    if paths["radius_knn"]["select"] == 0 or paths["sinkhorn"]["stream"] == 0:
+    if paths["radius_knn"]["select"] == 0 or paths["sinkhorn"]["cluster"] == 0:
         fail(f"large-shape phase: a large-shape path was not launched in the window: {paths}")
     if not all(bool(torch.isfinite(t).all()) for t in outs):
         fail("large-shape phase: non-finite estimated_transform")
@@ -3013,13 +3075,32 @@ def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
         print(knn_line(f"large-shape {item.table}[{item.q_lvl}->{item.s_lvl}] "
                        f"Q={pts[item.q_lvl].shape[1]} S={pts[item.s_lvl].shape[1]} K={item.k} "
                        f"band={item.band}", ms, call_ms, pms, bound, plan, None)
-              + f" sort_rows={plan.sort_rows}; candidate pairs {pairs}")
+              + f"; candidate pairs {pairs}")
         if plan.sort_rows:
             select = [a + b for a, b in zip(select, (ms, call_ms, pms, bound))]
     kernels["radius_knn"]["select_path"] = dict(
         shape=f"the {int(per_pair['radius_knn']['select'])} searches of a phase-16 pair at k = "
               f"{LARGE_LIMITS[0]}", ms=select[0], ms_per_call=select[1], plain_ms=select[2],
         bound_ms=select[3], bound_by="operations", library_ms=None)
+
+    # a graph build whose level-0 search takes the block path: the same
+    # pair's pyramid at a level-0 limit of 2048, set by hand
+    dense = dataclasses.replace(big.pyramid, neighbor_limits=BLOCK_LIMITS)
+    reset_launch_counts()
+    dense_batch = build_pair_batch(rp, rc, sp, sc, torch.eye(4, device=dev), dense)
+    torch.cuda.synchronize()
+    block_paths = path_launch_counts()["radius_knn"]
+    want_paths = {"list": 10, "select": 0, "block": 2}
+    if block_paths != want_paths:
+        fail(f"large-shape phase: the level-0 limit {BLOCK_LIMITS[0]} build launched "
+             f"{block_paths}, not {want_paths}")
+    dpts, dcnts = pair_levels(dense_batch, dense.num_stages)
+    for item in search_plan(dense)[:2]:
+        ms, call_ms, pms, bound, pairs, plan = check_knn(dpts, dcnts, item, kernels)
+        print(knn_line(f"large-shape build at level-0 limit {BLOCK_LIMITS[0]}: {item.table}"
+                       f"[{item.q_lvl}->{item.s_lvl}] K={item.k} band={item.band}", ms, call_ms,
+                       pms, bound, plan, None)
+              + f"; launches of the build {block_paths}; table equal to the plain version")
 
     # the card against the CPU port, same weights and inputs
     m_cpu = RDMNet(big, device="cpu", generator=torch.Generator().manual_seed(SEED))
@@ -3077,7 +3158,7 @@ def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
           f"hypotheses' residuals within {hyp_err:.3e} m, pose {lgr_err:.3e}; whole-path pose "
           f"{tf_err:.3e} ({'held to 1e-4' if held else 'not held'}: CPU pose vs ground truth "
           f"{reg_err:.3e}); phase {time.perf_counter() - t_phase:.3f} s")
-    return per_pair
+    return per_pair, block_paths["block"]
 
 
 def main() -> None:
@@ -3107,7 +3188,7 @@ def main() -> None:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    builds = [_build.Build(name) for name in _build.KERNELS]
+    builds = [_build.Build(name) for name in _build.KERNELS]  # all at once
     for b in builds:
         for line in b.wait().splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "built")):
@@ -3398,7 +3479,7 @@ def main() -> None:
             kernels[name][key] = n
 
     # ---- 16. the model at shapes past the kernels' first paths -------------------------
-    record_large_phase(large_model_phase(dev, card, kernels, cfg, ref, src, gt), kernels)
+    record_large_phase(*large_model_phase(dev, card, kernels, cfg, ref, src, gt), kernels)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -38,23 +38,30 @@
 // (rdmnet_tpu_torch/ops/kernels/radius_knn.py knn_plan). blockIdx.y is the
 // cloud of the (ref, src) pair, so one launch serves one search of a pair.
 //
-// K > 256, the select path (radius_knn_select_launch): a list that long no
-// longer fits in a warp's registers, so each query's K nearest are selected
-// rather than kept sorted while the window streams by. Still a warp per
-// query over the same staged window. A first sweep counts the query's
-// in-radius rows and writes the first SR of them into the warp's sort
-// buffer in shared memory (SR = min(next_pow2(K), 2048) keys of (distance
-// bits << 32 | index)). When they all fit, a bitonic sort of the buffer
-// gives the answer at once: the common case, where far fewer than K rows
-// lie in the radius. Otherwise the output is cut into chunks of SR ranks;
-// each chunk's upper rank is located by a radix select on the distance
-// bits (four sweeps of 8-bit digits into a 256-bin histogram per warp), the
-// rows of the chunk's ranks are emitted in one more sweep (those at a
-// bounding distance counted off in index order, the sweep's order) and
-// sorted. A key's low word is the index, so ties come out in index order,
-// as on the register path. A tiled window is restaged tile by tile in every
-// sweep, so there the sweeps are block-wide and a warp with nothing to do
-// keeps only the barriers.
+// K > 256, the select paths: a list that long no longer fits in a warp's
+// registers, so each query's K nearest are selected rather than kept sorted
+// while the window streams by. Below a K the wrapper's plan states
+// (rdmnet_tpu_torch/ops/kernels/radius_knn.py BLOCK_K_MIN), the warp select
+// path (radius_knn_select_launch): still a warp per query over the same
+// staged window, and a sort buffer of SR = next_pow2(K) keys of (distance
+// bits << 32 | index) a warp, so the whole output fits in it. A first sweep
+// counts the query's in-radius rows and writes the first SR of them into the
+// buffer. When they all fit (the common case: far fewer than SR rows lie in
+// the radius), a bitonic sort of the buffer gives the answer at once.
+// Otherwise the distance bits of the candidate of rank K are located by a
+// radix select (four sweeps of 8-bit digits into a 256-bin histogram per
+// warp), the K nearest are emitted in one more sweep (those at that
+// distance counted off in index order, the sweep's order) and sorted. A
+// key's low word is the index, so ties come out in index order, as on the
+// register path. A tiled window is restaged tile by tile in every sweep, so
+// there the sweeps are block-wide and a warp with nothing to do keeps only
+// the barriers. From that K, the block select path
+// (radius_knn_block_launch): a warp's sort buffer of 2048 keys (16 KB)
+// beside the staged window leaves one block of 4 warps an SM; there a CTA
+// of 16 warps takes one query, computes each distance once, keeps the
+// in-radius keys in shared memory, selects there with all its threads and
+// sorts with a block radix sort (fewer than 257 keys: one warp, in
+// registers), and two CTAs share an SM (radius_knn_block_kernel below).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -62,8 +69,10 @@
 #define KNN_KMAX 256  // the register list's longest bucket; above it the select path
 #define KNN_MAX_WARPS 16
 #define KNN_SMEM_MAX 232448
-#define KNN_SORT_ROWS_MAX 2048
 #define KNN_SELECT_BINS 256
+#define KNB_THREADS 512           // block select path: a CTA of 16 warps a query
+#define KNB_CACHE_KEYS_MAX 8192   // in-radius keys a CTA keeps (64 KB)
+#define KNB_SORT_ROWS_MAX 4096    // keys a CTA sorts at once (32 KB)
 #define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ float knn_dist(float qx, float qy, float qz, float qsq, float4 p) {
@@ -309,21 +318,12 @@ __device__ void warp_bitonic_sort(unsigned long long* a, int cnt, int lane) {
   }
 }
 
-// The candidates of rank < r in (d, j) order: bits < t, or bits == t and
-// among the first e candidates at t in index order. {0, 0} holds none,
-// {~0u, 0} every candidate.
-struct RankBound {
-  unsigned t;
-  int e;
-};
-
 __global__ void __launch_bounds__(KNN_MAX_WARPS * 32, 1)
 radius_knn_select_kernel(const float* __restrict__ q, const float* __restrict__ s,
                          const int* __restrict__ s_count, const int* __restrict__ win, int Q,
                          int S, int K, float r2, int chunk, int band, int n_chunks,
                          int tile_rows, int sort_rows, int* __restrict__ out) {
   extern __shared__ float4 tile[];  // tile_rows rows, then the warps' buffers and histograms
-  __shared__ int block_chunks;
   const int b = blockIdx.y;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -360,7 +360,6 @@ radius_knn_select_kernel(const float* __restrict__ q, const float* __restrict__ 
       tile[t] = make_float4(x, y, z, __fmaf_rn(z, z, __fmaf_rn(y, y, __fmul_rn(x, x))));
     }
   };
-  if (threadIdx.x == 0) block_chunks = 0;
   if (!tiled && end > w) stage(w, end - w);
   __syncthreads();
 
@@ -393,119 +392,96 @@ radius_knn_select_kernel(const float* __restrict__ q, const float* __restrict__ 
     if (ok && pos < sort_rows) buf[pos] = knn_key(bits, j);
     n_in += __popc(m);
   });
-  const int m_out = min(K, n_in);
-  int* op = out + ((size_t)b * Q + (active ? qi : 0)) * K;
-  if (active && n_in <= sort_rows) {  // every candidate is in the buffer
-    __syncwarp();
-    warp_bitonic_sort(buf, n_in, lane);
-    for (int i = lane; i < m_out; i += 32) op[i] = (int)(unsigned)buf[i];
-  }
-  const int chunks = active && n_in > sort_rows ? (m_out + sort_rows - 1) / sort_rows : 0;
-  if (lane == 0 && chunks > 0) atomicMax(&block_chunks, chunks);
-  __syncthreads();
-  const int all_chunks = block_chunks;
 
-  RankBound lo_b{0u, 0};
-  for (int c = 0; c < all_chunks; ++c) {
-    const bool on = c < chunks;
-    const int lo = c * sort_rows, hi = min(lo + sort_rows, m_out);
-    const bool pick = on && hi < n_in;  // the chunk ends inside the candidates
-    RankBound hi_b{~0u, 0};
-    if (__syncthreads_or(pick)) {
-      // radix select of the candidate of rank hi, 8 bits a sweep
-      unsigned prefix = 0u, pmask = 0u;
-      int rr = hi;  // its rank among the candidates that match the prefix
-      for (int shift = 24; shift >= 0; shift -= 8) {
-        for (int i = lane; i < KNN_SELECT_BINS; i += 32) hist[i] = 0u;
-        __syncwarp();
-        sweep(pick, [&](unsigned bits, bool ok, int) {
-          if (ok && (bits & pmask) == prefix) atomicAdd(&hist[(bits >> shift) & 255u], 1u);
-        });
-        __syncwarp();
-        if (pick) {
-          unsigned cnt8[8], tot = 0u;
+  // more candidates than the buffer holds (n_in > sort_rows >= K): the K
+  // nearest are those with bits < t, and the first e at bits == t in index
+  // order
+  const bool pick = active && n_in > sort_rows;
+  if (__syncthreads_or(pick)) {
+    // radix select of the candidate of rank K, 8 bits a sweep
+    unsigned prefix = 0u, pmask = 0u;
+    int rr = K;  // its rank among the candidates that match the prefix
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      for (int i = lane; i < KNN_SELECT_BINS; i += 32) hist[i] = 0u;
+      __syncwarp();
+      sweep(pick, [&](unsigned bits, bool ok, int) {
+        if (ok && (bits & pmask) == prefix) atomicAdd(&hist[(bits >> shift) & 255u], 1u);
+      });
+      __syncwarp();
+      if (pick) {
+        unsigned cnt8[8], tot = 0u;
 #pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            cnt8[t] = hist[lane * 8 + t];
-            tot += cnt8[t];
-          }
-          unsigned incl = tot;
-#pragma unroll
-          for (int o = 1; o < 32; o <<= 1) {
-            const unsigned x = __shfl_up_sync(FULL_MASK, incl, o);
-            if (lane >= o) incl += x;
-          }
-          const unsigned excl = incl - tot;
-          const bool mine = excl <= (unsigned)rr && (unsigned)rr < incl;
-          const int src = __ffs(__ballot_sync(FULL_MASK, mine)) - 1;
-          int digit = 0;
-          unsigned before = excl;
-          bool found = false;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            if (!found && (unsigned)rr < before + cnt8[t]) {
-              digit = lane * 8 + t;
-              found = true;
-            } else if (!found) {
-              before += cnt8[t];
-            }
-          }
-          digit = __shfl_sync(FULL_MASK, digit, src);
-          before = __shfl_sync(FULL_MASK, before, src);
-          rr -= (int)before;
-          prefix |= (unsigned)digit << shift;
-          pmask |= 255u << shift;
+        for (int t = 0; t < 8; ++t) {
+          cnt8[t] = hist[lane * 8 + t];
+          tot += cnt8[t];
         }
-        __syncwarp();
+        unsigned incl = tot;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned x = __shfl_up_sync(FULL_MASK, incl, o);
+          if (lane >= o) incl += x;
+        }
+        const unsigned excl = incl - tot;
+        const bool mine = excl <= (unsigned)rr && (unsigned)rr < incl;
+        const int src = __ffs(__ballot_sync(FULL_MASK, mine)) - 1;
+        int digit = 0;
+        unsigned before = excl;
+        bool found = false;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          if (!found && (unsigned)rr < before + cnt8[t]) {
+            digit = lane * 8 + t;
+            found = true;
+          } else if (!found) {
+            before += cnt8[t];
+          }
+        }
+        digit = __shfl_sync(FULL_MASK, digit, src);
+        before = __shfl_sync(FULL_MASK, before, src);
+        rr -= (int)before;
+        prefix |= (unsigned)digit << shift;
+        pmask |= 255u << shift;
       }
-      if (pick) hi_b = RankBound{prefix, rr};
+      __syncwarp();
     }
-    // emit the candidates of ranks [lo, hi), then sort them
-    int cnt = 0, tie_lo = 0, tie_hi = 0;
-    sweep(on, [&](unsigned bits, bool ok, int j) {
-      const bool eq_lo = ok && bits == lo_b.t, eq_hi = ok && bits == hi_b.t;
-      const unsigned m_lo = __ballot_sync(FULL_MASK, eq_lo);
-      const unsigned m_hi = __ballot_sync(FULL_MASK, eq_hi);
-      const bool under_lo =
-          bits < lo_b.t || (eq_lo && tie_lo + __popc(m_lo & lanes_below) < lo_b.e);
-      const bool under_hi =
-          bits < hi_b.t || (eq_hi && tie_hi + __popc(m_hi & lanes_below) < hi_b.e);
-      const bool sel = ok && under_hi && !under_lo;
+    // emit the K nearest into the buffer
+    int cnt = 0, ties = 0;
+    sweep(pick, [&](unsigned bits, bool ok, int j) {
+      const bool eq = ok && bits == prefix;
+      const unsigned m_eq = __ballot_sync(FULL_MASK, eq);
+      const bool sel = ok && (bits < prefix || (eq && ties + __popc(m_eq & lanes_below) < rr));
       const unsigned m = __ballot_sync(FULL_MASK, sel);
-      const int pos = cnt + __popc(m & lanes_below);
-      if (sel && pos < sort_rows) buf[pos] = knn_key(bits, j);
+      if (sel) buf[cnt + __popc(m & lanes_below)] = knn_key(bits, j);
       cnt += __popc(m);
-      tie_lo += __popc(m_lo);
-      tie_hi += __popc(m_hi);
+      ties += __popc(m_eq);
     });
-    if (on) {
-      __syncwarp();
-      warp_bitonic_sort(buf, min(cnt, sort_rows), lane);  // cnt == hi - lo
-      for (int i = lane; i < hi - lo; i += 32) op[lo + i] = (int)(unsigned)buf[i];
-      __syncwarp();
-    }
-    lo_b = hi_b;
   }
-  if (active)
+  if (active) {
+    const int m_out = min(K, n_in);
+    int* op = out + ((size_t)b * Q + qi) * K;
+    __syncwarp();
+    warp_bitonic_sort(buf, pick ? K : n_in, lane);
+    for (int i = lane; i < m_out; i += 32) op[i] = (int)(unsigned)buf[i];
     for (int i = m_out + lane; i < K; i += 32) op[i] = S;
+  }
 }
 
-// The select path, for any K >= 1 (the wrapper takes it for K > 256):
-// arguments as radius_knn_launch, with sort_rows (a power of two in
-// [32, 2048]) the keys of each warp's sort buffer. Dynamic shared memory:
-// tile_rows float4 rows, then warps x sort_rows 8-byte keys and warps x 256
-// histogram bins. Returns cudaGetLastError() after the launch.
+// The warp select path, for 1 <= K <= sort_rows: arguments as
+// radius_knn_launch, with sort_rows (a power of two >= 32) the keys of each
+// warp's sort buffer. Dynamic shared memory: tile_rows float4 rows, then
+// warps x sort_rows 8-byte keys and warps x 256 histogram bins. Returns
+// cudaGetLastError() after the launch.
 extern "C" int radius_knn_select_launch(const float* q, const float* s, const int* s_count,
                                         const int* win, int B, int Q, int S, int K, float r2,
                                         int chunk, int band, int n_chunks, int warps,
                                         int sort_rows, int tile_rows, int* out, void* stream) {
-  if (K < 1 || sort_rows < 32 || sort_rows > KNN_SORT_ROWS_MAX || (sort_rows & (sort_rows - 1)))
+  if (K < 1 || K > sort_rows || sort_rows < 32 || (sort_rows & (sort_rows - 1)))
     return (int)cudaErrorInvalidValue;
   if (warps < 1 || warps > KNN_MAX_WARPS || tile_rows < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)tile_rows * sizeof(float4) +
                       (size_t)warps * (sort_rows * sizeof(unsigned long long) +
                                        KNN_SELECT_BINS * sizeof(unsigned));
-  if (smem + sizeof(int) > KNN_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (smem > KNN_SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (win != nullptr && (chunk <= 0 || chunk % 64 != 0 || chunk % warps != 0 || band <= 0))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Q == 0) return 0;
@@ -517,5 +493,391 @@ extern "C" int radius_knn_select_launch(const float* q, const float* s, const in
   dim3 grid((Q + warps - 1) / warps, B);
   radius_knn_select_kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
       q, s, s_count, win, Q, S, K, r2, chunk, band, n_chunks, tile_rows, sort_rows, out);
+  return (int)cudaGetLastError();
+}
+
+// ---- large K: the block select path -------------------------------------------------------
+
+// Compare-exchange of a bitonic network: x (the lower index) keeps the
+// smaller key when up.
+__device__ __forceinline__ void cmp_swap(unsigned long long& x, unsigned long long& y, bool up) {
+  const unsigned long long lo = x < y ? x : y, hi = x < y ? y : x;
+  x = up ? lo : hi;
+  y = up ? hi : lo;
+}
+
+// Sort a[0, n) ascending in place, n <= 32 * R, by one warp in registers:
+// v[j] holds element j * 32 + lane (padded with the largest key), and a
+// bitonic network's stages of stride 32 or more swap two registers of a
+// lane, the smaller ones exchange across lanes by shuffles.
+template <int R>
+__device__ void warp_register_sort(unsigned long long* a, int n, int lane) {
+  unsigned long long v[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) v[j] = j * 32 + lane < n ? a[j * 32 + lane] : ~0ull;
+  for (int size = 2; size <= 32 * R; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 32) {  // registers j and j + stride / 32 of this lane
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+#pragma unroll
+          for (int t = 1; t < R; t <<= 1) {
+            if (t == stride >> 5 && !(j & t)) cmp_swap(v[j], v[j | t], ((j * 32) & size) == 0);
+          }
+        }
+      } else {  // lane ^ stride, the same register
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const unsigned long long p = __shfl_xor_sync(FULL_MASK, v[j], stride);
+          const bool up = ((j * 32 + lane) & size) == 0;
+          const bool take_min = ((lane & stride) == 0) == up;
+          v[j] = take_min ? (v[j] < p ? v[j] : p) : (v[j] < p ? p : v[j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    if (j * 32 + lane < n) a[j * 32 + lane] = v[j];
+}
+
+// The lanes whose 8-bit digit equals this lane's, among the lanes with ok
+// (eight ballots).
+__device__ __forceinline__ unsigned same_digit(unsigned d, bool ok) {
+  unsigned same = __ballot_sync(FULL_MASK, ok);
+#pragma unroll
+  for (int bit = 0; bit < 8; ++bit) {
+    const unsigned set = __ballot_sync(FULL_MASK, (d >> bit) & 1u);
+    same &= (d >> bit) & 1u ? set : ~set;
+  }
+  return same;
+}
+
+// Sort a[0, n) ascending in place (n <= KNB_SORT_ROWS_MAX); every thread of
+// the block calls it, and a barrier follows. n <= 256: warp 0 alone, in
+// registers (warp_register_sort). Larger n: a least-significant-digit radix
+// sort on the bytes in which the keys differ (found by an AND and an OR over
+// all keys; for (distance bits, index) keys ~6 of 8). Each pass is stable:
+// the keys are read in position order into registers (warp w holds
+// positions [w * seg, (w + 1) * seg), up to 8 a lane), each warp counts its
+// keys' digits into its own 256 bins (one increment a group of equal digits
+// in a step of 32 keys), 256 threads turn the bins into offsets in (digit,
+// warp) order, and every key is written to its offset plus its rank among
+// the earlier keys of its warp with that digit. whist: 16 x 256 bins; bits:
+// 2 keys; wsum: 8 words. (PERF.md, section 6, times it against two bitonic
+// sorts on an H100.)
+__device__ void block_sort(unsigned long long* a, int n, unsigned* whist,
+                           unsigned long long* bits, unsigned* wsum) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (n <= 1) return;  // block-uniform
+  if (n <= 256) {
+    if (warp == 0) {
+      if (n <= 32)
+        warp_register_sort<1>(a, n, lane);
+      else if (n <= 64)
+        warp_register_sort<2>(a, n, lane);
+      else if (n <= 128)
+        warp_register_sort<4>(a, n, lane);
+      else
+        warp_register_sort<8>(a, n, lane);
+    }
+    return;
+  }
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const int steps = (n + KNB_THREADS - 1) / KNB_THREADS;  // <= 8
+  const int seg = 32 * steps;
+  if (tid == 0) {
+    bits[0] = ~0ull;
+    bits[1] = 0ull;
+  }
+  __syncthreads();
+  unsigned long long k_and = ~0ull, k_or = 0ull;
+  for (int i = 0; i < steps; ++i) {
+    const int p = warp * seg + i * 32 + lane;
+    if (p < n) {
+      k_and &= a[p];
+      k_or |= a[p];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    k_and &= __shfl_xor_sync(FULL_MASK, k_and, o);
+    k_or |= __shfl_xor_sync(FULL_MASK, k_or, o);
+  }
+  if (lane == 0) {
+    atomicAnd(&bits[0], k_and);
+    atomicOr(&bits[1], k_or);
+  }
+  __syncthreads();
+  const unsigned long long vary = bits[0] ^ bits[1];
+  unsigned* const hw = whist + warp * KNN_SELECT_BINS;
+  for (int sh = 0; sh < 64; sh += 8) {
+    if (((vary >> sh) & 255ull) == 0ull) continue;  // one digit for every key
+    for (int d = lane; d < KNN_SELECT_BINS; d += 32) hw[d] = 0u;
+    __syncwarp();
+    unsigned long long key[8];
+    unsigned rank[4];  // two 16-bit ranks a word (n <= 4096)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < steps) {
+        const int p = warp * seg + i * 32 + lane;
+        const bool ok = p < n;
+        key[i] = ok ? a[p] : 0ull;
+        const unsigned d = (unsigned)(key[i] >> sh) & 255u;
+        const unsigned same = same_digit(d, ok);
+        const unsigned base = hw[d];
+        __syncwarp();
+        if (ok && lane == __ffs(same) - 1) hw[d] = base + __popc(same);
+        const unsigned r = base + __popc(same & lanes_below);
+        rank[i >> 1] = i & 1 ? rank[i >> 1] | (r << 16) : r;
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    // bins -> offsets in (digit, warp) order, thread t < 256 the digit t
+    unsigned tot = 0u, incl = 0u;
+    if (tid < KNN_SELECT_BINS) {
+#pragma unroll
+      for (int w = 0; w < KNB_THREADS / 32; ++w) tot += whist[w * KNN_SELECT_BINS + tid];
+      incl = tot;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned x = __shfl_up_sync(FULL_MASK, incl, o);
+        if (lane >= o) incl += x;
+      }
+      if (lane == 31) wsum[warp] = incl;
+    }
+    __syncthreads();
+    if (tid < KNN_SELECT_BINS) {
+      unsigned run = incl - tot;
+      for (int i = 0; i < warp; ++i) run += wsum[i];
+#pragma unroll
+      for (int w = 0; w < KNB_THREADS / 32; ++w) {
+        const unsigned x = whist[w * KNN_SELECT_BINS + tid];
+        whist[w * KNN_SELECT_BINS + tid] = run;
+        run += x;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < steps && warp * seg + i * 32 + lane < n) {
+        const unsigned r = (rank[i >> 1] >> (16 * (i & 1))) & 0xffffu;
+        a[hw[(unsigned)(key[i] >> sh) & 255u] + r] = key[i];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One CTA per query (blockIdx.x) of cloud blockIdx.y. One sweep over the
+// query's window, split over the block's threads (four rows a thread a step,
+// their loads in flight together), computes each row's distance once and
+// appends the in-radius rows' 64-bit keys (distance bits, index) to a cache
+// in shared memory (warp-aggregated: ballots, one shared counter increment
+// a warp a step). Keys are unique (the index is in the low word) and their order
+// is the (d, j) order, so which thread appended a key, and when, does not
+// matter. When every in-radius key is cached and fits in sort_rows, the
+// cache is sorted in place (block_sort) and the first K written. Otherwise
+// the output is cut into chunks of sort_rows ranks; the separator of a
+// chunk's upper rank hi (a key T with exactly hi keys below it) comes from
+// a radix select over the keys, 8 bits a pass from the top, into one shared
+// 256-bin histogram with warp-aggregated increments (__match_any_sync: one
+// atomicAdd per distinct bin a warp), ending at the first pass whose remaining rank is 0.
+// The chunk's keys (T_lo <= key < T_hi) are gathered into the sort buffer
+// and sorted there. A query whose in-radius rows overflow the cache (a
+// window of more than cache_keys rows) runs the same passes over its window
+// instead of the cache, recomputing the distances each pass.
+__global__ void __launch_bounds__(KNB_THREADS, 2)
+radius_knn_block_kernel(const float* __restrict__ q, const float* __restrict__ s,
+                        const int* __restrict__ s_count, const int* __restrict__ win, int Q,
+                        int S, int K, float r2, int chunk, int band, int n_chunks, int cache_keys,
+                        int sort_rows, int* __restrict__ out) {
+  // cache_keys keys, then sort_rows keys, then 16 warps' 256 bins
+  extern __shared__ unsigned long long keys[];
+  unsigned long long* const sbuf = keys + cache_keys;
+  unsigned* const whist = reinterpret_cast<unsigned*>(sbuf + sort_rows);
+  unsigned* const hist = whist;  // the separator's bins (not used while sorting)
+  __shared__ int n_sh, cnt_sh;
+  __shared__ unsigned digit_sh, before_sh;
+  __shared__ unsigned long long bits_sh[2];
+  __shared__ unsigned wsum_sh[KNN_SELECT_BINS / 32];
+  const int b = blockIdx.y, qi = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const unsigned lanes_below = (1u << lane) - 1u;
+
+  int w = 0, len = S;
+  if (win != nullptr) {
+    w = win[b * n_chunks + qi / chunk];
+    len = band;
+  }
+  const int end = min(w + len, s_count[b]);  // rows >= s_count are invalid
+  const float* qp = q + ((size_t)b * Q + qi) * 3;
+  const float qx = qp[0], qy = qp[1], qz = qp[2];
+  const float qsq = __fmaf_rn(qz, qz, __fmaf_rn(qy, qy, __fmul_rn(qx, qx)));
+  const float* sb = s + (size_t)b * S * 3;
+  // the key of row j and whether it lies inside the radius (j < end)
+  auto row_key = [&](int j, bool& ok) -> unsigned long long {
+    const float* sp = sb + (size_t)j * 3;
+    const float x = sp[0], y = sp[1], z = sp[2];
+    const float d = knn_dist(qx, qy, qz, qsq,
+                             make_float4(x, y, z, __fmaf_rn(z, z, __fmaf_rn(y, y, __fmul_rn(x, x)))));
+    ok = d <= r2;
+    return knn_key(dist_bits(d), j);
+  };
+
+  // the in-radius keys, cached while they fit
+  if (tid == 0) n_sh = 0;
+  __syncthreads();
+  for (int base = w; base < end; base += 4 * KNB_THREADS) {
+    unsigned long long key[4];
+    bool ok[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = base + r * KNB_THREADS + tid;
+      ok[r] = false;
+      key[r] = j < end ? row_key(j, ok[r]) : 0ull;
+    }
+    unsigned m[4];
+    int total = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      m[r] = __ballot_sync(FULL_MASK, ok[r]);
+      total += __popc(m[r]);
+    }
+    int at = 0;  // one counter increment a warp for its four rows
+    if (lane == 0 && total) at = atomicAdd(&n_sh, total);
+    at = __shfl_sync(FULL_MASK, at, 0);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int pos = at + __popc(m[r] & lanes_below);
+      if (ok[r] && pos < cache_keys) keys[pos] = key[r];
+      at += __popc(m[r]);
+    }
+  }
+  __syncthreads();
+  const int n = n_sh;
+  const bool cached = n <= cache_keys;  // block-uniform
+  const int m_out = min(K, n);
+  int* op = out + ((size_t)b * Q + qi) * K;
+
+  // f(key, ok) for every in-radius key (ok false on padding lanes), each
+  // warp's lanes together
+  auto each = [&](auto&& f) {
+    if (cached) {
+      for (int i0 = 0; i0 < n; i0 += KNB_THREADS) {
+        const int i = i0 + tid;
+        f(i < n ? keys[i] : 0ull, i < n);
+      }
+    } else {
+      for (int base = w; base < end; base += KNB_THREADS) {
+        const int j = base + tid;
+        bool ok = false;
+        unsigned long long key = 0ull;
+        if (j < end) key = row_key(j, ok);
+        f(key, ok);
+      }
+    }
+  };
+
+  // a separator of rank hi < n: T with exactly hi keys below it
+  auto separator = [&](int hi) -> unsigned long long {
+    unsigned long long prefix = 0ull;
+    int rr = hi;  // the rank still to place among the keys that match the prefix
+    for (int shift = 56; shift >= 0; shift -= 8) {
+      const unsigned long long above = shift == 56 ? 0ull : ~0ull << (shift + 8);
+      for (int i = tid; i < KNN_SELECT_BINS; i += KNB_THREADS) hist[i] = 0u;
+      __syncthreads();
+      each([&](unsigned long long key, bool ok) {
+        const bool in = ok && (key & above) == prefix;
+        const unsigned digit = (unsigned)(key >> shift) & 255u;
+        const unsigned peers = __match_any_sync(FULL_MASK, in ? digit : ~0u);
+        if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], (unsigned)__popc(peers));
+      });
+      __syncthreads();
+      if (tid < 32) {
+        unsigned cnt8[8], tot = 0u;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          cnt8[t] = hist[lane * 8 + t];
+          tot += cnt8[t];
+        }
+        unsigned incl = tot;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned x = __shfl_up_sync(FULL_MASK, incl, o);
+          if (lane >= o) incl += x;
+        }
+        unsigned before = incl - tot;
+        if (before <= (unsigned)rr && (unsigned)rr < incl) {  // one lane
+          int t = 0;
+          while ((unsigned)rr >= before + cnt8[t]) before += cnt8[t++];
+          digit_sh = lane * 8 + t;
+          before_sh = before;
+        }
+      }
+      __syncthreads();
+      rr -= (int)before_sh;
+      prefix |= (unsigned long long)digit_sh << shift;
+      if (rr == 0) break;  // block-uniform: keys below prefix (lower bits 0) number hi
+    }
+    return prefix;
+  };
+
+  if (cached && n <= sort_rows) {
+    block_sort(keys, n, whist, bits_sh, wsum_sh);
+    __syncthreads();
+    for (int i = tid; i < m_out; i += KNB_THREADS) op[i] = (int)(unsigned)keys[i];
+  } else {
+    unsigned long long lo_t = 0ull;
+    for (int lo = 0; lo < m_out; lo += sort_rows) {
+      const int hi = min(lo + sort_rows, m_out);
+      const unsigned long long hi_t = hi < n ? separator(hi) : ~0ull;
+      if (tid == 0) cnt_sh = 0;
+      __syncthreads();
+      each([&](unsigned long long key, bool ok) {
+        const bool sel = ok && key >= lo_t && key < hi_t;
+        const unsigned m = __ballot_sync(FULL_MASK, sel);
+        int at = 0;
+        if (lane == 0 && m) at = atomicAdd(&cnt_sh, __popc(m));
+        at = __shfl_sync(FULL_MASK, at, 0) + __popc(m & lanes_below);
+        if (sel) sbuf[at] = key;  // at < sort_rows: the chunk's hi - lo keys
+      });
+      __syncthreads();
+      block_sort(sbuf, cnt_sh, whist, bits_sh, wsum_sh);
+      __syncthreads();
+      for (int i = tid; i < hi - lo; i += KNB_THREADS) op[lo + i] = (int)(unsigned)sbuf[i];
+      __syncthreads();
+      lo_t = hi_t;
+    }
+  }
+  for (int i = m_out + tid; i < K; i += KNB_THREADS) op[i] = S;
+}
+
+// The block select path, for any K >= 1 (the wrapper takes it for large K):
+// arguments as radius_knn_launch; cache_keys (a power of two in [32, 8192])
+// in-radius keys a CTA keeps, sort_rows (a power of two in [32, 4096]) keys it
+// sorts at once. Dynamic shared memory: (cache_keys + sort_rows) 8-byte keys
+// and 16 x 256 histogram bins. Returns cudaGetLastError() after the launch.
+extern "C" int radius_knn_block_launch(const float* q, const float* s, const int* s_count,
+                                       const int* win, int B, int Q, int S, int K, float r2,
+                                       int chunk, int band, int n_chunks, int cache_keys,
+                                       int sort_rows, int* out, void* stream) {
+  if (K < 1 || sort_rows < 32 || sort_rows > KNB_SORT_ROWS_MAX || (sort_rows & (sort_rows - 1)))
+    return (int)cudaErrorInvalidValue;
+  if (cache_keys < 32 || cache_keys > KNB_CACHE_KEYS_MAX || (cache_keys & (cache_keys - 1)))
+    return (int)cudaErrorInvalidValue;
+  if (win != nullptr && (chunk <= 0 || band <= 0)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Q == 0) return 0;
+  const size_t smem = (size_t)(cache_keys + sort_rows) * sizeof(unsigned long long) +
+                      (KNB_THREADS / 32) * KNN_SELECT_BINS * sizeof(unsigned);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(radius_knn_block_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(Q, B);
+  radius_knn_block_kernel<<<grid, KNB_THREADS, smem, (cudaStream_t)stream>>>(
+      q, s, s_count, win, Q, S, K, r2, chunk, band, n_chunks, cache_keys, sort_rows, out);
   return (int)cudaGetLastError();
 }

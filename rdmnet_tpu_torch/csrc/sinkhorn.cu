@@ -37,30 +37,75 @@
 // without spilling, so two CTAs share an SM and the 256 patches of the main
 // path run in one wave on 132 SMs; N = 13 (K1 <= 208) runs one CTA an SM.
 //
-// K1 > 208, the streaming path (sinkhorn_stream_launch): a patch no longer
-// fits in the registers of a CTA (at K1 = 257 it is 264 KB, above the 227 KB
-// of shared memory too), so one CTA of 512 threads per patch reads the patch
-// from device memory in every half-step. Row half-step: a warp per row, each
-// lane an online (max, exp-sum) over its columns, 8 loads in flight a step
-// (rescaled once a step), then a 5-step shuffle merge. Column half-step:
-// warp g takes rows g + 16 i and lane l column c0 + l, so each load of a
-// warp is 32 consecutive floats of one row; each (warp, column) keeps an
-// online partial, and after a barrier thread c merges column c's 16
-// partials with the online-softmax rescale into v[c]. u, v and the
-// partials live in a scratch buffer the wrapper allocates ((2 + 2 x 16) K1
-// floats a patch), so K1 is bounded by device memory alone. Three barriers
-// an iteration. What bounds this design: bytes, since every half-step
-// reads the patch again: at P = 256, K1 = 257, 100 iterations, 200 x 67.6
-// MB ~ 4.0 ms at 3.35 TB/s. The function itself stays bound by operations:
-// its 3.38e9 exponentials take ~0.81 ms on the SFU (inputs and output once:
-// ~0.04 ms).
+// 208 < K1 <= 546, the cluster path (sinkhorn_cluster_launch): a patch no
+// longer fits in the registers of a CTA (at K1 = 257 it is 264 KB, above the
+// 227 KB of shared memory of one SM too), but it fits in the shared memory of
+// a thread-block cluster of C = 2, 4 or 8 CTAs on neighbouring SMs, which
+// read each other's shared memory. CTA `rank` of a patch's cluster holds the
+// band of rows [rank B, rank B + B), B = ceil(K1 / C), read from device
+// memory once and kept in log2 units, beside a full copy of v and its rows'
+// u. 16 warps; warp a holds rows a + 16 i of the band and lane b columns
+// b + 32 j, j < NC, NC = ceil(K1 / 32) a template argument, so every loop
+// over a lane's columns unrolls and its loads carry no predicate (only the
+// last chunk's is clamped and masked) and a row's loads issue together:
+// per-lane predicates and a runtime chunk bound keep them apart and leave
+// the sweeps latency-bound, ~2x slower. Row half-step: local to the
+// CTA, the register path's LSE (ex2/lg2 PTX) over four rows of a warp at a
+// time, their maxima and sums reduced together by a reduce-scatter over the
+// lanes (6 shuffles for four rows where four reductions take 20); u stays
+// with the warp that computed it, so no barrier. Column half-step: each warp
+// writes per-column (max, exp-sum) partials over its rows (two sweeps of the
+// band, two rows a step: max, then sum), a barrier, and thread c merges
+// column c's 16 partials with the online-softmax rescale into the CTA's
+// partial, written into one of two exchange buffers by iteration parity.
+// After one cluster.sync() every CTA reads the C partials of each of its
+// merge columns through cluster.map_shared_rank (all in flight at once) and
+// merges them into v, redundantly, so no second exchange is needed; a
+// barrier publishes v. The parity buffers make
+// one cluster barrier an iteration enough: a CTA writes buffer it & 1 again
+// only after the next iteration's cluster barrier, which every CTA reaches
+// after its reads of it. A last cluster.sync() keeps every CTA resident
+// until no other CTA reads its shared memory. What bounds it: the function's
+// own operations, the exps (at P = 256, K1 = 257, 100 iterations: 3.38e9,
+// ~0.81 ms on the SFU); the patch crosses device memory once each way. On
+// an H100 it runs at ~3.4x that, as the register path runs at ~3x its own:
+// with 16 warps an SM the sweeps are latency-bound, and the merges and the
+// cluster barrier take ~30% of an iteration (rdmnet_tpu_torch/tools/
+// kernel_probe.py times the parts). The plan (rdmnet_tpu_torch/ops/kernels/sinkhorn.py sinkhorn_plan) takes the
+// smallest C whose band, vectors and partials fit in 232,448 bytes a CTA:
+// C = 2 to K1 = 304, 4 to 412, 8 to 546.
+//
+// K1 > 546, the streaming path (sinkhorn_stream_launch): a patch fits in no
+// cluster of the portable sizes, so one CTA of 512 threads per patch reads
+// the patch from device memory in every half-step. Row half-step: a warp per
+// row, each lane an online (max, exp-sum) over its columns, 8 loads in
+// flight a step (rescaled once a step), then a 5-step shuffle merge. Column
+// half-step: warp g takes rows g + 16 i and lane l column c0 + l, so each
+// load of a warp is 32 consecutive floats of one row; each (warp, column)
+// keeps an online partial, and after a barrier thread c merges column c's 16
+// partials with the online-softmax rescale into v[c]. u, v and the partials
+// live in a scratch buffer the wrapper allocates ((2 + 2 x 16) K1 floats a
+// patch), so K1 is bounded by device memory alone. Three barriers an
+// iteration. What bounds this design: bytes, since every half-step reads the
+// patch again: at P = 256, K1 = 600, 100 iterations, 200 x 368.6 MB ~ 22 ms
+// at 3.35 TB/s, against the function's 1.84e10 exponentials, ~4.4 ms on the
+// SFU.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+namespace cg = cooperative_groups;
+
 #define SK_THREADS 256
 #define SK_GRID 16  // SK_GRID x SK_GRID threads
-#define SK_MAX_K1 208  // the register path's largest patch; above it the streaming path
+#define SK_MAX_K1 208  // the register path's largest patch; above it the cluster path
+#define SKC_THREADS 512
+#define SKC_WARPS (SKC_THREADS / 32)
+#define SKC_MAX_CLUSTER 8   // the largest portable cluster
+#define SKC_MERGE_COLS 2    // merge columns a thread: K1 <= 2 x SKC_THREADS
+#define SKC_SMEM_MAX 232448
+#define SKC_NO_CLUSTER (-1)  // returned when no cluster of the plan fits on the card
 #define SK_STREAM_THREADS 512
 #define SK_STREAM_WARPS (SK_STREAM_THREADS / 32)
 #define SK_STREAM_CH 8  // loads in flight per lane and step
@@ -255,7 +300,7 @@ extern "C" int sinkhorn_launch(const float* scores, const float* log_mu, const f
   return launch<13>(scores, log_mu, log_nu, P, K1, iters, out, st);
 }
 
-// ---- K1 > 208: the streaming path ----------------------------------------------------
+// ---- K1 > 546: the streaming path ----------------------------------------------------
 
 // Fold a step's values x (their max cm) into an online (m, sum) in log2
 // units: sum of 2^(x - m). Entries outside the patch hold -inf; a state that
@@ -355,7 +400,7 @@ sinkhorn_stream_kernel(const float* __restrict__ scores, const float* __restrict
   }
 }
 
-// The streaming path, for any K1 >= 1 (the wrapper takes it for K1 > 208):
+// The streaming path, for any K1 >= 1 (the wrapper takes it for K1 > 546):
 // scores (P, K1, K1), log_mu / log_nu (P, K1), out (P, K1, K1) float32 and
 // contiguous; scratch P x (2 + 2 x 16) x K1 float32, written and read by the
 // kernel only. Returns cudaGetLastError() after the launch.
@@ -366,5 +411,348 @@ extern "C" int sinkhorn_stream_launch(const float* scores, const float* log_mu,
   if (P == 0) return 0;
   sinkhorn_stream_kernel<<<P, SK_STREAM_THREADS, 0, (cudaStream_t)stream>>>(
       scores, log_mu, log_nu, K1, iters, scratch, out);
+  return (int)cudaGetLastError();
+}
+
+// ---- 208 < K1 <= 546: the cluster path -----------------------------------------------
+
+// Dynamic shared memory a CTA takes: the two parity exchange buffers (2 x 2 x
+// K1), v (K1), its rows' log_mu and u (2 x band_rows), the warps' column
+// partials (2 x 16 x K1) and its band (band_rows x K1); floats.
+static size_t cluster_smem_bytes(int K1, int band_rows) {
+  return sizeof(float) * ((size_t)band_rows * K1 + (2 * SKC_WARPS + 5) * (size_t)K1 +
+                          2 * (size_t)band_rows);
+}
+
+// A lane's values of one band row: columns lane + 32 j, j < NC. The last
+// chunk is the only one that may pass K1; its load is clamped to the row's
+// last column (always valid) and masked to -inf, so every load is
+// unconditional and the compiler can issue a row's loads together.
+template <int NC>
+__device__ __forceinline__ void load_row(const float* x, int last_off, bool last_ok,
+                                         float (&a)[NC]) {
+#pragma unroll
+  for (int j = 0; j < NC - 1; ++j) a[j] = x[32 * j];
+  const float y = x[last_off];
+  a[NC - 1] = last_ok ? y : -CUDART_INF_F;
+}
+
+// Reduce RB per-lane values (RB = 1, 2 or 4, one per row) over the warp with
+// op, scattering the rows over the lanes: afterwards lane l holds row
+// l / (32 / RB)'s result. A reduce-scatter takes RB - 1 + 5 - log2(RB)
+// shuffles where RB separate reductions take 5 RB.
+template <int RB, typename Op>
+__device__ __forceinline__ float reduce_scatter(const float (&x)[RB], int lane, Op op) {
+  float y;
+  if constexpr (RB == 4) {
+    const bool hi = lane & 16;  // keeps rows 2, 3
+    const float a0 = op(hi ? x[2] : x[0], __shfl_xor_sync(FULL_MASK, hi ? x[0] : x[2], 16));
+    const float a1 = op(hi ? x[3] : x[1], __shfl_xor_sync(FULL_MASK, hi ? x[1] : x[3], 16));
+    const bool odd = lane & 8;  // keeps the second of the two
+    y = op(odd ? a1 : a0, __shfl_xor_sync(FULL_MASK, odd ? a0 : a1, 8));
+  } else if constexpr (RB == 2) {
+    const bool hi = lane & 16;
+    y = op(hi ? x[1] : x[0], __shfl_xor_sync(FULL_MASK, hi ? x[0] : x[1], 16));
+  } else {
+    y = x[0];
+  }
+#pragma unroll
+  for (int o = 16 / RB; o > 0; o >>= 1) y = op(y, __shfl_xor_sync(FULL_MASK, y, o));
+  return y;
+}
+
+// u of rows r + 16 k, k < RB (all in the band): the row LSE of s + v over
+// the lanes' columns, the maxima and sums reduced together (reduce_scatter),
+// the maxima broadcast back; lane 32 k / RB writes row k's u.
+template <int RB, int NC>
+__device__ __forceinline__ void row_lse(const float* band, int K1, int r, const float (&v)[NC],
+                                        int last_off, bool last_ok, int lane,
+                                        const float* mu_sh, float* u_sh) {
+  float t[RB][NC], m[RB];
+#pragma unroll
+  for (int k = 0; k < RB; ++k) load_row(band + (size_t)(r + 16 * k) * K1 + lane, last_off,
+                                        last_ok, t[k]);
+#pragma unroll
+  for (int k = 0; k < RB; ++k) {
+    m[k] = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      t[k][j] += v[j];
+      m[k] = fmaxf(m[k], t[k][j]);
+    }
+  }
+  const float mine = reduce_scatter<RB>(m, lane, [](float a, float b) { return fmaxf(a, b); });
+  float sum[RB];
+#pragma unroll
+  for (int k = 0; k < RB; ++k) {
+    m[k] = __shfl_sync(FULL_MASK, mine, 32 / RB * k);
+    sum[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) sum[k] += ex2(t[k][j] - m[k]);
+  }
+  const float tot = reduce_scatter<RB>(sum, lane, [](float a, float b) { return a + b; });
+  if (lane % (32 / RB) == 0) {
+    const int k = lane / (32 / RB);
+    const int row = r + 16 * k;
+    u_sh[row] = mu_sh[row] - (mine + lg2(tot));
+  }
+}
+
+// NC: the column chunks of 32 a lane holds, exactly: 32 (NC - 1) < K1 <= 32 NC.
+// PAIR: the column sweeps take two rows a step (registers allowing).
+template <int NC>
+__global__ void __launch_bounds__(SKC_THREADS, 1)
+sinkhorn_cluster_kernel(const float* __restrict__ scores, const float* __restrict__ log_mu,
+                        const float* __restrict__ log_nu, int K1, int band_rows, int iters,
+                        float* __restrict__ out) {
+  constexpr bool PAIR = NC <= 13;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int p = blockIdx.x / C;
+  const int r0 = rank * band_rows;
+  const int nb = max(0, min(band_rows, K1 - r0));  // rows of this CTA's band
+  extern __shared__ float2 xbuf[];  // [parity][K1] (max, sum); then v, log_mu, u, partials, band
+  float* v_sh = reinterpret_cast<float*>(xbuf + 2 * K1);
+  float* mu_sh = v_sh + K1;
+  float* u_sh = mu_sh + band_rows;
+  float* part_m = u_sh + band_rows;
+  float* part_s = part_m + SKC_WARPS * K1;
+  float* band = part_s + SKC_WARPS * K1;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool last_ok = 32 * (NC - 1) + lane < K1;
+  const int last_off = last_ok ? 32 * (NC - 1) : K1 - 1 - lane;
+  const float* sp = scores + ((size_t)p * K1 + r0) * K1;
+  for (int t = tid; t < nb * K1; t += SKC_THREADS) band[t] = sp[t] * LOG2E;
+  for (int t = tid; t < nb; t += SKC_THREADS) {
+    mu_sh[t] = log_mu[(size_t)p * K1 + r0 + t] * LOG2E;
+    u_sh[t] = 0.f;  // iters = 0: the output is s
+  }
+  float nu_r[SKC_MERGE_COLS];
+#pragma unroll
+  for (int k = 0; k < SKC_MERGE_COLS; ++k) {
+    const int c = tid + k * SKC_THREADS;
+    nu_r[k] = c < K1 ? log_nu[(size_t)p * K1 + c] * LOG2E : 0.f;
+  }
+  float v[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) v[j] = 0.f;
+  __syncthreads();
+
+  for (int it = 0; it < iters; ++it) {
+    // u: row LSE of s + v over the warp's rows, four (registers allowing),
+    // then two, then one at a time
+    {
+      constexpr int RB = NC <= 10 ? 4 : 2;
+      const int nr = warp < nb ? (nb - warp + SKC_WARPS - 1) / SKC_WARPS : 0;  // the warp's rows
+      int i = 0;
+      for (; i + RB <= nr; i += RB)
+        row_lse<RB>(band, K1, warp + SKC_WARPS * i, v, last_off, last_ok, lane, mu_sh, u_sh);
+      if constexpr (RB == 4) {
+        if (i + 2 <= nr) {
+          row_lse<2>(band, K1, warp + SKC_WARPS * i, v, last_off, last_ok, lane, mu_sh, u_sh);
+          i += 2;
+        }
+      }
+      if (i < nr)
+        row_lse<1>(band, K1, warp + SKC_WARPS * i, v, last_off, last_ok, lane, mu_sh, u_sh);
+    }
+    __syncwarp();
+
+    // v: the warp's column partials over its rows, a sweep for the maxima and
+    // one for the sums, two rows a step where registers allow (a row past
+    // the band is a copy of the first with u = -inf: it adds nothing)
+    float cm[NC], cs[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      cm[j] = -CUDART_INF_F;
+      cs[j] = 0.f;
+    }
+    for (int r = warp; r < nb; r += (PAIR ? 2 : 1) * SKC_WARPS) {
+      const int r1 = r + SKC_WARPS;
+      const bool live1 = PAIR && r1 < nb;
+      const float ur0 = u_sh[r], ur1 = live1 ? u_sh[r1] : -CUDART_INF_F;
+      float a0[NC], a1[PAIR ? NC : 1];
+      load_row(band + (size_t)r * K1 + lane, last_off, last_ok, a0);
+      if constexpr (PAIR) {
+        load_row(band + (size_t)(live1 ? r1 : r) * K1 + lane, last_off, last_ok, a1);
+#pragma unroll
+        for (int j = 0; j < NC; ++j) cm[j] = fmaxf(cm[j], fmaxf(a0[j] + ur0, a1[j] + ur1));
+      } else {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) cm[j] = fmaxf(cm[j], a0[j] + ur0);
+      }
+    }
+    for (int r = warp; r < nb; r += (PAIR ? 2 : 1) * SKC_WARPS) {
+      const int r1 = r + SKC_WARPS;
+      const bool live1 = PAIR && r1 < nb;
+      const float ur0 = u_sh[r], ur1 = live1 ? u_sh[r1] : -CUDART_INF_F;
+      float a0[NC], a1[PAIR ? NC : 1];
+      load_row(band + (size_t)r * K1 + lane, last_off, last_ok, a0);
+      if constexpr (PAIR) {
+        load_row(band + (size_t)(live1 ? r1 : r) * K1 + lane, last_off, last_ok, a1);
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+          cs[j] += ex2((a0[j] + ur0) - cm[j]) + ex2((a1[j] + ur1) - cm[j]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) cs[j] += ex2((a0[j] + ur0) - cm[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = 32 * j + lane;
+      if (c < K1) {  // a warp with no row leaves (-inf, 0)
+        part_m[warp * K1 + c] = cm[j];
+        part_s[warp * K1 + c] = cs[j];
+      }
+    }
+    __syncthreads();
+    float2* xq = xbuf + (it & 1) * K1;
+#pragma unroll
+    for (int k = 0; k < SKC_MERGE_COLS; ++k) {
+      const int c = tid + k * SKC_THREADS;
+      if (c < K1) {
+        float pm[SKC_WARPS], mx = -CUDART_INF_F;
+#pragma unroll
+        for (int g = 0; g < SKC_WARPS; ++g) {
+          pm[g] = part_m[g * K1 + c];
+          mx = fmaxf(mx, pm[g]);
+        }
+        float tot = 0.f;
+#pragma unroll
+        for (int g = 0; g < SKC_WARPS; ++g)
+          if (pm[g] != -CUDART_INF_F) tot += part_s[g * K1 + c] * ex2(pm[g] - mx);
+        xq[c] = make_float2(mx, tot);
+      }
+    }
+    cluster.sync();  // every CTA's partials of this iteration are visible
+    // every remote partial of the thread's columns in flight at once
+    float2 pq[SKC_MERGE_COLS][SKC_MAX_CLUSTER];
+#pragma unroll
+    for (int k = 0; k < SKC_MERGE_COLS; ++k) {
+      const int c = tid + k * SKC_THREADS;
+#pragma unroll
+      for (int q = 0; q < SKC_MAX_CLUSTER; ++q)
+        pq[k][q] = c < K1 && q < C ? cluster.map_shared_rank(xq, q)[c]
+                                   : make_float2(-CUDART_INF_F, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < SKC_MERGE_COLS; ++k) {
+      const int c = tid + k * SKC_THREADS;
+      if (c < K1) {
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int q = 0; q < SKC_MAX_CLUSTER; ++q) mx = fmaxf(mx, pq[k][q].x);
+        float tot = 0.f;
+#pragma unroll
+        for (int q = 0; q < SKC_MAX_CLUSTER; ++q)
+          if (pq[k][q].x != -CUDART_INF_F) tot += pq[k][q].y * ex2(pq[k][q].x - mx);
+        v_sh[c] = nu_r[k] - (mx + lg2(tot));
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NC - 1; ++j) v[j] = v_sh[32 * j + lane];
+    v[NC - 1] = last_ok ? v_sh[32 * (NC - 1) + lane] : 0.f;
+  }
+  cluster.sync();  // no CTA leaves while another may still read its partials
+
+  float* op = out + ((size_t)p * K1 + r0) * K1;
+  for (int r = warp; r < nb; r += SKC_WARPS) {
+    const float ur = u_sh[r];  // written by this warp
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = 32 * j + lane;
+      if (c < K1) op[(size_t)r * K1 + c] = ((band[(size_t)r * K1 + c] + ur) + v[j]) * LN2;
+    }
+  }
+}
+
+typedef void (*ClusterKernel)(const float*, const float*, const float*, int, int, int, float*);
+
+static ClusterKernel cluster_kernel(int K1) {
+  switch ((K1 + 31) / 32) {
+    case 7: return sinkhorn_cluster_kernel<7>;
+    case 8: return sinkhorn_cluster_kernel<8>;
+    case 9: return sinkhorn_cluster_kernel<9>;
+    case 10: return sinkhorn_cluster_kernel<10>;
+    case 11: return sinkhorn_cluster_kernel<11>;
+    case 12: return sinkhorn_cluster_kernel<12>;
+    case 13: return sinkhorn_cluster_kernel<13>;
+    case 14: return sinkhorn_cluster_kernel<14>;
+    case 15: return sinkhorn_cluster_kernel<15>;
+    case 16: return sinkhorn_cluster_kernel<16>;
+    case 17: return sinkhorn_cluster_kernel<17>;
+    case 18: return sinkhorn_cluster_kernel<18>;
+    default: return nullptr;
+  }
+}
+
+// The launch configuration of one cluster-path call; 0 or the error.
+static int cluster_config(int P, int K1, int C, ClusterKernel* kern, int* band_rows,
+                          size_t* smem, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                          cudaStream_t st) {
+  if (K1 <= 192 || K1 > 576 || (C != 2 && C != 4 && C != 8)) return (int)cudaErrorInvalidValue;
+  *band_rows = (K1 + C - 1) / C;
+  if (K1 - (C - 1) * *band_rows < 1) return (int)cudaErrorInvalidValue;  // an empty band
+  *smem = cluster_smem_bytes(K1, *band_rows);
+  if (*smem > SKC_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  *kern = cluster_kernel(K1);
+  cudaError_t e = cudaFuncSetAttribute(*kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)*smem);
+  if (e != cudaSuccess) return (int)e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)(P * C));
+  cfg->blockDim = dim3(SKC_THREADS);
+  cfg->dynamicSmemBytes = *smem;
+  cfg->stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+// How many clusters of C CTAs of the cluster path at this K1 the card holds at
+// once (cudaOccupancyMaxActiveClusters) into *clusters. Returns 0 or the error.
+extern "C" int sinkhorn_cluster_occupancy(int K1, int C, int* clusters) {
+  ClusterKernel kern;
+  int band_rows;
+  size_t smem;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int err = cluster_config(1, K1, C, &kern, &band_rows, &smem, &cfg, attr, 0);
+  if (err != 0) return err;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+}
+
+// The cluster path: scores (P, K1, K1), log_mu / log_nu (P, K1), out (P, K1,
+// K1) float32 and contiguous; a cluster of C (2, 4 or 8) CTAs a patch. Returns
+// SKC_NO_CLUSTER when no such cluster fits on the card (nothing is launched:
+// the caller raises, it never falls back), else cudaGetLastError() after the
+// launch.
+extern "C" int sinkhorn_cluster_launch(const float* scores, const float* log_mu,
+                                       const float* log_nu, int P, int K1, int iters, int C,
+                                       float* out, void* stream) {
+  if (iters < 0 || P < 0) return (int)cudaErrorInvalidValue;
+  ClusterKernel kern;
+  int band_rows;
+  size_t smem;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int err = cluster_config(P > 0 ? P : 1, K1, C, &kern, &band_rows, &smem, &cfg, attr,
+                           (cudaStream_t)stream);
+  if (err != 0) return err;
+  if (P == 0) return 0;
+  int clusters = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters < 1) return SKC_NO_CLUSTER;
+  e = cudaLaunchKernelEx(&cfg, kern, scores, log_mu, log_nu, K1, band_rows, iters, out);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

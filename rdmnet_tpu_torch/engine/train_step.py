@@ -282,12 +282,14 @@ def make_train_step(cfg: Config, device=None, group=None) -> Callable:
     return step
 
 
-def make_eval_step(cfg: Config, device=None) -> Callable:
+def make_eval_step(cfg: Config, device=None, with_transform: bool = True) -> Callable:
     """``eval_step(state, batch, valid=None) -> (metrics, transforms (B, 4, 4))``:
     ``with_gt`` inference (the Sinkhorn kernel on the card), the Evaluator
     and ``dropped`` (points or voxels the pyramid's capacities cut) per pair,
     then means over the pairs; ``valid`` (B,) bool weights them when the batch
-    holds more than one pair (a loader's repeated ragged tail)."""
+    holds more than one pair (a loader's repeated ragged tail).
+    ``with_transform=False`` keeps PIR and ``dropped`` only (no IR, RRE, RTE,
+    RR), as the JAX package's keyword does."""
     dev = resolve_device(device)
     evaluator = Evaluator(cfg)
 
@@ -298,7 +300,7 @@ def make_eval_step(cfg: Config, device=None) -> Callable:
         per_pair, transforms = [], []
         for pair in batch:
             out = state.model(pair, training=False, with_gt=True)
-            metrics = evaluator(out, pair)
+            metrics = evaluator(out, pair, evaling=with_transform)
             metrics["dropped"] = (pair.ref.dropped.sum() + pair.src.dropped.sum()).float()
             per_pair.append(metrics)
             transforms.append(out["estimated_transform"])

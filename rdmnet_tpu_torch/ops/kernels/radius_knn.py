@@ -10,9 +10,11 @@ Windows: ``win`` (B, n_chunks) int32 gives the first support row seen by
 each chunk of ``chunk`` consecutive queries, which then see ``band`` rows;
 ``win=None`` searches all S rows.
 
-The kernel has two paths, chosen by ``knn_plan``: k <= ``LIST_KMAX`` keeps a
-sorted list in a warp's registers; a larger k takes the select path (count,
-radix select, emit, bitonic sort in shared memory), for any k.
+The kernel has three paths, chosen by ``knn_plan``: k <= ``LIST_KMAX`` keeps a
+sorted list in a warp's registers; up to ``BLOCK_K_MIN`` the warp select path
+(a warp per query: count, radix select, emit, bitonic sort in shared memory);
+past it the block select path (a CTA per query: the in-radius keys cached in
+shared memory, a radix select and a radix sort by the whole block), for any k.
 """
 
 from __future__ import annotations
@@ -27,13 +29,21 @@ import torch
 from rdmnet_tpu_torch.ops.geometry import dot3, sq_norm3
 from rdmnet_tpu_torch.ops.kernels._build import check, load_library
 
-LIST_KMAX = 256  # longest register list; a larger k takes the select path
+LIST_KMAX = 256  # longest register list; a larger k takes a select path
 NUM_SMS = 132  # H100 SXM
 WINDOW_ROWS_MAX = 7168  # rows staged at once: 112 KB (the 1.0 bucket's level-0 band), 2 blocks/SM
 ROW_BYTES = 16  # a staged support row: float4 (x, y, z, |s|^2)
-SORT_ROWS_MAX = 2048  # select path: keys in a warp's sort buffer (16 KB)
-SELECT_BINS = 256  # select path: a warp's radix histogram
+SELECT_BINS = 256  # select paths: a radix histogram
 SMEM_MAX = 232_448  # dynamic shared memory a block may take (227 KB)
+# the smallest k on the block select path. Below it the warp select path is
+# faster on windows from scans; from it the warp path's sort buffer reaches
+# 2048 keys (16 KB a warp, 8 or 4 warps a block) and the block path is faster
+# on every window measured (PERF.md, section 6; tools/kernel_probe.py).
+BLOCK_K_MIN = 1025
+BLOCK_WARPS = 16  # block select path: a CTA of 16 warps per query
+BLOCK_CACHE_KEYS_MAX = 8192  # block select path: in-radius keys a CTA caches (64 KB)
+BLOCK_SORT_ROWS_MAX = 4096  # block select path: keys a CTA sorts at once (32 KB)
+ROUTES = ("list", "select", "block")
 
 
 class KnnPlan(NamedTuple):
@@ -44,7 +54,17 @@ class KnnPlan(NamedTuple):
     tile_rows: int  # support rows staged in shared memory at once
     tiled: bool  # the window is larger than one tile and is swept tile by tile
     smem_bytes: int
-    sort_rows: int = 0  # select path: keys of a warp's sort buffer (0 on the register path)
+    sort_rows: int = 0  # select paths: keys a warp (CTA) sorts at once (0 on the register path)
+    route: str = "list"  # "list", "select" (a warp per query) or "block" (a CTA per query)
+    cache_keys: int = 0  # block path: in-radius keys a CTA caches
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _spread(batch: int, nq: int, warps: int) -> bool:
+    return batch * -(-nq // warps) >= 2 * NUM_SMS
 
 
 @functools.lru_cache(maxsize=256)
@@ -59,28 +79,52 @@ def knn_plan(batch: int, nq: int, ns: int, k: int, band: Optional[int] = None) -
     chunk. The list bucket is the smallest of 32, 64, 128, 256 that holds k
     (1 for k = 1, which keeps one best per lane instead).
 
-    k > ``LIST_KMAX`` takes the select path: each warp gets a sort buffer of
-    ``sort_rows`` = min(next_pow2(k), ``SORT_ROWS_MAX``) keys and a
-    ``SELECT_BINS`` histogram beside the staged window, so the block holds
-    as many of 16, 8, 4 warps as spread the search and fit in shared memory.
+    ``LIST_KMAX`` < k < ``BLOCK_K_MIN`` takes the warp select path
+    (``select_plan``), a larger k the block select path (``block_plan``).
     """
     if k < 1:
         raise ValueError(f"radius_knn: k={k} must be at least 1")
+    if k > LIST_KMAX:
+        return (select_plan if k < BLOCK_K_MIN else block_plan)(batch, nq, ns, k, band)
+    rows = ns if band is None else band
+    tile_rows = max(1, min(rows, WINDOW_ROWS_MAX))
+    warps = next((w for w in (16, 8) if _spread(batch, nq, w)), 4)
+    k_bucket = 1 if k == 1 else next(kb for kb in (32, 64, 128, 256) if k <= kb)
+    return KnnPlan(warps, k_bucket, tile_rows, rows > WINDOW_ROWS_MAX, tile_rows * ROW_BYTES)
+
+
+def select_plan(batch: int, nq: int, ns: int, k: int, band: Optional[int] = None) -> KnnPlan:
+    """The warp select path's plan: the window staged as on the list path,
+    and each warp a sort buffer of ``sort_rows`` = next_pow2(k) keys (the
+    whole output) and a ``SELECT_BINS`` histogram beside it, so the block
+    holds as many of 16, 8, 4 warps as spread the search and fit in shared
+    memory. ``knn_plan`` takes it for k below ``BLOCK_K_MIN``; the kernel
+    runs any k whose plan fits."""
     rows = ns if band is None else band
     tile_rows = max(1, min(rows, WINDOW_ROWS_MAX))
     tile_bytes = tile_rows * ROW_BYTES
-    tiled = rows > WINDOW_ROWS_MAX
-    spread = lambda w: batch * -(-nq // w) >= 2 * NUM_SMS  # noqa: E731
-    if k <= LIST_KMAX:
-        warps = next((w for w in (16, 8) if spread(w)), 4)
-        k_bucket = 1 if k == 1 else next(kb for kb in (32, 64, 128, 256) if k <= kb)
-        return KnnPlan(warps, k_bucket, tile_rows, tiled, tile_bytes)
-    sort_rows = min(1 << (k - 1).bit_length(), SORT_ROWS_MAX)
+    sort_rows = max(32, _pow2(k))
     per_warp = sort_rows * 8 + SELECT_BINS * 4
-    # the kernel's one static int beside the dynamic bytes
-    fits = lambda w: tile_bytes + w * per_warp + 4 <= SMEM_MAX  # noqa: E731
-    warps = next((w for w in (16, 8) if spread(w) and fits(w)), 4)
-    return KnnPlan(warps, 0, tile_rows, tiled, tile_bytes + warps * per_warp, sort_rows)
+    fits = lambda w: tile_bytes + w * per_warp <= SMEM_MAX  # noqa: E731
+    warps = next((w for w in (16, 8) if _spread(batch, nq, w) and fits(w)), 4)
+    if not fits(warps):
+        raise ValueError(f"radius_knn: k={k} does not fit the warp select path")
+    return KnnPlan(warps, 0, tile_rows, rows > WINDOW_ROWS_MAX, tile_bytes + warps * per_warp,
+                   sort_rows, "select")
+
+
+def block_plan(batch: int, nq: int, ns: int, k: int, band: Optional[int] = None) -> KnnPlan:
+    """The block select path's plan, for any k: a CTA of ``BLOCK_WARPS``
+    warps per query, no staged window, a cache of min(next_pow2(window),
+    ``BLOCK_CACHE_KEYS_MAX``) in-radius keys, a sort buffer of
+    min(next_pow2(k), ``BLOCK_SORT_ROWS_MAX``) keys and a radix histogram a
+    warp (``tiled``: the window may hold more in-radius rows than the
+    cache). ``knn_plan`` takes it from ``BLOCK_K_MIN``."""
+    rows = ns if band is None else band
+    cache_keys = max(32, min(_pow2(rows), BLOCK_CACHE_KEYS_MAX))
+    sort_rows = max(32, min(_pow2(k), BLOCK_SORT_ROWS_MAX))
+    smem = (cache_keys + sort_rows) * 8 + BLOCK_WARPS * SELECT_BINS * 4
+    return KnnPlan(BLOCK_WARPS, 0, 0, rows > cache_keys, smem, sort_rows, "block", cache_keys)
 
 
 def _radius_sq(radius: float) -> float:
@@ -122,19 +166,32 @@ def radius_knn_plain(q, s, s_count, radius, k, win=None, chunk=0, band=0,
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(select: bool):
-    lib = load_library("radius_knn")
-    fn = lib.radius_knn_select_launch if select else lib.radius_knn_launch
+def launcher(route: str, lib: Optional[ctypes.CDLL] = None):
+    """The C launch function of a path, from the kernel library (or ``lib``,
+    a library built from another copy of the source)."""
+    lib = lib or load_library("radius_knn")
+    fn = getattr(lib, {"list": "radius_knn_launch", "select": "radius_knn_select_launch",
+                       "block": "radius_knn_block_launch"}[route])
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] \
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * (5 if route == "block" else 6) + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
+def plan_args(plan: KnnPlan) -> tuple:
+    """The launch function's plan arguments, in its order."""
+    if plan.route == "block":
+        return plan.cache_keys, plan.sort_rows
+    if plan.route == "select":
+        return plan.warps, plan.sort_rows, plan.tile_rows
+    return plan.warps, plan.k_bucket, plan.tile_rows
+
+
 def radius_knn_cuda(q, s, s_count, radius, k, win=None, chunk=0, band=0) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream of the tensors' card (one
-    launch per call), whichever device is current. ``launches`` counts every
-    launch, ``path_launches`` each path's ("list", "select")."""
+    launch per call, on the path ``knn_plan`` picks), whichever device is
+    current. ``launches`` counts every launch, ``path_launches`` each path's
+    ("list", "select", "block")."""
     for name, t, dt in (("q", q, torch.float32), ("s", s, torch.float32),
                         ("s_count", s_count, torch.int32)):
         if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
@@ -156,22 +213,20 @@ def radius_knn_cuda(q, s, s_count, radius, k, win=None, chunk=0, band=0) -> torc
     out = torch.empty((bsz, nq, k), dtype=torch.int32, device=q.device)
     # the launch goes to the current device: make it the tensors' card, whose
     # stream it is handed
-    select = plan.sort_rows > 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _launcher(select)(q.data_ptr(), s.data_ptr(), s_count.data_ptr(),
-                                None if win is None else win.data_ptr(),
-                                bsz, nq, ns, k, _radius_sq(radius), chunk, band, n_chunks,
-                                plan.warps, plan.sort_rows if select else plan.k_bucket,
-                                plan.tile_rows, out.data_ptr(), stream)
+        err = launcher(plan.route)(
+            q.data_ptr(), s.data_ptr(), s_count.data_ptr(),
+            None if win is None else win.data_ptr(), bsz, nq, ns, k, _radius_sq(radius), chunk,
+            band, n_chunks, *plan_args(plan), out.data_ptr(), stream)
     check(err, "radius_knn")
     radius_knn_cuda.launches += 1
-    radius_knn_cuda.path_launches["select" if select else "list"] += 1
+    radius_knn_cuda.path_launches[plan.route] += 1
     return out
 
 
 radius_knn_cuda.launches = 0
-radius_knn_cuda.path_launches = {"list": 0, "select": 0}
+radius_knn_cuda.path_launches = dict.fromkeys(ROUTES, 0)
 
 
 def radius_knn_batched(q, s, s_count, radius, k, win: Optional[torch.Tensor] = None,

@@ -5,10 +5,12 @@ sinkhorn_pallas). Both versions run ``num_iterations`` of
 ``u = log_mu - LSE_j(s + v)``, ``v = log_nu - LSE_i(s + u)`` from u = v = 0
 and return ``s + u + v``; masked entries carry -1e12.
 
-The kernel has two paths, chosen by ``sinkhorn_plan``: K1 <=
-``REGISTER_K1_MAX`` holds the patch in registers; a larger K1 streams it from
-device memory every half-step, with u, v and the column partials in a
-scratch buffer the wrapper allocates.
+The kernel has three paths, chosen by ``sinkhorn_plan``: K1 <=
+``REGISTER_K1_MAX`` holds the patch in registers; a larger K1 holds it in the
+shared memory of a thread-block cluster of 2, 4 or 8 CTAs, the smallest that
+fits (to K1 = 546); past that it streams the patch from device memory every
+half-step, with u, v and the column partials in a scratch buffer the wrapper
+allocates.
 """
 
 from __future__ import annotations
@@ -22,23 +24,50 @@ import torch
 from rdmnet_tpu_torch.ops.kernels._build import check, load_library
 
 REGISTER_K1_MAX = 208  # a patch lives in the registers of 256 threads: K1 <= 16 * 13
+CLUSTER_SIZES = (2, 4, 8)  # the portable thread-block cluster sizes
+CLUSTER_WARPS = 16  # cluster path: 16 warps a CTA, one column partial each
 STREAM_WARPS = 16  # streaming path: a CTA of 16 warps per patch, one column partial each
+SMEM_MAX = 232_448  # shared memory a CTA may take (227 KB)
 
 
 class SinkhornPlan(NamedTuple):
     """How ``csrc/sinkhorn.cu`` runs one call."""
 
-    route: str  # "register" or "stream"
-    scratch_floats: int  # per patch: u, v and the warps' column partials (max, sum); 0 in registers
+    route: str  # "register", "cluster" or "stream"
+    scratch_floats: int  # per patch: u, v and the warps' column partials (max, sum); 0 on chip
+    cluster: int = 0  # CTAs a patch on the cluster path, else 0
+    cta_bytes: int = 0  # shared memory a CTA takes
+
+
+def register_cta_bytes(k1: int) -> int:
+    """Static shared memory of the register path's CTA at this K1: the
+    column partials, the grid's last rows and four vectors (``sinkhorn.cu``'s
+    ``sinkhorn_kernel<N>``, N the layout the launcher picks)."""
+    n = next(n for n, top in ((2, 32), (5, 80), (9, 144), (13, 208)) if k1 <= top)
+    w = 16 * n
+    return 4 * (2 * 16 * 16 * (n | 1) + 16 * w + 4 * w)
+
+
+def cluster_cta_bytes(k1: int, c: int) -> int:
+    """Dynamic shared memory of a cluster-path CTA: its band of ceil(K1 / C)
+    rows, 16 warps' column partials (max, sum), two parity exchange buffers
+    (max, sum), v, and its rows' log_mu and u; float32."""
+    band = -(-k1 // c)
+    return 4 * (band * k1 + (2 * CLUSTER_WARPS + 5) * k1 + 2 * band)
 
 
 def sinkhorn_plan(k1: int) -> SinkhornPlan:
-    """Launch plan of one call (pure; the CPU tests call it)."""
+    """Launch plan of one call (pure; the CPU tests call it): the register
+    path to ``REGISTER_K1_MAX``, then the smallest cluster whose CTAs fit in
+    ``SMEM_MAX``, then the streaming path."""
     if k1 < 1:
         raise ValueError(f"sinkhorn: K1={k1} must be at least 1")
     if k1 <= REGISTER_K1_MAX:
-        return SinkhornPlan("register", 0)
-    return SinkhornPlan("stream", k1 * (2 + 2 * STREAM_WARPS))
+        return SinkhornPlan("register", 0, 0, register_cta_bytes(k1))
+    for c in CLUSTER_SIZES:
+        if cluster_cta_bytes(k1, c) <= SMEM_MAX:
+            return SinkhornPlan("cluster", 0, c, cluster_cta_bytes(k1, c))
+    return SinkhornPlan("stream", k1 * (2 + 2 * STREAM_WARPS), 0, 0)
 
 
 def _lse(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -61,22 +90,44 @@ def sinkhorn_plain(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Ten
     return scores + u[..., :, None] + v[..., None, :]
 
 
+NO_CLUSTER = -1  # sinkhorn_cluster_launch: no cluster of the plan fits on the card
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher(stream: bool):
+def _launcher(route: str):
     lib = load_library("sinkhorn")
-    fn = lib.sinkhorn_stream_launch if stream else lib.sinkhorn_launch
+    fn = getattr(lib, {"register": "sinkhorn_launch", "cluster": "sinkhorn_cluster_launch",
+                       "stream": "sinkhorn_stream_launch"}[route])
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p] * (3 if stream else 2)
+        + {"register": [], "cluster": [ctypes.c_int], "stream": [ctypes.c_void_p]}[route] \
+        + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
+
+
+def cluster_occupancy(k1: int, device=None) -> int:
+    """Clusters of the cluster path at this K1 that the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); card only."""
+    plan = sinkhorn_plan(k1)
+    if plan.route != "cluster":
+        raise ValueError(f"sinkhorn: K1={k1} takes the {plan.route} path, not a cluster")
+    lib = load_library("sinkhorn")
+    fn = lib.sinkhorn_cluster_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        check(fn(k1, plan.cluster, ctypes.byref(n)), "sinkhorn_cluster_occupancy")
+    return n.value
 
 
 def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
                   num_iterations: int) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream of the tensors' card (one
     launch per call), whichever device is current. ``launches`` counts every
-    launch, ``path_launches`` each path's ("register", "stream"). The kernel
-    has no backward: with grad mode on, inputs that require grad raise
+    launch, ``path_launches`` each path's ("register", "cluster", "stream").
+    A cluster that cannot be scheduled raises; no path falls back to another.
+    The kernel has no backward: with grad mode on, inputs that require grad raise
     instead of returning a result cut off from the graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (scores, log_mu, log_nu)):
         raise RuntimeError("sinkhorn_cuda has no backward: call it under torch.no_grad(), "
@@ -91,16 +142,21 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
         raise ValueError("sinkhorn_cuda: expected scores (P, K1, K1), log_mu/log_nu (P, K1)")
     plan = sinkhorn_plan(k1)
     out = torch.empty_like(scores)
-    streamed = plan.route == "stream"
     args = [scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), p, k1, num_iterations]
-    if streamed:
+    if plan.route == "cluster":
+        args.append(plan.cluster)
+    elif plan.route == "stream":
         # held until the launch is queued; the allocator reuses it in stream order
         scratch = torch.empty((p, plan.scratch_floats), dtype=torch.float32,
                               device=scores.device)
         args.append(scratch.data_ptr())
     with torch.cuda.device(scores.device):  # launch on the tensors' card
         stream = torch.cuda.current_stream(scores.device).cuda_stream
-        err = _launcher(streamed)(*args, out.data_ptr(), stream)
+        err = _launcher(plan.route)(*args, out.data_ptr(), stream)
+    if err == NO_CLUSTER:
+        raise RuntimeError(f"sinkhorn: no cluster of {plan.cluster} CTAs with "
+                           f"{plan.cta_bytes} bytes of shared memory each fits on this card "
+                           f"(K1={k1})")
     check(err, "sinkhorn")
     sinkhorn_cuda.launches += 1
     sinkhorn_cuda.path_launches[plan.route] += 1
@@ -108,7 +164,7 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
 
 
 sinkhorn_cuda.launches = 0
-sinkhorn_cuda.path_launches = {"register": 0, "stream": 0}
+sinkhorn_cuda.path_launches = {"register": 0, "cluster": 0, "stream": 0}
 
 
 def sinkhorn(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,

@@ -1,0 +1,500 @@
+"""Kernel measurements beside ``chip_smoke.py``'s checks: which select path
+the radius-kNN kernel should take at large k, and where the time of its
+block select path and of the cluster Sinkhorn goes.
+
+    python -m rdmnet_tpu_torch.tools.kernel_probe [--parts routes,knn_split,sinkhorn_split]
+        [--out FILE.json]
+
+Needs an NVIDIA card and ``nvcc``. The parts:
+
+- ``routes``: the warp and the block select paths of ``csrc/radius_knn.cu``
+  launched side by side (``select_plan`` and ``block_plan``, whichever
+  ``knn_plan`` would pick), each table held equal to the plain version, on
+  three kinds of window: (a) the level-0 search of procedural scans (64
+  rings x 1800 azimuths, ``data.procedural``) downsampled at 0.3 to 0.05 m
+  and calibrated as ``rdmnet-torch-preprocess calibrate`` does
+  (``point_limit`` 30000, keep ratio 0.8), at the limit and band cap each
+  calibration gives; (b) the level-0 search of ``chip_smoke.py``'s phase-4
+  pair at limits 320 to 2048; (c) a dense synthetic band where every list
+  fills (``chip_smoke.py`` phase 3's tiled band).
+- ``knn_split``: a copy of ``csrc/radius_knn.cu`` with ``clock64()`` stamps
+  in the block select path (thread 0 of every CTA, summed over CTAs), at
+  k = 2048 on (b) and (c).
+- ``sinkhorn_split``: a copy of ``csrc/sinkhorn.cu`` with stamps in the
+  cluster path (CTA 0's thread 0, per iteration) at P = 256, K1 = 257 and
+  513, 100 iterations.
+
+The copies are written to and built in ``rdmnet_tpu_torch/_build/``; the
+kernels themselves carry no measurement code. Device times are CUDA-graph
+replays of 5 calls.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import hashlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SEED = 7351  # chip_smoke.py's seed: its phase-4 pair and phase-3 dense band
+REPS = 5
+CAL_VOXELS = (0.3, 0.15, 0.1, 0.075, 0.05)  # (a): downsampling voxels, m
+CAL_FRAMES, CAL_STEP = 4, 4.0                # (a): scans of one procedural sequence, m apart
+CAL_SCAN = dict(n_rings=64, n_azimuths=1800, voxel_size=0.01)
+PAIR_KS = (320, 512, 1024, 1536, 2048)       # (b), (c): level-0 limits
+DENSE = dict(n=16000, box=(10.0, 3.0, 2.0), radius=2.0, band=8192, chunk=256, cell=0.6)
+
+# (region start, region end, [(anchor, stamp part or None for the start, after?)])
+KNN_STAMPS = ("radius_knn_block_kernel(const float*", 'extern "C" int radius_knn_block_launch', [
+    ("  const unsigned lanes_below = (1u << lane) - 1u;\n", None, True),
+    ("  const int n = n_sh;\n", 0, True),
+    ("    block_sort(keys, n, whist, bits_sh, wsum_sh);\n", 2, False),
+    ("    block_sort(keys, n, whist, bits_sh, wsum_sh);\n", 3, True),
+    ("op[i] = (int)(unsigned)keys[i];\n", 4, True),
+    ("      const unsigned long long hi_t = hi < n ? separator(hi) : ~0ull;\n", 1, True),
+    ("      block_sort(sbuf, cnt_sh, whist, bits_sh, wsum_sh);\n", 2, False),
+    ("      block_sort(sbuf, cnt_sh, whist, bits_sh, wsum_sh);\n", 3, True),
+    ("      lo_t = hi_t;\n", 4, True),
+    ("i += KNB_THREADS) op[i] = S;\n", 5, True),
+])
+KNN_PARTS = ("cache sweep", "separator", "gather", "sort", "write", "sentinels")
+SKC_STAMPS = ("sinkhorn_cluster_kernel(const float*", "typedef void (*ClusterKernel)", [
+    ("  for (int it = 0; it < iters; ++it) {\n", None, False),
+    ("    __syncwarp();\n\n    // v: the warp's column partials", 0, "mid"),
+    ("    __syncthreads();\n    float2* xq", 1, False),
+    ("    float2* xq", 2, False),
+    ("    cluster.sync();  // every CTA's partials of this iteration are visible\n", 3, False),
+    ("    cluster.sync();  // every CTA's partials of this iteration are visible\n", 4, True),
+    ("    __syncthreads();\n#pragma unroll\n    for (int j = 0; j < NC - 1; ++j) v[j]", 5, False),
+    ("    v[NC - 1] = last_ok ? v_sh[32 * (NC - 1) + lane] : 0.f;\n", 6, True),
+])
+SKC_PARTS = ("row step", "column sweeps", "barrier 1", "local merge", "cluster barrier",
+             "remote merge", "barrier 2")
+
+PRELUDE = """
+__device__ unsigned long long probe_clocks[16];
+extern "C" int probe_clocks_get(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, probe_clocks, sizeof(probe_clocks));
+}
+extern "C" int probe_clocks_zero() {
+  static const unsigned long long zero[16] = {};
+  return (int)cudaMemcpyToSymbol(probe_clocks, zero, sizeof(zero));
+}
+#define PROBE_STAMP(i)                                                        \\
+  if (PROBE_WHO) {                                                            \\
+    const long long probe_now_ = clock64();                                   \\
+    atomicAdd(&probe_clocks[i], (unsigned long long)(probe_now_ - probe_t_)); \\
+    probe_t_ = probe_now_;                                                    \\
+  }
+"""
+
+
+def stamped_source(name: str, stamps, who: str) -> str:
+    """``csrc/<name>.cu`` with ``PROBE_STAMP`` lines at ``stamps``' anchors,
+    each found exactly once inside its region (the copy fails to build
+    rather than time the wrong code when the kernel has changed)."""
+    from rdmnet_tpu_torch.ops.kernels._build import source_path
+
+    src = source_path(name).read_text()
+    start, end, edits = stamps
+    lo = src.index(start)
+    hi = src.index(end, lo)
+    inserts = []
+    for anchor, part, where in edits:
+        i = src.index(anchor, lo)
+        if i >= hi or src.find(anchor, i + 1, hi) != -1:
+            raise RuntimeError(f"kernel_probe: anchor {anchor!r} not once in {name}'s region")
+        text = ("  long long probe_t_ = clock64();\n" if part is None
+                else f"  {'__syncthreads();' if part == 5 and name == 'radius_knn' else ''}"
+                     f"PROBE_STAMP({part})\n")
+        if where == "mid":
+            at = i + anchor.index("\n") + 1
+        else:
+            at = i + len(anchor) if where else i
+        inserts.append((at, text))
+    for at, text in sorted(inserts, reverse=True):
+        src = src[:at] + text + src[at:]
+    head = "#include <math_constants.h>\n"
+    return src.replace(head, head + f"#define PROBE_WHO ({who})\n" + PRELUDE, 1)
+
+
+def start_build(name: str, text: str):
+    """(library path, nvcc process or None) for a stamped copy."""
+    from rdmnet_tpu_torch.ops.kernels._build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, nvcc_path
+
+    digest = hashlib.sha1((text + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:12]
+    lib = BUILD_DIR / f"libprobe_{name}-{digest}.so"
+    if lib.exists():
+        return lib, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = BUILD_DIR / f"probe_{name}-{digest}.cu"
+    src.write_text(text)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(lib), str(src)]
+    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_build(lib: Path, proc) -> ctypes.CDLL:
+    if proc is not None:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"kernel_probe: nvcc failed for {lib.name}:\n{log}")
+    return ctypes.CDLL(str(lib))
+
+
+def clocks(lib, n: int):
+    buf = (ctypes.c_ulonglong * 16)()
+    if lib.probe_clocks_get(buf):
+        raise RuntimeError("kernel_probe: reading the clocks failed")
+    return [int(buf[i]) for i in range(n)]
+
+
+def graph_ms(fn, reps: int = REPS) -> float:
+    """Mean device ms per call of ``reps`` calls replayed from one CUDA graph."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---- searches ------------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Search:
+    """One level-0 (or synthetic) radius search on the card."""
+
+    name: str
+    q: object
+    s: object
+    cnt: object
+    radius: float
+    k: int
+    win: object = None
+    chunk: int = 0
+    band: int = 0
+
+    def call(self, route: str, plan, out, lib=None):
+        import torch
+
+        from rdmnet_tpu_torch.ops.kernels.radius_knn import _radius_sq, launcher, plan_args
+
+        win = self.win
+        err = launcher(route, lib)(
+            self.q.data_ptr(), self.s.data_ptr(), self.cnt.data_ptr(),
+            None if win is None else win.data_ptr(), self.q.shape[0], self.q.shape[1],
+            self.s.shape[1], self.k, _radius_sq(self.radius), self.chunk, self.band,
+            0 if win is None else win.shape[1], *plan_args(plan), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"kernel_probe: {self.name} {route} launch failed with {err}")
+
+    def plain(self):
+        from rdmnet_tpu_torch.ops.kernels.radius_knn import radius_knn_plain
+
+        kw = {} if self.win is None else dict(win=self.win, chunk=self.chunk, band=self.band)
+        return radius_knn_plain(self.q, self.s, self.cnt, self.radius, self.k, **kw)
+
+    def plans(self):
+        from rdmnet_tpu_torch.ops.kernels.radius_knn import (LIST_KMAX, block_plan, knn_plan,
+                                                             select_plan)
+
+        args = (self.q.shape[0], self.q.shape[1], self.s.shape[1], self.k,
+                self.band if self.win is not None else None)
+        plans = {"select": select_plan(*args), "block": block_plan(*args)}
+        if self.k <= LIST_KMAX:
+            plans["list"] = knn_plan(*args)
+        return plans, knn_plan(*args).route
+
+
+def level0_search(name, pts, cnts, spec, k):
+    """The level-0 self search of a pair's pyramid at limit ``k``."""
+    from rdmnet_tpu_torch.graph.pyramid import search_plan
+    from rdmnet_tpu_torch.ops.radius_search import band_windows
+
+    sp = search_plan(spec)[0]
+    q, s = pts[0], pts[0]
+    kw = {}
+    if sp.band is not None:
+        win, _ = band_windows(q, s, cnts[0], sp.radius, sp.cell, sp.band, sp.chunk)
+        kw = dict(win=win, chunk=sp.chunk, band=sp.band)
+    return Search(name, q, s, cnts[0], sp.radius, k, **kw)
+
+
+def pair_levels(batch, num_stages):
+    import torch
+
+    pts = [torch.stack([batch.ref.points[i], batch.src.points[i]]).contiguous()
+           for i in range(num_stages)]
+    cnts = [torch.stack([batch.ref.counts[i], batch.src.counts[i]]).to(torch.int32)
+            for i in range(num_stages)]
+    return pts, cnts
+
+
+def pair_pyramid(ref, src, spec, dev):
+    import torch
+
+    from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud
+
+    rp, rc = pad_cloud(ref, spec.caps[0], device=dev)
+    sp, sc = pad_cloud(src, spec.caps[0], device=dev)
+    batch = build_pair_batch(rp, rc, sp, sc, torch.eye(4, device=dev), spec)
+    return pair_levels(batch, spec.num_stages)
+
+
+def calibrated_searches(dev):
+    """(a): per voxel, the calibration's limits and band caps, and the
+    level-0 search of the sequence's first two scans under them."""
+    import numpy as np
+
+    from rdmnet_tpu_torch.config import make_cfg
+    from rdmnet_tpu_torch.data.calibration import calibrate_band_caps, calibrate_neighbor_limits
+    from rdmnet_tpu_torch.data.preprocess import voxel_downsample_xyzi
+    from rdmnet_tpu_torch.data.procedural import lidar_scan, make_scene, trajectory
+
+    cfg = make_cfg()
+    rng = np.random.RandomState(SEED + 40)
+    scene = make_scene(rng, corridor_length=max(60.0, CAL_FRAMES * CAL_STEP + 30.0))
+    poses = trajectory(rng, CAL_FRAMES, step=CAL_STEP)
+    raw = [lidar_scan(scene, poses[i], rng, **CAL_SCAN) for i in range(CAL_FRAMES)]
+    out = []
+    for voxel in CAL_VOXELS:
+        clouds = []
+        for i, scan in enumerate(raw):
+            pts = voxel_downsample_xyzi(scan, voxel)[:, :3].astype(np.float32)
+            n = len(pts)
+            if n > cfg.train.point_limit:  # the dataset's random point limit
+                pts = pts[np.random.RandomState(i).permutation(n)[:cfg.train.point_limit]]
+            clouds.append((np.ascontiguousarray(pts), n))
+        sample = [c for c, _ in clouds]
+        t0 = time.perf_counter()
+        limits = calibrate_neighbor_limits(sample, cfg.pyramid, keep_ratio=0.8, device=dev)
+        bands = calibrate_band_caps(sample, cfg.pyramid, device=dev)
+        cal_s = time.perf_counter() - t0
+        spec = dataclasses.replace(cfg.pyramid, neighbor_limits=limits, band_caps=bands)
+        pts, cnts = pair_pyramid(sample[0], sample[1], spec, dev)
+        search = level0_search(f"calibrated voxel {voxel}", pts, cnts, spec, limits[0])
+        info = dict(voxel=voxel, points_before_limit=[n for _, n in clouds],
+                    neighbor_limits=list(limits), band_caps=list(bands),
+                    calibrate_s=round(cal_s, 3))
+        out.append((search, info))
+    return out
+
+
+def dense_search(dev, k):
+    """(c): chip_smoke.py phase 3's tiled band (16000 points in a 10 x 3 x 2 m
+    box, x-cell sorted), every list full."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.ops.radius_search import band_windows
+
+    rng = np.random.RandomState(SEED + 22)
+    pts = (rng.rand(DENSE["n"], 3) * np.asarray(DENSE["box"])).astype(np.float32)
+    pts = pts[np.argsort(np.floor(pts[:, 0] / DENSE["cell"]), kind="stable")]
+    s = torch.from_numpy(pts[None]).to(dev).contiguous()
+    cnt = torch.tensor([DENSE["n"]], dtype=torch.int32, device=dev)
+    win, _ = band_windows(s, s, cnt, DENSE["radius"], DENSE["cell"], DENSE["band"],
+                          DENSE["chunk"])
+    return Search(f"dense band k={k}", s, s, cnt, DENSE["radius"], k, win, DENSE["chunk"],
+                  DENSE["band"])
+
+
+def time_routes(search, info=None):
+    """Both select paths (and the list path at k <= 256) on one search:
+    tables against the plain version, device ms, the windows' fill."""
+    import torch
+
+    want = search.plain()
+    found = (want < search.s.shape[1]).sum(-1)
+    full = float((found == min(search.k, search.s.shape[1])).float().mean())
+    plans, picked = search.plans()
+    row = dict(info or {}, search=search.name, k=search.k, band=search.band or None,
+               queries=int(search.q.shape[0] * search.q.shape[1]),
+               neighbours_mean=round(float(found.float().mean()), 2),
+               neighbours_max=int(found.max()), full_share=round(full, 4), picked=picked)
+    for route, plan in plans.items():
+        out = torch.empty_like(want)
+        search.call(route, plan, out)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise RuntimeError(f"kernel_probe: {search.name} {route} table differs from the "
+                               "plain version")
+        row[f"{route}_ms"] = round(graph_ms(lambda: search.call(route, plan, out)), 4)
+        row[f"{route}_plan"] = plan._asdict()
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def routes_part(dev, pair_spec, pair_pts):
+    rows = []
+    for search, info in calibrated_searches(dev):
+        rows.append(time_routes(search, dict(info, kind="calibrated scan")))
+    pts, cnts = pair_pts
+    for k in PAIR_KS:
+        spec = dataclasses.replace(pair_spec, neighbor_limits=(k,) + pair_spec.neighbor_limits[1:])
+        rows.append(time_routes(level0_search(f"phase-4 pair k={k}", pts, cnts, spec, k),
+                                dict(kind="phase-4 pair")))
+    for k in PAIR_KS:
+        rows.append(time_routes(dense_search(dev, k), dict(kind="dense band")))
+    return rows
+
+
+def knn_split_part(dev, lib, pair_spec, pair_pts):
+    """The block select path's parts at k = 2048 (clock64 cycles of thread 0,
+    summed over CTAs, and their shares), beside the stamped and the
+    kernel's device ms."""
+    import torch
+
+    from rdmnet_tpu_torch.ops.kernels.radius_knn import block_plan
+
+    pts, cnts = pair_pts
+    spec = dataclasses.replace(pair_spec, neighbor_limits=(2048,) + pair_spec.neighbor_limits[1:])
+    rows = []
+    for search in (level0_search("phase-4 pair k=2048", pts, cnts, spec, 2048),
+                   dense_search(dev, 2048)):
+        plan = block_plan(search.q.shape[0], search.q.shape[1], search.s.shape[1], search.k,
+                          search.band if search.win is not None else None)
+        want = search.plain()
+        out = torch.empty_like(want)
+        lib.probe_clocks_zero()
+        search.call("block", plan, out, lib)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise RuntimeError(f"kernel_probe: stamped {search.name} differs from plain")
+        cyc = clocks(lib, len(KNN_PARTS))
+        total = sum(cyc)
+        row = dict(search=search.name, plan=plan._asdict(),
+                   cycles=dict(zip(KNN_PARTS, cyc)),
+                   share={p: round(c / total, 4) for p, c in zip(KNN_PARTS, cyc)},
+                   stamped_ms=round(graph_ms(lambda: search.call("block", plan, out, lib)), 4),
+                   kernel_ms=round(graph_ms(lambda: search.call("block", plan, out)), 4))
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def sinkhorn_split_part(dev, lib, max_clock_mhz):
+    """The cluster path's parts an iteration (CTA 0's thread 0) at P = 256,
+    100 iterations, on chip_smoke.py phase 3's inputs."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plan
+
+    fn = lib.sinkhorn_cluster_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    rows = []
+    p, iters = 256, 100
+    for k1 in (257, 513):
+        rng = np.random.RandomState(SEED + k1)
+        scores = (rng.randn(p, k1, k1) * 3).astype(np.float32)
+        log_mu = np.full((p, k1), -np.log(2 * (k1 - 1)), np.float32)
+        s_t, mu_t = torch.from_numpy(scores).to(dev), torch.from_numpy(log_mu).to(dev)
+        nu_t = mu_t.clone()
+        out = torch.empty_like(s_t)
+        plan = sinkhorn_plan(k1)
+        call = lambda: fn(s_t.data_ptr(), mu_t.data_ptr(), nu_t.data_ptr(), p, k1,  # noqa: E731
+                          iters, plan.cluster, out.data_ptr(),
+                          torch.cuda.current_stream().cuda_stream)
+        lib.probe_clocks_zero()
+        if call():
+            raise RuntimeError(f"kernel_probe: stamped cluster launch failed at K1={k1}")
+        torch.cuda.synchronize()
+        want = sinkhorn_cuda(s_t, mu_t, nu_t, iters)
+        err = float((out - want).abs().max())
+        cyc = [c / iters for c in clocks(lib, len(SKC_PARTS))]
+        row = dict(k1=k1, cluster=plan.cluster, max_abs_diff_to_kernel=err,
+                   cycles_per_iteration={n: round(c) for n, c in zip(SKC_PARTS, cyc)},
+                   us_per_iteration=round(sum(cyc) / max_clock_mhz, 3),
+                   stamped_ms=round(graph_ms(call), 4),
+                   kernel_ms=round(graph_ms(lambda: sinkhorn_cuda(s_t, mu_t, nu_t, iters)), 4))
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def smi(query: str) -> str:
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "unknown"
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parts", default="routes,knn_split,sinkhorn_split")
+    parser.add_argument("--out", default=None, help="write the rows as JSON here too")
+    args = parser.parse_args(argv)
+    parts = args.parts.split(",")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_probe: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    from rdmnet_tpu_torch.config import make_cfg
+    from rdmnet_tpu_torch.data.loader import choose_bucket
+    from rdmnet_tpu_torch.data.procedural import procedural_pair
+    from rdmnet_tpu_torch.ops.kernels._build import KERNELS, Build
+
+    card = smi("name,power.limit")
+    max_clock_mhz = float(smi("clocks.max.sm").split()[0])
+    print(f"kernel_probe on {card}, max SM clock {max_clock_mhz:.0f} MHz", flush=True)
+    t0 = time.perf_counter()
+    builds = [Build(name) for name in KERNELS]
+    copies = {}
+    if "knn_split" in parts:
+        copies["radius_knn"] = start_build(
+            "radius_knn", stamped_source("radius_knn", KNN_STAMPS, "threadIdx.x == 0"))
+    if "sinkhorn_split" in parts:
+        copies["sinkhorn"] = start_build(
+            "sinkhorn", stamped_source("sinkhorn", SKC_STAMPS,
+                                       "blockIdx.x == 0 && threadIdx.x == 0"))
+    for b in builds:
+        for line in b.wait().splitlines():  # the -Xptxas -v report
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                print(f"[{b.name}] {line.strip()}", flush=True)
+    libs = {name: finish_build(*c) for name, c in copies.items()}
+    print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    dev = torch.device("cuda")
+    ref, src, _ = procedural_pair(SEED, n_rings=80, n_azimuths=3000)
+    cfg = make_cfg()
+    buckets = [cfg.pyramid.scaled(0.7), cfg.pyramid]
+    spec = buckets[choose_bucket(max(len(ref), len(src)), [b.caps[0] for b in buckets])]
+    pair_pts = pair_pyramid(ref, src, spec, dev)
+    result = dict(card=card, max_sm_clock_mhz=max_clock_mhz)
+    if "routes" in parts:
+        result["routes"] = routes_part(dev, spec, pair_pts)
+    if "knn_split" in parts:
+        result["knn_split"] = knn_split_part(dev, libs["radius_knn"], spec, pair_pts)
+    if "sinkhorn_split" in parts:
+        result["sinkhorn_split"] = sinkhorn_split_part(dev, libs["sinkhorn"], max_clock_mhz)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

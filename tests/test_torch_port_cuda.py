@@ -1,8 +1,8 @@
 """CUDA kernels of the port against their plain PyTorch versions, and the
-training, serving and evaluation paths against the CPU's, on the card; both
-paths of each kernel (the kNN's register list and, for k > 256, its select
-path; Sinkhorn's register patch and, for K1 > 208, its streaming path) and
-the model at such shapes.
+training, serving and evaluation paths against the CPU's, on the card; every
+path of each kernel (the kNN's register list and, for k > 256, its warp and
+block select paths; Sinkhorn's register patch, its cluster path for 208 < K1
+<= 546 and its streaming path past that) and the model at such shapes.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 
@@ -38,9 +38,10 @@ from rdmnet_tpu_torch.engine import batch_to_device, create_train_state, make_va
 from rdmnet_tpu_torch.graph.pyramid import pad_cloud
 from rdmnet_tpu_torch.models import RDMNet, pipeline
 from rdmnet_tpu_torch.ops.kernels import launch_counts, path_launch_counts, reset_launch_counts
-from rdmnet_tpu_torch.ops.kernels.radius_knn import (WINDOW_ROWS_MAX, knn_plan, radius_knn_cuda,
-                                                     radius_knn_plain)
-from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain
+from rdmnet_tpu_torch.ops.kernels.radius_knn import (BLOCK_K_MIN, WINDOW_ROWS_MAX, knn_plan,
+                                                     radius_knn_cuda, radius_knn_plain)
+from rdmnet_tpu_torch.ops.kernels import sinkhorn as sinkhorn_module
+from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain, sinkhorn_plan
 from rdmnet_tpu_torch.ops.radius_search import band_windows
 from rdmnet_tpu_torch.ops.ransac import ransac_registration, ransac_registration_host
 from rdmnet_tpu_torch.serving import export_inference, load_exported
@@ -98,11 +99,11 @@ def test_radius_knn_kernel_matches_plain(cuda, k, band, chunk):
     assert torch.equal(got, radius_knn_plain(pts, pts, cnt, 1.275, k, **kw))
 
 
-@pytest.mark.parametrize("k1", [17, 65, 129, 200, 209, 257, 513])
+@pytest.mark.parametrize("k1", [17, 65, 129, 200, 209, 257, 513, 600])
 def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
     """Masked rows, masked columns, both, and a fully masked patch at every
-    register layout of the kernel (K1 <= 32, 80, 144, 208) and on its
-    streaming path (K1 > 208)."""
+    register layout of the kernel (K1 <= 32, 80, 144, 208), on its cluster
+    path (208 < K1 <= 546) and on its streaming path (K1 > 546)."""
     rng = np.random.RandomState(k1)
     p = 12
     s = (rng.randn(p, k1, k1) * 3).astype(np.float32)
@@ -117,13 +118,126 @@ def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
     reset_launch_counts()
     got = sinkhorn_cuda(*args, 100)
     torch.cuda.synchronize()
-    route = "stream" if k1 > 208 else "register"
-    assert path_launch_counts()["sinkhorn"] == {"register": 0, "stream": 0, route: 1}
+    route = "register" if k1 <= 208 else "cluster" if k1 <= 546 else "stream"
+    assert sinkhorn_plan(k1).route == route
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "stream": 0,
+                                                route: 1}
     want = sinkhorn_plain(*args, 100)
     live = want > -1e11
     assert torch.isfinite(got).all()
     assert torch.equal(got > -1e11, live)
     torch.testing.assert_close(got[live], want[live], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k1", [209, 257, 304, 305, 412, 413, 513, 546])
+@pytest.mark.parametrize("iters", [0, 1, 100])
+def test_cluster_sinkhorn_matches_plain(cuda, k1, iters):
+    """The cluster path at each cluster size's first and last K1 (2 CTAs a
+    patch to 304, 4 to 412, 8 to 546): masked rows, masked columns, both, a
+    fully masked patch, and no iteration at all (the scores come back)."""
+    plan = sinkhorn_plan(k1)
+    assert plan.route == "cluster"
+    assert plan.cluster == (2 if k1 <= 304 else 4 if k1 <= 412 else 8)
+    rng = np.random.RandomState(k1 + iters)
+    p = 10
+    s = (rng.randn(p, k1, k1) * 3).astype(np.float32)
+    mu = (rng.randn(p, k1) * 0.1 - np.log(k1)).astype(np.float32)
+    nu = (rng.randn(p, k1) * 0.1 - np.log(k1)).astype(np.float32)
+    s[0], mu[0, :-1], nu[0, :-1] = -1e12, -1e12, -1e12
+    rows, cols = slice(0, k1 // 3), slice(5, 5 + k1 // 4)  # rows across the first CTA's band
+    s[1, rows], mu[1, rows] = -1e12, -1e12
+    s[2, :, cols], nu[2, cols] = -1e12, -1e12
+    s[3, rows], mu[3, rows], s[3, :, cols], nu[3, cols] = -1e12, -1e12, -1e12, -1e12
+    s[4, k1 - 7:], mu[4, k1 - 7:] = -1e12, -1e12  # the last CTA's band
+    args = [torch.from_numpy(x).to(cuda) for x in (s, mu, nu)]
+    reset_launch_counts()
+    got = sinkhorn_cuda(*args, iters)
+    torch.cuda.synchronize()
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 1, "stream": 0}
+    want = sinkhorn_plain(*args, iters)
+    live = want > -1e11
+    assert torch.isfinite(got).all()
+    assert torch.equal(got > -1e11, live)
+    torch.testing.assert_close(got[live], want[live], rtol=1e-4, atol=1e-4)
+
+
+def test_cluster_sinkhorn_raises_when_no_cluster_fits(cuda, monkeypatch):
+    """A cluster the card cannot schedule raises; the call takes no other
+    path and counts no launch."""
+    monkeypatch.setattr(sinkhorn_module, "_launcher",
+                        lambda route: lambda *args: sinkhorn_module.NO_CLUSTER)
+    x = torch.zeros((1, 257, 257), device=cuda)
+    mu = torch.zeros((1, 257), device=cuda)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no cluster of 2 CTAs"):
+        sinkhorn_cuda(x, mu, mu, 10)
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "stream": 0}
+
+
+def test_cluster_occupancy_is_positive(cuda):
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import cluster_occupancy
+
+    for k1 in (257, 412, 546):
+        assert cluster_occupancy(k1) >= 1
+
+
+@pytest.mark.parametrize("k", [BLOCK_K_MIN, 2048, 4096, 6144])
+@pytest.mark.parametrize("layout", ["banded", "tiled"])
+def test_block_select_knn_matches_plain(cuda, k, layout):
+    """The block select path, at the k the plan sends it (from
+    ``BLOCK_K_MIN``; past 4096 in two sort chunks), on duplicated points
+    (distance ties between neighbouring rows): a banded batch of two clouds
+    whose s_count ends inside a window, and an unbanded window larger than
+    one staged tile and than the key cache (8192 keys), so some queries
+    sweep their window again for every pass."""
+    if layout == "banded":  # >= 925 rows in radius a query: lists of 4096 fill for 55%
+        n, band, chunk, radius = 12000, 8192, 256, 1.5
+        s = torch.from_numpy(np.stack([_duplicated(40, n, (4.0, 2.0, 1.5)),
+                                       _duplicated(41, n, (4.0, 2.0, 1.5))])).to(cuda)
+        cnt = torch.tensor([10000, n], dtype=torch.int32, device=cuda)
+        win, _ = band_windows(s, s, cnt, radius, 0.6, band, chunk)
+        q, kw = s, dict(win=win, chunk=chunk, band=band)
+    else:
+        n, radius = 2 * WINDOW_ROWS_MAX + 1000, 2.5
+        s = torch.from_numpy(_duplicated(42, n, (6.0, 3.0, 2.0))[None]).to(cuda)
+        cnt = torch.tensor([n - 333], dtype=torch.int32, device=cuda)
+        q, kw = s[:, ::16].contiguous(), {}
+    plan = knn_plan(q.shape[0], q.shape[1], s.shape[1], k, kw.get("band"))
+    assert plan.route == "block" and plan.tiled == (layout == "tiled")
+    reset_launch_counts()
+    got = radius_knn_cuda(q, s, cnt, radius, k, **kw)
+    torch.cuda.synchronize()
+    assert path_launch_counts()["radius_knn"] == {"list": 0, "select": 0, "block": 1}
+    want = radius_knn_plain(q, s, cnt, radius, k, **kw)
+    assert torch.equal(got, want)
+    if k <= 4096:
+        assert ((want < s.shape[1]).sum(-1) == k).any()  # lists that fill
+
+
+@pytest.mark.parametrize("k", [257, 320, 512, 600, BLOCK_K_MIN - 1])
+def test_warp_select_knn_matches_plain(cuda, k):
+    """The warp select path, at the k the plan sends it (past the register
+    list, below ``BLOCK_K_MIN``), on a dense banded batch of duplicated
+    points where many queries hold more in-radius rows than their sort
+    buffer (the radix select and the tie count-off run) and s_count ends
+    inside a window."""
+    n = 6000
+    s = torch.from_numpy(np.stack([_duplicated(30, n, (8.0, 2.0, 1.0)),
+                                   _duplicated(31, n, (8.0, 2.0, 1.0))])).to(cuda)
+    cnt = torch.tensor([5000, n], dtype=torch.int32, device=cuda)
+    band, chunk, radius = 4096, 192, 1.5
+    win, _ = band_windows(s, s, cnt, radius, 0.6, band, chunk)
+    plan = knn_plan(2, n, n, k, band)
+    assert plan.route == "select" and plan.sort_rows == 1 << (k - 1).bit_length()
+    reset_launch_counts()
+    got = radius_knn_cuda(s, s, cnt, radius, k, win=win, chunk=chunk, band=band)
+    torch.cuda.synchronize()
+    assert path_launch_counts()["radius_knn"] == {"list": 0, "select": 1, "block": 0}
+    assert torch.equal(got, radius_knn_plain(s, s, cnt, radius, k, win=win, chunk=chunk,
+                                             band=band))
+    over = radius_knn_plain(s, s, cnt, radius, plan.sort_rows + 1, win=win, chunk=chunk,
+                            band=band)
+    assert (over[..., -1] < n).any()  # more candidates than the sort buffer holds
 
 
 @pytest.mark.parametrize("k", [1, 16, 40, 64, 128, 81, 200, 256, 257, 600, 2048])
@@ -188,18 +302,19 @@ def test_radius_knn_kernel_large_k_at_main_path_shapes(cuda, k, level):
     plan = knn_plan(2, pts.shape[1], pts.shape[1], k, sp.band)
     assert (plan.k_bucket, plan.sort_rows) == ((128, 0) if k <= 128 else (256, 0) if k <= 256
                                                else (0, min(1 << (k - 1).bit_length(), 2048)))
+    assert plan.route == ("list" if k <= 256 else "select" if k < BLOCK_K_MIN else "block")
     reset_launch_counts()
     got = radius_knn_cuda(pts, pts, cnt, sp.radius, k, **kw)
     torch.cuda.synchronize()
-    assert path_launch_counts()["radius_knn"]["select" if k > 256 else "list"] == 1
+    assert path_launch_counts()["radius_knn"][plan.route] == 1
     assert torch.equal(got, radius_knn_plain(pts, pts, cnt, sp.radius, k, **kw))
 
 
 def test_model_past_the_first_paths_on_card_matches_cpu(cuda):
     """The tiny model with level-0 limit 300 and 256 points a patch, on a
     scan shrunk into a dense scene (the level-0 lists fill past 256): it
-    builds on the card, its two level-0 searches take the kNN's select path
-    and its Sinkhorn the streaming path, its tables equal the CPU's, and its
+    builds on the card, its two level-0 searches take the kNN's warp select
+    path and its Sinkhorn the cluster path, its tables equal the CPU's, and its
     plans match the CPU's through the same matched node pairs within 1e-3."""
     cfg = make_tiny_cfg()
     cfg = dataclasses.replace(
@@ -212,8 +327,8 @@ def test_model_past_the_first_paths_on_card_matches_cpu(cuda):
     reset_launch_counts()
     out = pipeline(m_gpu, *pad_cloud(ref, 512, device=cuda), *pad_cloud(src, 512, device=cuda),
                    device=cuda)
-    assert path_launch_counts() == {"radius_knn": {"list": 10, "select": 2},
-                                    "sinkhorn": {"register": 0, "stream": 1}}
+    assert path_launch_counts() == {"radius_knn": {"list": 10, "select": 2, "block": 0},
+                                    "sinkhorn": {"register": 0, "cluster": 1, "stream": 0}}
     assert torch.isfinite(out["estimated_transform"]).all()
     ref_out = pipeline(m_cpu, *pad_cloud(ref, 512), *pad_cloud(src, 512), device="cpu")
     for side in ("ref", "src"):

@@ -1,7 +1,8 @@
 """Shapes past the kernels' first paths, on the CPU: radius kNN at k > 256
-(the CUDA kernel's select path) and Sinkhorn at K1 = num_points_in_patch + 1
-> 208 (its streaming path), the plain versions against the JAX package, the
-tiny model at such shapes against JAX's, and the launch plans of both paths.
+(the CUDA kernel's select paths) and Sinkhorn at K1 = num_points_in_patch + 1
+> 208 (its cluster and streaming paths), the plain versions against the JAX
+package, the tiny model at such shapes against JAX's, and the launch plans
+of every path.
 The CUDA paths against their plain versions are in ``test_torch_port_cuda.py``
 (card only).
 
@@ -34,9 +35,13 @@ from rdmnet_tpu_torch.config import make_cfg, make_tiny_cfg
 from rdmnet_tpu_torch.graph.pyramid import pad_cloud, search_plan
 from rdmnet_tpu_torch.models import RDMNet, pipeline
 from rdmnet_tpu_torch.ops.kernels import launch_counts
-from rdmnet_tpu_torch.ops.kernels.radius_knn import (LIST_KMAX, SMEM_MAX, SORT_ROWS_MAX,
-                                                     WINDOW_ROWS_MAX, knn_plan)
-from rdmnet_tpu_torch.ops.kernels.sinkhorn import REGISTER_K1_MAX, sinkhorn_plain, sinkhorn_plan
+from rdmnet_tpu_torch.ops.kernels.radius_knn import (BLOCK_CACHE_KEYS_MAX, BLOCK_K_MIN,
+                                                     BLOCK_SORT_ROWS_MAX, LIST_KMAX, SMEM_MAX,
+                                                     WINDOW_ROWS_MAX, block_plan, knn_plan,
+                                                     select_plan)
+from rdmnet_tpu_torch.ops.kernels.sinkhorn import (CLUSTER_SIZES, REGISTER_K1_MAX,
+                                                   cluster_cta_bytes, register_cta_bytes,
+                                                   sinkhorn_plain, sinkhorn_plan)
 from rdmnet_tpu_torch.ops.radius_search import radius_knn, radius_knn_banded
 from rdmnet_tpu_torch.utils.convert import params_from_jax
 
@@ -147,39 +152,103 @@ def test_sinkhorn_plain_matches_pallas_interpret_past_the_registers(k1):
 @pytest.mark.parametrize("k", [257, 300, 320, 512, 600, 2048, 2049, 4096, 20000])
 @pytest.mark.parametrize("rows", [512, 5120, 7168, 7169, 21504])
 def test_knn_plan_select_path(k, rows):
-    """Every k past the list takes the select path: a power-of-two sort
-    buffer holding min(k, 2048) keys, blocks of 16, 8 or 4 warps that fit in
-    shared memory beside the staged window, tiled past 7168 rows."""
+    """Every k past the list takes a select path: below ``BLOCK_K_MIN`` the
+    warp select path (a power-of-two sort buffer a warp holding the whole
+    output, blocks of 16, 8 or 4 warps that fit in shared memory beside the
+    staged window, tiled past 7168 rows), from it the block select path (a
+    CTA of 16 warps a query, no staged window, a key cache of the window's
+    rows up to 8192 and a sort buffer of min(k, 4096) keys)."""
     for band in (None, rows):
         plan = knn_plan(2, 21504, 21504 if band else rows, k, band)
         sr = plan.sort_rows
-        assert plan.k_bucket == 0 and sr & (sr - 1) == 0 and sr >= min(k, SORT_ROWS_MAX)
-        assert sr == min(1 << (k - 1).bit_length(), SORT_ROWS_MAX)
-        assert plan.warps in (4, 8, 16) and 64 % plan.warps == 0
-        assert plan.tiled == (rows > WINDOW_ROWS_MAX)
-        assert plan.tile_rows == min(rows, WINDOW_ROWS_MAX)
-        assert plan.smem_bytes == plan.tile_rows * 16 + plan.warps * (sr * 8 + 256 * 4)
-        assert plan.smem_bytes + 4 <= SMEM_MAX
+        assert plan.k_bucket == 0 and sr & (sr - 1) == 0
+        if k < BLOCK_K_MIN:
+            assert plan.route == "select" and plan.cache_keys == 0
+            assert sr == 1 << (k - 1).bit_length() >= k
+            assert plan.warps in (4, 8, 16) and 64 % plan.warps == 0
+            assert plan.tiled == (rows > WINDOW_ROWS_MAX)
+            assert plan.tile_rows == min(rows, WINDOW_ROWS_MAX)
+            assert plan.smem_bytes == plan.tile_rows * 16 + plan.warps * (sr * 8 + 256 * 4)
+            assert plan.smem_bytes <= SMEM_MAX
+            assert plan == select_plan(2, 21504, 21504 if band else rows, k, band)
+        else:
+            ck = plan.cache_keys
+            assert plan.route == "block" and plan.warps == 16
+            assert plan.tile_rows == 0 and ck & (ck - 1) == 0
+            assert ck == min(1 << (rows - 1).bit_length(), BLOCK_CACHE_KEYS_MAX)
+            assert sr == min(1 << (k - 1).bit_length(), BLOCK_SORT_ROWS_MAX)
+            assert plan.tiled == (rows > ck)
+            assert plan.smem_bytes == (ck + sr) * 8 + 16 * 256 * 4 <= SMEM_MAX
+            assert plan == block_plan(2, 21504, 21504 if band else rows, k, band)
 
 
 def test_knn_plan_select_path_spreads_and_fits():
     assert knn_plan(2, 21504, 21504, 320, 5120).warps == 16  # phase 16's level-0 search
-    assert knn_plan(2, 21504, 21504, 2048, 8192).warps == 4  # 16 KB a warp beside 112 KB
+    # below the threshold: a warp's sort buffer of 1024 keys (8 KB) beside
+    # 112 KB, 8 warps a block
+    top = knn_plan(2, 21504, 21504, BLOCK_K_MIN - 1, 8192)
+    assert (top.route, top.warps, top.sort_rows) == ("select", 8, 1024)
     assert knn_plan(1, 300, 300, 512).warps == 4             # too few queries to spread
+    # k = 2048 takes the block select path: a CTA a query, two CTAs an SM
+    big = knn_plan(2, 21504, 21504, 2048, 8192)
+    assert (big.route, big.warps, big.cache_keys, big.sort_rows) == ("block", 16, 8192, 2048)
+    assert 2 * (big.smem_bytes + 1024) <= 228 * 1024
+    # the threshold: k <= 1024 (phase 16's k = 320 among them) stays on the
+    # warp select path, whose sort buffer would reach 2048 keys past it
+    assert knn_plan(2, 21504, 21504, BLOCK_K_MIN - 1, 5120).route == "select"
+    assert knn_plan(2, 21504, 21504, BLOCK_K_MIN, 5120).route == "block"
+    assert BLOCK_K_MIN == 1025
     # the list path's plans are unchanged: the same buckets, no sort buffer
     assert knn_plan(2, 21504, 21504, LIST_KMAX, 5120) == knn_plan(2, 21504, 21504, 256, 5120)
     assert knn_plan(2, 21504, 21504, 40, 5120).sort_rows == 0
+    assert knn_plan(2, 21504, 21504, 40, 5120).route == "list"
 
 
-@pytest.mark.parametrize("k1", [1, 17, 32, 33, 80, 81, 129, 144, 145, 208, 209, 257, 513, 4097])
+def _cluster_limits():
+    """Each cluster size's last K1: where its CTA's bytes pass 232,448."""
+    return {c: max(k1 for k1 in range(1, 2000) if cluster_cta_bytes(k1, c) <= SMEM_MAX)
+            for c in CLUSTER_SIZES}
+
+
+def test_cluster_limits_from_the_byte_count():
+    """A band of ceil(K1 / C) float32 rows, 16 warps' (max, sum) column
+    partials, two (max, sum) exchange buffers, v, and the band's log_mu and u."""
+    assert cluster_cta_bytes(257, 2) == 4 * (129 * 257 + 37 * 257 + 2 * 129)
+    assert _cluster_limits() == {2: 304, 4: 412, 8: 546}
+
+
+@pytest.mark.parametrize("k1", [1, 17, 32, 33, 80, 81, 129, 144, 145, 208, 209, 257, 304, 305,
+                                412, 413, 513, 546, 547, 600, 4097])
 def test_sinkhorn_plan_routes(k1):
+    """The register path to K1 = 208; then the smallest cluster of 2, 4 or 8
+    CTAs whose CTA fits in 232,448 bytes (the first and last K1 of each size
+    among the cases); past C = 8's limit, the streaming path."""
     plan = sinkhorn_plan(k1)
+    limits = _cluster_limits()
     if k1 <= REGISTER_K1_MAX:
-        assert plan == ("register", 0)
+        assert plan == ("register", 0, 0, register_cta_bytes(k1))
+    elif k1 <= limits[8]:
+        c = next(c for c in CLUSTER_SIZES if k1 <= limits[c])
+        assert plan == ("cluster", 0, c, cluster_cta_bytes(k1, c))
+        assert plan.cluster == {209: 2, 257: 2, 304: 2, 305: 4, 412: 4, 413: 8, 513: 8,
+                                546: 8}[k1]
     else:
         # u, v and 16 warps' column partials (max, sum), K1 floats each
-        assert plan == ("stream", k1 * (2 + 2 * 16))
+        assert plan == ("stream", k1 * (2 + 2 * 16), 0, 0)
     assert sinkhorn_plan(129).route == "register"  # the main path's patch
+
+
+def test_every_plan_fits_a_cta():
+    """No plan of either kernel asks more than 232,448 bytes of shared memory
+    of a CTA, at any K1 or k, window or query count."""
+    for k1 in range(1, 1200):
+        assert sinkhorn_plan(k1).cta_bytes <= SMEM_MAX, k1
+    for k in (1, 16, 40, 64, 128, 256, 257, 320, 512, 513, 1024, 1025, 2048, 4096, 20000):
+        for rows in (1, 64, 300, 4096, 5120, 7168, 7169, 8192, 8193, 21504, 100000):
+            for nq in (1, 512, 21504):
+                for band in (None, rows):
+                    plan = knn_plan(2, nq, 21504 if band else rows, k, band)
+                    assert plan.smem_bytes <= SMEM_MAX, (k, rows, nq, band, plan)
 
 
 def test_sinkhorn_plan_refuses_empty_patch():
@@ -190,8 +259,8 @@ def test_sinkhorn_plan_refuses_empty_patch():
 def test_full_width_config_at_large_shapes_plans():
     """The configuration ``chip_smoke.py`` phase 16 runs: ``make_cfg()`` at the
     0.7 bucket with level-0 neighbour limit 320 and 256 points a patch. Its
-    two level-0 searches take the select path, the other ten the list path
-    as before, and its Sinkhorn streams."""
+    two level-0 searches take the warp select path, the other ten the list
+    path as before, and its Sinkhorn the cluster path (2 CTAs a patch)."""
     cfg = make_cfg()
     pyr = dataclasses.replace(cfg.pyramid.scaled(0.7), neighbor_limits=(320, 40, 40, 40, 40))
     routes = []
@@ -202,7 +271,9 @@ def test_full_width_config_at_large_shapes_plans():
         if sp.k <= LIST_KMAX:
             assert plan == base
     assert routes == [sp.k > LIST_KMAX for sp in search_plan(pyr)] and sum(routes) == 2
-    assert sinkhorn_plan(257).route == "stream"
+    assert all(knn_plan(2, pyr.caps[sp.q_lvl], pyr.caps[sp.s_lvl], sp.k, sp.band).route
+               == "select" for sp in search_plan(pyr) if sp.k > LIST_KMAX)
+    assert sinkhorn_plan(257) == ("cluster", 0, 2, cluster_cta_bytes(257, 2))
 
 
 # ------------------------------------------------------------ the tiny model

@@ -92,7 +92,7 @@ def test_model_builds_at_shapes_past_the_first_paths():
             assert (plan.sort_rows > 0) == (sp.k > LIST_KMAX), (sp, plan)
             assert plan.smem_bytes <= 232_448 and sp.chunk % plan.warps == 0
         route = sinkhorn_plan(c.model.num_points_in_patch + 1).route
-        assert route == ("stream" if c.model.num_points_in_patch + 1 > 208 else "register")
+        assert route == ("cluster" if c.model.num_points_in_patch + 1 > 208 else "register")
 
 
 def test_library_path_covers_headers(tmp_path, monkeypatch):

@@ -99,6 +99,7 @@ def run():
         return {k: out[k] for k in ("gt_node_corr_overlaps", "vote_mask_mat")}, jeval(out, batch)
 
     jout, jev = forward(state.params, single)
+    jev_pir, _ = jts.make_eval_step(jcfg, with_transform=False)(state, jbatch)
 
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -111,6 +112,7 @@ def run():
     with torch.no_grad():
         tout = model(batch[0], training=False, with_gt=True)
     tev, ttf = make_eval_step(cfg, device="cpu")(tstate, batch)
+    tev_pir, _ = make_eval_step(cfg, "cpu", with_transform=False)(tstate, batch)
     params0 = [p.detach().clone() for p in tstate.params]
     tmetrics, tgrads = make_value_and_grad(cfg, device="cpu")(tstate, batch,
                                                                torch.Generator().manual_seed(1))
@@ -125,7 +127,8 @@ def run():
         params0=dict(zip([n for n, _ in model.named_parameters()], params0)),
         jparams1=np_tree(new_state.params), tparams1=dict(model.named_parameters()),
         applied=applied, count=tstate.count, jout=jax.tree.map(np.asarray, jout), tout=tout,
-        jev=jax.tree.map(float, jev), tev={k: float(v) for k, v in tev.items()}, ttf=ttf)
+        jev=jax.tree.map(float, jev), tev={k: float(v) for k, v in tev.items()}, ttf=ttf,
+        jev_pir=jax.tree.map(float, jev_pir), tev_pir={k: float(v) for k, v in tev_pir.items()})
 
 
 def test_batch_to_device_tables_equal_jax(run):
@@ -196,6 +199,17 @@ def test_eval_step(run):
     assert tev["dropped"] == float(jb.ref.dropped.sum() + jb.src.dropped.sum())
     assert all(np.isfinite(v) for v in tev.values())
     assert run["ttf"].shape == (1, 4, 4)
+
+
+def test_eval_step_without_transform_matches_jax(run):
+    """``make_eval_step(cfg, device, with_transform=False)`` against JAX's
+    ``make_eval_step(cfg, with_transform=False)``: PIR and ``dropped`` only,
+    both exact (the tolerance of ``test_eval_step``)."""
+    tev, jev = run["tev_pir"], run["jev_pir"]
+    assert set(tev) == set(jev) == {"PIR", "dropped"}
+    for k in jev:
+        assert tev[k] == jev[k], k
+    assert tev["PIR"] == run["tev"]["PIR"]
 
 
 def test_eval_step_weights_valid_pairs():

@@ -22,11 +22,14 @@ Phases, each fatal on failure:
    count, two sort chunks, a window that overflows the block path's key
    cache; tables exact, every launch on the plan's route); Sinkhorn's
    cluster path (208 < K1 <= 546) at P = 256, K1 = 209, 257, 304, 412, 513, 546 (each
-   cluster size's first and last among them) and its streaming path at
-   P = 32, K1 = 600, 100 iterations with masked rows and patches (within
-   1e-4; 0 iterations give the scores), with cudaOccupancyMaxActiveClusters
-   for each cluster size; each instance with its device time, time per
-   call, plain time, bound and plan;
+   cluster size's first and last among them), its group path (546 < K1 <=
+   2640) at (P, K1) = (32, 600), (256, 600), (256, 601), (32, 1025) and (32,
+   2640), the streaming kernel launched directly on the (256, 600) inputs
+   beside it, and its streaming path at P = 8, K1 = 2641, 100 iterations
+   with masked rows and patches (within 1e-4; 0 iterations give the
+   scores), with cudaOccupancyMaxActiveClusters for each cluster size and
+   the CTAs, groups and rounds of each group case; each instance with its
+   device time, time per call, plain time, bound and plan;
 4. the main path at ``make_cfg()`` full width, 0.7 bucket: a seeded ~20k
    point procedural pair through ``pipeline`` (graph build to pose), 3
    warm-up pairs, 12 timed pairs, 5 pairs with a per-stage breakdown; every
@@ -176,7 +179,12 @@ Phases, each fatal on failure:
    boundary (within 1e-4 of the lowest matched score), plans through the
    common pairs within 1e-3, LGR on the
    CPU's plans with equal correspondence sets and residuals within 1e-4 m,
-   the pose within 1e-4 when the CPU's registers the pair.
+   the pose within 1e-4 when the CPU's registers the pair; then the same
+   model with 600 points a patch (K1 = 601, neighbour limits as phase 4): 2
+   warm-up and 4 timed pairs launch the 12 list-path searches and one
+   group-path Sinkhorn each, one more pair's Sinkhorn is held against the
+   plain version on its own inputs (as phase 8 does), with ms/pair,
+   per-stage ms (OT among them) and peak memory; no CPU pipeline there.
 
 ``python3 chip_smoke.py --dp-only`` runs phases 1, 2 and 14 alone (with two
 cards or more, the NCCL path).
@@ -2738,7 +2746,11 @@ def library_phase(dev, card, kernels, cfg, model, batch):
 # ---- phase 3's large shapes and phase 16: every shape the JAX package runs -------------
 LARGE_K1 = (209, 257, 304, 412, 513, 546)  # phase 3: cluster-path patches (C's limits among them)
 LARGE_P, LARGE_ITERS = 256, 100   # phase 3: patches and iterations of each
-STREAM_K1, STREAM_P = 600, 32     # phase 3: a streaming-path patch past the C = 8 limit
+# phase 3: (P, K1) on the group path: P = 32 and 256 at K1 = 600, phase 16's
+# (256, 601), and P = 32 at K1 = 1025 and at the path's last K1 (2640)
+GROUP_CASES = ((32, 600), (256, 600), (256, 601), (32, 1025), (32, 2640))
+STREAM_BASELINE = (256, 600)      # phase 3: the streaming kernel timed on this group case's inputs
+STREAM_K1, STREAM_P = 2641, 8     # phase 3: a streaming-path patch past the group path's limit
 LARGE_REPS = 5                    # timed calls per phase-3 large-shape instance
 SELECT_KS = (320, 512, 1024)       # phase 3: k on the warp select path, the tiled band
 BLOCK_KS = (2048,)                 # phase 3: k on the block select path, the tiled band
@@ -2746,6 +2758,8 @@ LARGE_LIMITS = (320, 40, 40, 40, 40)  # phase 16: neighbour limits, level 0 past
 BLOCK_LIMITS = (2048, 40, 40, 40, 40)  # phase 16: a graph build whose level 0 takes the block path
 LARGE_PATCH = 256                     # phase 16: num_points_in_patch (K1 = 257)
 LARGE_WARM, LARGE_TIMED, LARGE_STAGE = 2, 6, 2  # phase 16 pairs
+GROUP_PATCH = 600                     # phase 16's group-path pass: num_points_in_patch (K1 = 601)
+GROUP_WARM, GROUP_TIMED, GROUP_STAGE = 2, 4, 2  # its pairs
 
 
 def dense_cloud(seed, n, box):
@@ -2836,22 +2850,54 @@ def large_knn_case(dev, kernels, name, s_np, counts, radius, k, band=None, chunk
     return ms, call_ms, plain_ms, bound, plan
 
 
+def stream_on_the_same_inputs(s_t, mu_t, nu_t, want, live):
+    """The streaming kernel launched directly (its launcher, past the plan,
+    which sends this K1 to the group path) on a group case's inputs: (device
+    ms by CUDA-graph replay, max abs error against the plain version)."""
+    import torch
+
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import STREAM_WARPS, _launcher
+
+    p, k1 = s_t.shape[0], s_t.shape[1]
+    scratch = torch.empty((p, k1 * (2 + 2 * STREAM_WARPS)), dtype=torch.float32, device=s_t.device)
+    out = torch.empty_like(s_t)
+
+    def call():
+        err = _launcher("stream")(s_t.data_ptr(), mu_t.data_ptr(), nu_t.data_ptr(), p, k1,
+                                  LARGE_ITERS, scratch.data_ptr(), out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"sinkhorn streaming kernel at K1={k1}: launch failed with {err}")
+
+    call()
+    torch.cuda.synchronize()
+    if not torch.equal(out > -1e11, live):
+        fail(f"sinkhorn streaming kernel at K1={k1}: masked entries differ")
+    err = float((out - want)[live].abs().max())
+    if err > 1e-4:
+        fail(f"sinkhorn streaming kernel at K1={k1}: max abs error {err} > 1e-4")
+    return graph_ms(call, reps=2), err
+
+
 def large_shapes_check(dev, kernels, max_clock_mhz):
     """Phase 3's large shapes: the kNN kernel's select paths at the k the
     plan sends each (the warp select path at k = 257 to 1024, the block
     select path at k = 2048 to 6144, and k above the support count) on dense
     windows, banded, unbanded, tiled, a batch of two clouds, duplicated
     points, two sort chunks and an overflowing key cache; Sinkhorn's cluster
-    path at K1 in ``LARGE_K1``
-    and its streaming path at ``STREAM_K1``, with masked rows and patches.
+    path at K1 in ``LARGE_K1``, its group path at ``GROUP_CASES`` (the
+    streaming kernel timed beside it on the ``STREAM_BASELINE`` inputs) and
+    its streaming path at ``STREAM_K1``, with masked rows and patches.
     Fills the kernels' ``block_path`` entry (k = 2048, the tiled band), and
-    ``cluster_path`` (P = 256, K1 = 257, 100 iterations, phase 16's shape)
-    and ``stream_path`` entries."""
+    ``cluster_path`` (P = 256, K1 = 257, 100 iterations, phase 16's shape),
+    ``group_path`` (P = 256, K1 = 601, phase 16's group-path pass) and
+    ``stream_path`` entries."""
     import numpy as np
     import torch
 
     from rdmnet_tpu_torch.ops.kernels import path_launch_counts, reset_launch_counts
-    from rdmnet_tpu_torch.ops.kernels.sinkhorn import (cluster_occupancy, sinkhorn_cuda,
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import (GROUP_K1_MAX, cluster_occupancy,
+                                                       group_resident, sinkhorn_cuda,
                                                        sinkhorn_plain, sinkhorn_plan)
 
     # banded, a batch of two clouds with different counts, the band staged whole
@@ -2897,8 +2943,11 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
         large_knn_case(dev, kernels, "overflowing the key cache", wide, [12000], 3.0, k,
                        queries=512, route="block")
 
-    cases = [(k1, LARGE_P) for k1 in LARGE_K1] + [(STREAM_K1, STREAM_P)]
-    occupancy = {}
+    cases = ([(k1, LARGE_P) for k1 in LARGE_K1] + [(k1, p) for p, k1 in GROUP_CASES]
+             + [(STREAM_K1, STREAM_P)])
+    if GROUP_CASES[-1][1] != GROUP_K1_MAX or sinkhorn_plan(STREAM_K1).route != "stream":
+        fail(f"sinkhorn: phase 3's last group case and STREAM_K1 must straddle {GROUP_K1_MAX}")
+    occupancy, vs_stream = {}, None
     for k1, p in cases:
         s_np, mu_np, nu_np = sinkhorn_inputs(SEED + k1, p, k1)
         s_t, mu_t, nu_t = (torch.from_numpy(x).to(dev) for x in (s_np, mu_np, nu_np))
@@ -2927,12 +2976,22 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
                            warmup=0)
         bound, by, exp_ms, ops_ms, bytes_ms, stream_ms = sinkhorn_bounds(
             p, k1, LARGE_ITERS, max_clock_mhz)
-        extra = ""
+        extra, stream_same = "", None
         if plan.route == "cluster":
             if plan.cluster not in occupancy:
                 occupancy[plan.cluster] = cluster_occupancy(k1)
             extra = (f"; {plan.cluster} CTAs a cluster, {plan.cta_bytes} bytes a CTA, "
                      f"cudaOccupancyMaxActiveClusters {cluster_occupancy(k1)}")
+        elif plan.route == "group":
+            groups = min(p, group_resident(k1, s_t.device.index) // plan.group)
+            extra = (f"; {plan.group} CTAs a group, {plan.cta_bytes} bytes a CTA, "
+                     f"{group_resident(k1, s_t.device.index)} CTAs resident, {groups} groups "
+                     f"in {-(-p // groups)} rounds")
+            if (p, k1) == STREAM_BASELINE:
+                stream_same = stream_on_the_same_inputs(s_t, mu_t, nu_t, want, live)
+                extra += (f"; the streaming kernel on the same inputs {stream_same[0]:.4f} ms on "
+                          f"the device (max abs err {stream_same[1]:.3e}), its traffic "
+                          f"{stream_ms:.5f} ms")
         else:
             extra = f"; the design's traffic (the patch read every half-step) {stream_ms:.5f} ms"
         print(f"sinkhorn {plan.route} path P={p} K1={k1} iters={LARGE_ITERS}: kernel "
@@ -2944,8 +3003,14 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
                      library_ms=None)
         if k1 == LARGE_PATCH + 1:
             kernels["sinkhorn"]["cluster_path"] = dict(entry, cluster=plan.cluster)
+        if stream_same is not None:
+            vs_stream = dict(shape=entry["shape"], group_ms=ms, stream_ms=stream_same[0],
+                             bound_ms=bound)
+        if k1 == GROUP_PATCH + 1:  # after STREAM_BASELINE in GROUP_CASES
+            kernels["sinkhorn"]["group_path"] = dict(entry, group=plan.group,
+                                                     streaming_kernel_same_inputs=vs_stream)
         if plan.route == "stream":
-            kernels["sinkhorn"]["stream_path"] = dict(entry, design_bound_ms=stream_ms)
+            kernels["sinkhorn"]["stream_path"] = dict(entry, design_bound_ms=stream_ms, launches=0)
     print("sinkhorn cluster path: cudaOccupancyMaxActiveClusters by cluster size "
           + json.dumps(occupancy))
 
@@ -3159,6 +3224,84 @@ def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
           f"{tf_err:.3e} ({'held to 1e-4' if held else 'not held'}: CPU pose vs ground truth "
           f"{reg_err:.3e}); phase {time.perf_counter() - t_phase:.3f} s")
     return per_pair, block_paths["block"]
+
+
+def group_model_phase(dev, card, kernels, cfg, ref, src):
+    """Phase 16's group-path pass: ``pipeline`` at ``cfg``'s width (the
+    phase-4 bucket and neighbour limits) with ``num_points_in_patch``
+    ``GROUP_PATCH`` (K1 = 601) on the phase-4 pair. Inside the timed window
+    every pair launches the 12 list-path searches and one group-path
+    Sinkhorn; one more pair's Sinkhorn is held against the plain version on
+    its own inputs (``sinkhorn_against_plain``). Prints ms/pair, per-stage ms
+    (OT among them) and peak memory; no CPU pipeline at this shape. Returns
+    the launches per pair by kernel and path."""
+    import torch
+
+    from rdmnet_tpu_torch.graph.pyramid import pad_cloud
+    from rdmnet_tpu_torch.models import RDMNet, pipeline
+    from rdmnet_tpu_torch.models.rdmnet import STAGES
+    from rdmnet_tpu_torch.ops.kernels import path_launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    big = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             num_points_in_patch=GROUP_PATCH))
+    cap = big.pyramid.caps[0]
+    model = RDMNet(big, device=dev, generator=torch.Generator().manual_seed(SEED))
+    rp, rc = pad_cloud(ref, cap, device=dev)
+    sp, sc = pad_cloud(src, cap, device=dev)
+    for i in range(GROUP_WARM):
+        pipeline(model, rp + 1e-6 * (i + 1), rc, sp, sc, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [pipeline(model, rp + 1e-6 * (i + 1), rc, sp, sc, device=dev)["estimated_transform"]
+            for i in range(GROUP_TIMED)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / GROUP_TIMED
+    paths = path_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"radius_knn": {"list": 12 * GROUP_TIMED, "select": 0, "block": 0},
+            "sinkhorn": {"register": 0, "cluster": 0, "group": GROUP_TIMED, "stream": 0}}
+    if paths != want:
+        fail(f"group-path pass: launched {paths} in {GROUP_TIMED} pairs, not {want}")
+    if not all(bool(torch.isfinite(t).all()) for t in outs):
+        fail("group-path pass: non-finite estimated_transform")
+    stage_ms = {name: 0.0 for name in STAGES}
+    for _ in range(GROUP_STAGE):
+        marks = []
+
+        def hook(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        prev = time.perf_counter()
+        pipeline(model, rp, rc, sp, sc, device=dev, stage_hook=hook)
+        for name, t in marks:
+            stage_ms[name] += (t - prev) * 1e3 / GROUP_STAGE
+            prev = t
+    ot, seen = model.optimal_transport, []
+    handle = ot.register_forward_hook(
+        lambda mod, args, kwargs, out: seen.append((args, kwargs, out)), with_kwargs=True)
+    try:
+        pipeline(model, rp, rc, sp, sc, device=dev)
+    finally:
+        handle.remove()
+    (args, kwargs, got), = seen
+    if got.shape[-1] != GROUP_PATCH + 1:
+        fail(f"group-path pass: Sinkhorn ran on {tuple(got.shape)}, not K1 = {GROUP_PATCH + 1}")
+    err = sinkhorn_against_plain(ot, args, kwargs, got, "group-path pass", "a pair's")
+    kernels["sinkhorn"]["max_abs_err"] = max(kernels["sinkhorn"]["max_abs_err"], err)
+    per_pair = {name: {path: n / GROUP_TIMED for path, n in per.items()}
+                for name, per in paths.items()}
+    print(f"group-path pass (num_points_in_patch {GROUP_PATCH}, caps {big.pyramid.caps}; "
+          f"{card}): {dt * 1e3:.3f} ms/pair over {GROUP_TIMED} pairs, peak memory "
+          f"{peak / 2**20:.1f} MiB; launches per pair {per_pair}; stages (ms, mean of "
+          f"{GROUP_STAGE} synchronised pairs) "
+          + json.dumps({k: round(v, 3) for k, v in stage_ms.items()})
+          + f"; phase {time.perf_counter() - t_phase:.3f} s")
+    return per_pair
 
 
 def main() -> None:
@@ -3480,6 +3623,11 @@ def main() -> None:
 
     # ---- 16. the model at shapes past the kernels' first paths -------------------------
     record_large_phase(*large_model_phase(dev, card, kernels, cfg, ref, src, gt), kernels)
+    group_per_pair = group_model_phase(dev, card, kernels, cfg, ref, src)
+    kernels["sinkhorn"]["group_path"].update(
+        launches=round(group_per_pair["sinkhorn"]["group"] * GROUP_TIMED),
+        launches_per_pair=group_per_pair["sinkhorn"]["group"])
+    kernels["sinkhorn"]["launches_per_group_pass_pair"] = sum(group_per_pair["sinkhorn"].values())
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -75,9 +75,42 @@
 // smallest C whose band, vectors and partials fit in 232,448 bytes a CTA:
 // C = 2 to K1 = 304, 4 to 412, 8 to 546.
 //
-// K1 > 546, the streaming path (sinkhorn_stream_launch): a patch fits in no
-// cluster of the portable sizes, so one CTA of 512 threads per patch reads
-// the patch from device memory in every half-step. Row half-step: a warp per
+// 546 < K1 <= 2640, the group path (sinkhorn_group_launch): a patch fits in
+// no cluster of the portable sizes (C = 16 would end at K1 = 707, and the
+// cluster path's 16 warps' partials alone are 37 K1 floats a CTA), so it is
+// split over a group of G CTAs that are not a cluster: CTA `rank` holds rows
+// [rank B, rank B + B), B = ceil(K1 / G), in shared memory for every
+// iteration (read from device memory once, written once), beside v, its
+// rows' u and log_mu: B K1p + K1p + 2 B floats (K1p = K1 rounded up to 32),
+// no per-warp partials. The plan takes the smallest G whose CTA fits in
+// 232,448 bytes: G = 6 at K1 = 547, 7 at 600, 20 at 1025, 132 (one CTA on
+// each SM of an H100) at 2640, the last K1 whose 20-row band fits. 32
+// warps, one CTA an SM. Row half-step: a warp per row pair, lanes over
+// columns (conflict-free), each lane folding its columns in blocks of 8
+// with an online (max, sum): block max and sum as trees, one rescale a
+// block; the lanes merge by reduce-scatters. Column half-step: a warp per
+// 32 columns, a lane per column, the band's rows folded 8 at a time into
+// two chains (u read as float4), so the CTA's (max, sum) partial of a
+// column comes out of registers and goes straight to device memory (L2).
+// Exchange: the group's CTAs are resident together (a cooperative launch
+// of as many groups as the card holds, at most P, walking the patches in
+// rounds), so they meet at a barrier in device memory (an arrival counter,
+// red.release / ld.acquire at gpu scope); CTA `rank` then merges the G
+// partials of its slice of ceil(K1 / G) columns (S lanes a column, S x 8 >=
+// G, combined by shuffles) into v and publishes each column with its
+// iteration's tag in one 8-byte store, and every CTA reads v back through
+// L2 as the tags arrive (in place of a second barrier and a read: 6-7%
+// faster at K1 600 and 1025). A redundant merge (every CTA merging all K1
+// columns from the G partials) was timed beside the reduce-scatter
+// (kernel_probe.py): 7% faster at G = 7, 1.3-1.5x slower at G = 20 and
+// 40x at G = 132, where its merge grows as G^2. What bounds it: the exps,
+// 2 x iters x P x K1^2 (at P = 256, K1 = 600, 100 iterations: 4.41 ms on
+// the SFU); the card runs it at ~3-4x that: the sweeps at ~2x their MUFU
+// time, the exchange ~20-25% of an iteration.
+//
+// K1 > 2640, the streaming path (sinkhorn_stream_launch): a patch fits in
+// no group of one CTA an SM, so one CTA of 512 threads per patch reads the
+// patch from device memory in every half-step. Row half-step: a warp per
 // row, each lane an online (max, exp-sum) over its columns, 8 loads in
 // flight a step (rescaled once a step), then a 5-step shuffle merge. Column
 // half-step: warp g takes rows g + 16 i and lane l column c0 + l, so each
@@ -109,6 +142,13 @@ namespace cg = cooperative_groups;
 #define SK_STREAM_THREADS 512
 #define SK_STREAM_WARPS (SK_STREAM_THREADS / 32)
 #define SK_STREAM_CH 8  // loads in flight per lane and step
+#define SKG_THREADS 1024  // 32 warps: at most 3 rows a warp, 64 registers a thread
+#define SKG_WARPS (SKG_THREADS / 32)
+#define SKG_CH 8          // row step: 32-column groups a lane folds at a time
+#define SKG_RR 8          // column step: rows a lane folds at a time
+#define SKG_MERGE 8       // partials a lane folds at a time in the merge
+#define SKG_BAR_STRIDE 32  // words between two groups' counters: one 128-byte line each
+#define SKG_NO_GROUP (-2)  // returned when the card cannot hold the groups at once
 #define FULL_MASK 0xffffffffu
 #define LOG2E 1.4426950408889634f
 #define LN2 0.6931471805599453f
@@ -300,7 +340,7 @@ extern "C" int sinkhorn_launch(const float* scores, const float* log_mu, const f
   return launch<13>(scores, log_mu, log_nu, P, K1, iters, out, st);
 }
 
-// ---- K1 > 546: the streaming path ----------------------------------------------------
+// ---- K1 > 2640: the streaming path ---------------------------------------------------
 
 // Fold a step's values x (their max cm) into an online (m, sum) in log2
 // units: sum of 2^(x - m). Entries outside the patch hold -inf; a state that
@@ -400,7 +440,7 @@ sinkhorn_stream_kernel(const float* __restrict__ scores, const float* __restrict
   }
 }
 
-// The streaming path, for any K1 >= 1 (the wrapper takes it for K1 > 546):
+// The streaming path, for any K1 >= 1 (the wrapper takes it for K1 > 2640):
 // scores (P, K1, K1), log_mu / log_nu (P, K1), out (P, K1, K1) float32 and
 // contiguous; scratch P x (2 + 2 x 16) x K1 float32, written and read by the
 // kernel only. Returns cudaGetLastError() after the launch.
@@ -753,6 +793,360 @@ extern "C" int sinkhorn_cluster_launch(const float* scores, const float* log_mu,
   if (e != cudaSuccess) return (int)e;
   if (clusters < 1) return SKC_NO_CLUSTER;
   e = cudaLaunchKernelEx(&cfg, kern, scores, log_mu, log_nu, K1, band_rows, iters, out);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// ---- 546 < K1 <= 2640: the group path -------------------------------------------------
+
+// Dynamic shared memory a CTA takes: its rows' u and log_mu (2 x band_rows),
+// v (K1p, K1 rounded up to 32 columns) and its band (band_rows x K1p);
+// floats.
+static size_t group_smem_bytes(int K1, int band_rows) {
+  const size_t k1p = (size_t)(K1 + 31) / 32 * 32;
+  return sizeof(float) * ((size_t)band_rows * k1p + k1p + 2 * (size_t)band_rows);
+}
+
+// Fold N values t (log2 units) into an online (max, sum): the block's max and
+// its sum of 2^(t - max) taken as trees, so a block's latency grows with
+// log2 N. A state that has seen only -inf stays (-inf, 0), without a branch.
+template <int N>
+__device__ __forceinline__ void tree_fold(float& m, float& s, const float (&t)[N]) {
+  float a[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) a[j] = t[j];
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) a[j] = fmaxf(a[j], a[j + w]);
+  const float mn = fmaxf(m, a[0]);
+  const float base = mn == -CUDART_INF_F ? 0.f : mn;
+#pragma unroll
+  for (int j = 0; j < N; ++j) a[j] = ex2(t[j] - base);
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) a[j] += a[j + w];
+  s = s * ex2(m - base) + a[0];
+  m = mn;
+}
+
+// Fold N 32-column groups, from group g, of the RB band rows r + 32 k into
+// the lane's online (max, sum) of each row: s + v, log2 units.
+template <int RB, int N>
+__device__ __forceinline__ void row_fold(const float* band, int K1p, int r, int g,
+                                         const float* v_sh, int lane, float (&m)[RB],
+                                         float (&s)[RB]) {
+  float t[RB][N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = 32 * (g + j) + lane;
+    const float vv = v_sh[c];
+#pragma unroll
+    for (int k = 0; k < RB; ++k) t[k][j] = band[(size_t)(r + SKG_WARPS * k) * K1p + c] + vv;
+  }
+#pragma unroll
+  for (int k = 0; k < RB; ++k) tree_fold<N>(m[k], s[k], t[k]);
+}
+
+// u of the band rows r + 32 k, k < RB: each lane folds its columns (32 g +
+// lane) in blocks of SKG_CH groups and a tail of 4, 2 and 1, then the lanes'
+// (max, sum) pairs are merged by two reduce-scatters; lane 32 k / RB writes
+// row k's u.
+template <int RB>
+__device__ __forceinline__ void group_row_lse(const float* band, int K1p, int NG, int r,
+                                              const float* v_sh, int lane, const float* mu_sh,
+                                              float* u_sh) {
+  float m[RB], s[RB];
+#pragma unroll
+  for (int k = 0; k < RB; ++k) {
+    m[k] = -CUDART_INF_F;
+    s[k] = 0.f;
+  }
+  int g = 0;
+  for (; g + SKG_CH <= NG; g += SKG_CH) row_fold<RB, SKG_CH>(band, K1p, r, g, v_sh, lane, m, s);
+  const int rem = NG - g;  // warp-uniform
+  if (rem & 4) {
+    row_fold<RB, 4>(band, K1p, r, g, v_sh, lane, m, s);
+    g += 4;
+  }
+  if (rem & 2) {
+    row_fold<RB, 2>(band, K1p, r, g, v_sh, lane, m, s);
+    g += 2;
+  }
+  if (rem & 1) row_fold<RB, 1>(band, K1p, r, g, v_sh, lane, m, s);
+  const float mine = reduce_scatter<RB>(m, lane, [](float a, float b) { return fmaxf(a, b); });
+  float sc[RB];
+#pragma unroll
+  for (int k = 0; k < RB; ++k) sc[k] = s[k] * ex2(m[k] - __shfl_sync(FULL_MASK, mine, 32 / RB * k));
+  const float tot = reduce_scatter<RB>(sc, lane, [](float a, float b) { return a + b; });
+  if (lane % (32 / RB) == 0) {
+    const int row = r + SKG_WARPS * (lane / (32 / RB));
+    u_sh[row] = mu_sh[row] - (mine + lg2(tot));
+  }
+}
+
+// Fold N band rows from row r of column c into the lane's online (max, sum):
+// s + u, log2 units. From N = 4, r is a multiple of 4 and u is read as float4
+// (u_sh is 16-byte aligned).
+template <int N>
+__device__ __forceinline__ void col_fold(const float* band, int K1p, int r, int c,
+                                         const float* u_sh, float& m, float& s) {
+  float t[N];
+  if constexpr (N >= 4) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const float4 u4 = *reinterpret_cast<const float4*>(u_sh + r + j);
+      t[j] = band[(size_t)(r + j) * K1p + c] + u4.x;
+      t[j + 1] = band[(size_t)(r + j + 1) * K1p + c] + u4.y;
+      t[j + 2] = band[(size_t)(r + j + 2) * K1p + c] + u4.z;
+      t[j + 3] = band[(size_t)(r + j + 3) * K1p + c] + u4.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) t[j] = band[(size_t)(r + j) * K1p + c] + u_sh[r + j];
+  }
+  tree_fold<N>(m, s, t);
+}
+
+// Arrive at the group's barrier and wait until `target` arrivals (G per
+// barrier so far) are visible. Every thread's earlier global writes are
+// ordered before the release by the first __syncthreads, and the acquire
+// before every thread's later reads by the second.
+__device__ __forceinline__ void group_barrier(unsigned* counter, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// v of one column published with its tag (the group's iterations so far,
+// plus one) in one 8-byte store, so a reader that sees the tag sees the
+// value; the scratch starts at zero, which no tag is.
+__device__ __forceinline__ void store_tagged(uint2* p, float v, unsigned tag) {
+  asm volatile("st.volatile.global.v2.u32 [%0], {%1, %2};" ::"l"(p), "r"(__float_as_uint(v)),
+               "r"(tag)
+               : "memory");
+}
+
+// The value at p once its tag is `tag`: read through L2 until it is.
+__device__ __forceinline__ float load_tagged(const uint2* p, unsigned tag) {
+  unsigned v, t;
+  do {
+    asm volatile("ld.volatile.global.v2.u32 {%0, %1}, [%2];" : "=r"(v), "=r"(t) : "l"(p) : "memory");
+  } while (t != tag);
+  return __uint_as_float(v);
+}
+
+// v of columns [c0, c0 + n): log_nu minus the LSE of the group's G partials
+// (max, sum) of each column in `part` ([G][K1] float2, read through L2). S
+// lanes share a column (S a power of two dividing 32, S x SKG_MERGE >= G):
+// each folds up to SKG_MERGE partials, loaded together, then the S lanes
+// merge by shuffles; the first of them stores v through st(c, v).
+template <typename Store>
+__device__ __forceinline__ void merge_columns(const float2* part, const float* nu, int G,
+                                              int K1, int S, int c0, int n, Store st) {
+  const int lane = threadIdx.x & 31, sub = lane & (S - 1);
+  for (int i0 = (threadIdx.x >> 5) * (32 / S); i0 < n; i0 += SKG_THREADS / S) {  // warp-uniform
+    const int i = i0 + lane / S;
+    const int c = c0 + min(i, n - 1);  // a column past n repeats the last; not stored
+    float2 x[SKG_MERGE];
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < SKG_MERGE; ++j) {
+      const int q = sub + S * j;
+      x[j] = q < G ? __ldcg(part + (size_t)q * K1 + c) : make_float2(-CUDART_INF_F, 0.f);
+      m = fmaxf(m, x[j].x);
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < SKG_MERGE; ++j) s += x[j].y * ex2(x[j].x - m);  // (-inf, 0) adds 0
+    for (int o = S >> 1; o > 0; o >>= 1) {
+      const float mo = __shfl_xor_sync(FULL_MASK, m, o), so = __shfl_xor_sync(FULL_MASK, s, o);
+      const float mn = fmaxf(m, mo);
+      s = s * ex2(m - mn) + so * ex2(mo - mn);
+      m = mn;
+    }
+    if (sub == 0 && i < n) st(c, __ldg(nu + c) * LOG2E - (m + lg2(s)));
+  }
+}
+
+// The group path. A patch's rows are split over a group of G CTAs, band_rows
+// each (the last may hold fewer), and each CTA keeps its band in shared
+// memory for every iteration. A persistent grid of `gridDim.x / G` groups
+// walks the patches; all its CTAs are resident at once (a cooperative
+// launch), so a CTA may wait on the others. Each iteration the CTAs write
+// their column partials, meet at the group's barrier, CTA `rank` merges its
+// slice of the columns into v and publishes it tagged, and every CTA reads
+// all of v once its tags are this iteration's. One buffer of each is
+// enough: a CTA writes its partials of the next iteration only after it
+// has read all of this iteration's v, so after every merge of them, and a
+// CTA publishes the next v only after the next barrier, so after every
+// read of this one. scratch: per group, G x K1 column partials (max, sum)
+// then K1 tagged v words, zero at the launch; counters: per group, one
+// arrival counter every SKG_BAR_STRIDE words, zero at the launch.
+__global__ void __launch_bounds__(SKG_THREADS, 1)
+sinkhorn_group_kernel(const float* __restrict__ scores, const float* __restrict__ log_mu,
+                      const float* __restrict__ log_nu, int P, int K1, int G, int band_rows,
+                      int iters, float* scratch, unsigned* counters, float* __restrict__ out) {
+  const int K1p = (K1 + 31) / 32 * 32, NG = K1p / 32;
+  const int groups = gridDim.x / G, grp = blockIdx.x / G, rank = blockIdx.x % G;
+  const int r0 = rank * band_rows;
+  const int nb = max(0, min(band_rows, K1 - r0));  // rows of this CTA's band
+  extern __shared__ float4 smem4[];
+  float* u_sh = reinterpret_cast<float*>(smem4);  // band_rows, 16-byte aligned
+  float* mu_sh = u_sh + band_rows;
+  float* v_sh = mu_sh + band_rows;  // K1p
+  float* band = v_sh + K1p;         // band_rows x K1p
+  float2* part = reinterpret_cast<float2*>(scratch + (size_t)grp * 2 * ((size_t)G + 1) * K1);
+  uint2* vt = reinterpret_cast<uint2*>(part + (size_t)G * K1);
+  unsigned* counter = counters + (size_t)grp * SKG_BAR_STRIDE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  unsigned arrivals = 0;  // barriers this CTA has passed, in every patch so far
+  unsigned step = 0;      // iterations run so far, in every patch (v's tag, less one)
+  // merge: S lanes a column, the next power of two of ceil(G / SKG_MERGE), at most 32
+  const int S = G <= SKG_MERGE ? 1 : min(32, 1 << (32 - __clz((G - 1) / SKG_MERGE)));
+  const int slice = (K1 + G - 1) / G, c0 = rank * slice;  // the columns this CTA merges
+  const int n_merge = max(0, min(slice, K1 - c0));
+
+  for (int p = grp; p < P; p += groups) {
+    const float* sp = scores + ((size_t)p * K1 + r0) * K1;
+    for (int r = warp; r < band_rows; r += SKG_WARPS)
+      for (int c = lane; c < K1p; c += 32)
+        band[(size_t)r * K1p + c] =
+            r < nb && c < K1 ? sp[(size_t)r * K1 + c] * LOG2E : -CUDART_INF_F;
+    for (int t = tid; t < band_rows; t += SKG_THREADS) {
+      mu_sh[t] = t < nb ? log_mu[(size_t)p * K1 + r0 + t] * LOG2E : 0.f;
+      u_sh[t] = 0.f;  // iters = 0: the output is s
+    }
+    for (int c = tid; c < K1p; c += SKG_THREADS) v_sh[c] = 0.f;
+    __syncthreads();
+
+    for (int it = 0; it < iters; ++it, ++step) {
+      // u: row LSE of s + v over the warp's rows, two at a time, then one
+      {
+        const int nr = warp < nb ? (nb - warp + SKG_WARPS - 1) / SKG_WARPS : 0;
+        int i = 0;
+        for (; i + 2 <= nr; i += 2)
+          group_row_lse<2>(band, K1p, NG, warp + SKG_WARPS * i, v_sh, lane, mu_sh, u_sh);
+        if (i < nr) group_row_lse<1>(band, K1p, NG, warp + SKG_WARPS * i, v_sh, lane, mu_sh, u_sh);
+      }
+      __syncthreads();
+
+      // v: the CTA's column partials over its band, a warp per 32 columns
+      // and lanes over them, the rows folded SKG_RR at a time into two
+      // chains (alternate blocks), merged at the end
+      for (int g = warp; g < NG; g += SKG_WARPS) {
+        const int c = 32 * g + lane;
+        float ma = -CUDART_INF_F, sa = 0.f, mb = -CUDART_INF_F, sb = 0.f;
+        int r = 0;
+        for (; r + 2 * SKG_RR <= nb; r += 2 * SKG_RR) {
+          col_fold<SKG_RR>(band, K1p, r, c, u_sh, ma, sa);
+          col_fold<SKG_RR>(band, K1p, r + SKG_RR, c, u_sh, mb, sb);
+        }
+        const int rem = nb - r;  // < 16
+        if (rem & 8) {
+          col_fold<8>(band, K1p, r, c, u_sh, ma, sa);
+          r += 8;
+        }
+        if (rem & 4) {
+          col_fold<4>(band, K1p, r, c, u_sh, mb, sb);
+          r += 4;
+        }
+        if (rem & 2) {
+          col_fold<2>(band, K1p, r, c, u_sh, ma, sa);
+          r += 2;
+        }
+        if (rem & 1) col_fold<1>(band, K1p, r, c, u_sh, mb, sb);
+        const float m = fmaxf(ma, mb), base = m == -CUDART_INF_F ? 0.f : m;
+        if (c < K1)
+          __stcg(part + (size_t)rank * K1 + c,
+                 make_float2(m, sa * ex2(ma - base) + sb * ex2(mb - base)));
+      }
+
+      // the exchange: CTA `rank` merges its slice of the columns into v and
+      // publishes it tagged; every CTA reads all of v as its tags arrive
+      group_barrier(counter, ++arrivals * G);
+      merge_columns(part, log_nu + (size_t)p * K1, G, K1, S, c0, n_merge,
+                    [vt, step](int c, float v) { store_tagged(vt + c, v, step + 1); });
+      for (int c = tid; c < K1; c += SKG_THREADS) v_sh[c] = load_tagged(vt + c, step + 1);
+      __syncthreads();
+    }
+
+    float* op = out + ((size_t)p * K1 + r0) * K1;
+    for (int r = warp; r < nb; r += SKG_WARPS) {
+      const float ur = u_sh[r];
+      for (int c = lane; c < K1; c += 32)
+        op[(size_t)r * K1 + c] = ((band[(size_t)r * K1p + c] + ur) + v_sh[c]) * LN2;
+    }
+    __syncthreads();  // the next patch overwrites the band, u and v
+  }
+}
+
+static int group_config(int K1, int G, int* band_rows, size_t* smem, int* resident) {
+  if (K1 < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  *band_rows = (K1 + G - 1) / G;
+  if (K1 - (G - 1) * *band_rows < 1) return (int)cudaErrorInvalidValue;  // an empty band
+  *smem = group_smem_bytes(K1, *band_rows);
+  if (*smem > SKC_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(sinkhorn_group_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sinkhorn_group_kernel, SKG_THREADS,
+                                                    *smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  *resident = per_sm * sms;
+  return 0;
+}
+
+// How many CTAs of the group path at this K1 and G the current card holds at
+// once (occupancy x SMs) into *ctas. Returns 0 or the error.
+extern "C" int sinkhorn_group_resident(int K1, int G, int* ctas) {
+  int band_rows;
+  size_t smem;
+  return group_config(K1, G, &band_rows, &smem, ctas);
+}
+
+// The group path: scores (P, K1, K1), log_mu / log_nu (P, K1), out (P, K1,
+// K1) float32 and contiguous; G CTAs a patch, `groups` groups resident at
+// once walking the patches; scratch groups x 2 (G + 1) K1 float32 and
+// counters groups x SKG_BAR_STRIDE uint32, both zero and the kernel's alone.
+// Returns SKG_NO_GROUP when the card cannot hold `groups` groups at once
+// (nothing is launched: the caller raises, it never falls back), else the
+// cooperative launch's error or cudaGetLastError() after it.
+extern "C" int sinkhorn_group_launch(const float* scores, const float* log_mu,
+                                     const float* log_nu, int P, int K1, int iters, int G,
+                                     int groups, float* scratch, unsigned* counters, float* out,
+                                     void* stream) {
+  if (iters < 0 || P < 0 || groups < 0) return (int)cudaErrorInvalidValue;
+  int band_rows, resident;
+  size_t smem;
+  int err = group_config(K1, G, &band_rows, &smem, &resident);
+  if (err != 0) return err;
+  if (P == 0) return 0;
+  if (groups < 1 || groups > P || (long long)groups * G > resident) return SKG_NO_GROUP;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(groups * G));
+  cfg.blockDim = dim3(SKG_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, sinkhorn_group_kernel, scores, log_mu, log_nu, P, K1,
+                                     G, band_rows, iters, scratch, counters, out);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

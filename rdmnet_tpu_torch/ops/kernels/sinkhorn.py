@@ -5,12 +5,16 @@ sinkhorn_pallas). Both versions run ``num_iterations`` of
 ``u = log_mu - LSE_j(s + v)``, ``v = log_nu - LSE_i(s + u)`` from u = v = 0
 and return ``s + u + v``; masked entries carry -1e12.
 
-The kernel has three paths, chosen by ``sinkhorn_plan``: K1 <=
+The kernel has four paths, chosen by ``sinkhorn_plan`` from K1 alone: K1 <=
 ``REGISTER_K1_MAX`` holds the patch in registers; a larger K1 holds it in the
 shared memory of a thread-block cluster of 2, 4 or 8 CTAs, the smallest that
-fits (to K1 = 546); past that it streams the patch from device memory every
-half-step, with u, v and the column partials in a scratch buffer the wrapper
-allocates.
+fits (to K1 = 546); past that in the shared memory of a group of G CTAs, the
+smallest G whose band fits (to K1 = 2640, G <= ``GROUP_CTAS_MAX``), launched
+cooperatively so that a group's CTAs are resident together and exchange
+column partials and v through a scratch buffer in device memory; past that it
+streams the patch from device memory every half-step, with u, v and the
+column partials in a scratch buffer. The wrapper allocates every scratch
+buffer.
 """
 
 from __future__ import annotations
@@ -28,15 +32,23 @@ CLUSTER_SIZES = (2, 4, 8)  # the portable thread-block cluster sizes
 CLUSTER_WARPS = 16  # cluster path: 16 warps a CTA, one column partial each
 STREAM_WARPS = 16  # streaming path: a CTA of 16 warps per patch, one column partial each
 SMEM_MAX = 232_448  # shared memory a CTA may take (227 KB)
+GROUP_CTAS_MAX = 132  # group path: a group's CTAs, one an SM of an H100 SXM, resident at once
+GROUP_K1_MAX = 2640  # group path's last K1: 132 CTAs of ceil(K1 / 132) = 20 rows fit to here
+BAR_STRIDE = 32  # group path: int32 words between two groups' barrier counters
 
 
 class SinkhornPlan(NamedTuple):
     """How ``csrc/sinkhorn.cu`` runs one call."""
 
-    route: str  # "register", "cluster" or "stream"
-    scratch_floats: int  # per patch: u, v and the warps' column partials (max, sum); 0 on chip
+    route: str  # "register", "cluster", "group" or "stream"
+    # device scratch: on the streaming path per patch (u, v and the warps'
+    # column partials (max, sum)), on the group path per resident group (G x
+    # K1 column partials (max, sum) and K1 tagged v words, zero at the
+    # launch); else 0
+    scratch_floats: int
     cluster: int = 0  # CTAs a patch on the cluster path, else 0
     cta_bytes: int = 0  # shared memory a CTA takes
+    group: int = 0  # CTAs a patch on the group path (G), else 0
 
 
 def register_cta_bytes(k1: int) -> int:
@@ -56,10 +68,30 @@ def cluster_cta_bytes(k1: int, c: int) -> int:
     return 4 * (band * k1 + (2 * CLUSTER_WARPS + 5) * k1 + 2 * band)
 
 
+def group_cta_bytes(k1: int, g: int) -> int:
+    """Dynamic shared memory of a group-path CTA: its band of ceil(K1 / G)
+    rows of K1p = K1 rounded up to 32 columns, v (K1p), and its rows'
+    log_mu and u; float32 (``sinkhorn.cu``'s ``group_smem_bytes``)."""
+    band = -(-k1 // g)
+    k1p = -(-k1 // 32) * 32
+    return 4 * (band * k1p + k1p + 2 * band)
+
+
+def group_size(k1: int) -> int:
+    """The smallest G whose CTA fits in ``SMEM_MAX`` at this K1, or 0 past
+    ``GROUP_CTAS_MAX``: the band may hold B = (SMEM_MAX / 4 - K1p) // (K1p +
+    2) rows, so G = ceil(K1 / B) (no smaller G fits, and no band is empty)."""
+    k1p = -(-k1 // 32) * 32
+    rows = (SMEM_MAX // 4 - k1p) // (k1p + 2)
+    g = -(-k1 // rows) if rows > 0 else 0
+    return g if 0 < g <= GROUP_CTAS_MAX else 0
+
+
 def sinkhorn_plan(k1: int) -> SinkhornPlan:
     """Launch plan of one call (pure; the CPU tests call it): the register
     path to ``REGISTER_K1_MAX``, then the smallest cluster whose CTAs fit in
-    ``SMEM_MAX``, then the streaming path."""
+    ``SMEM_MAX``, then the smallest group (``group_size``), then the
+    streaming path."""
     if k1 < 1:
         raise ValueError(f"sinkhorn: K1={k1} must be at least 1")
     if k1 <= REGISTER_K1_MAX:
@@ -67,6 +99,9 @@ def sinkhorn_plan(k1: int) -> SinkhornPlan:
     for c in CLUSTER_SIZES:
         if cluster_cta_bytes(k1, c) <= SMEM_MAX:
             return SinkhornPlan("cluster", 0, c, cluster_cta_bytes(k1, c))
+    g = group_size(k1)
+    if g:
+        return SinkhornPlan("group", 2 * (g + 1) * k1, 0, group_cta_bytes(k1, g), g)
     return SinkhornPlan("stream", k1 * (2 + 2 * STREAM_WARPS), 0, 0)
 
 
@@ -91,15 +126,17 @@ def sinkhorn_plain(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Ten
 
 
 NO_CLUSTER = -1  # sinkhorn_cluster_launch: no cluster of the plan fits on the card
+NO_GROUP = -2  # sinkhorn_group_launch: the card cannot hold the groups at once
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher(route: str):
     lib = load_library("sinkhorn")
     fn = getattr(lib, {"register": "sinkhorn_launch", "cluster": "sinkhorn_cluster_launch",
-                       "stream": "sinkhorn_stream_launch"}[route])
+                       "group": "sinkhorn_group_launch", "stream": "sinkhorn_stream_launch"}[route])
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + {"register": [], "cluster": [ctypes.c_int], "stream": [ctypes.c_void_p]}[route] \
+        + {"register": [], "cluster": [ctypes.c_int], "stream": [ctypes.c_void_p],
+           "group": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2}[route] \
         + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
@@ -121,12 +158,29 @@ def cluster_occupancy(k1: int, device=None) -> int:
     return n.value
 
 
+@functools.lru_cache(maxsize=None)
+def group_resident(k1: int, device_index: int) -> int:
+    """CTAs of the group path at this K1 that card ``device_index`` holds at
+    once (occupancy x SMs; ``sinkhorn_group_resident``); card only."""
+    plan = sinkhorn_plan(k1)
+    if plan.route != "group":
+        raise ValueError(f"sinkhorn: K1={k1} takes the {plan.route} path, not a group")
+    fn = load_library("sinkhorn").sinkhorn_group_resident
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(fn(k1, plan.group, ctypes.byref(n)), "sinkhorn_group_resident")
+    return n.value
+
+
 def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
                   num_iterations: int) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream of the tensors' card (one
     launch per call), whichever device is current. ``launches`` counts every
-    launch, ``path_launches`` each path's ("register", "cluster", "stream").
-    A cluster that cannot be scheduled raises; no path falls back to another.
+    launch, ``path_launches`` each path's ("register", "cluster", "group",
+    "stream"). A cluster that cannot be scheduled, or a group the card cannot
+    hold at once, raises; no path falls back to another.
     The kernel has no backward: with grad mode on, inputs that require grad raise
     instead of returning a result cut off from the graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (scores, log_mu, log_nu)):
@@ -145,6 +199,19 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
     args = [scores.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), p, k1, num_iterations]
     if plan.route == "cluster":
         args.append(plan.cluster)
+    elif plan.route == "group":
+        # a persistent grid: as many groups as the card holds at once, at most P
+        groups = min(p, group_resident(k1, scores.device.index) // plan.group)
+        if groups < 1 and p > 0:
+            raise RuntimeError(f"sinkhorn: this card cannot hold a group of {plan.group} CTAs "
+                               f"with {plan.cta_bytes} bytes of shared memory each at once "
+                               f"(K1={k1})")
+        # held until the launch is queued, as the streaming path's scratch;
+        # zero: no tag the kernel waits for
+        scratch = torch.zeros((groups, plan.scratch_floats), dtype=torch.float32,
+                              device=scores.device)
+        counters = torch.zeros((groups, BAR_STRIDE), dtype=torch.int32, device=scores.device)
+        args += [plan.group, groups, scratch.data_ptr(), counters.data_ptr()]
     elif plan.route == "stream":
         # held until the launch is queued; the allocator reuses it in stream order
         scratch = torch.empty((p, plan.scratch_floats), dtype=torch.float32,
@@ -157,6 +224,9 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
         raise RuntimeError(f"sinkhorn: no cluster of {plan.cluster} CTAs with "
                            f"{plan.cta_bytes} bytes of shared memory each fits on this card "
                            f"(K1={k1})")
+    if err == NO_GROUP:
+        raise RuntimeError(f"sinkhorn: this card cannot hold the groups of {plan.group} CTAs "
+                           f"at once (K1={k1})")
     check(err, "sinkhorn")
     sinkhorn_cuda.launches += 1
     sinkhorn_cuda.path_launches[plan.route] += 1
@@ -164,7 +234,7 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
 
 
 sinkhorn_cuda.launches = 0
-sinkhorn_cuda.path_launches = {"register": 0, "cluster": 0, "stream": 0}
+sinkhorn_cuda.path_launches = {"register": 0, "cluster": 0, "group": 0, "stream": 0}
 
 
 def sinkhorn(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,

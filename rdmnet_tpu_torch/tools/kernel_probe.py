@@ -1,9 +1,10 @@
 """Kernel measurements beside ``chip_smoke.py``'s checks: which select path
-the radius-kNN kernel should take at large k, and where the time of its
-block select path and of the cluster Sinkhorn goes.
+the radius-kNN kernel should take at large k, where the time of its block
+select path and of the cluster and group Sinkhorn goes, and the group path's
+two merge designs side by side.
 
-    python -m rdmnet_tpu_torch.tools.kernel_probe [--parts routes,knn_split,sinkhorn_split]
-        [--out FILE.json]
+    python -m rdmnet_tpu_torch.tools.kernel_probe
+        [--parts routes,knn_split,sinkhorn_split,group_split] [--out FILE.json]
 
 Needs an NVIDIA card and ``nvcc``. The parts:
 
@@ -23,6 +24,12 @@ Needs an NVIDIA card and ``nvcc``. The parts:
 - ``sinkhorn_split``: a copy of ``csrc/sinkhorn.cu`` with stamps in the
   cluster path (CTA 0's thread 0, per iteration) at P = 256, K1 = 257 and
   513, 100 iterations.
+- ``group_split``: the group path (546 < K1 <= 2640) at P = 32, K1 = 600 and 1025,
+  100 iterations: a copy with stamps (CTA 0's thread 0, per iteration: row
+  step, column sweep, barrier, merge, v read), and a copy whose exchange is
+  the other merge design, a redundant merge (every CTA merging all K1
+  columns from the G partials, which sit in two parity buffers), timed
+  beside the kernel's reduce-scatter and stamped too.
 
 The copies are written to and built in ``rdmnet_tpu_torch/_build/``; the
 kernels themselves carry no measurement code. Device times are CUDA-graph
@@ -75,6 +82,45 @@ SKC_STAMPS = ("sinkhorn_cluster_kernel(const float*", "typedef void (*ClusterKer
 ])
 SKC_PARTS = ("row step", "column sweeps", "barrier 1", "local merge", "cluster barrier",
              "remote merge", "barrier 2")
+GROUP_REGION = ("sinkhorn_group_kernel(const float*", "static int group_config(")
+# the kernel's exchange (a reduce-scatter: CTA `rank` merges its slice of the
+# columns and publishes it tagged, every CTA reads all of v) and what the
+# redundant merge puts in its place: every CTA merges all K1 columns, with
+# the partials in two parity buffers (one barrier an iteration orders a
+# CTA's next partials only after its own merge, not after the others')
+GROUP_EXCHANGE = """      group_barrier(counter, ++arrivals * G);
+      merge_columns(part, log_nu + (size_t)p * K1, G, K1, S, c0, n_merge,
+                    [vt, step](int c, float v) { store_tagged(vt + c, v, step + 1); });
+      for (int c = tid; c < K1; c += SKG_THREADS) v_sh[c] = load_tagged(vt + c, step + 1);
+      __syncthreads();
+"""
+GROUP_REDUNDANT = [
+    (GROUP_EXCHANGE, """      group_barrier(counter, ++arrivals * G);
+      merge_columns(part + (size_t)(step & 1) * G * K1, log_nu + (size_t)p * K1, G, K1, S, 0,
+                    K1, [v_sh](int c, float v) { v_sh[c] = v; });
+      __syncthreads();
+"""),
+    ("__stcg(part + (size_t)rank * K1 + c,", "__stcg(part + ((size_t)(step & 1) * G + rank) * K1 + c,"),
+    ("scratch + (size_t)grp * 2 * ((size_t)G + 1) * K1)",
+     "scratch + (size_t)grp * 2 * (2 * (size_t)G + 1) * K1)"),
+]
+GROUP_START = ("    for (int it = 0; it < iters; ++it, ++step) {\n", None, False)
+GROUP_SWEEPS = [("      // v: the CTA's column partials over its band", 0, False),
+                ("      // the exchange: CTA `rank` merges", 1, False),
+                ("      group_barrier(counter, ++arrivals * G);\n      merge_columns(", 2, "mid")]
+GROUP_STAMPS = (*GROUP_REGION, [
+    GROUP_START, *GROUP_SWEEPS,
+    ("[vt, step](int c, float v) { store_tagged(vt + c, v, step + 1); });\n", 3, True),
+    ("v_sh[c] = load_tagged(vt + c, step + 1);\n      __syncthreads();\n", 4, True),
+])
+GROUP_PARTS = ("row step", "column sweep", "barrier", "merge", "v read")
+REDUNDANT_STAMPS = (*GROUP_REGION, [
+    GROUP_START, *GROUP_SWEEPS,
+    ("K1, [v_sh](int c, float v) { v_sh[c] = v; });\n      __syncthreads();\n", 3, True),
+])
+REDUNDANT_PARTS = ("row step", "column sweep", "barrier", "merge")
+GROUP_K1S = (600, 1025)
+GROUP_P = 32
 
 PRELUDE = """
 __device__ unsigned long long probe_clocks[16];
@@ -94,13 +140,28 @@ extern "C" int probe_clocks_zero() {
 """
 
 
-def stamped_source(name: str, stamps, who: str) -> str:
-    """``csrc/<name>.cu`` with ``PROBE_STAMP`` lines at ``stamps``' anchors,
-    each found exactly once inside its region (the copy fails to build
-    rather than time the wrong code when the kernel has changed)."""
+def redundant_source() -> str:
+    """``csrc/sinkhorn.cu`` with the group path's exchange replaced by the
+    redundant merge (each anchor must be found exactly once)."""
     from rdmnet_tpu_torch.ops.kernels._build import source_path
 
-    src = source_path(name).read_text()
+    src = source_path("sinkhorn").read_text()
+    for old, new in GROUP_REDUNDANT:
+        if src.count(old) != 1:
+            raise RuntimeError(f"kernel_probe: {old!r} is not once in sinkhorn.cu")
+        src = src.replace(old, new)
+    return src
+
+
+def stamped_source(name: str, stamps, who: str, src: str = None) -> str:
+    """``csrc/<name>.cu`` (or ``src``, a copy of it) with ``PROBE_STAMP``
+    lines at ``stamps``' anchors, each found exactly once inside its region
+    (the copy fails to build rather than time the wrong code when the kernel
+    has changed)."""
+    from rdmnet_tpu_torch.ops.kernels._build import source_path
+
+    if src is None:
+        src = source_path(name).read_text()
     start, end, edits = stamps
     lo = src.index(start)
     hi = src.index(end, lo)
@@ -433,6 +494,80 @@ def sinkhorn_split_part(dev, lib, max_clock_mhz):
     return rows
 
 
+def group_call(lib, args, iters, out, redundant=False):
+    """One group-path launch of ``lib``'s ``sinkhorn_group_launch`` (the
+    kernel's library or a copy's) with the wrapper's grid and scratch; the
+    redundant copy's scratch holds a second buffer of partials."""
+    import torch
+
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import BAR_STRIDE, group_resident, sinkhorn_plan
+
+    p, k1 = args[0].shape[0], args[0].shape[1]
+    plan = sinkhorn_plan(k1)
+    groups = min(p, group_resident(k1, args[0].device.index) // plan.group)
+    floats = plan.scratch_floats + (2 * plan.group * k1 if redundant else 0)
+    scratch = torch.zeros((groups, floats), device=args[0].device)
+    counters = torch.zeros((groups, BAR_STRIDE), dtype=torch.int32, device=args[0].device)
+    fn = lib.sinkhorn_group_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    err = fn(*[a.data_ptr() for a in args], p, k1, iters, plan.group, groups,
+             scratch.data_ptr(), counters.data_ptr(), out.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"kernel_probe: group launch failed with {err}")
+    return groups
+
+
+def group_split_part(dev, libs, max_clock_mhz):
+    """The group path at P = ``GROUP_P``, K1 in ``GROUP_K1S``, 100 iterations
+    (chip_smoke.py phase 3's inputs): the kernel's device ms beside the
+    redundant-merge copy's, and each design's parts an iteration (CTA 0's
+    thread 0, averaged over the iterations of every patch its group takes)."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.ops.kernels._build import load_library
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_plain, sinkhorn_plan
+
+    rows = []
+    p, iters = GROUP_P, 100
+    for k1 in GROUP_K1S:
+        rng = np.random.RandomState(SEED + k1)
+        scores = (rng.randn(p, k1, k1) * 3).astype(np.float32)
+        log_mu = np.full((p, k1), -np.log(2 * (k1 - 1)), np.float32)
+        args = [torch.from_numpy(x).to(dev) for x in (scores, log_mu, log_mu.copy())]
+        want = sinkhorn_plain(*args, iters)
+        out = torch.empty_like(want)
+        row = dict(k1=k1, p=p, group=sinkhorn_plan(k1).group)
+        for design, parts, lib_k, stamped_k in (
+                ("reduce-scatter", GROUP_PARTS, "sinkhorn", "group_stamped"),
+                ("redundant", REDUNDANT_PARTS, "redundant", "redundant_stamped")):
+            lib = load_library("sinkhorn") if lib_k == "sinkhorn" else libs[lib_k]
+            red = design == "redundant"
+            groups = group_call(lib, args, iters, out, red)
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            if err > 1e-4:
+                raise RuntimeError(f"kernel_probe: {design} at K1={k1} is {err} from plain")
+            ms = graph_ms(lambda: group_call(lib, args, iters, out, red))
+            stamped = libs[stamped_k]
+            stamped.probe_clocks_zero()
+            group_call(stamped, args, iters, out, red)
+            torch.cuda.synchronize()
+            n_it = iters * len(range(0, p, groups))  # CTA 0's iterations, every patch
+            cyc = [c / n_it for c in clocks(stamped, len(parts))]
+            row[design] = dict(ms=round(ms, 4), max_abs_err=err, groups=groups,
+                               cycles_per_iteration={n: round(c) for n, c in zip(parts, cyc)},
+                               us_per_iteration=round(sum(cyc) / max_clock_mhz, 3),
+                               stamped_ms=round(graph_ms(lambda: group_call(stamped, args,
+                                                                            iters, out, red)),
+                                                4))
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def smi(query: str) -> str:
     res = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -441,7 +576,7 @@ def smi(query: str) -> str:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parts", default="routes,knn_split,sinkhorn_split")
+    parser.add_argument("--parts", default="routes,knn_split,sinkhorn_split,group_split")
     parser.add_argument("--out", default=None, help="write the rows as JSON here too")
     args = parser.parse_args(argv)
     parts = args.parts.split(",")
@@ -469,6 +604,14 @@ def main(argv=None) -> int:
         copies["sinkhorn"] = start_build(
             "sinkhorn", stamped_source("sinkhorn", SKC_STAMPS,
                                        "blockIdx.x == 0 && threadIdx.x == 0"))
+    if "group_split" in parts:
+        who = "blockIdx.x == 0 && threadIdx.x == 0"
+        copies["redundant"] = start_build("sinkhorn_redundant", redundant_source())
+        copies["group_stamped"] = start_build(
+            "sinkhorn_group", stamped_source("sinkhorn", GROUP_STAMPS, who))
+        copies["redundant_stamped"] = start_build(
+            "sinkhorn_redundant_stamped",
+            stamped_source("sinkhorn", REDUNDANT_STAMPS, who, redundant_source()))
     for b in builds:
         for line in b.wait().splitlines():  # the -Xptxas -v report
             if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -489,6 +632,8 @@ def main(argv=None) -> int:
         result["knn_split"] = knn_split_part(dev, libs["radius_knn"], spec, pair_pts)
     if "sinkhorn_split" in parts:
         result["sinkhorn_split"] = sinkhorn_split_part(dev, libs["sinkhorn"], max_clock_mhz)
+    if "group_split" in parts:
+        result["group_split"] = group_split_part(dev, libs, max_clock_mhz)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -2,7 +2,8 @@
 training, serving and evaluation paths against the CPU's, on the card; every
 path of each kernel (the kNN's register list and, for k > 256, its warp and
 block select paths; Sinkhorn's register patch, its cluster path for 208 < K1
-<= 546 and its streaming path past that) and the model at such shapes.
+<= 546, its group path to K1 = 2640 and its streaming path past that) and the
+model at such shapes.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 
@@ -99,11 +100,12 @@ def test_radius_knn_kernel_matches_plain(cuda, k, band, chunk):
     assert torch.equal(got, radius_knn_plain(pts, pts, cnt, 1.275, k, **kw))
 
 
-@pytest.mark.parametrize("k1", [17, 65, 129, 200, 209, 257, 513, 600])
+@pytest.mark.parametrize("k1", [17, 65, 129, 200, 209, 257, 513, 600, 2641])
 def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
     """Masked rows, masked columns, both, and a fully masked patch at every
     register layout of the kernel (K1 <= 32, 80, 144, 208), on its cluster
-    path (208 < K1 <= 546) and on its streaming path (K1 > 546)."""
+    path (208 < K1 <= 546), its group path (to K1 = 2640) and its streaming
+    path (the first K1 past it)."""
     rng = np.random.RandomState(k1)
     p = 12
     s = (rng.randn(p, k1, k1) * 3).astype(np.float32)
@@ -118,10 +120,11 @@ def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
     reset_launch_counts()
     got = sinkhorn_cuda(*args, 100)
     torch.cuda.synchronize()
-    route = "register" if k1 <= 208 else "cluster" if k1 <= 546 else "stream"
+    route = ("register" if k1 <= 208 else "cluster" if k1 <= 546 else "group" if k1 <= 2640
+             else "stream")
     assert sinkhorn_plan(k1).route == route
-    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "stream": 0,
-                                                route: 1}
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "group": 0,
+                                                "stream": 0, route: 1}
     want = sinkhorn_plain(*args, 100)
     live = want > -1e11
     assert torch.isfinite(got).all()
@@ -153,7 +156,8 @@ def test_cluster_sinkhorn_matches_plain(cuda, k1, iters):
     reset_launch_counts()
     got = sinkhorn_cuda(*args, iters)
     torch.cuda.synchronize()
-    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 1, "stream": 0}
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 1, "group": 0,
+                                                "stream": 0}
     want = sinkhorn_plain(*args, iters)
     live = want > -1e11
     assert torch.isfinite(got).all()
@@ -171,7 +175,8 @@ def test_cluster_sinkhorn_raises_when_no_cluster_fits(cuda, monkeypatch):
     reset_launch_counts()
     with pytest.raises(RuntimeError, match="no cluster of 2 CTAs"):
         sinkhorn_cuda(x, mu, mu, 10)
-    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "stream": 0}
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "group": 0,
+                                                "stream": 0}
 
 
 def test_cluster_occupancy_is_positive(cuda):
@@ -179,6 +184,82 @@ def test_cluster_occupancy_is_positive(cuda):
 
     for k1 in (257, 412, 546):
         assert cluster_occupancy(k1) >= 1
+
+
+def _group_inputs(seed, p, k1):
+    """A fully masked patch, masked rows, masked columns, both, and the last
+    CTA's rows masked, as far as P allows; the last patch is left whole."""
+    rng = np.random.RandomState(seed)
+    s = (rng.randn(p, k1, k1) * 3).astype(np.float32)
+    mu = (rng.randn(p, k1) * 0.1 - np.log(k1)).astype(np.float32)
+    nu = (rng.randn(p, k1) * 0.1 - np.log(k1)).astype(np.float32)
+    rows, cols = slice(0, k1 // 3), slice(5, 5 + k1 // 4)  # rows across the first CTA's band
+    if p > 1:
+        s[0], mu[0, :-1], nu[0, :-1] = -1e12, -1e12, -1e12
+    if p > 2:
+        s[1, rows], mu[1, rows] = -1e12, -1e12
+    if p > 3:
+        s[2, :, cols], nu[2, cols] = -1e12, -1e12
+    if p > 4:
+        s[3, rows], mu[3, rows], s[3, :, cols], nu[3, cols] = -1e12, -1e12, -1e12, -1e12
+    if p > 5:
+        s[4, k1 - 7:], mu[4, k1 - 7:] = -1e12, -1e12  # the last CTA's band
+    return [torch.from_numpy(x).to(torch.device("cuda")) for x in (s, mu, nu)]
+
+
+def _held_against_plain(args, iters, route):
+    reset_launch_counts()
+    got = sinkhorn_cuda(*args, iters)
+    torch.cuda.synchronize()
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "group": 0,
+                                                "stream": 0, route: 1}
+    want = sinkhorn_plain(*args, iters)
+    live = want > -1e11
+    assert torch.isfinite(got).all()
+    assert torch.equal(got > -1e11, live)
+    torch.testing.assert_close(got[live], want[live], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k1", [547, 600, 1025, 2640])
+@pytest.mark.parametrize("iters", [0, 1, 100])
+def test_group_sinkhorn_matches_plain(cuda, k1, iters):
+    """The group path at its first K1 (6 CTAs a patch), at 600 (7), 1025 (20)
+    and its last K1, 2640 (132 CTAs, one an SM): masked rows, columns, both,
+    whole patches, and no iteration at all (the scores come back)."""
+    plan = sinkhorn_plan(k1)
+    assert plan.route == "group"
+    assert plan.group == {547: 6, 600: 7, 1025: 20, 2640: 132}[k1]
+    _held_against_plain(_group_inputs(k1 + iters, 7 if k1 < 2640 else 3, k1), iters, "group")
+
+
+@pytest.mark.parametrize("k1, p", [(600, 1), (600, 40), (1025, 13), (2640, 2)])
+def test_group_sinkhorn_rounds(cuda, k1, p):
+    """One patch, and more patches than the card holds groups at once (18 of
+    7 CTAs at K1 = 600, 6 of 20 at 1025, 1 of 132 at 2640), so the
+    persistent groups walk the patches in several rounds."""
+    from rdmnet_tpu_torch.ops.kernels.sinkhorn import group_resident
+
+    groups = group_resident(k1, cuda.index or 0) // sinkhorn_plan(k1).group
+    assert groups >= 1 and (p == 1 or p > groups)
+    _held_against_plain(_group_inputs(k1 + p, p, k1), 100, "group")
+
+
+def test_group_sinkhorn_raises_when_no_group_fits(cuda, monkeypatch):
+    """A card that cannot hold one group at once, or a launch refused as
+    such, raises; the call takes no other path and counts no launch."""
+    x = torch.zeros((2, 600, 600), device=cuda)
+    mu = torch.zeros((2, 600), device=cuda)
+    monkeypatch.setattr(sinkhorn_module, "group_resident", lambda k1, index: 6)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cannot hold a group of 7 CTAs"):
+        sinkhorn_cuda(x, mu, mu, 10)
+    monkeypatch.undo()
+    monkeypatch.setattr(sinkhorn_module, "_launcher",
+                        lambda route: lambda *args: sinkhorn_module.NO_GROUP)
+    with pytest.raises(RuntimeError, match="cannot hold the groups of 7 CTAs"):
+        sinkhorn_cuda(x, mu, mu, 10)
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "group": 0,
+                                                "stream": 0}
 
 
 @pytest.mark.parametrize("k", [BLOCK_K_MIN, 2048, 4096, 6144])
@@ -328,7 +409,8 @@ def test_model_past_the_first_paths_on_card_matches_cpu(cuda):
     out = pipeline(m_gpu, *pad_cloud(ref, 512, device=cuda), *pad_cloud(src, 512, device=cuda),
                    device=cuda)
     assert path_launch_counts() == {"radius_knn": {"list": 10, "select": 2, "block": 0},
-                                    "sinkhorn": {"register": 0, "cluster": 1, "stream": 0}}
+                                    "sinkhorn": {"register": 0, "cluster": 1, "group": 0,
+                                                 "stream": 0}}
     assert torch.isfinite(out["estimated_transform"]).all()
     ref_out = pipeline(m_cpu, *pad_cloud(ref, 512), *pad_cloud(src, 512), device="cpu")
     for side in ("ref", "src"):

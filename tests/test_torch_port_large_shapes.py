@@ -1,8 +1,8 @@
 """Shapes past the kernels' first paths, on the CPU: radius kNN at k > 256
 (the CUDA kernel's select paths) and Sinkhorn at K1 = num_points_in_patch + 1
-> 208 (its cluster and streaming paths), the plain versions against the JAX
-package, the tiny model at such shapes against JAX's, and the launch plans
-of every path.
+> 208 (its cluster, group and streaming paths), the plain versions against
+the JAX package, the tiny model at such shapes against JAX's, and the launch
+plans of every path.
 The CUDA paths against their plain versions are in ``test_torch_port_cuda.py``
 (card only).
 
@@ -39,9 +39,12 @@ from rdmnet_tpu_torch.ops.kernels.radius_knn import (BLOCK_CACHE_KEYS_MAX, BLOCK
                                                      BLOCK_SORT_ROWS_MAX, LIST_KMAX, SMEM_MAX,
                                                      WINDOW_ROWS_MAX, block_plan, knn_plan,
                                                      select_plan)
-from rdmnet_tpu_torch.ops.kernels.sinkhorn import (CLUSTER_SIZES, REGISTER_K1_MAX,
-                                                   cluster_cta_bytes, register_cta_bytes,
-                                                   sinkhorn_plain, sinkhorn_plan)
+from rdmnet_tpu_torch.ops.kernels.sinkhorn import (CLUSTER_SIZES, GROUP_CTAS_MAX,
+                                                   GROUP_K1_MAX, REGISTER_K1_MAX,
+                                                   SinkhornPlan, cluster_cta_bytes,
+                                                   group_cta_bytes, group_size,
+                                                   register_cta_bytes, sinkhorn_plain,
+                                                   sinkhorn_plan)
 from rdmnet_tpu_torch.ops.radius_search import radius_knn, radius_knn_banded
 from rdmnet_tpu_torch.utils.convert import params_from_jax
 
@@ -49,6 +52,7 @@ T = torch.from_numpy
 TOL = dict(rtol=1e-4, atol=1e-4)
 LIMITS = (300, 16, 16, 16, 16)  # the tiny model's level-0 limit past the register list
 PATCH = 256                     # num_points_in_patch: K1 = 257
+GROUP_PATCH = 600               # num_points_in_patch: K1 = 601, the group path on the card
 CAP = 512
 SHRINK = np.float32(0.08)       # the tiny model's scans, scaled into a dense scene
 
@@ -135,7 +139,7 @@ def _sinkhorn_inputs(seed, p, k1):
     return s, mu, nu
 
 
-@pytest.mark.parametrize("k1", [209, 257])
+@pytest.mark.parametrize("k1", [209, 257, 600])
 def test_sinkhorn_plain_matches_pallas_interpret_past_the_registers(k1):
     s, mu, nu = _sinkhorn_inputs(k1, 4, k1)
     want = np.asarray(sinkhorn_pallas(jnp.asarray(s), jnp.asarray(mu), jnp.asarray(nu), 10,
@@ -217,31 +221,76 @@ def test_cluster_limits_from_the_byte_count():
     assert _cluster_limits() == {2: 304, 4: 412, 8: 546}
 
 
+def _group_ranges():
+    """Each group size's first and last K1, from the byte count: the
+    smallest G whose CTA fits in 232,448 bytes, K1 past the cluster path."""
+    ranges = {}
+    for k1 in range(_cluster_limits()[8] + 1, 4000):
+        g = next((g for g in range(2, GROUP_CTAS_MAX + 1)
+                  if group_cta_bytes(k1, g) <= SMEM_MAX), None)
+        if g is None:
+            break
+        ranges.setdefault(g, [k1, k1])[1] = k1
+    return ranges
+
+
 @pytest.mark.parametrize("k1", [1, 17, 32, 33, 80, 81, 129, 144, 145, 208, 209, 257, 304, 305,
-                                412, 413, 513, 546, 547, 600, 4097])
+                                412, 413, 513, 546, 547, 576, 577, 600, 601, 623, 624, 1025,
+                                2624, 2625, 2640, 2641, 4097])
 def test_sinkhorn_plan_routes(k1):
     """The register path to K1 = 208; then the smallest cluster of 2, 4 or 8
     CTAs whose CTA fits in 232,448 bytes (the first and last K1 of each size
-    among the cases); past C = 8's limit, the streaming path."""
+    among the cases); then the smallest group of G <= 132 CTAs whose CTA
+    fits (the first and last K1 of G = 6, 7, 125 and 132 among the cases);
+    past the group path's last K1, 2640, the streaming path."""
     plan = sinkhorn_plan(k1)
     limits = _cluster_limits()
     if k1 <= REGISTER_K1_MAX:
-        assert plan == ("register", 0, 0, register_cta_bytes(k1))
+        assert plan == SinkhornPlan("register", 0, 0, register_cta_bytes(k1))
     elif k1 <= limits[8]:
         c = next(c for c in CLUSTER_SIZES if k1 <= limits[c])
-        assert plan == ("cluster", 0, c, cluster_cta_bytes(k1, c))
+        assert plan == SinkhornPlan("cluster", 0, c, cluster_cta_bytes(k1, c))
         assert plan.cluster == {209: 2, 257: 2, 304: 2, 305: 4, 412: 4, 413: 8, 513: 8,
                                 546: 8}[k1]
+    elif k1 <= GROUP_K1_MAX:
+        g = next(g for g in range(2, GROUP_CTAS_MAX + 1) if group_cta_bytes(k1, g) <= SMEM_MAX)
+        # per resident group: G x K1 partials (max, sum) and K1 tagged v words
+        assert plan == SinkhornPlan("group", 2 * (g + 1) * k1, 0, group_cta_bytes(k1, g), g)
+        assert plan.group == {547: 6, 576: 6, 577: 7, 600: 7, 601: 7, 623: 7, 624: 8,
+                              1025: 20, 2624: 125, 2625: 132, 2640: 132}[k1]
     else:
         # u, v and 16 warps' column partials (max, sum), K1 floats each
-        assert plan == ("stream", k1 * (2 + 2 * 16), 0, 0)
+        assert plan == SinkhornPlan("stream", k1 * (2 + 2 * 16), 0, 0)
     assert sinkhorn_plan(129).route == "register"  # the main path's patch
+
+
+def test_group_sizes_from_the_byte_count():
+    """A group-path CTA holds a band of ceil(K1 / G) rows of K1 rounded up to
+    32 columns, v, and its rows' log_mu and u. Each G's first and last K1
+    (G = 6 from K1 = 547, where the cluster path ends), the closed form of
+    ``group_size`` against the search, no empty band, and the path's last
+    K1: 2640, where 132 CTAs of 20 rows fit and 2641 would need 21."""
+    assert group_cta_bytes(600, 7) == 4 * (86 * 608 + 608 + 2 * 86) == 212_272
+    assert group_cta_bytes(2640, 132) == 4 * (20 * 2656 + 2656 + 40) == 223_264
+    assert group_cta_bytes(2641, 132) > SMEM_MAX
+    ranges = _group_ranges()
+    assert max(r[1] for r in ranges.values()) == GROUP_K1_MAX == 2640
+    assert {g: tuple(ranges[g]) for g in (6, 7, 8, 20, 125, 132)} == {
+        6: (547, 576), 7: (577, 623), 8: (624, 672), 20: (1025, 1056), 125: (2605, 2624),
+        132: (2625, 2640)}
+    for g, (first, last) in ranges.items():
+        for k1 in (first, last):
+            b = -(-k1 // g)
+            assert group_size(k1) == g and group_cta_bytes(k1, g) <= SMEM_MAX
+            assert k1 - (g - 1) * b >= 1  # the last CTA's band is not empty
+        assert group_cta_bytes(first, g - 1) > SMEM_MAX
+    assert group_size(GROUP_K1_MAX + 1) == 0
 
 
 def test_every_plan_fits_a_cta():
     """No plan of either kernel asks more than 232,448 bytes of shared memory
     of a CTA, at any K1 or k, window or query count."""
-    for k1 in range(1, 1200):
+    for k1 in range(1, GROUP_K1_MAX + 200):
         assert sinkhorn_plan(k1).cta_bytes <= SMEM_MAX, k1
     for k in (1, 16, 40, 64, 128, 256, 257, 320, 512, 513, 1024, 1025, 2048, 4096, 20000):
         for rows in (1, 64, 300, 4096, 5120, 7168, 7169, 8192, 8193, 21504, 100000):
@@ -273,7 +322,27 @@ def test_full_width_config_at_large_shapes_plans():
     assert routes == [sp.k > LIST_KMAX for sp in search_plan(pyr)] and sum(routes) == 2
     assert all(knn_plan(2, pyr.caps[sp.q_lvl], pyr.caps[sp.s_lvl], sp.k, sp.band).route
                == "select" for sp in search_plan(pyr) if sp.k > LIST_KMAX)
-    assert sinkhorn_plan(257) == ("cluster", 0, 2, cluster_cta_bytes(257, 2))
+    assert sinkhorn_plan(257) == ("cluster", 0, 2, cluster_cta_bytes(257, 2), 0)
+
+
+def test_full_width_config_at_the_group_path_plans():
+    """The configuration of ``chip_smoke.py`` phase 16's group-path pass:
+    ``make_cfg()`` at the 0.7 bucket with 600 points a patch (K1 = 601). Its
+    12 searches keep the list path's plans, and its Sinkhorn takes the group
+    path: 7 CTAs of 86 rows a patch, 212,272 bytes a CTA, so an H100 SXM (132
+    SMs, one such CTA each) holds 18 groups and the 256 patches run in 15
+    rounds."""
+    cfg = make_cfg()
+    pyr = cfg.pyramid.scaled(0.7)
+    for sp in search_plan(pyr):
+        plan = knn_plan(2, pyr.caps[sp.q_lvl], pyr.caps[sp.s_lvl], sp.k, sp.band)
+        assert plan.route == "list" and plan.sort_rows == 0
+    k1 = GROUP_PATCH + 1
+    plan = sinkhorn_plan(k1)
+    assert (plan.route, plan.group, plan.cta_bytes) == ("group", 7, 212_272)
+    assert -(-k1 // plan.group) == 86
+    groups = GROUP_CTAS_MAX // plan.group
+    assert groups == 18 and -(-cfg.coarse_matching.num_correspondences // groups) == 15
 
 
 # ------------------------------------------------------------ the tiny model
@@ -363,6 +432,54 @@ def test_large_shape_model_matching_and_plans(runs, pair):
     np.testing.assert_allclose(got[~masked], want[~masked], **TOL)
     np.testing.assert_array_equal(tout["ref_corr_points"].numpy(), jout["ref_corr_points"])
     np.testing.assert_allclose(tout["corr_scores"].numpy(), jout["corr_scores"], **TOL)
+
+
+@pytest.fixture(scope="module")
+def group_run():
+    """Pair B through the tiny model at ``GROUP_PATCH`` points a patch (K1 =
+    601: the card's group path) in both packages, the same weights."""
+    jcfg = jax_tiny_cfg()
+    jcfg = dataclasses.replace(
+        jcfg, pyramid=dataclasses.replace(jcfg.pyramid, approx_recall=None),
+        model=dataclasses.replace(jcfg.model, num_points_in_patch=GROUP_PATCH))
+    jmodel = JaxRDMNet(jcfg)
+    ref, src = _pairs()["B"]
+    batch = jax.jit(lambda rp, rc, sp, sc: jax_build_pair_batch(rp, rc, sp, sc, jnp.eye(4),
+                                                                  jcfg.pyramid))(
+        *jax_pad_cloud(jnp.asarray(ref), CAP), *jax_pad_cloud(jnp.asarray(src), CAP))
+    params = jax.jit(lambda b: jmodel.init(jax.random.PRNGKey(0), b, training=False,
+                                           with_gt=False))(batch)
+    jout = jax.tree.map(np.asarray, jax.jit(
+        lambda p, b: jmodel.apply(p, b, training=False, with_gt=False))(params, batch))
+    tcfg = make_tiny_cfg()
+    model = RDMNet(dataclasses.replace(
+        tcfg, model=dataclasses.replace(tcfg.model, num_points_in_patch=GROUP_PATCH)),
+        device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)), strict=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # reproducible sums (test_torch_port_model.py's docstring)
+    tout = pipeline(model, *pad_cloud(ref, CAP), *pad_cloud(src, CAP), device="cpu")
+    torch.set_num_threads(threads)
+    return jout, tout
+
+
+def test_group_path_model_matches_jax(group_run):
+    """At K1 = 601 the tiny model's matched pairs, patch masks, log transport
+    plans, correspondences and pose equal JAX's (plans and pose within
+    1e-4)."""
+    jout, tout = group_run
+    assert sinkhorn_plan(GROUP_PATCH + 1).route == "group"
+    for key in ("ref_node_corr_indices", "src_node_corr_indices", "node_corr_valid",
+                "ref_node_corr_knn_masks", "src_node_corr_knn_masks"):
+        np.testing.assert_array_equal(tout[key].numpy(), jout[key], err_msg=key)
+    got, want = tout["matching_scores"].numpy(), jout["matching_scores"]
+    assert got.shape[-1] == GROUP_PATCH + 1
+    masked = want <= -1e11
+    np.testing.assert_array_equal(got <= -1e11, masked)
+    np.testing.assert_allclose(got[~masked], want[~masked], **TOL)
+    np.testing.assert_array_equal(tout["ref_corr_points"].numpy(), jout["ref_corr_points"])
+    np.testing.assert_allclose(tout["estimated_transform"].numpy(), jout["estimated_transform"],
+                               **TOL)
 
 
 def test_large_shape_model_pose(runs):

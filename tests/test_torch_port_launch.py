@@ -84,15 +84,17 @@ def test_model_builds_at_shapes_past_the_first_paths():
     cfg = make_tiny_cfg()
     configs = [replace(cfg, pyramid=replace(cfg.pyramid, neighbor_limits=(16, 16, 257, 16, 16))),
                replace(cfg, pyramid=replace(cfg.pyramid, upsampling_limit=300)),
-               replace(cfg, model=replace(cfg.model, num_points_in_patch=256))]
+               replace(cfg, model=replace(cfg.model, num_points_in_patch=256)),
+               replace(cfg, model=replace(cfg.model, num_points_in_patch=600))]
     for c in configs:
         RDMNet(c, device="cpu")
         for sp in search_plan(c.pyramid):
             plan = knn_plan(2, c.pyramid.caps[sp.q_lvl], c.pyramid.caps[sp.s_lvl], sp.k, sp.band)
             assert (plan.sort_rows > 0) == (sp.k > LIST_KMAX), (sp, plan)
             assert plan.smem_bytes <= 232_448 and sp.chunk % plan.warps == 0
-        route = sinkhorn_plan(c.model.num_points_in_patch + 1).route
-        assert route == ("cluster" if c.model.num_points_in_patch + 1 > 208 else "register")
+        k1 = c.model.num_points_in_patch + 1
+        assert sinkhorn_plan(k1).route == ("group" if k1 > 546 else "cluster" if k1 > 208
+                                           else "register")
 
 
 def test_library_path_covers_headers(tmp_path, monkeypatch):

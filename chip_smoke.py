@@ -20,15 +20,17 @@ Phases, each fatal on failure:
    2048 to 6144), on dense windows where the lists fill (banded, unbanded,
    tiled, a batch of two clouds, duplicated points, k above the support
    count, two sort chunks, a window that overflows the block path's key
-   cache; tables exact, every launch on the plan's route); Sinkhorn's
+   cache, a window past the warp select path's box tile; tables exact,
+   every launch on the plan's route); Sinkhorn's
    cluster path (208 < K1 <= 546) at P = 256, K1 = 209, 257, 304, 412, 513, 546 (each
-   cluster size's first and last among them), its group path (546 < K1 <=
-   2640) at (P, K1) = (32, 600), (256, 600), (256, 601), (32, 1025) and (32,
-   2640), the streaming kernel launched directly on the (256, 600) inputs
-   beside it, and its streaming path at P = 8, K1 = 2641, 100 iterations
-   with masked rows and patches (within 1e-4; 0 iterations give the
-   scores), with cudaOccupancyMaxActiveClusters for each cluster size and
-   the CTAs, groups and rounds of each group case; each instance with its
+   cluster size's first and last among them), its group path (K1 > 546)
+   at (P, K1) = (32, 600), (256, 600), (256, 601), (32, 1025) and (32,
+   2640), and past 2640, where each CTA reads the rows of its band that do
+   not fit in its shared memory from device memory, at (8, 2641), (2, 3000)
+   and (2, 4096), 100 iterations with masked rows and patches (within
+   1e-4; 0 iterations give the scores), with
+   cudaOccupancyMaxActiveClusters for each cluster size and the CTAs,
+   groups, rounds and spilled rows of each group case; each instance with its
    device time, time per call, plain time, bound and plan;
 4. the main path at ``make_cfg()`` full width, 0.7 bucket: a seeded ~20k
    point procedural pair through ``pipeline`` (graph build to pose), 3
@@ -172,7 +174,8 @@ Phases, each fatal on failure:
    warm-up, 6 timed pairs, 2 with a per-stage breakdown; ms/pair, peak
    memory), both second paths launch inside the window (2 select-path kNN
    and 1 cluster-path Sinkhorn launch a pair), its 12 searches equal the plain
-   version's, the graph build at level-0 limit 2048 launches the block path
+   version's (the two warp-select searches' device ms summed beside their
+   bound), the graph build at level-0 limit 2048 launches the block path
    twice (tables equal), and against the CPU port on the same weights:
    tables and node
    masks equal, the matched node pairs equal but for near-ties at the top-256
@@ -343,6 +346,7 @@ def check_knn(pts, cnts, sp, kernels):
 
     from rdmnet_tpu_torch.ops.kernels.radius_knn import knn_plan, radius_knn_cuda, radius_knn_plain
     from rdmnet_tpu_torch.ops.radius_search import band_windows
+    from rdmnet_tpu_torch.tools.kernel_probe import knn_bound
 
     q, s, scnt = pts[sp.q_lvl], pts[sp.s_lvl], cnts[sp.s_lvl]
     plan = knn_plan(q.shape[0], q.shape[1], s.shape[1], sp.k, sp.band)
@@ -365,29 +369,23 @@ def check_knn(pts, cnts, sp, kernels):
     ms, call_ms = graph_ms(call, reps=10), cuda_ms(call, reps=10)
     plain_ms = cuda_ms(lambda: radius_knn_plain(q, s, scnt, sp.radius, sp.k, **kw), reps=1,
                        warmup=0)
-    # work this run's data needs: valid queries x valid candidates in their window
-    pairs = 0
-    bsz, nq, _ = q.shape
-    qcnt = cnts[sp.q_lvl].tolist()
-    for b in range(bsz):
-        c = int(scnt[b])
-        if sp.band is None:
-            pairs += qcnt[b] * c
-            continue
-        for ci, w in enumerate(kw["win"][b].tolist()):
-            nvq = max(0, min(qcnt[b], (ci + 1) * sp.chunk) - ci * sp.chunk)
-            pairs += nvq * max(0, min(w + sp.band, c) - w)
-    nbytes = bsz * (nq * 3 * 4 + s.shape[1] * 3 * 4 + nq * sp.k * 4)
-    bound = max(nbytes / HBM_BYTES_PER_S, pairs * KNN_OPS_PER_PAIR / F32_FLOPS) * 1e3
+    # work this run's data needs: the valid queries against the valid rows of
+    # the 32-row chunks of their window that their radius reaches
+    bound, by, window, reached = knn_bound(q, s, scnt, cnts[sp.q_lvl], sp.radius, sp.k, **kw)
     kernels["radius_knn"]["max_abs_err"] = max(kernels["radius_knn"]["max_abs_err"], err)
-    return ms, call_ms, plain_ms, bound, pairs, plan
+    return ms, call_ms, plain_ms, bound, dict(by=by, window=window, reached=reached), plan
+
+
+def work_text(work) -> str:
+    return (f"candidate pairs {work['window']}, {work['reached']} of them in chunks the radius "
+            f"reaches (bound by {work['by']})")
 
 
 def knn_line(name: str, ms, call_ms, pms, bound, plan, v1) -> str:
     p = (f"plan route={plan.route} warps={plan.warps} k_bucket={plan.k_bucket} "
          f"tile_rows={plan.tile_rows} tiled={plan.tiled} smem={plan.smem_bytes}")
     if plan.route != "list":
-        p += f" sort_rows={plan.sort_rows} cache_keys={plan.cache_keys}"
+        p += f" sort_rows={plan.sort_rows} cache_keys={plan.cache_keys} box_rows={plan.box_rows}"
     old = "not recorded" if v1 is None else f"{v1:.4f} ms per call"
     return (f"radius_knn {name}: kernel {ms:.4f} ms on the device, {call_ms:.4f} ms per call, "
             f"v1 design {old}; plain {pms:.3f} ms, bound {bound:.5f} ms; {p}")
@@ -407,19 +405,21 @@ def pair_levels(batch, num_stages):
 
 def check_searches(pts, cnts, pyramid, kernels, prefix="", v1=None):
     """``check_knn`` over the 12 searches of ``pyramid``'s graph build, one
-    line each. Returns the summed (device ms, ms per call, plain ms, bound ms)."""
+    line each. Returns the summed (device ms, ms per call, plain ms, bound ms)
+    and what bounds the larger share of the summed bound."""
     from rdmnet_tpu_torch.graph.pyramid import search_plan
 
-    total = [0.0, 0.0, 0.0, 0.0]
+    total, by = [0.0, 0.0, 0.0, 0.0], {"bytes": 0.0, "operations": 0.0}
     for item in search_plan(pyramid):
-        ms, call_ms, pms, bound, pairs, plan = check_knn(pts, cnts, item, kernels)
+        ms, call_ms, pms, bound, work, plan = check_knn(pts, cnts, item, kernels)
         total = [a + b for a, b in zip(total, (ms, call_ms, pms, bound))]
+        by[work["by"]] += bound
         name = (f"{prefix}{item.table}[{item.q_lvl}->{item.s_lvl}] Q={pts[item.q_lvl].shape[1]} "
                 f"S={pts[item.s_lvl].shape[1]} K={item.k} band={item.band}")
         print(knn_line(name, ms, call_ms, pms, bound, plan,
                        (v1 or {}).get((item.table, item.q_lvl, item.s_lvl, item.k)))
-              + f"; candidate pairs {pairs}")
-    return total
+              + f"; {work_text(work)}")
+    return (*total, max(by, key=by.get))
 
 
 def train_phase(cfg, host, dev):
@@ -1500,8 +1500,8 @@ def model_surface_phase(dev, kernels, ref, src, gt):
     batch = build_pair_batch(*args, torch.eye(4, device=dev), pcfg.pyramid)
     pts, cnts = pair_levels(batch, pcfg.pyramid.num_stages)
     ks = [item.k for item in search_plan(pcfg.pyramid)]
-    knn_ms, knn_call_ms, knn_plain_ms, knn_bound = check_searches(pts, cnts, pcfg.pyramid,
-                                                                  kernels, prefix="parity ")
+    knn_ms, knn_call_ms, knn_plain_ms, knn_bound, _ = check_searches(pts, cnts, pcfg.pyramid,
+                                                                     kernels, prefix="parity ")
     print(f"parity radius_knn per pair (12 searches, K {ks}): kernel {knn_ms:.4f} ms on the "
           f"device, {knn_call_ms:.4f} ms in wrapper calls; plain {knn_plain_ms:.3f} ms, bound "
           f"{knn_bound:.5f} ms; tables equal to the plain version's")
@@ -1515,9 +1515,9 @@ def model_surface_phase(dev, kernels, ref, src, gt):
     level0 = search_plan(pcfg.pyramid)[0]
     for k in (81, 256):
         sp = level0._replace(k=k)
-        ms_k, call_k, pms_k, bound_k, pairs, plan = check_knn(pts, cnts, sp, kernels)
+        ms_k, call_k, pms_k, bound_k, work, plan = check_knn(pts, cnts, sp, kernels)
         print(knn_line(f"level-0 K={k} band={sp.band}", ms_k, call_k, pms_k, bound_k, plan, None)
-              + f"; candidate pairs {pairs}; table equal to the plain version's")
+              + f"; {work_text(work)}; table equal to the plain version's")
         if plan.k_bucket != (128 if k <= 128 else 256):
             fail(f"radius_knn K={k}: list bucket {plan.k_bucket}")
         kernels["radius_knn"][f"level0_k{k}_ms"] = ms_k
@@ -1883,7 +1883,7 @@ def icp_search_check(dev, kernels, cur, ref32, radius, extent):
     wide = candidate_radius(radius, extent)
     spec = SearchSpec("icp", 0, 1, wide, ICP_CANDIDATES, None, 0, 0.0)
     if dev.type == "cuda":
-        ms_k, call_k, pms_k, bound_k, pairs, plan = check_knn([q, s], counts, spec, kernels)
+        ms_k, call_k, pms_k, bound_k, _, plan = check_knn([q, s], counts, spec, kernels)
         print(knn_line(f"ICP search (first iteration of the first pair, {nq} queries x {ns} "
                        f"rows, K={ICP_CANDIDATES} within {wide:.5f} m, unbanded)", ms_k, call_k,
                        pms_k, bound_k, plan, None)
@@ -2747,13 +2747,12 @@ def library_phase(dev, card, kernels, cfg, model, batch):
 LARGE_K1 = (209, 257, 304, 412, 513, 546)  # phase 3: cluster-path patches (C's limits among them)
 LARGE_P, LARGE_ITERS = 256, 100   # phase 3: patches and iterations of each
 # phase 3: (P, K1) on the group path: P = 32 and 256 at K1 = 600, phase 16's
-# (256, 601), and P = 32 at K1 = 1025 and at the path's last K1 (2640)
+# (256, 601), and P = 32 at K1 = 1025 and at the last K1 held wholly in shared memory (2640)
 GROUP_CASES = ((32, 600), (256, 600), (256, 601), (32, 1025), (32, 2640))
-STREAM_BASELINE = (256, 600)      # phase 3: the streaming kernel timed on this group case's inputs
-STREAM_K1, STREAM_P = 2641, 8     # phase 3: a streaming-path patch past the group path's limit
+SPILL_CASES = ((8, 2641), (2, 3000), (2, 4096))  # phase 3: (P, K1) on the group path, bands spilled
 LARGE_REPS = 5                    # timed calls per phase-3 large-shape instance
-SELECT_KS = (320, 512, 1024)       # phase 3: k on the warp select path, the tiled band
-BLOCK_KS = (2048,)                 # phase 3: k on the block select path, the tiled band
+SELECT_KS = (320, 512, 1024)       # phase 3: k on the warp select path, the 8192-row band
+BLOCK_KS = (2048, 4096)            # phase 3: k on the block select path, the 8192-row band
 LARGE_LIMITS = (320, 40, 40, 40, 40)  # phase 16: neighbour limits, level 0 past the register list
 BLOCK_LIMITS = (2048, 40, 40, 40, 40)  # phase 16: a graph build whose level 0 takes the block path
 LARGE_PATCH = 256                     # phase 16: num_points_in_patch (K1 = 257)
@@ -2793,18 +2792,15 @@ def sinkhorn_inputs(seed, p, k1):
 
 
 def sinkhorn_bounds(p, k1, iters, max_clock_mhz):
-    """(bound ms, bound_by, SFU ms, f32-ops ms, bytes ms, streaming ms): the
-    least time for the function (each exp on the SFU, 4 f32 ops beside it,
-    inputs and output moved once) and the streaming design's traffic (the
-    patch read every half-step)."""
+    """(bound ms, bound_by, SFU ms, f32-ops ms, bytes ms): the least time for
+    the function (each exp on the SFU, 4 f32 ops beside it, inputs and
+    output moved once)."""
     entries = p * k1 * k1
     exp_s = 2 * iters * entries / (NUM_SMS * SFU_PER_SM_CLK * max_clock_mhz * 1e6)
     ops_s = 2 * iters * entries * SINKHORN_OPS_PER_ENTRY / F32_FLOPS
     bytes_s = (2 * entries + 2 * p * k1) * 4 / HBM_BYTES_PER_S
-    stream_s = 2 * iters * entries * 4 / HBM_BYTES_PER_S
     by = "operations" if max(exp_s, ops_s) >= bytes_s else "bytes"
-    return (max(exp_s, ops_s, bytes_s) * 1e3, by, exp_s * 1e3, ops_s * 1e3, bytes_s * 1e3,
-            stream_s * 1e3)
+    return max(exp_s, ops_s, bytes_s) * 1e3, by, exp_s * 1e3, ops_s * 1e3, bytes_s * 1e3
 
 
 def large_knn_case(dev, kernels, name, s_np, counts, radius, k, band=None, chunk=256,
@@ -2813,7 +2809,7 @@ def large_knn_case(dev, kernels, name, s_np, counts, radius, k, band=None, chunk
     the plan's path is ``route``, tables equal to the plain version, every
     launch on that path, the share of queries whose list fills. ``queries``:
     search the first rows only. Returns (device ms, ms per call, plain ms,
-    bound ms, plan)."""
+    bound ms, plan, bound_by)."""
     import torch
 
     from rdmnet_tpu_torch.graph.pyramid import SearchSpec
@@ -2830,7 +2826,7 @@ def large_knn_case(dev, kernels, name, s_np, counts, radius, k, band=None, chunk
     # level 0 the support, level 1 the queries (the SearchSpec's indices)
     sp = SearchSpec("dense", 1, 0, radius, k, band, chunk, 0.6)
     reset_launch_counts()
-    ms, call_ms, plain_ms, bound, _, plan = check_knn([s, q], [cnt, q_cnt], sp, kernels)
+    ms, call_ms, plain_ms, bound, work, plan = check_knn([s, q], [cnt, q_cnt], sp, kernels)
     if plan.route != route:
         fail(f"radius_knn {name} k={k}: planned on the {plan.route} path, not the {route} path")
     paths = path_launch_counts()["radius_knn"]
@@ -2843,40 +2839,11 @@ def large_knn_case(dev, kernels, name, s_np, counts, radius, k, band=None, chunk
     found = (radius_knn_plain(q, s, cnt, radius, k, **kw) < s.shape[1]).sum(-1)
     print(knn_line(f"{plan.route} path {name} Q={q.shape[1]} S={s.shape[1]} K={k} band={band} "
                    f"r={radius}", ms, call_ms, plain_ms, bound, plan, None)
-          + f"; table equal to the plain version, neighbours per query "
+          + f"; {work_text(work)}; table equal to the plain version, neighbours per query "
           f"{int(found.min())}-{int(found.max())}, "
           f"{float((found == min(k, s.shape[1])).float().mean()):.3f} of the queries with a "
           "full list")
-    return ms, call_ms, plain_ms, bound, plan
-
-
-def stream_on_the_same_inputs(s_t, mu_t, nu_t, want, live):
-    """The streaming kernel launched directly (its launcher, past the plan,
-    which sends this K1 to the group path) on a group case's inputs: (device
-    ms by CUDA-graph replay, max abs error against the plain version)."""
-    import torch
-
-    from rdmnet_tpu_torch.ops.kernels.sinkhorn import STREAM_WARPS, _launcher
-
-    p, k1 = s_t.shape[0], s_t.shape[1]
-    scratch = torch.empty((p, k1 * (2 + 2 * STREAM_WARPS)), dtype=torch.float32, device=s_t.device)
-    out = torch.empty_like(s_t)
-
-    def call():
-        err = _launcher("stream")(s_t.data_ptr(), mu_t.data_ptr(), nu_t.data_ptr(), p, k1,
-                                  LARGE_ITERS, scratch.data_ptr(), out.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
-        if err:
-            fail(f"sinkhorn streaming kernel at K1={k1}: launch failed with {err}")
-
-    call()
-    torch.cuda.synchronize()
-    if not torch.equal(out > -1e11, live):
-        fail(f"sinkhorn streaming kernel at K1={k1}: masked entries differ")
-    err = float((out - want)[live].abs().max())
-    if err > 1e-4:
-        fail(f"sinkhorn streaming kernel at K1={k1}: max abs error {err} > 1e-4")
-    return graph_ms(call, reps=2), err
+    return ms, call_ms, plain_ms, bound, plan, work["by"]
 
 
 def large_shapes_check(dev, kernels, max_clock_mhz):
@@ -2884,18 +2851,19 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
     plan sends each (the warp select path at k = 257 to 1024, the block
     select path at k = 2048 to 6144, and k above the support count) on dense
     windows, banded, unbanded, tiled, a batch of two clouds, duplicated
-    points, two sort chunks and an overflowing key cache; Sinkhorn's cluster
-    path at K1 in ``LARGE_K1``, its group path at ``GROUP_CASES`` (the
-    streaming kernel timed beside it on the ``STREAM_BASELINE`` inputs) and
-    its streaming path at ``STREAM_K1``, with masked rows and patches.
-    Fills the kernels' ``block_path`` entry (k = 2048, the tiled band), and
+    points, two sort chunks, an overflowing key cache and a window past the
+    warp select path's box tile; Sinkhorn's cluster path at K1 in
+    ``LARGE_K1``, its group path at ``GROUP_CASES`` and, with spilled
+    bands, at ``SPILL_CASES``, with masked rows and patches. Fills the
+    kernels' ``block_path`` entry (k = 2048, the 8192-row band), and
     ``cluster_path`` (P = 256, K1 = 257, 100 iterations, phase 16's shape),
     ``group_path`` (P = 256, K1 = 601, phase 16's group-path pass) and
-    ``stream_path`` entries."""
+    ``group_path_spilled`` (P = 8, K1 = 2641) entries."""
     import numpy as np
     import torch
 
     from rdmnet_tpu_torch.ops.kernels import path_launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.kernels.radius_knn import SELECT_BOX_ROWS_MAX
     from rdmnet_tpu_torch.ops.kernels.sinkhorn import (GROUP_K1_MAX, cluster_occupancy,
                                                        group_resident, sinkhorn_cuda,
                                                        sinkhorn_plain, sinkhorn_plan)
@@ -2911,19 +2879,25 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
     for k, route in ((512, "select"), (2048, "block")):
         large_knn_case(dev, kernels, "banded duplicated points", twin, [12000], 1.5, k,
                        band=4096, route=route)
-    # a band of 8192 rows (tiled on the warp select path)
+    # a band of 8192 rows (tiled on the block path's key cache)
     big = dense_cloud(SEED + 22, 16000, (10.0, 3.0, 2.0))[None]
     for k in SELECT_KS + BLOCK_KS:
-        ms, call_ms, pms, bound, plan = large_knn_case(
+        ms, call_ms, pms, bound, plan, by = large_knn_case(
             dev, kernels, "banded tiled", big, [16000], 2.0, k, band=8192,
             route="block" if k in BLOCK_KS else "select")
-        if k == 2048:
+        if k == BLOCK_KS[0]:
             kernels["radius_knn"]["block_path"] = dict(
                 shape=f"Q=16000 S=16000 K={k} band=8192 r=2.0", ms=ms, ms_per_call=call_ms,
-                plain_ms=pms, bound_ms=bound, bound_by="operations", library_ms=None)
+                plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None)
     for k in (2048, 4096):
         large_knn_case(dev, kernels, "unbanded tiled", big, [15500], 2.0, k, queries=4096,
                        route="block")
+    # a window past the warp select path's box tile, swept tile by tile, every
+    # list overflowing its sort buffer
+    huge = dense_cloud(SEED + 27, SELECT_BOX_ROWS_MAX + 7000, (40.0, 3.0, 2.0))[None]
+    for k in (320, 1024):
+        large_knn_case(dev, kernels, "unbanded tiled", huge, [huge.shape[1] - 77], 1.5, k,
+                       queries=4096)
     # unbanded, the window staged whole
     mid = dense_cloud(SEED + 23, 6000, (4.0, 3.0, 2.0))[None]
     large_knn_case(dev, kernels, "unbanded", mid, [6000], 1.5, 512)
@@ -2944,10 +2918,12 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
                        queries=512, route="block")
 
     cases = ([(k1, LARGE_P) for k1 in LARGE_K1] + [(k1, p) for p, k1 in GROUP_CASES]
-             + [(STREAM_K1, STREAM_P)])
-    if GROUP_CASES[-1][1] != GROUP_K1_MAX or sinkhorn_plan(STREAM_K1).route != "stream":
-        fail(f"sinkhorn: phase 3's last group case and STREAM_K1 must straddle {GROUP_K1_MAX}")
-    occupancy, vs_stream = {}, None
+             + [(k1, p) for p, k1 in SPILL_CASES])
+    if (GROUP_CASES[-1][1] != GROUP_K1_MAX or sinkhorn_plan(GROUP_K1_MAX).spill_rows
+            or not all(sinkhorn_plan(k1).spill_rows for _, k1 in SPILL_CASES)):
+        fail(f"sinkhorn: phase 3's group cases must end at {GROUP_K1_MAX} and its spilled "
+             "cases lie past it")
+    occupancy = {}
     for k1, p in cases:
         s_np, mu_np, nu_np = sinkhorn_inputs(SEED + k1, p, k1)
         s_t, mu_t, nu_t = (torch.from_numpy(x).to(dev) for x in (s_np, mu_np, nu_np))
@@ -2974,9 +2950,8 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
         ms, call_ms = graph_ms(call, reps=LARGE_REPS), cuda_ms(call, reps=LARGE_REPS)
         plain_ms = cuda_ms(lambda: sinkhorn_plain(s_t, mu_t, nu_t, LARGE_ITERS), reps=1,
                            warmup=0)
-        bound, by, exp_ms, ops_ms, bytes_ms, stream_ms = sinkhorn_bounds(
-            p, k1, LARGE_ITERS, max_clock_mhz)
-        extra, stream_same = "", None
+        bound, by, exp_ms, ops_ms, bytes_ms = sinkhorn_bounds(p, k1, LARGE_ITERS, max_clock_mhz)
+        extra = ""
         if plan.route == "cluster":
             if plan.cluster not in occupancy:
                 occupancy[plan.cluster] = cluster_occupancy(k1)
@@ -2987,13 +2962,12 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
             extra = (f"; {plan.group} CTAs a group, {plan.cta_bytes} bytes a CTA, "
                      f"{group_resident(k1, s_t.device.index)} CTAs resident, {groups} groups "
                      f"in {-(-p // groups)} rounds")
-            if (p, k1) == STREAM_BASELINE:
-                stream_same = stream_on_the_same_inputs(s_t, mu_t, nu_t, want, live)
-                extra += (f"; the streaming kernel on the same inputs {stream_same[0]:.4f} ms on "
-                          f"the device (max abs err {stream_same[1]:.3e}), its traffic "
-                          f"{stream_ms:.5f} ms")
-        else:
-            extra = f"; the design's traffic (the patch read every half-step) {stream_ms:.5f} ms"
+            if plan.spill_rows:
+                spilled = plan.group * plan.spill_rows * k1 * 4
+                extra += (f"; {plan.spill_rows} of {-(-k1 // plan.group)} rows a band spilled: "
+                          f"{spilled / 1e6:.3f} MB of the patch read from device memory every "
+                          f"half-step ({2 * LARGE_ITERS * spilled / HBM_BYTES_PER_S * 1e3:.5f} ms "
+                          "a patch at the HBM rate)")
         print(f"sinkhorn {plan.route} path P={p} K1={k1} iters={LARGE_ITERS}: kernel "
               f"{ms:.4f} ms on the device, {call_ms:.4f} ms per call; plain {plain_ms:.3f} ms, "
               f"bound {bound:.5f} ms (exp {exp_ms:.5f}, f32 ops {ops_ms:.5f}, bytes "
@@ -3003,14 +2977,11 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
                      library_ms=None)
         if k1 == LARGE_PATCH + 1:
             kernels["sinkhorn"]["cluster_path"] = dict(entry, cluster=plan.cluster)
-        if stream_same is not None:
-            vs_stream = dict(shape=entry["shape"], group_ms=ms, stream_ms=stream_same[0],
-                             bound_ms=bound)
-        if k1 == GROUP_PATCH + 1:  # after STREAM_BASELINE in GROUP_CASES
-            kernels["sinkhorn"]["group_path"] = dict(entry, group=plan.group,
-                                                     streaming_kernel_same_inputs=vs_stream)
-        if plan.route == "stream":
-            kernels["sinkhorn"]["stream_path"] = dict(entry, design_bound_ms=stream_ms, launches=0)
+        if k1 == GROUP_PATCH + 1:
+            kernels["sinkhorn"]["group_path"] = dict(entry, group=plan.group)
+        if (p, k1) == SPILL_CASES[0]:
+            kernels["sinkhorn"]["group_path_spilled"] = dict(
+                entry, group=plan.group, spill_rows=plan.spill_rows, launches=0)
     print("sinkhorn cluster path: cudaOccupancyMaxActiveClusters by cluster size "
           + json.dumps(occupancy))
 
@@ -3134,19 +3105,23 @@ def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
     # its 12 searches against the plain version; the select-path ones summed
     batch = build_pair_batch(rp, rc, sp, sc, torch.eye(4, device=dev), big.pyramid)
     pts, cnts = pair_levels(batch, big.pyramid.num_stages)
-    select = [0.0, 0.0, 0.0, 0.0]
+    select, select_by = [0.0, 0.0, 0.0, 0.0], {"bytes": 0.0, "operations": 0.0}
     for item in search_plan(big.pyramid):
-        ms, call_ms, pms, bound, pairs, plan = check_knn(pts, cnts, item, kernels)
+        ms, call_ms, pms, bound, work, plan = check_knn(pts, cnts, item, kernels)
         print(knn_line(f"large-shape {item.table}[{item.q_lvl}->{item.s_lvl}] "
                        f"Q={pts[item.q_lvl].shape[1]} S={pts[item.s_lvl].shape[1]} K={item.k} "
                        f"band={item.band}", ms, call_ms, pms, bound, plan, None)
-              + f"; candidate pairs {pairs}")
+              + f"; {work_text(work)}")
         if plan.sort_rows:
             select = [a + b for a, b in zip(select, (ms, call_ms, pms, bound))]
+            select_by[work["by"]] += bound
     kernels["radius_knn"]["select_path"] = dict(
         shape=f"the {int(per_pair['radius_knn']['select'])} searches of a phase-16 pair at k = "
               f"{LARGE_LIMITS[0]}", ms=select[0], ms_per_call=select[1], plain_ms=select[2],
-        bound_ms=select[3], bound_by="operations", library_ms=None)
+        bound_ms=select[3], bound_by=max(select_by, key=select_by.get), library_ms=None)
+    print(f"large-shape phase: the {int(per_pair['radius_knn']['select'])} warp-select searches "
+          f"of a pair {select[0]:.4f} ms on the device, {select[1]:.4f} ms in wrapper calls, "
+          f"bound {select[3]:.5f} ms, plain {select[2]:.3f} ms ({card})")
 
     # a graph build whose level-0 search takes the block path: the same
     # pair's pyramid at a level-0 limit of 2048, set by hand
@@ -3161,7 +3136,7 @@ def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
              f"{block_paths}, not {want_paths}")
     dpts, dcnts = pair_levels(dense_batch, dense.num_stages)
     for item in search_plan(dense)[:2]:
-        ms, call_ms, pms, bound, pairs, plan = check_knn(dpts, dcnts, item, kernels)
+        ms, call_ms, pms, bound, _, plan = check_knn(dpts, dcnts, item, kernels)
         print(knn_line(f"large-shape build at level-0 limit {BLOCK_LIMITS[0]}: {item.table}"
                        f"[{item.q_lvl}->{item.s_lvl}] K={item.k} band={item.band}", ms, call_ms,
                        pms, bound, plan, None)
@@ -3262,7 +3237,7 @@ def group_model_phase(dev, card, kernels, cfg, ref, src):
     paths = path_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     want = {"radius_knn": {"list": 12 * GROUP_TIMED, "select": 0, "block": 0},
-            "sinkhorn": {"register": 0, "cluster": 0, "group": GROUP_TIMED, "stream": 0}}
+            "sinkhorn": {"register": 0, "cluster": 0, "group": GROUP_TIMED}}
     if paths != want:
         fail(f"group-path pass: launched {paths} in {GROUP_TIMED} pairs, not {want}")
     if not all(bool(torch.isfinite(t).all()) for t in outs):
@@ -3380,8 +3355,8 @@ def main() -> None:
     # ---- 3. kernels vs plain at main-path shapes -------------------------
     batch = build_pair_batch(rp, rc, sp, sc, torch.eye(4, device=dev), cfg.pyramid)
     pts, cnts = pair_levels(batch, cfg.pyramid.num_stages)
-    knn_ms, knn_call_ms, knn_plain_ms, knn_bound = check_searches(pts, cnts, cfg.pyramid,
-                                                                  kernels, v1=V1_KNN_MS)
+    knn_ms, knn_call_ms, knn_plain_ms, knn_bound, knn_by = check_searches(
+        pts, cnts, cfg.pyramid, kernels, v1=V1_KNN_MS)
     level0 = search_plan(cfg.pyramid)[0]
     for extra in (level0._replace(band=None),
                   level0._replace(band=None, k=1, radius=2 * cfg.pyramid.search_radius)):
@@ -3417,13 +3392,13 @@ def main() -> None:
     s_ms = graph_ms(lambda: sinkhorn_cuda(s_t, mu_t, nu_t, iters), reps=20)
     s_call_ms = cuda_ms(lambda: sinkhorn_cuda(s_t, mu_t, nu_t, iters), reps=20)
     s_plain = cuda_ms(lambda: sinkhorn_plain(s_t, mu_t, nu_t, iters), reps=3)
-    s_bound, s_by, exp_ms, ops_ms, bytes_ms, _ = sinkhorn_bounds(p, k1, iters, max_clock_mhz)
+    s_bound, s_by, exp_ms, ops_ms, bytes_ms = sinkhorn_bounds(p, k1, iters, max_clock_mhz)
     print(f"sinkhorn P={p} K1={k1} iters={iters}: kernel {s_ms:.4f} ms on the device, "
           f"{s_call_ms:.4f} ms per call, v1 design {V1_SINKHORN_MS:.4f} ms per call; plain "
           f"{s_plain:.3f} ms, bound {s_bound:.5f} ms (exp {exp_ms:.5f}, f32 ops "
           f"{ops_ms:.5f}, bytes {bytes_ms:.5f}), max abs err {err:.3e}; plan {sinkhorn_plan(k1)}")
     kernels["radius_knn"].update(ms=knn_ms, ms_per_call=knn_call_ms, plain_ms=knn_plain_ms,
-                                 bound_ms=knn_bound, bound_by="operations")
+                                 bound_ms=knn_bound, bound_by=knn_by)
     kernels["sinkhorn"].update(ms=s_ms, ms_per_call=s_call_ms, plain_ms=s_plain, bound_ms=s_bound,
                                bound_by=s_by)
     # the kernels' large-shape paths (k > 256, K1 > 208) against their plain versions

@@ -42,22 +42,19 @@
 // registers, so each query's K nearest are selected rather than kept sorted
 // while the window streams by. Below a K the wrapper's plan states
 // (rdmnet_tpu_torch/ops/kernels/radius_knn.py BLOCK_K_MIN), the warp select
-// path (radius_knn_select_launch): still a warp per query over the same
-// staged window, and a sort buffer of SR = next_pow2(K) keys of (distance
-// bits << 32 | index) a warp, so the whole output fits in it. A first sweep
-// counts the query's in-radius rows and writes the first SR of them into the
-// buffer. When they all fit (the common case: far fewer than SR rows lie in
-// the radius), a bitonic sort of the buffer gives the answer at once.
-// Otherwise the distance bits of the candidate of rank K are located by a
-// radix select (four sweeps of 8-bit digits into a 256-bin histogram per
-// warp), the K nearest are emitted in one more sweep (those at that
-// distance counted off in index order, the sweep's order) and sorted. A
-// key's low word is the index, so ties come out in index order, as on the
-// register path. A tiled window is restaged tile by tile in every sweep, so
-// there the sweeps are block-wide and a warp with nothing to do keeps only
-// the barriers. From that K, the block select path
-// (radius_knn_block_launch): a warp's sort buffer of 2048 keys (16 KB)
-// beside the staged window leaves one block of 4 warps an SM; there a CTA
+// path (radius_knn_select_launch): a warp per query and a sort buffer of SR
+// = next_pow2(K) keys a warp, so the whole output fits in it. Most of a
+// query's window lies outside its radius (at the phase-16 level-0 search,
+// ~32 of 5120 rows inside), and the rows are sorted by the x-major voxel
+// key, so 32 consecutive rows span a small box: the block keeps each
+// 32-row chunk's bounding box in shared memory, not the rows, and a query's
+// sweep evaluates only the chunks its radius can reach, reading their rows
+// from L1/L2. Two blocks share an SM. One counting sweep fills the buffer;
+// when the in-radius rows overflow it, a radix select from the highest
+// distance bit they do not share stops at the first digit whose rows fit
+// the buffer, and one more sweep collects them (radius_knn_select_kernel
+// below). From BLOCK_K_MIN, the block select path
+// (radius_knn_block_launch): there a CTA
 // of 16 warps takes one query, computes each distance once, keeps the
 // in-radius keys in shared memory, selects there with all its threads and
 // sorts with a block radix sort (fewer than 257 keys: one warp, in
@@ -70,6 +67,7 @@
 #define KNN_MAX_WARPS 16
 #define KNN_SMEM_MAX 232448
 #define KNN_SELECT_BINS 256
+#define SEL_CHUNKS 2  // warp select path: 32-row chunks whose rows a warp loads together
 #define KNB_THREADS 512           // block select path: a CTA of 16 warps a query
 #define KNB_CACHE_KEYS_MAX 8192   // in-radius keys a CTA keeps (64 KB)
 #define KNB_SORT_ROWS_MAX 4096    // keys a CTA sorts at once (32 KB)
@@ -285,7 +283,7 @@ extern "C" int radius_knn_launch(const float* q, const float* s, const int* s_co
   }
 }
 
-// ---- K > 256: the select path ----------------------------------------------------------
+// ---- K > 256: the select paths ---------------------------------------------------------
 
 // The order of a candidate: its squared distance's bits (d >= 0, so the bits
 // order as the floats do; -0 folds onto +0), then its index.
@@ -294,209 +292,6 @@ __device__ __forceinline__ unsigned dist_bits(float d) { return __float_as_uint(
 __device__ __forceinline__ unsigned long long knn_key(unsigned bits, int j) {
   return ((unsigned long long)bits << 32) | (unsigned)j;
 }
-
-// Sort a[0, cnt) ascending in place, the warp's lanes together; a holds at
-// least next_pow2(cnt) entries (the tail is padded with the largest key).
-__device__ void warp_bitonic_sort(unsigned long long* a, int cnt, int lane) {
-  int n = 1;
-  while (n < cnt) n <<= 1;
-  for (int i = cnt + lane; i < n; i += 32) a[i] = ~0ull;
-  __syncwarp();
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = lane; i < (n >> 1); i += 32) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const bool up = (lo & size) == 0;
-        const unsigned long long x = a[lo], y = a[lo + stride];
-        if ((x > y) == up) {
-          a[lo] = y;
-          a[lo + stride] = x;
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-__global__ void __launch_bounds__(KNN_MAX_WARPS * 32, 1)
-radius_knn_select_kernel(const float* __restrict__ q, const float* __restrict__ s,
-                         const int* __restrict__ s_count, const int* __restrict__ win, int Q,
-                         int S, int K, float r2, int chunk, int band, int n_chunks,
-                         int tile_rows, int sort_rows, int* __restrict__ out) {
-  extern __shared__ float4 tile[];  // tile_rows rows, then the warps' buffers and histograms
-  const int b = blockIdx.y;
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned lanes_below = (1u << lane) - 1u;
-  unsigned long long* const bufs = reinterpret_cast<unsigned long long*>(tile + tile_rows);
-  unsigned long long* const buf = bufs + (size_t)warp * sort_rows;
-  unsigned* const hist =
-      reinterpret_cast<unsigned*>(bufs + (size_t)warps * sort_rows) + warp * KNN_SELECT_BINS;
-  const int q0 = blockIdx.x * warps;  // the block's queries lie in one chunk
-  const int qi = q0 + warp;
-  const bool active = qi < Q;
-
-  int w = 0, len = S;
-  if (win != nullptr) {
-    w = win[b * n_chunks + q0 / chunk];
-    len = band;
-  }
-  const int end = min(w + len, s_count[b]);  // rows >= s_count are invalid
-  const bool tiled = end - w > tile_rows;    // block-uniform
-
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    const float* qp = q + ((size_t)b * Q + qi) * 3;
-    qx = qp[0];
-    qy = qp[1];
-    qz = qp[2];
-  }
-  const float qsq = __fmaf_rn(qz, qz, __fmaf_rn(qy, qy, __fmul_rn(qx, qx)));
-  const float* sb = s + (size_t)b * S * 3;
-  auto stage = [&](int t0, int n) {
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      const float* sp = sb + (size_t)(t0 + t) * 3;
-      const float x = sp[0], y = sp[1], z = sp[2];
-      tile[t] = make_float4(x, y, z, __fmaf_rn(z, z, __fmaf_rn(y, y, __fmul_rn(x, x))));
-    }
-  };
-  if (!tiled && end > w) stage(w, end - w);
-  __syncthreads();
-
-  // One sweep over the window in index order: f(bits, ok, row) per step of
-  // 32 candidates (lane i: row base + i; ok: inside the window and the
-  // radius). Called by the whole block, which restages the tiles of a
-  // tiled window; a warp with !on keeps only the barriers.
-  auto sweep = [&](bool on, auto&& f) {
-    for (int t0 = w; t0 < end; t0 += tile_rows) {
-      const int n = min(tile_rows, end - t0);
-      if (tiled) {
-        __syncthreads();
-        stage(t0, n);
-        __syncthreads();
-      }
-      if (!on) continue;
-      for (int base = 0; base < n; base += 32) {
-        const int i = base + lane;
-        const float d = knn_dist(qx, qy, qz, qsq, tile[min(i, n - 1)]);
-        f(dist_bits(d), i < n && d <= r2, t0 + i);
-      }
-    }
-  };
-
-  // count the in-radius rows, keeping the first sort_rows of them
-  int n_in = 0;
-  sweep(active, [&](unsigned bits, bool ok, int j) {
-    const unsigned m = __ballot_sync(FULL_MASK, ok);
-    const int pos = n_in + __popc(m & lanes_below);
-    if (ok && pos < sort_rows) buf[pos] = knn_key(bits, j);
-    n_in += __popc(m);
-  });
-
-  // more candidates than the buffer holds (n_in > sort_rows >= K): the K
-  // nearest are those with bits < t, and the first e at bits == t in index
-  // order
-  const bool pick = active && n_in > sort_rows;
-  if (__syncthreads_or(pick)) {
-    // radix select of the candidate of rank K, 8 bits a sweep
-    unsigned prefix = 0u, pmask = 0u;
-    int rr = K;  // its rank among the candidates that match the prefix
-    for (int shift = 24; shift >= 0; shift -= 8) {
-      for (int i = lane; i < KNN_SELECT_BINS; i += 32) hist[i] = 0u;
-      __syncwarp();
-      sweep(pick, [&](unsigned bits, bool ok, int) {
-        if (ok && (bits & pmask) == prefix) atomicAdd(&hist[(bits >> shift) & 255u], 1u);
-      });
-      __syncwarp();
-      if (pick) {
-        unsigned cnt8[8], tot = 0u;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          cnt8[t] = hist[lane * 8 + t];
-          tot += cnt8[t];
-        }
-        unsigned incl = tot;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const unsigned x = __shfl_up_sync(FULL_MASK, incl, o);
-          if (lane >= o) incl += x;
-        }
-        const unsigned excl = incl - tot;
-        const bool mine = excl <= (unsigned)rr && (unsigned)rr < incl;
-        const int src = __ffs(__ballot_sync(FULL_MASK, mine)) - 1;
-        int digit = 0;
-        unsigned before = excl;
-        bool found = false;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          if (!found && (unsigned)rr < before + cnt8[t]) {
-            digit = lane * 8 + t;
-            found = true;
-          } else if (!found) {
-            before += cnt8[t];
-          }
-        }
-        digit = __shfl_sync(FULL_MASK, digit, src);
-        before = __shfl_sync(FULL_MASK, before, src);
-        rr -= (int)before;
-        prefix |= (unsigned)digit << shift;
-        pmask |= 255u << shift;
-      }
-      __syncwarp();
-    }
-    // emit the K nearest into the buffer
-    int cnt = 0, ties = 0;
-    sweep(pick, [&](unsigned bits, bool ok, int j) {
-      const bool eq = ok && bits == prefix;
-      const unsigned m_eq = __ballot_sync(FULL_MASK, eq);
-      const bool sel = ok && (bits < prefix || (eq && ties + __popc(m_eq & lanes_below) < rr));
-      const unsigned m = __ballot_sync(FULL_MASK, sel);
-      if (sel) buf[cnt + __popc(m & lanes_below)] = knn_key(bits, j);
-      cnt += __popc(m);
-      ties += __popc(m_eq);
-    });
-  }
-  if (active) {
-    const int m_out = min(K, n_in);
-    int* op = out + ((size_t)b * Q + qi) * K;
-    __syncwarp();
-    warp_bitonic_sort(buf, pick ? K : n_in, lane);
-    for (int i = lane; i < m_out; i += 32) op[i] = (int)(unsigned)buf[i];
-    for (int i = m_out + lane; i < K; i += 32) op[i] = S;
-  }
-}
-
-// The warp select path, for 1 <= K <= sort_rows: arguments as
-// radius_knn_launch, with sort_rows (a power of two >= 32) the keys of each
-// warp's sort buffer. Dynamic shared memory: tile_rows float4 rows, then
-// warps x sort_rows 8-byte keys and warps x 256 histogram bins. Returns
-// cudaGetLastError() after the launch.
-extern "C" int radius_knn_select_launch(const float* q, const float* s, const int* s_count,
-                                        const int* win, int B, int Q, int S, int K, float r2,
-                                        int chunk, int band, int n_chunks, int warps,
-                                        int sort_rows, int tile_rows, int* out, void* stream) {
-  if (K < 1 || K > sort_rows || sort_rows < 32 || (sort_rows & (sort_rows - 1)))
-    return (int)cudaErrorInvalidValue;
-  if (warps < 1 || warps > KNN_MAX_WARPS || tile_rows < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)tile_rows * sizeof(float4) +
-                      (size_t)warps * (sort_rows * sizeof(unsigned long long) +
-                                       KNN_SELECT_BINS * sizeof(unsigned));
-  if (smem > KNN_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  if (win != nullptr && (chunk <= 0 || chunk % 64 != 0 || chunk % warps != 0 || band <= 0))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || Q == 0) return 0;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(radius_knn_select_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((Q + warps - 1) / warps, B);
-  radius_knn_select_kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
-      q, s, s_count, win, Q, S, K, r2, chunk, band, n_chunks, tile_rows, sort_rows, out);
-  return (int)cudaGetLastError();
-}
-
-// ---- large K: the block select path -------------------------------------------------------
 
 // Compare-exchange of a bitonic network: x (the lower index) keeps the
 // smaller key when up.
@@ -540,6 +335,360 @@ __device__ void warp_register_sort(unsigned long long* a, int n, int lane) {
   for (int j = 0; j < R; ++j)
     if (j * 32 + lane < n) a[j * 32 + lane] = v[j];
 }
+
+// Sort a[0, cnt) ascending in place, the warp's lanes together; a holds at
+// least next_pow2(cnt) entries (the tail is padded with the largest key).
+__device__ void warp_bitonic_sort(unsigned long long* a, int cnt, int lane) {
+  int n = 1;
+  while (n < cnt) n <<= 1;
+  for (int i = cnt + lane; i < n; i += 32) a[i] = ~0ull;
+  __syncwarp();
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = lane; i < (n >> 1); i += 32) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const bool up = (lo & size) == 0;
+        const unsigned long long x = a[lo], y = a[lo + stride];
+        if ((x > y) == up) {
+          a[lo] = y;
+          a[lo + stride] = x;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Sort a[0, n) (n <= sort buffer), the warp's lanes together: in registers
+// to 256 keys, else a bitonic network in shared memory.
+__device__ void warp_sort(unsigned long long* a, int n, int lane) {
+  if (n <= 32)
+    warp_register_sort<1>(a, n, lane);
+  else if (n <= 64)
+    warp_register_sort<2>(a, n, lane);
+  else if (n <= 128)
+    warp_register_sort<4>(a, n, lane);
+  else if (n <= 256)
+    warp_register_sort<8>(a, n, lane);
+  else
+    warp_bitonic_sort(a, n, lane);
+  __syncwarp();
+}
+
+// A float's bits as an unsigned that orders as the floats do, and back.
+__device__ __forceinline__ unsigned ordered(float f) {
+  const unsigned u = __float_as_uint(f);
+  return u ^ ((unsigned)((int)u >> 31) | 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered(unsigned k) {
+  return __uint_as_float(k ^ ((unsigned)((int)~k >> 31) | 0x80000000u));
+}
+
+// The warp select path: a warp per query, its whole output in a sort buffer
+// of SR = next_pow2(K) keys of (distance bits << 32 | index). The block
+// cuts the window's rows into chunks of 32 consecutive rows and keeps
+// each chunk's bounding box in shared memory (two float4: the coordinates'
+// minima and the largest |s|^2, the maxima), box_rows rows at a time; the
+// rows themselves stay in device memory (L2 / L1). Rows are sorted by the
+// x-major voxel key, so a chunk is a small box, and a query's sweep tests a
+// chunk a lane (one ballot per 32 chunks) and evaluates only the rows of
+// the chunks its radius can reach. A box is skipped only when its distance
+// to the query exceeds r^2 by more than 2^-17 (|q|^2 + max |s|^2 + r^2),
+// over ten times the rounding error of the kernel's distance (at most
+// 10 u (|q|^2 + |s|^2), u = 2^-24), so no row the exact distance would keep
+// is skipped. A first sweep counts the query's in-radius rows, keeps the
+// first SR of them in the buffer and ANDs / ORs their distance bits. When
+// they fit (the common case), the buffer is sorted (registers up to 256
+// keys) and the first K written. Otherwise a radix select from the highest
+// distance bit the rows do not share, 8 bits a sweep into a 256-bin
+// histogram (warp-aggregated increments, __match_any_sync) laid over the
+// buffer, stops at the first digit whose keys and those below it fit in the
+// buffer: one more sweep collects them, and the sort gives the K nearest.
+// Keys at one distance that cannot be split further are counted off in
+// index order, the sweep's order. A key's low word is the index, so ties
+// come out in index order. A window past box_rows rows is swept box tile by
+// box tile by the whole block (barriers); else the block meets once, after
+// the boxes, and each warp runs on its own.
+__global__ void __launch_bounds__(KNN_MAX_WARPS * 32, 2)
+radius_knn_select_kernel(const float* __restrict__ q, const float* __restrict__ s,
+                         const int* __restrict__ s_count, const int* __restrict__ win, int Q,
+                         int S, int K, float r2, int chunk, int band, int n_chunks,
+                         int box_rows, int sort_rows, int* __restrict__ out) {
+  extern __shared__ float4 boxes[];  // box_rows / 32 chunks x (lo, hi), then the warps' buffers
+  const int b = blockIdx.y;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  unsigned long long* const buf =
+      reinterpret_cast<unsigned long long*>(boxes + box_rows / 16) + (size_t)warp * sort_rows;
+  unsigned* const hist = reinterpret_cast<unsigned*>(buf);  // radix passes only
+  const int q0 = blockIdx.x * warps;  // the block's queries lie in one chunk
+  const int qi = q0 + warp;
+  const bool active = qi < Q;
+
+  int w = 0, len = S;
+  if (win != nullptr) {
+    w = win[b * n_chunks + q0 / chunk];
+    len = band;
+  }
+  const int end = min(w + len, s_count[b]);  // rows >= s_count are invalid
+  const bool tiled = end - w > box_rows;     // block-uniform
+
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (active) {
+    const float* qp = q + ((size_t)b * Q + qi) * 3;
+    qx = qp[0];
+    qy = qp[1];
+    qz = qp[2];
+  }
+  const float qsq = __fmaf_rn(qz, qz, __fmaf_rn(qy, qy, __fmul_rn(qx, qx)));
+  const float reach = r2 + (qsq + r2) * 0x1p-17f;  // plus the chunk's |s|^2 share
+  const float* sb = s + (size_t)b * S * 3;
+
+  // the boxes of the chunks of rows [t0, t0 + n), a warp a chunk, the rows
+  // of SEL_CHUNKS chunks loaded together
+  auto make_boxes = [&](int t0, int n) {
+    const int nch = (n + 31) >> 5;
+    for (int c0 = warp; c0 < nch; c0 += SEL_CHUNKS * warps) {
+      float x[SEL_CHUNKS], y[SEL_CHUNKS], z[SEL_CHUNKS];
+#pragma unroll
+      for (int u = 0; u < SEL_CHUNKS; ++u) {
+        const int i = 32 * (c0 + u * warps) + lane;
+        x[u] = y[u] = z[u] = 0.f;
+        if (i < n) {
+          const float* sp = sb + (size_t)(t0 + i) * 3;
+          x[u] = __ldg(sp);
+          y[u] = __ldg(sp + 1);
+          z[u] = __ldg(sp + 2);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SEL_CHUNKS; ++u) {
+        const int c = c0 + u * warps;  // warp-uniform
+        if (c >= nch) break;
+        const bool ok = 32 * c + lane < n;
+        const float sq = __fmaf_rn(z[u], z[u], __fmaf_rn(y[u], y[u], __fmul_rn(x[u], x[u])));
+        const unsigned inf = ordered(CUDART_INF_F), ninf = ordered(-CUDART_INF_F);
+        const float lx = unordered(__reduce_min_sync(FULL_MASK, ok ? ordered(x[u]) : inf));
+        const float ly = unordered(__reduce_min_sync(FULL_MASK, ok ? ordered(y[u]) : inf));
+        const float lz = unordered(__reduce_min_sync(FULL_MASK, ok ? ordered(z[u]) : inf));
+        const float hx = unordered(__reduce_max_sync(FULL_MASK, ok ? ordered(x[u]) : ninf));
+        const float hy = unordered(__reduce_max_sync(FULL_MASK, ok ? ordered(y[u]) : ninf));
+        const float hz = unordered(__reduce_max_sync(FULL_MASK, ok ? ordered(z[u]) : ninf));
+        const float hs =
+            __uint_as_float(__reduce_max_sync(FULL_MASK, ok ? __float_as_uint(sq) : 0u));
+        if (lane == 0) {
+          boxes[2 * c] = make_float4(lx, ly, lz, hs);
+          boxes[2 * c + 1] = make_float4(hx, hy, hz, 0.f);
+        }
+      }
+    }
+  };
+  if (!tiled && end > w) make_boxes(w, end - w);
+  __syncthreads();
+
+  // One sweep over the window in index order: f(bits, ok, row) per step of
+  // 32 rows of a chunk the radius may reach (lane i: row base + i; ok:
+  // inside the window and the radius), the rows of up to SEL_CHUNKS such
+  // chunks loaded together. On a tiled window the whole block calls it and
+  // rebuilds the boxes tile by tile; a warp with !on keeps only the
+  // barriers.
+  auto sweep = [&](bool on, auto&& f) {
+    for (int t0 = w; t0 < end; t0 += box_rows) {
+      const int n = min(box_rows, end - t0);
+      if (tiled) {
+        __syncthreads();
+        make_boxes(t0, n);
+        __syncthreads();
+      }
+      if (!on) continue;
+      const int nch = (n + 31) >> 5;
+      for (int g0 = 0; g0 < nch; g0 += 32) {
+        bool live = false;
+        if (g0 + lane < nch) {
+          const float4 lo = boxes[2 * (g0 + lane)], hi = boxes[2 * (g0 + lane) + 1];
+          const float dx = fmaxf(fmaxf(lo.x - qx, qx - hi.x), 0.f);
+          const float dy = fmaxf(fmaxf(lo.y - qy, qy - hi.y), 0.f);
+          const float dz = fmaxf(fmaxf(lo.z - qz, qz - hi.z), 0.f);
+          live = dx * dx + dy * dy + dz * dz <= reach + lo.w * 0x1p-17f;
+        }
+        for (unsigned m = __ballot_sync(FULL_MASK, live); m;) {
+          int i[SEL_CHUNKS];
+          float x[SEL_CHUNKS], y[SEL_CHUNKS], z[SEL_CHUNKS];
+#pragma unroll
+          for (int u = 0; u < SEL_CHUNKS; ++u) {
+            i[u] = m ? 32 * (g0 + __ffs(m) - 1) + lane : -1;  // -1: no chunk (warp-uniform)
+            m &= m - 1;
+            const float* sp = sb + (size_t)(t0 + min(max(i[u], 0), n - 1)) * 3;
+            x[u] = __ldg(sp);
+            y[u] = __ldg(sp + 1);
+            z[u] = __ldg(sp + 2);
+          }
+#pragma unroll
+          for (int u = 0; u < SEL_CHUNKS; ++u) {
+            if (i[u] < 0) break;
+            const float d = knn_dist(
+                qx, qy, qz, qsq,
+                make_float4(x[u], y[u], z[u],
+                            __fmaf_rn(z[u], z[u], __fmaf_rn(y[u], y[u], __fmul_rn(x[u], x[u])))));
+            f(dist_bits(d), i[u] < n && d <= r2, t0 + i[u]);
+          }
+        }
+      }
+    }
+  };
+
+  // count the in-radius rows, keeping the first sort_rows of them
+  int n_in = 0;
+  unsigned and_bits = ~0u, or_bits = 0u;
+  sweep(active, [&](unsigned bits, bool ok, int j) {
+    const unsigned m = __ballot_sync(FULL_MASK, ok);
+    const int pos = n_in + __popc(m & lanes_below);
+    if (ok) {
+      if (pos < sort_rows) buf[pos] = knn_key(bits, j);
+      and_bits &= bits;
+      or_bits |= bits;
+    }
+    n_in += __popc(m);
+  });
+
+  // more candidates than the buffer holds (n_in > sort_rows >= K): a radix
+  // select of the candidate of rank K - 1 from the highest bit in which the
+  // candidates differ, stopping at the first digit whose candidates and all
+  // below fit in the buffer (those with bits >> lo_bit <= prefix); when the
+  // bits run out first, the K nearest are those with bits < prefix and the
+  // first `take` at bits == prefix in index order
+  const bool pick = active && n_in > sort_rows;
+  int lo_bit = 0, take = -1;
+  unsigned prefix = 0u;
+  if (pick) {
+    and_bits = __reduce_and_sync(FULL_MASK, and_bits);
+    or_bits = __reduce_or_sync(FULL_MASK, or_bits);
+    prefix = or_bits;  // every candidate at one distance: take K of them
+    take = K;
+  }
+  int hi_bit = pick && and_bits != or_bits ? 32 - __clz(and_bits ^ or_bits) : 0;
+  if (hi_bit) {
+    prefix = or_bits >> hi_bit;  // the bits every candidate shares
+    take = -1;
+  }
+  int base = 0;  // candidates below the current prefix
+  while (tiled ? __syncthreads_or(hi_bit > 0) : hi_bit > 0) {
+    const bool on = hi_bit > 0;
+    const int lo = max(0, hi_bit - 8);
+    const unsigned dmask = (1u << (hi_bit - lo)) - 1u;
+    if (on) {
+      for (int i = lane; i < KNN_SELECT_BINS; i += 32) hist[i] = 0u;
+      __syncwarp();
+    }
+    sweep(on, [&](unsigned bits, bool ok, int) {
+      const bool in = ok && (bits >> hi_bit) == prefix;
+      const unsigned digit = (bits >> lo) & dmask;
+      const unsigned peers = __match_any_sync(FULL_MASK, in ? digit : ~0u);
+      if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], (unsigned)__popc(peers));
+    });
+    if (on) {
+      __syncwarp();
+      const int rr = K - 1 - base;  // the rank to place among the prefix's candidates
+      unsigned cnt8[8], tot = 0u;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        cnt8[t] = hist[lane * 8 + t];
+        tot += cnt8[t];
+      }
+      unsigned incl = tot;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned x = __shfl_up_sync(FULL_MASK, incl, o);
+        if (lane >= o) incl += x;
+      }
+      unsigned below = incl - tot;
+      const int src = __ffs(__ballot_sync(FULL_MASK, below <= (unsigned)rr && (unsigned)rr < incl)) - 1;
+      int digit = 0;
+      bool found = false;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {  // the bin of rank rr in lane src's eight
+        if (!found && (unsigned)rr < below + cnt8[t]) {
+          digit = lane * 8 + t;
+          found = true;
+        } else if (!found) {
+          below += cnt8[t];
+        }
+      }
+      digit = __shfl_sync(FULL_MASK, digit, src);
+      below = __shfl_sync(FULL_MASK, below, src);
+      const unsigned at = hist[digit];
+      __syncwarp();
+      prefix = (prefix << (hi_bit - lo)) | (unsigned)digit;
+      lo_bit = lo;
+      if (base + (int)(below + at) <= sort_rows) {
+        hi_bit = 0;  // collect every candidate with bits >> lo_bit <= prefix
+      } else if (lo == 0) {
+        hi_bit = 0;  // one distance: take the first of its candidates
+        take = K - base - (int)below;
+      } else {
+        base += (int)below;
+        hi_bit = lo;
+      }
+    }
+  }
+  if (tiled ? __syncthreads_or(pick) : pick) {
+    int cnt = 0, ties = 0;
+    sweep(pick, [&](unsigned bits, bool ok, int j) {
+      const unsigned top = bits >> lo_bit;
+      const bool eq = ok && top == prefix;
+      const unsigned m_eq = __ballot_sync(FULL_MASK, eq);
+      const bool sel =
+          ok && (top < prefix || (eq && (take < 0 || ties + __popc(m_eq & lanes_below) < take)));
+      const unsigned m = __ballot_sync(FULL_MASK, sel);
+      if (sel) buf[cnt + __popc(m & lanes_below)] = knn_key(bits, j);
+      cnt += __popc(m);
+      ties += __popc(m_eq);
+    });
+    if (pick) n_in = cnt;  // every key in the buffer; K or more, the K nearest among them
+  }
+  if (active) {
+    __syncwarp();
+    warp_sort(buf, min(n_in, sort_rows), lane);
+    const int m_out = min(K, n_in);
+    int* op = out + ((size_t)b * Q + qi) * K;
+    for (int i = lane; i < m_out; i += 32) op[i] = (int)(unsigned)buf[i];
+    for (int i = m_out + lane; i < K; i += 32) op[i] = S;
+  }
+}
+
+// The warp select path, for 1 <= K <= sort_rows: arguments as
+// radius_knn_launch, with box_rows (a multiple of 32) the window rows whose
+// chunk boxes a block keeps at once and sort_rows (a power of two >= 128) the
+// keys of each warp's sort buffer. Dynamic shared memory: box_rows / 32
+// boxes of 32 bytes, then warps x sort_rows 8-byte keys. Returns
+// cudaGetLastError() after the launch.
+extern "C" int radius_knn_select_launch(const float* q, const float* s, const int* s_count,
+                                        const int* win, int B, int Q, int S, int K, float r2,
+                                        int chunk, int band, int n_chunks, int warps,
+                                        int sort_rows, int box_rows, int* out, void* stream) {
+  if (K < 1 || K > sort_rows || sort_rows < 128 || (sort_rows & (sort_rows - 1)))
+    return (int)cudaErrorInvalidValue;
+  if (warps < 1 || warps > KNN_MAX_WARPS || box_rows < 32 || box_rows % 32)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)box_rows + (size_t)warps * sort_rows * sizeof(unsigned long long);
+  if (smem > KNN_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (win != nullptr && (chunk <= 0 || chunk % 64 != 0 || chunk % warps != 0 || band <= 0))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || Q == 0) return 0;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(radius_knn_select_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((Q + warps - 1) / warps, B);
+  radius_knn_select_kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
+      q, s, s_count, win, Q, S, K, r2, chunk, band, n_chunks, box_rows, sort_rows, out);
+  return (int)cudaGetLastError();
+}
+
+// ---- large K: the block select path -------------------------------------------------------
 
 // The lanes whose 8-bit digit equals this lane's, among the lanes with ok
 // (eight ballots).

@@ -75,7 +75,7 @@
 // smallest C whose band, vectors and partials fit in 232,448 bytes a CTA:
 // C = 2 to K1 = 304, 4 to 412, 8 to 546.
 //
-// 546 < K1 <= 2640, the group path (sinkhorn_group_launch): a patch fits in
+// K1 > 546, the group path (sinkhorn_group_launch): a patch fits in
 // no cluster of the portable sizes (C = 16 would end at K1 = 707, and the
 // cluster path's 16 warps' partials alone are 37 K1 floats a CTA), so it is
 // split over a group of G CTAs that are not a cluster: CTA `rank` holds rows
@@ -108,21 +108,19 @@
 // the SFU); the card runs it at ~3-4x that: the sweeps at ~2x their MUFU
 // time, the exchange ~20-25% of an iteration.
 //
-// K1 > 2640, the streaming path (sinkhorn_stream_launch): a patch fits in
-// no group of one CTA an SM, so one CTA of 512 threads per patch reads the
-// patch from device memory in every half-step. Row half-step: a warp per
-// row, each lane an online (max, exp-sum) over its columns, 8 loads in
-// flight a step (rescaled once a step), then a 5-step shuffle merge. Column
-// half-step: warp g takes rows g + 16 i and lane l column c0 + l, so each
-// load of a warp is 32 consecutive floats of one row; each (warp, column)
-// keeps an online partial, and after a barrier thread c merges column c's 16
-// partials with the online-softmax rescale into v[c]. u, v and the partials
-// live in a scratch buffer the wrapper allocates ((2 + 2 x 16) K1 floats a
-// patch), so K1 is bounded by device memory alone. Three barriers an
-// iteration. What bounds this design: bytes, since every half-step reads the
-// patch again: at P = 256, K1 = 600, 100 iterations, 200 x 368.6 MB ~ 22 ms
-// at 3.35 TB/s, against the function's 1.84e10 exponentials, ~4.4 ms on the
-// SFU.
+// K1 > 2640, the same group path with spilled rows: a band of ceil(K1 / 132)
+// rows no longer fits in one SM's shared memory (at K1 = 2641, 21 rows of
+// 2656 floats where 20 fit), so the plan takes B = ceil(K1 / 132) and G =
+// ceil(K1 / B) <= 132 CTAs, and each CTA keeps as many of its rows in shared
+// memory as fit; the rest (its last spill rows: 1 of 21 at K1 = 2641, 5 of
+// 23 at 3000, 19 of 32 at 4096) it reads from the scores in device memory in
+// every half-step, scaled to log2 units as the shared rows were when they
+// were loaded. While the spilled rows of all the group's CTAs fit in the
+// 50 MB L2 (at K1 = 2641 the whole 27.9 MB patch does), they can stay there
+// between half-steps.
+// Exchange, barrier, merge and tagged v are those of the group path; the
+// spill code is a template instance of its own (SPILL), so the group path
+// at K1 <= 2640 runs the code it ran before.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -139,9 +137,6 @@ namespace cg = cooperative_groups;
 #define SKC_MERGE_COLS 2    // merge columns a thread: K1 <= 2 x SKC_THREADS
 #define SKC_SMEM_MAX 232448
 #define SKC_NO_CLUSTER (-1)  // returned when no cluster of the plan fits on the card
-#define SK_STREAM_THREADS 512
-#define SK_STREAM_WARPS (SK_STREAM_THREADS / 32)
-#define SK_STREAM_CH 8  // loads in flight per lane and step
 #define SKG_THREADS 1024  // 32 warps: at most 3 rows a warp, 64 registers a thread
 #define SKG_WARPS (SKG_THREADS / 32)
 #define SKG_CH 8          // row step: 32-column groups a lane folds at a time
@@ -338,120 +333,6 @@ extern "C" int sinkhorn_launch(const float* scores, const float* log_mu, const f
   if (K1 <= 80) return launch<5>(scores, log_mu, log_nu, P, K1, iters, out, st);
   if (K1 <= 144) return launch<9>(scores, log_mu, log_nu, P, K1, iters, out, st);
   return launch<13>(scores, log_mu, log_nu, P, K1, iters, out, st);
-}
-
-// ---- K1 > 2640: the streaming path ---------------------------------------------------
-
-// Fold a step's values x (their max cm) into an online (m, sum) in log2
-// units: sum of 2^(x - m). Entries outside the patch hold -inf; a state that
-// has seen nothing else stays (-inf, 0).
-template <int N>
-__device__ __forceinline__ void lse_fold(float& m, float& sum, const float (&x)[N], float cm) {
-  const float mn = fmaxf(m, cm);
-  if (mn == -CUDART_INF_F) return;
-  float add = 0.f;
-#pragma unroll
-  for (int t = 0; t < N; ++t) add += ex2(x[t] - mn);
-  sum = sum * ex2(m - mn) + add;  // 2^-inf = 0 while m is -inf
-  m = mn;
-}
-
-// scratch: per patch u[K1], v[K1], then 16 x K1 partial maxima and sums
-__global__ void __launch_bounds__(SK_STREAM_THREADS)
-sinkhorn_stream_kernel(const float* __restrict__ scores, const float* __restrict__ log_mu,
-                       const float* __restrict__ log_nu, int K1, int iters, float* scratch,
-                       float* __restrict__ out) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int p = blockIdx.x;
-  const float* sp = scores + (size_t)p * K1 * K1;
-  const float* mu = log_mu + (size_t)p * K1;
-  const float* nu = log_nu + (size_t)p * K1;
-  float* u = scratch + (size_t)p * K1 * (2 + 2 * SK_STREAM_WARPS);
-  float* v = u + K1;
-  float* part_m = v + K1;
-  float* part_s = part_m + (size_t)SK_STREAM_WARPS * K1;
-
-  for (int c = tid; c < K1; c += SK_STREAM_THREADS) u[c] = v[c] = 0.f;  // iters = 0: s
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    // u: a warp per row
-    for (int r = warp; r < K1; r += SK_STREAM_WARPS) {
-      const float* row = sp + (size_t)r * K1;
-      float m = -CUDART_INF_F, sum = 0.f;
-      for (int c0 = 0; c0 < K1; c0 += 32 * SK_STREAM_CH) {
-        float x[SK_STREAM_CH], cm = -CUDART_INF_F;
-#pragma unroll
-        for (int t = 0; t < SK_STREAM_CH; ++t) {
-          const int c = c0 + 32 * t + lane;
-          x[t] = c < K1 ? __fmul_rn(row[c], LOG2E) + v[c] : -CUDART_INF_F;
-          cm = fmaxf(cm, x[t]);
-        }
-        lse_fold(m, sum, x, cm);
-      }
-      float mx = m;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, o));
-      float tot = m == -CUDART_INF_F ? 0.f : sum * ex2(m - mx);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) tot += __shfl_xor_sync(FULL_MASK, tot, o);
-      if (lane == 0) u[r] = __fmul_rn(mu[r], LOG2E) - (mx + lg2(tot));
-    }
-    __syncthreads();
-
-    // v: per-(warp, column) partials over rows warp + 16 i, then merged
-    for (int c0 = 0; c0 < K1; c0 += 32) {
-      const int c = c0 + lane;
-      if (c >= K1) break;
-      float m = -CUDART_INF_F, sum = 0.f;
-      for (int r0 = warp; r0 < K1; r0 += SK_STREAM_WARPS * SK_STREAM_CH) {
-        float x[SK_STREAM_CH], cm = -CUDART_INF_F;
-#pragma unroll
-        for (int t = 0; t < SK_STREAM_CH; ++t) {
-          const int r = r0 + SK_STREAM_WARPS * t;
-          x[t] = r < K1 ? __fmul_rn(sp[(size_t)r * K1 + c], LOG2E) + u[r] : -CUDART_INF_F;
-          cm = fmaxf(cm, x[t]);
-        }
-        lse_fold(m, sum, x, cm);
-      }
-      part_m[(size_t)warp * K1 + c] = m;
-      part_s[(size_t)warp * K1 + c] = sum;
-    }
-    __syncthreads();
-    for (int c = tid; c < K1; c += SK_STREAM_THREADS) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int g = 0; g < SK_STREAM_WARPS; ++g) mx = fmaxf(mx, part_m[(size_t)g * K1 + c]);
-      float tot = 0.f;
-#pragma unroll
-      for (int g = 0; g < SK_STREAM_WARPS; ++g) {
-        const float pm = part_m[(size_t)g * K1 + c];
-        if (pm != -CUDART_INF_F) tot += part_s[(size_t)g * K1 + c] * ex2(pm - mx);
-      }
-      v[c] = __fmul_rn(nu[c], LOG2E) - (mx + lg2(tot));
-    }
-    __syncthreads();
-  }
-
-  float* op = out + (size_t)p * K1 * K1;
-  for (int r = warp; r < K1; r += SK_STREAM_WARPS) {
-    const float ur = u[r];
-    for (int c = lane; c < K1; c += 32)
-      op[(size_t)r * K1 + c] = ((__fmul_rn(sp[(size_t)r * K1 + c], LOG2E) + ur) + v[c]) * LN2;
-  }
-}
-
-// The streaming path, for any K1 >= 1 (the wrapper takes it for K1 > 2640):
-// scores (P, K1, K1), log_mu / log_nu (P, K1), out (P, K1, K1) float32 and
-// contiguous; scratch P x (2 + 2 x 16) x K1 float32, written and read by the
-// kernel only. Returns cudaGetLastError() after the launch.
-extern "C" int sinkhorn_stream_launch(const float* scores, const float* log_mu,
-                                      const float* log_nu, int P, int K1, int iters,
-                                      float* scratch, float* out, void* stream) {
-  if (K1 < 1 || iters < 0) return (int)cudaErrorInvalidValue;
-  if (P == 0) return 0;
-  sinkhorn_stream_kernel<<<P, SK_STREAM_THREADS, 0, (cudaStream_t)stream>>>(
-      scores, log_mu, log_nu, K1, iters, scratch, out);
-  return (int)cudaGetLastError();
 }
 
 // ---- 208 < K1 <= 546: the cluster path -----------------------------------------------
@@ -797,15 +678,37 @@ extern "C" int sinkhorn_cluster_launch(const float* scores, const float* log_mu,
   return (int)cudaGetLastError();
 }
 
-// ---- 546 < K1 <= 2640: the group path -------------------------------------------------
+// ---- K1 > 546: the group path -----------------------------------------------------------
 
 // Dynamic shared memory a CTA takes: its rows' u and log_mu (2 x band_rows),
-// v (K1p, K1 rounded up to 32 columns) and its band (band_rows x K1p);
-// floats.
-static size_t group_smem_bytes(int K1, int band_rows) {
+// v (K1p, K1 rounded up to 32 columns) and the first shared_rows rows of its
+// band (shared_rows x K1p); floats.
+static size_t group_smem_bytes(int K1, int band_rows, int shared_rows) {
   const size_t k1p = (size_t)(K1 + 31) / 32 * 32;
-  return sizeof(float) * ((size_t)band_rows * k1p + k1p + 2 * (size_t)band_rows);
+  return sizeof(float) * ((size_t)shared_rows * k1p + k1p + 2 * (size_t)band_rows);
 }
+
+// A band's rows in log2 units, row r column c (c < K1p): those held in
+// shared memory (K1p floats a row, -inf past K1), and the spilled ones read
+// from the scores in device memory in every half-step (scaled as the shared
+// rows were when they were loaded; -inf past K1, where nothing is read).
+struct SharedRows {
+  static constexpr bool kShared = true;  // the first row is 0: u reads as float4
+  const float* band;
+  int K1p;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    return band[(size_t)r * K1p + c];
+  }
+};
+
+struct SpilledRows {
+  static constexpr bool kShared = false;
+  const float* rows;  // the patch's row 0 of this CTA's band
+  int K1;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    return c < K1 ? __fmul_rn(__ldg(rows + (size_t)r * K1 + c), LOG2E) : -CUDART_INF_F;
+  }
+};
 
 // Fold N values t (log2 units) into an online (max, sum): the block's max and
 // its sum of 2^(t - max) taken as trees, so a block's latency grows with
@@ -831,32 +734,57 @@ __device__ __forceinline__ void tree_fold(float& m, float& s, const float (&t)[N
   m = mn;
 }
 
+// tree_fold's (max, sum) with the block's max taken as a chain and the exps
+// summed as they come: no copy of the block, so fewer registers, for the
+// spilled rows, whose device-memory loads keep more of them live.
+template <int N>
+__device__ __forceinline__ void chain_fold(float& m, float& s, const float (&t)[N]) {
+  float mx = t[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) mx = fmaxf(mx, t[j]);
+  const float mn = fmaxf(m, mx);
+  const float base = mn == -CUDART_INF_F ? 0.f : mn;
+  float add = 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) add += ex2(t[j] - base);
+  s = s * ex2(m - base) + add;
+  m = mn;
+}
+
+// The fold of a row source: trees on the shared rows, a chain on the
+// spilled ones.
+template <typename Rows, int N>
+__device__ __forceinline__ void rows_fold(float& m, float& s, const float (&t)[N]) {
+  if constexpr (Rows::kShared)
+    tree_fold<N>(m, s, t);
+  else
+    chain_fold<N>(m, s, t);
+}
+
 // Fold N 32-column groups, from group g, of the RB band rows r + 32 k into
 // the lane's online (max, sum) of each row: s + v, log2 units.
-template <int RB, int N>
-__device__ __forceinline__ void row_fold(const float* band, int K1p, int r, int g,
-                                         const float* v_sh, int lane, float (&m)[RB],
-                                         float (&s)[RB]) {
+template <int RB, int N, typename Rows>
+__device__ __forceinline__ void row_fold(const Rows& band, int r, int g, const float* v_sh,
+                                         int lane, float (&m)[RB], float (&s)[RB]) {
   float t[RB][N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     const int c = 32 * (g + j) + lane;
     const float vv = v_sh[c];
 #pragma unroll
-    for (int k = 0; k < RB; ++k) t[k][j] = band[(size_t)(r + SKG_WARPS * k) * K1p + c] + vv;
+    for (int k = 0; k < RB; ++k) t[k][j] = band(r + SKG_WARPS * k, c) + vv;
   }
 #pragma unroll
-  for (int k = 0; k < RB; ++k) tree_fold<N>(m[k], s[k], t[k]);
+  for (int k = 0; k < RB; ++k) rows_fold<Rows, N>(m[k], s[k], t[k]);
 }
 
 // u of the band rows r + 32 k, k < RB: each lane folds its columns (32 g +
 // lane) in blocks of SKG_CH groups and a tail of 4, 2 and 1, then the lanes'
 // (max, sum) pairs are merged by two reduce-scatters; lane 32 k / RB writes
 // row k's u.
-template <int RB>
-__device__ __forceinline__ void group_row_lse(const float* band, int K1p, int NG, int r,
-                                              const float* v_sh, int lane, const float* mu_sh,
-                                              float* u_sh) {
+template <int RB, typename Rows>
+__device__ __forceinline__ void group_row_lse(const Rows& band, int NG, int r, const float* v_sh,
+                                              int lane, const float* mu_sh, float* u_sh) {
   float m[RB], s[RB];
 #pragma unroll
   for (int k = 0; k < RB; ++k) {
@@ -864,17 +792,17 @@ __device__ __forceinline__ void group_row_lse(const float* band, int K1p, int NG
     s[k] = 0.f;
   }
   int g = 0;
-  for (; g + SKG_CH <= NG; g += SKG_CH) row_fold<RB, SKG_CH>(band, K1p, r, g, v_sh, lane, m, s);
+  for (; g + SKG_CH <= NG; g += SKG_CH) row_fold<RB, SKG_CH>(band, r, g, v_sh, lane, m, s);
   const int rem = NG - g;  // warp-uniform
   if (rem & 4) {
-    row_fold<RB, 4>(band, K1p, r, g, v_sh, lane, m, s);
+    row_fold<RB, 4>(band, r, g, v_sh, lane, m, s);
     g += 4;
   }
   if (rem & 2) {
-    row_fold<RB, 2>(band, K1p, r, g, v_sh, lane, m, s);
+    row_fold<RB, 2>(band, r, g, v_sh, lane, m, s);
     g += 2;
   }
-  if (rem & 1) row_fold<RB, 1>(band, K1p, r, g, v_sh, lane, m, s);
+  if (rem & 1) row_fold<RB, 1>(band, r, g, v_sh, lane, m, s);
   const float mine = reduce_scatter<RB>(m, lane, [](float a, float b) { return fmaxf(a, b); });
   float sc[RB];
 #pragma unroll
@@ -887,26 +815,54 @@ __device__ __forceinline__ void group_row_lse(const float* band, int K1p, int NG
 }
 
 // Fold N band rows from row r of column c into the lane's online (max, sum):
-// s + u, log2 units. From N = 4, r is a multiple of 4 and u is read as float4
-// (u_sh is 16-byte aligned).
-template <int N>
-__device__ __forceinline__ void col_fold(const float* band, int K1p, int r, int c,
-                                         const float* u_sh, float& m, float& s) {
+// s + u, log2 units. On the shared rows from N = 4, r is a multiple of 4 and
+// u is read as float4 (u_sh is 16-byte aligned).
+template <int N, typename Rows>
+__device__ __forceinline__ void col_fold(const Rows& band, int r, int c, const float* u_sh,
+                                         float& m, float& s) {
   float t[N];
-  if constexpr (N >= 4) {
+  if constexpr (N >= 4 && Rows::kShared) {
 #pragma unroll
     for (int j = 0; j < N; j += 4) {
       const float4 u4 = *reinterpret_cast<const float4*>(u_sh + r + j);
-      t[j] = band[(size_t)(r + j) * K1p + c] + u4.x;
-      t[j + 1] = band[(size_t)(r + j + 1) * K1p + c] + u4.y;
-      t[j + 2] = band[(size_t)(r + j + 2) * K1p + c] + u4.z;
-      t[j + 3] = band[(size_t)(r + j + 3) * K1p + c] + u4.w;
+      t[j] = band(r + j, c) + u4.x;
+      t[j + 1] = band(r + j + 1, c) + u4.y;
+      t[j + 2] = band(r + j + 2, c) + u4.z;
+      t[j + 3] = band(r + j + 3, c) + u4.w;
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < N; ++j) t[j] = band[(size_t)(r + j) * K1p + c] + u_sh[r + j];
+    for (int j = 0; j < N; ++j) t[j] = band(r + j, c) + u_sh[r + j];
   }
-  tree_fold<N>(m, s, t);
+  rows_fold<Rows, N>(m, s, t);
+}
+
+// Fold band rows [r, r_end) of column c into two online (max, sum) chains,
+// RR (8 or 4) rows at a time in alternate blocks, then 8, 4, 2 and 1.
+template <int RR, typename Rows>
+__device__ __forceinline__ void col_fold_rows(const Rows& band, int r, int r_end, int c,
+                                              const float* u_sh, float& ma, float& sa, float& mb,
+                                              float& sb) {
+  for (; r + 2 * RR <= r_end; r += 2 * RR) {
+    col_fold<RR>(band, r, c, u_sh, ma, sa);
+    col_fold<RR>(band, r + RR, c, u_sh, mb, sb);
+  }
+  const int rem = r_end - r;  // < 2 RR
+  if constexpr (RR >= 8) {
+    if (rem & 8) {
+      col_fold<8>(band, r, c, u_sh, ma, sa);
+      r += 8;
+    }
+  }
+  if (rem & 4) {
+    col_fold<4>(band, r, c, u_sh, mb, sb);
+    r += 4;
+  }
+  if (rem & 2) {
+    col_fold<2>(band, r, c, u_sh, ma, sa);
+    r += 2;
+  }
+  if (rem & 1) col_fold<1>(band, r, c, u_sh, mb, sb);
 }
 
 // Arrive at the group's barrier and wait until `target` arrivals (G per
@@ -977,9 +933,11 @@ __device__ __forceinline__ void merge_columns(const float2* part, const float* n
 }
 
 // The group path. A patch's rows are split over a group of G CTAs, band_rows
-// each (the last may hold fewer), and each CTA keeps its band in shared
-// memory for every iteration. A persistent grid of `gridDim.x / G` groups
-// walks the patches; all its CTAs are resident at once (a cooperative
+// each (the last may hold fewer), and each CTA keeps the first shared_rows
+// rows of its band in shared memory for every iteration. SPILL (shared_rows
+// < band_rows, K1 > 2640): the rest of the band is read from the scores in
+// device memory in every half-step (SpilledRows). A persistent grid of
+// `gridDim.x / G` groups walks the patches; all its CTAs are resident at once (a cooperative
 // launch), so a CTA may wait on the others. Each iteration the CTAs write
 // their column partials, meet at the group's barrier, CTA `rank` merges its
 // slice of the columns into v and publishes it tagged, and every CTA reads
@@ -990,19 +948,23 @@ __device__ __forceinline__ void merge_columns(const float2* part, const float* n
 // read of this one. scratch: per group, G x K1 column partials (max, sum)
 // then K1 tagged v words, zero at the launch; counters: per group, one
 // arrival counter every SKG_BAR_STRIDE words, zero at the launch.
+template <bool SPILL>
 __global__ void __launch_bounds__(SKG_THREADS, 1)
 sinkhorn_group_kernel(const float* __restrict__ scores, const float* __restrict__ log_mu,
                       const float* __restrict__ log_nu, int P, int K1, int G, int band_rows,
-                      int iters, float* scratch, unsigned* counters, float* __restrict__ out) {
+                      int shared_rows, int iters, float* scratch, unsigned* counters,
+                      float* __restrict__ out) {
   const int K1p = (K1 + 31) / 32 * 32, NG = K1p / 32;
   const int groups = gridDim.x / G, grp = blockIdx.x / G, rank = blockIdx.x % G;
   const int r0 = rank * band_rows;
   const int nb = max(0, min(band_rows, K1 - r0));  // rows of this CTA's band
+  const int ns = SPILL ? min(nb, shared_rows) : nb;  // of them in shared memory
   extern __shared__ float4 smem4[];
   float* u_sh = reinterpret_cast<float*>(smem4);  // band_rows, 16-byte aligned
   float* mu_sh = u_sh + band_rows;
   float* v_sh = mu_sh + band_rows;  // K1p
-  float* band = v_sh + K1p;         // band_rows x K1p
+  float* band_sh = v_sh + K1p;      // shared_rows x K1p
+  const SharedRows band{band_sh, K1p};
   float2* part = reinterpret_cast<float2*>(scratch + (size_t)grp * 2 * ((size_t)G + 1) * K1);
   uint2* vt = reinterpret_cast<uint2*>(part + (size_t)G * K1);
   unsigned* counter = counters + (size_t)grp * SKG_BAR_STRIDE;
@@ -1016,9 +978,10 @@ sinkhorn_group_kernel(const float* __restrict__ scores, const float* __restrict_
 
   for (int p = grp; p < P; p += groups) {
     const float* sp = scores + ((size_t)p * K1 + r0) * K1;
-    for (int r = warp; r < band_rows; r += SKG_WARPS)
+    const SpilledRows spill{sp, K1};
+    for (int r = warp; r < (SPILL ? shared_rows : band_rows); r += SKG_WARPS)
       for (int c = lane; c < K1p; c += 32)
-        band[(size_t)r * K1p + c] =
+        band_sh[(size_t)r * K1p + c] =
             r < nb && c < K1 ? sp[(size_t)r * K1 + c] * LOG2E : -CUDART_INF_F;
     for (int t = tid; t < band_rows; t += SKG_THREADS) {
       mu_sh[t] = t < nb ? log_mu[(size_t)p * K1 + r0 + t] * LOG2E : 0.f;
@@ -1029,12 +992,18 @@ sinkhorn_group_kernel(const float* __restrict__ scores, const float* __restrict_
 
     for (int it = 0; it < iters; ++it, ++step) {
       // u: row LSE of s + v over the warp's rows, two at a time, then one
-      {
+      // (SPILL: one at a time, the shared rows, then the spilled ones; the
+      // fewer live registers leave room for the spilled rows' loads)
+      if constexpr (!SPILL) {
         const int nr = warp < nb ? (nb - warp + SKG_WARPS - 1) / SKG_WARPS : 0;
         int i = 0;
         for (; i + 2 <= nr; i += 2)
-          group_row_lse<2>(band, K1p, NG, warp + SKG_WARPS * i, v_sh, lane, mu_sh, u_sh);
-        if (i < nr) group_row_lse<1>(band, K1p, NG, warp + SKG_WARPS * i, v_sh, lane, mu_sh, u_sh);
+          group_row_lse<2>(band, NG, warp + SKG_WARPS * i, v_sh, lane, mu_sh, u_sh);
+        if (i < nr) group_row_lse<1>(band, NG, warp + SKG_WARPS * i, v_sh, lane, mu_sh, u_sh);
+      } else {
+        int r = warp;
+        for (; r < ns; r += SKG_WARPS) group_row_lse<1>(band, NG, r, v_sh, lane, mu_sh, u_sh);
+        for (; r < nb; r += SKG_WARPS) group_row_lse<1>(spill, NG, r, v_sh, lane, mu_sh, u_sh);
       }
       __syncthreads();
 
@@ -1044,25 +1013,8 @@ sinkhorn_group_kernel(const float* __restrict__ scores, const float* __restrict_
       for (int g = warp; g < NG; g += SKG_WARPS) {
         const int c = 32 * g + lane;
         float ma = -CUDART_INF_F, sa = 0.f, mb = -CUDART_INF_F, sb = 0.f;
-        int r = 0;
-        for (; r + 2 * SKG_RR <= nb; r += 2 * SKG_RR) {
-          col_fold<SKG_RR>(band, K1p, r, c, u_sh, ma, sa);
-          col_fold<SKG_RR>(band, K1p, r + SKG_RR, c, u_sh, mb, sb);
-        }
-        const int rem = nb - r;  // < 16
-        if (rem & 8) {
-          col_fold<8>(band, K1p, r, c, u_sh, ma, sa);
-          r += 8;
-        }
-        if (rem & 4) {
-          col_fold<4>(band, K1p, r, c, u_sh, mb, sb);
-          r += 4;
-        }
-        if (rem & 2) {
-          col_fold<2>(band, K1p, r, c, u_sh, ma, sa);
-          r += 2;
-        }
-        if (rem & 1) col_fold<1>(band, K1p, r, c, u_sh, mb, sb);
+        col_fold_rows<SPILL ? 4 : SKG_RR>(band, 0, ns, c, u_sh, ma, sa, mb, sb);
+        if constexpr (SPILL) col_fold_rows<4>(spill, ns, nb, c, u_sh, ma, sa, mb, sb);
         const float m = fmaxf(ma, mb), base = m == -CUDART_INF_F ? 0.f : m;
         if (c < K1)
           __stcg(part + (size_t)rank * K1 + c,
@@ -1082,24 +1034,35 @@ sinkhorn_group_kernel(const float* __restrict__ scores, const float* __restrict_
     for (int r = warp; r < nb; r += SKG_WARPS) {
       const float ur = u_sh[r];
       for (int c = lane; c < K1; c += 32)
-        op[(size_t)r * K1 + c] = ((band[(size_t)r * K1p + c] + ur) + v_sh[c]) * LN2;
+        op[(size_t)r * K1 + c] = (((!SPILL || r < ns ? band(r, c) : spill(r, c)) + ur) + v_sh[c]) *
+                                 LN2;
     }
     __syncthreads();  // the next patch overwrites the band, u and v
   }
 }
 
-static int group_config(int K1, int G, int* band_rows, size_t* smem, int* resident) {
-  if (K1 < 1 || G < 1) return (int)cudaErrorInvalidValue;
+typedef void (*GroupKernel)(const float*, const float*, const float*, int, int, int, int, int,
+                            int, float*, unsigned*, float*);
+
+// The launch configuration of one group-path call, G CTAs a patch of which
+// each reads spill_rows rows of its band from device memory: the kernel, its
+// band and shared rows, its shared memory and the CTAs the card holds at
+// once. 0 or the error.
+static int group_config(int K1, int G, int spill_rows, GroupKernel* kern, int* band_rows,
+                        int* shared_rows, size_t* smem, int* resident) {
+  if (K1 < 1 || G < 1 || spill_rows < 0) return (int)cudaErrorInvalidValue;
   *band_rows = (K1 + G - 1) / G;
   if (K1 - (G - 1) * *band_rows < 1) return (int)cudaErrorInvalidValue;  // an empty band
-  *smem = group_smem_bytes(K1, *band_rows);
+  *shared_rows = *band_rows - spill_rows;
+  if (*shared_rows < 0) return (int)cudaErrorInvalidValue;
+  *smem = group_smem_bytes(K1, *band_rows, *shared_rows);
   if (*smem > SKC_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(sinkhorn_group_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  *kern = spill_rows ? sinkhorn_group_kernel<true> : sinkhorn_group_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(*kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)*smem);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sinkhorn_group_kernel, SKG_THREADS,
-                                                    *smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, *kern, SKG_THREADS, *smem);
   if (e != cudaSuccess) return (int)e;
   e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -1109,29 +1072,32 @@ static int group_config(int K1, int G, int* band_rows, size_t* smem, int* reside
   return 0;
 }
 
-// How many CTAs of the group path at this K1 and G the current card holds at
-// once (occupancy x SMs) into *ctas. Returns 0 or the error.
-extern "C" int sinkhorn_group_resident(int K1, int G, int* ctas) {
-  int band_rows;
+// How many CTAs of the group path at this K1, G and spill the current card
+// holds at once (occupancy x SMs) into *ctas. Returns 0 or the error.
+extern "C" int sinkhorn_group_resident(int K1, int G, int spill_rows, int* ctas) {
+  GroupKernel kern;
+  int band_rows, shared_rows;
   size_t smem;
-  return group_config(K1, G, &band_rows, &smem, ctas);
+  return group_config(K1, G, spill_rows, &kern, &band_rows, &shared_rows, &smem, ctas);
 }
 
 // The group path: scores (P, K1, K1), log_mu / log_nu (P, K1), out (P, K1,
-// K1) float32 and contiguous; G CTAs a patch, `groups` groups resident at
-// once walking the patches; scratch groups x 2 (G + 1) K1 float32 and
+// K1) float32 and contiguous; G CTAs a patch, the last spill_rows rows of
+// each CTA's band read from the scores in every half-step, `groups` groups
+// resident at once walking the patches; scratch groups x 2 (G + 1) K1 float32 and
 // counters groups x SKG_BAR_STRIDE uint32, both zero and the kernel's alone.
 // Returns SKG_NO_GROUP when the card cannot hold `groups` groups at once
 // (nothing is launched: the caller raises, it never falls back), else the
 // cooperative launch's error or cudaGetLastError() after it.
 extern "C" int sinkhorn_group_launch(const float* scores, const float* log_mu,
                                      const float* log_nu, int P, int K1, int iters, int G,
-                                     int groups, float* scratch, unsigned* counters, float* out,
-                                     void* stream) {
+                                     int spill_rows, int groups, float* scratch,
+                                     unsigned* counters, float* out, void* stream) {
   if (iters < 0 || P < 0 || groups < 0) return (int)cudaErrorInvalidValue;
-  int band_rows, resident;
+  GroupKernel kern;
+  int band_rows, shared_rows, resident;
   size_t smem;
-  int err = group_config(K1, G, &band_rows, &smem, &resident);
+  int err = group_config(K1, G, spill_rows, &kern, &band_rows, &shared_rows, &smem, &resident);
   if (err != 0) return err;
   if (P == 0) return 0;
   if (groups < 1 || groups > P || (long long)groups * G > resident) return SKG_NO_GROUP;
@@ -1145,8 +1111,8 @@ extern "C" int sinkhorn_group_launch(const float* scores, const float* log_mu,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, sinkhorn_group_kernel, scores, log_mu, log_nu, P, K1,
-                                     G, band_rows, iters, scratch, counters, out);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, scores, log_mu, log_nu, P, K1, G, band_rows,
+                                     shared_rows, iters, scratch, counters, out);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

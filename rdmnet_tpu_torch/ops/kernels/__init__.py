@@ -23,5 +23,5 @@ def launch_counts() -> dict:
 
 def path_launch_counts() -> dict:
     """Launches per path: {"radius_knn": {"list": n, "select": n},
-    "sinkhorn": {"register": n, "cluster": n, "group": n, "stream": n}}."""
+    "sinkhorn": {"register": n, "cluster": n, "group": n}}."""
     return {name: dict(fn.path_launches) for name, fn in WRAPPERS.items()}

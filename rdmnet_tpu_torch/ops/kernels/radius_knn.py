@@ -12,9 +12,11 @@ each chunk of ``chunk`` consecutive queries, which then see ``band`` rows;
 
 The kernel has three paths, chosen by ``knn_plan``: k <= ``LIST_KMAX`` keeps a
 sorted list in a warp's registers; up to ``BLOCK_K_MIN`` the warp select path
-(a warp per query: count, radix select, emit, bitonic sort in shared memory);
-past it the block select path (a CTA per query: the in-radius keys cached in
-shared memory, a radix select and a radix sort by the whole block), for any k.
+(a warp per query over the window's 32-row chunks whose bounding boxes its
+radius reaches: count, a radix select only when the in-radius rows overflow
+the warp's sort buffer, sort); past it the block select path (a CTA per
+query: the in-radius keys cached in shared memory, a radix select and a
+radix sort by the whole block), for any k.
 """
 
 from __future__ import annotations
@@ -35,10 +37,15 @@ WINDOW_ROWS_MAX = 7168  # rows staged at once: 112 KB (the 1.0 bucket's level-0 
 ROW_BYTES = 16  # a staged support row: float4 (x, y, z, |s|^2)
 SELECT_BINS = 256  # select paths: a radix histogram
 SMEM_MAX = 232_448  # dynamic shared memory a block may take (227 KB)
+SELECT_BOX_ROWS_MAX = 32768  # warp select path: window rows whose chunk boxes a block keeps (32 KB)
+SELECT_BLOCK_BYTES = 115_712  # warp select path: a block's shared memory, so that two share an SM
 # the smallest k on the block select path. Below it the warp select path is
-# faster on windows from scans; from it the warp path's sort buffer reaches
-# 2048 keys (16 KB a warp, 8 or 4 warps a block) and the block path is faster
-# on every window measured (PERF.md, section 6; tools/kernel_probe.py).
+# faster on every window from scans measured (procedural scans calibrated
+# as the preprocess CLI does, limits 290 and 423; the phase-4 pair at limits
+# 320 to 1024). No scan window calibrated past 1024 has been measured: the
+# phase-4 pair at 1536 and 2048 holds 32-182 neighbours a query, and on
+# every window whose lists fill past 1024 the block path is faster (PERF.md,
+# section 6; tools/kernel_probe.py --parts routes).
 BLOCK_K_MIN = 1025
 BLOCK_WARPS = 16  # block select path: a CTA of 16 warps per query
 BLOCK_CACHE_KEYS_MAX = 8192  # block select path: in-radius keys a CTA caches (64 KB)
@@ -51,12 +58,13 @@ class KnnPlan(NamedTuple):
 
     warps: int  # queries (one warp each) per block; divides the query chunk
     k_bucket: int  # length of the register-resident top-K list: 1, 32, 64, 128, 256; 0: select
-    tile_rows: int  # support rows staged in shared memory at once
-    tiled: bool  # the window is larger than one tile and is swept tile by tile
+    tile_rows: int  # list path: support rows staged in shared memory at once, else 0
+    tiled: bool  # the window passes tile_rows, box_rows or cache_keys and is swept in parts
     smem_bytes: int
     sort_rows: int = 0  # select paths: keys a warp (CTA) sorts at once (0 on the register path)
     route: str = "list"  # "list", "select" (a warp per query) or "block" (a CTA per query)
     cache_keys: int = 0  # block path: in-radius keys a CTA caches
+    box_rows: int = 0  # warp select path: window rows whose 32-row chunk boxes a block holds at once
 
 
 def _pow2(n: int) -> int:
@@ -94,23 +102,24 @@ def knn_plan(batch: int, nq: int, ns: int, k: int, band: Optional[int] = None) -
 
 
 def select_plan(batch: int, nq: int, ns: int, k: int, band: Optional[int] = None) -> KnnPlan:
-    """The warp select path's plan: the window staged as on the list path,
-    and each warp a sort buffer of ``sort_rows`` = next_pow2(k) keys (the
-    whole output) and a ``SELECT_BINS`` histogram beside it, so the block
-    holds as many of 16, 8, 4 warps as spread the search and fit in shared
-    memory. ``knn_plan`` takes it for k below ``BLOCK_K_MIN``; the kernel
-    runs any k whose plan fits."""
+    """The warp select path's plan: the bounding boxes (32 bytes) of the
+    window's 32-row chunks, ``box_rows`` = the window rounded up to 32 rows
+    and at most ``SELECT_BOX_ROWS_MAX`` at once (``tiled`` past it), and each
+    warp a sort buffer of ``sort_rows`` = next_pow2(k) keys, at least 128
+    (the whole output; its first 1 KB doubles as the radix histogram), so
+    the block holds as many of 16, 8, 4 warps as spread the search and fit
+    in ``SELECT_BLOCK_BYTES``, two blocks an SM. ``knn_plan`` takes it for
+    k below ``BLOCK_K_MIN``; the kernel runs any k whose plan fits."""
     rows = ns if band is None else band
-    tile_rows = max(1, min(rows, WINDOW_ROWS_MAX))
-    tile_bytes = tile_rows * ROW_BYTES
-    sort_rows = max(32, _pow2(k))
-    per_warp = sort_rows * 8 + SELECT_BINS * 4
-    fits = lambda w: tile_bytes + w * per_warp <= SMEM_MAX  # noqa: E731
+    box_rows = min(-(-max(rows, 1) // 32) * 32, SELECT_BOX_ROWS_MAX)
+    sort_rows = max(128, _pow2(k))
+    per_warp = sort_rows * 8
+    fits = lambda w: box_rows + w * per_warp <= SELECT_BLOCK_BYTES  # noqa: E731
     warps = next((w for w in (16, 8) if _spread(batch, nq, w) and fits(w)), 4)
     if not fits(warps):
         raise ValueError(f"radius_knn: k={k} does not fit the warp select path")
-    return KnnPlan(warps, 0, tile_rows, rows > WINDOW_ROWS_MAX, tile_bytes + warps * per_warp,
-                   sort_rows, "select")
+    return KnnPlan(warps, 0, 0, rows > box_rows, box_rows + warps * per_warp, sort_rows,
+                   "select", box_rows=box_rows)
 
 
 def block_plan(batch: int, nq: int, ns: int, k: int, band: Optional[int] = None) -> KnnPlan:
@@ -183,7 +192,7 @@ def plan_args(plan: KnnPlan) -> tuple:
     if plan.route == "block":
         return plan.cache_keys, plan.sort_rows
     if plan.route == "select":
-        return plan.warps, plan.sort_rows, plan.tile_rows
+        return plan.warps, plan.sort_rows, plan.box_rows
     return plan.warps, plan.k_bucket, plan.tile_rows
 
 

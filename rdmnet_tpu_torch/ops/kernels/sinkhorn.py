@@ -5,16 +5,16 @@ sinkhorn_pallas). Both versions run ``num_iterations`` of
 ``u = log_mu - LSE_j(s + v)``, ``v = log_nu - LSE_i(s + u)`` from u = v = 0
 and return ``s + u + v``; masked entries carry -1e12.
 
-The kernel has four paths, chosen by ``sinkhorn_plan`` from K1 alone: K1 <=
+The kernel has three paths, chosen by ``sinkhorn_plan`` from K1 alone: K1 <=
 ``REGISTER_K1_MAX`` holds the patch in registers; a larger K1 holds it in the
 shared memory of a thread-block cluster of 2, 4 or 8 CTAs, the smallest that
-fits (to K1 = 546); past that in the shared memory of a group of G CTAs, the
-smallest G whose band fits (to K1 = 2640, G <= ``GROUP_CTAS_MAX``), launched
+fits (to K1 = 546); past that a group of G CTAs holds it, launched
 cooperatively so that a group's CTAs are resident together and exchange
-column partials and v through a scratch buffer in device memory; past that it
-streams the patch from device memory every half-step, with u, v and the
-column partials in a scratch buffer. The wrapper allocates every scratch
-buffer.
+column partials and v through a scratch buffer in device memory: to K1 =
+``GROUP_K1_MAX`` the smallest G whose band fits in shared memory, past it G <=
+``GROUP_CTAS_MAX`` CTAs each keeping as many rows of its band in shared
+memory as fit and reading the rest (``spill_rows``) from device memory in
+every half-step. The wrapper allocates every scratch buffer.
 """
 
 from __future__ import annotations
@@ -30,25 +30,25 @@ from rdmnet_tpu_torch.ops.kernels._build import check, load_library
 REGISTER_K1_MAX = 208  # a patch lives in the registers of 256 threads: K1 <= 16 * 13
 CLUSTER_SIZES = (2, 4, 8)  # the portable thread-block cluster sizes
 CLUSTER_WARPS = 16  # cluster path: 16 warps a CTA, one column partial each
-STREAM_WARPS = 16  # streaming path: a CTA of 16 warps per patch, one column partial each
 SMEM_MAX = 232_448  # shared memory a CTA may take (227 KB)
 GROUP_CTAS_MAX = 132  # group path: a group's CTAs, one an SM of an H100 SXM, resident at once
-GROUP_K1_MAX = 2640  # group path's last K1: 132 CTAs of ceil(K1 / 132) = 20 rows fit to here
+GROUP_K1_MAX = 2640  # group path's last K1 without spill: 132 CTAs of 20 rows fit to here
 BAR_STRIDE = 32  # group path: int32 words between two groups' barrier counters
 
 
 class SinkhornPlan(NamedTuple):
     """How ``csrc/sinkhorn.cu`` runs one call."""
 
-    route: str  # "register", "cluster", "group" or "stream"
-    # device scratch: on the streaming path per patch (u, v and the warps'
-    # column partials (max, sum)), on the group path per resident group (G x
-    # K1 column partials (max, sum) and K1 tagged v words, zero at the
-    # launch); else 0
+    route: str  # "register", "cluster" or "group"
+    # device scratch on the group path, per resident group: G x K1 column
+    # partials (max, sum) and K1 tagged v words, zero at the launch; else 0
     scratch_floats: int
     cluster: int = 0  # CTAs a patch on the cluster path, else 0
     cta_bytes: int = 0  # shared memory a CTA takes
     group: int = 0  # CTAs a patch on the group path (G), else 0
+    # group path past GROUP_K1_MAX: the rows of a CTA's band read from device
+    # memory in every half-step, the last of its ceil(K1 / G) rows; else 0
+    spill_rows: int = 0
 
 
 def register_cta_bytes(k1: int) -> int:
@@ -68,13 +68,14 @@ def cluster_cta_bytes(k1: int, c: int) -> int:
     return 4 * (band * k1 + (2 * CLUSTER_WARPS + 5) * k1 + 2 * band)
 
 
-def group_cta_bytes(k1: int, g: int) -> int:
-    """Dynamic shared memory of a group-path CTA: its band of ceil(K1 / G)
-    rows of K1p = K1 rounded up to 32 columns, v (K1p), and its rows'
-    log_mu and u; float32 (``sinkhorn.cu``'s ``group_smem_bytes``)."""
+def group_cta_bytes(k1: int, g: int, spill_rows: int = 0) -> int:
+    """Dynamic shared memory of a group-path CTA: the rows of its band of
+    ceil(K1 / G) that it keeps (all but ``spill_rows``), of K1p = K1 rounded
+    up to 32 columns, v (K1p), and its rows' log_mu and u; float32
+    (``sinkhorn.cu``'s ``group_smem_bytes``)."""
     band = -(-k1 // g)
     k1p = -(-k1 // 32) * 32
-    return 4 * (band * k1p + k1p + 2 * band)
+    return 4 * ((band - spill_rows) * k1p + k1p + 2 * band)
 
 
 def group_size(k1: int) -> int:
@@ -87,11 +88,29 @@ def group_size(k1: int) -> int:
     return g if 0 < g <= GROUP_CTAS_MAX else 0
 
 
+def group_spill(k1: int):
+    """Past ``GROUP_K1_MAX``: (G, spill rows). The band takes B =
+    ceil(K1 / ``GROUP_CTAS_MAX``) rows and G = ceil(K1 / B) CTAs (no band
+    empty); a CTA keeps as many of its B rows as fit beside v, u and log_mu,
+    (SMEM_MAX / 4 - K1p - 2 B) // K1p, and reads the rest from device memory.
+    The path's limits: K1 <= 57216, where v, u and log_mu still fit (past it
+    this raises), and the G = 126 to 132 CTAs of every K1 > 2640 resident at
+    once, which only a card of at least G SMs holds (on a smaller one
+    ``sinkhorn_cuda`` raises)."""
+    band = -(-k1 // GROUP_CTAS_MAX)
+    k1p = -(-k1 // 32) * 32
+    kept = (SMEM_MAX // 4 - k1p - 2 * band) // k1p
+    if kept < 0:
+        raise ValueError(f"sinkhorn: K1={k1} does not fit the group path: v alone passes "
+                         f"{SMEM_MAX} bytes of shared memory")
+    return -(-k1 // band), band - min(kept, band)
+
+
 def sinkhorn_plan(k1: int) -> SinkhornPlan:
     """Launch plan of one call (pure; the CPU tests call it): the register
     path to ``REGISTER_K1_MAX``, then the smallest cluster whose CTAs fit in
-    ``SMEM_MAX``, then the smallest group (``group_size``), then the
-    streaming path."""
+    ``SMEM_MAX``, then the smallest group (``group_size``), then groups of
+    at most ``GROUP_CTAS_MAX`` CTAs whose bands spill (``group_spill``)."""
     if k1 < 1:
         raise ValueError(f"sinkhorn: K1={k1} must be at least 1")
     if k1 <= REGISTER_K1_MAX:
@@ -99,10 +118,8 @@ def sinkhorn_plan(k1: int) -> SinkhornPlan:
     for c in CLUSTER_SIZES:
         if cluster_cta_bytes(k1, c) <= SMEM_MAX:
             return SinkhornPlan("cluster", 0, c, cluster_cta_bytes(k1, c))
-    g = group_size(k1)
-    if g:
-        return SinkhornPlan("group", 2 * (g + 1) * k1, 0, group_cta_bytes(k1, g), g)
-    return SinkhornPlan("stream", k1 * (2 + 2 * STREAM_WARPS), 0, 0)
+    g, spill = (group_size(k1), 0) if k1 <= GROUP_K1_MAX else group_spill(k1)
+    return SinkhornPlan("group", 2 * (g + 1) * k1, 0, group_cta_bytes(k1, g, spill), g, spill)
 
 
 def _lse(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -133,10 +150,10 @@ NO_GROUP = -2  # sinkhorn_group_launch: the card cannot hold the groups at once
 def _launcher(route: str):
     lib = load_library("sinkhorn")
     fn = getattr(lib, {"register": "sinkhorn_launch", "cluster": "sinkhorn_cluster_launch",
-                       "group": "sinkhorn_group_launch", "stream": "sinkhorn_stream_launch"}[route])
+                       "group": "sinkhorn_group_launch"}[route])
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + {"register": [], "cluster": [ctypes.c_int], "stream": [ctypes.c_void_p],
-           "group": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2}[route] \
+        + {"register": [], "cluster": [ctypes.c_int],
+           "group": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2}[route] \
         + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
@@ -166,11 +183,11 @@ def group_resident(k1: int, device_index: int) -> int:
     if plan.route != "group":
         raise ValueError(f"sinkhorn: K1={k1} takes the {plan.route} path, not a group")
     fn = load_library("sinkhorn").sinkhorn_group_resident
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        check(fn(k1, plan.group, ctypes.byref(n)), "sinkhorn_group_resident")
+        check(fn(k1, plan.group, plan.spill_rows, ctypes.byref(n)), "sinkhorn_group_resident")
     return n.value
 
 
@@ -178,8 +195,8 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
                   num_iterations: int) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream of the tensors' card (one
     launch per call), whichever device is current. ``launches`` counts every
-    launch, ``path_launches`` each path's ("register", "cluster", "group",
-    "stream"). A cluster that cannot be scheduled, or a group the card cannot
+    launch, ``path_launches`` each path's ("register", "cluster", "group").
+    A cluster that cannot be scheduled, or a group the card cannot
     hold at once, raises; no path falls back to another.
     The kernel has no backward: with grad mode on, inputs that require grad raise
     instead of returning a result cut off from the graph."""
@@ -206,17 +223,12 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
             raise RuntimeError(f"sinkhorn: this card cannot hold a group of {plan.group} CTAs "
                                f"with {plan.cta_bytes} bytes of shared memory each at once "
                                f"(K1={k1})")
-        # held until the launch is queued, as the streaming path's scratch;
-        # zero: no tag the kernel waits for
+        # held until the launch is queued (the allocator reuses it in stream
+        # order); zero: no tag the kernel waits for
         scratch = torch.zeros((groups, plan.scratch_floats), dtype=torch.float32,
                               device=scores.device)
         counters = torch.zeros((groups, BAR_STRIDE), dtype=torch.int32, device=scores.device)
-        args += [plan.group, groups, scratch.data_ptr(), counters.data_ptr()]
-    elif plan.route == "stream":
-        # held until the launch is queued; the allocator reuses it in stream order
-        scratch = torch.empty((p, plan.scratch_floats), dtype=torch.float32,
-                              device=scores.device)
-        args.append(scratch.data_ptr())
+        args += [plan.group, plan.spill_rows, groups, scratch.data_ptr(), counters.data_ptr()]
     with torch.cuda.device(scores.device):  # launch on the tensors' card
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         err = _launcher(plan.route)(*args, out.data_ptr(), stream)
@@ -234,7 +246,7 @@ def sinkhorn_cuda(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tens
 
 
 sinkhorn_cuda.launches = 0
-sinkhorn_cuda.path_launches = {"register": 0, "cluster": 0, "group": 0, "stream": 0}
+sinkhorn_cuda.path_launches = {"register": 0, "cluster": 0, "group": 0}
 
 
 def sinkhorn(scores: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,

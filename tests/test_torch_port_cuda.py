@@ -2,8 +2,8 @@
 training, serving and evaluation paths against the CPU's, on the card; every
 path of each kernel (the kNN's register list and, for k > 256, its warp and
 block select paths; Sinkhorn's register patch, its cluster path for 208 < K1
-<= 546, its group path to K1 = 2640 and its streaming path past that) and the
-model at such shapes.
+<= 546 and its group path past that, whose bands spill past K1 = 2640) and
+the model at such shapes.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 
@@ -39,8 +39,9 @@ from rdmnet_tpu_torch.engine import batch_to_device, create_train_state, make_va
 from rdmnet_tpu_torch.graph.pyramid import pad_cloud
 from rdmnet_tpu_torch.models import RDMNet, pipeline
 from rdmnet_tpu_torch.ops.kernels import launch_counts, path_launch_counts, reset_launch_counts
-from rdmnet_tpu_torch.ops.kernels.radius_knn import (BLOCK_K_MIN, WINDOW_ROWS_MAX, knn_plan,
-                                                     radius_knn_cuda, radius_knn_plain)
+from rdmnet_tpu_torch.ops.kernels.radius_knn import (BLOCK_K_MIN, SELECT_BOX_ROWS_MAX,
+                                                     WINDOW_ROWS_MAX, knn_plan, radius_knn_cuda,
+                                                     radius_knn_plain)
 from rdmnet_tpu_torch.ops.kernels import sinkhorn as sinkhorn_module
 from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain, sinkhorn_plan
 from rdmnet_tpu_torch.ops.radius_search import band_windows
@@ -104,8 +105,8 @@ def test_radius_knn_kernel_matches_plain(cuda, k, band, chunk):
 def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
     """Masked rows, masked columns, both, and a fully masked patch at every
     register layout of the kernel (K1 <= 32, 80, 144, 208), on its cluster
-    path (208 < K1 <= 546), its group path (to K1 = 2640) and its streaming
-    path (the first K1 past it)."""
+    path (208 < K1 <= 546) and its group path, whose bands spill from the
+    first K1 past 2640."""
     rng = np.random.RandomState(k1)
     p = 12
     s = (rng.randn(p, k1, k1) * 3).astype(np.float32)
@@ -120,11 +121,11 @@ def test_sinkhorn_kernel_masks_at_every_size(cuda, k1):
     reset_launch_counts()
     got = sinkhorn_cuda(*args, 100)
     torch.cuda.synchronize()
-    route = ("register" if k1 <= 208 else "cluster" if k1 <= 546 else "group" if k1 <= 2640
-             else "stream")
+    route = "register" if k1 <= 208 else "cluster" if k1 <= 546 else "group"
     assert sinkhorn_plan(k1).route == route
+    assert (sinkhorn_plan(k1).spill_rows > 0) == (k1 > 2640)
     assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "group": 0,
-                                                "stream": 0, route: 1}
+                                                route: 1}
     want = sinkhorn_plain(*args, 100)
     live = want > -1e11
     assert torch.isfinite(got).all()
@@ -156,8 +157,7 @@ def test_cluster_sinkhorn_matches_plain(cuda, k1, iters):
     reset_launch_counts()
     got = sinkhorn_cuda(*args, iters)
     torch.cuda.synchronize()
-    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 1, "group": 0,
-                                                "stream": 0}
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 1, "group": 0}
     want = sinkhorn_plain(*args, iters)
     live = want > -1e11
     assert torch.isfinite(got).all()
@@ -175,8 +175,7 @@ def test_cluster_sinkhorn_raises_when_no_cluster_fits(cuda, monkeypatch):
     reset_launch_counts()
     with pytest.raises(RuntimeError, match="no cluster of 2 CTAs"):
         sinkhorn_cuda(x, mu, mu, 10)
-    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "group": 0,
-                                                "stream": 0}
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "group": 0}
 
 
 def test_cluster_occupancy_is_positive(cuda):
@@ -212,7 +211,7 @@ def _held_against_plain(args, iters, route):
     got = sinkhorn_cuda(*args, iters)
     torch.cuda.synchronize()
     assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "group": 0,
-                                                "stream": 0, route: 1}
+                                                route: 1}
     want = sinkhorn_plain(*args, iters)
     live = want > -1e11
     assert torch.isfinite(got).all()
@@ -220,23 +219,28 @@ def _held_against_plain(args, iters, route):
     torch.testing.assert_close(got[live], want[live], rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("k1", [547, 600, 1025, 2640])
+@pytest.mark.parametrize("k1", [547, 600, 1025, 2640, 2641, 3000, 4096])
 @pytest.mark.parametrize("iters", [0, 1, 100])
 def test_group_sinkhorn_matches_plain(cuda, k1, iters):
     """The group path at its first K1 (6 CTAs a patch), at 600 (7), 1025 (20)
-    and its last K1, 2640 (132 CTAs, one an SM): masked rows, columns, both,
-    whole patches, and no iteration at all (the scores come back)."""
+    and its last K1 held whole in shared memory, 2640 (132 CTAs, one an SM),
+    then with spilled rows: 2641 (126 CTAs of 21 rows, 1 of them read from
+    device memory), 3000 (131 of 23, 5) and 4096 (128 of 32, 19): masked
+    rows, columns, both, whole patches, and no iteration at all (the scores
+    come back)."""
     plan = sinkhorn_plan(k1)
     assert plan.route == "group"
-    assert plan.group == {547: 6, 600: 7, 1025: 20, 2640: 132}[k1]
+    assert (plan.group, plan.spill_rows) == {547: (6, 0), 600: (7, 0), 1025: (20, 0),
+                                             2640: (132, 0), 2641: (126, 1), 3000: (131, 5),
+                                             4096: (128, 19)}[k1]
     _held_against_plain(_group_inputs(k1 + iters, 7 if k1 < 2640 else 3, k1), iters, "group")
 
 
-@pytest.mark.parametrize("k1, p", [(600, 1), (600, 40), (1025, 13), (2640, 2)])
+@pytest.mark.parametrize("k1, p", [(600, 1), (600, 40), (1025, 13), (2640, 2), (2641, 2)])
 def test_group_sinkhorn_rounds(cuda, k1, p):
     """One patch, and more patches than the card holds groups at once (18 of
-    7 CTAs at K1 = 600, 6 of 20 at 1025, 1 of 132 at 2640), so the
-    persistent groups walk the patches in several rounds."""
+    7 CTAs at K1 = 600, 6 of 20 at 1025, 1 of 132 at 2640, 1 of 126 at 2641),
+    so the persistent groups walk the patches in several rounds."""
     from rdmnet_tpu_torch.ops.kernels.sinkhorn import group_resident
 
     groups = group_resident(k1, cuda.index or 0) // sinkhorn_plan(k1).group
@@ -258,8 +262,7 @@ def test_group_sinkhorn_raises_when_no_group_fits(cuda, monkeypatch):
                         lambda route: lambda *args: sinkhorn_module.NO_GROUP)
     with pytest.raises(RuntimeError, match="cannot hold the groups of 7 CTAs"):
         sinkhorn_cuda(x, mu, mu, 10)
-    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "group": 0,
-                                                "stream": 0}
+    assert path_launch_counts()["sinkhorn"] == {"register": 0, "cluster": 0, "group": 0}
 
 
 @pytest.mark.parametrize("k", [BLOCK_K_MIN, 2048, 4096, 6144])
@@ -321,11 +324,34 @@ def test_warp_select_knn_matches_plain(cuda, k):
     assert (over[..., -1] < n).any()  # more candidates than the sort buffer holds
 
 
+@pytest.mark.parametrize("k", [257, 320, 600, BLOCK_K_MIN - 1])
+def test_warp_select_knn_tiled_window_overflows(cuda, k):
+    """The warp select path on an unbanded window of duplicated points past
+    ``SELECT_BOX_ROWS_MAX`` rows, swept box tile by box tile by the whole
+    block, where every query holds more in-radius rows than its sort buffer
+    (the radix passes and the collect sweep cross the tiles too)."""
+    n = SELECT_BOX_ROWS_MAX + 7000
+    s = torch.from_numpy(_duplicated(43, n, (40.0, 3.0, 2.0))[None]).to(cuda)
+    q = s[:, ::37].contiguous()
+    cnt = torch.tensor([n - 77], dtype=torch.int32, device=cuda)
+    plan = knn_plan(1, q.shape[1], n, k)
+    assert plan.route == "select" and plan.tiled
+    reset_launch_counts()
+    got = radius_knn_cuda(q, s, cnt, 3.0, k)
+    torch.cuda.synchronize()
+    assert path_launch_counts()["radius_knn"] == {"list": 0, "select": 1, "block": 0}
+    assert torch.equal(got, radius_knn_plain(q, s, cnt, 3.0, k))
+    over = radius_knn_plain(q, s, cnt, 3.0, plan.sort_rows + 1)
+    assert (over[..., -1] < n).float().mean() > 0.9  # most queries overflow the buffer
+
+
 @pytest.mark.parametrize("k", [1, 16, 40, 64, 128, 81, 200, 256, 257, 600, 2048])
 def test_radius_knn_kernel_exact_ties_in_tiled_window(cuda, k):
     """Duplicated support points in an unbanded window too large for one
-    tile; s_count ends inside the last tile of cloud 0."""
-    n = 2 * WINDOW_ROWS_MAX + 1000
+    tile of any path (the list path's staged rows, the warp select path's
+    chunk boxes, the block path's key cache); s_count ends inside the last
+    tile of cloud 0."""
+    n = 2 * SELECT_BOX_ROWS_MAX + 1000
     s = torch.from_numpy(np.stack([_duplicated(20, n), _duplicated(21, n)])).to(cuda)
     q = s[:, ::7].contiguous()
     cnt = torch.tensor([n - 333, n], dtype=torch.int32, device=cuda)
@@ -409,8 +435,7 @@ def test_model_past_the_first_paths_on_card_matches_cpu(cuda):
     out = pipeline(m_gpu, *pad_cloud(ref, 512, device=cuda), *pad_cloud(src, 512, device=cuda),
                    device=cuda)
     assert path_launch_counts() == {"radius_knn": {"list": 10, "select": 2, "block": 0},
-                                    "sinkhorn": {"register": 0, "cluster": 1, "group": 0,
-                                                 "stream": 0}}
+                                    "sinkhorn": {"register": 0, "cluster": 1, "group": 0}}
     assert torch.isfinite(out["estimated_transform"]).all()
     ref_out = pipeline(m_cpu, *pad_cloud(ref, 512), *pad_cloud(src, 512), device="cpu")
     for side in ("ref", "src"):

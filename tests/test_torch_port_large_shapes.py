@@ -1,6 +1,7 @@
 """Shapes past the kernels' first paths, on the CPU: radius kNN at k > 256
 (the CUDA kernel's select paths) and Sinkhorn at K1 = num_points_in_patch + 1
-> 208 (its cluster, group and streaming paths), the plain versions against
+> 208 (its cluster and group paths, the group path's bands spilled past
+2640), the plain versions against
 the JAX package, the tiny model at such shapes against JAX's, and the launch
 plans of every path.
 The CUDA paths against their plain versions are in ``test_torch_port_cuda.py``
@@ -36,13 +37,14 @@ from rdmnet_tpu_torch.graph.pyramid import pad_cloud, search_plan
 from rdmnet_tpu_torch.models import RDMNet, pipeline
 from rdmnet_tpu_torch.ops.kernels import launch_counts
 from rdmnet_tpu_torch.ops.kernels.radius_knn import (BLOCK_CACHE_KEYS_MAX, BLOCK_K_MIN,
-                                                     BLOCK_SORT_ROWS_MAX, LIST_KMAX, SMEM_MAX,
-                                                     WINDOW_ROWS_MAX, block_plan, knn_plan,
-                                                     select_plan)
+                                                     BLOCK_SORT_ROWS_MAX, LIST_KMAX,
+                                                     SELECT_BLOCK_BYTES, SELECT_BOX_ROWS_MAX,
+                                                     SMEM_MAX, WINDOW_ROWS_MAX, block_plan,
+                                                     knn_plan, select_plan)
 from rdmnet_tpu_torch.ops.kernels.sinkhorn import (CLUSTER_SIZES, GROUP_CTAS_MAX,
                                                    GROUP_K1_MAX, REGISTER_K1_MAX,
                                                    SinkhornPlan, cluster_cta_bytes,
-                                                   group_cta_bytes, group_size,
+                                                   group_cta_bytes, group_size, group_spill,
                                                    register_cta_bytes, sinkhorn_plain,
                                                    sinkhorn_plan)
 from rdmnet_tpu_torch.ops.radius_search import radius_knn, radius_knn_banded
@@ -154,14 +156,15 @@ def test_sinkhorn_plain_matches_pallas_interpret_past_the_registers(k1):
 # ------------------------------------------------------------ launch plans
 
 @pytest.mark.parametrize("k", [257, 300, 320, 512, 600, 2048, 2049, 4096, 20000])
-@pytest.mark.parametrize("rows", [512, 5120, 7168, 7169, 21504])
+@pytest.mark.parametrize("rows", [512, 5120, 7168, 7169, 21504, 32768, 32769, 50000])
 def test_knn_plan_select_path(k, rows):
     """Every k past the list takes a select path: below ``BLOCK_K_MIN`` the
     warp select path (a power-of-two sort buffer a warp holding the whole
-    output, blocks of 16, 8 or 4 warps that fit in shared memory beside the
-    staged window, tiled past 7168 rows), from it the block select path (a
-    CTA of 16 warps a query, no staged window, a key cache of the window's
-    rows up to 8192 and a sort buffer of min(k, 4096) keys)."""
+    output, blocks of 16, 8 or 4 warps that fit in half an SM's shared
+    memory beside the bounding boxes (32 bytes) of the window's 32-row
+    chunks, tiled past 32768 rows), from it the block select path (a CTA of
+    16 warps a query, no staged window, a key cache of the window's rows up
+    to 8192 and a sort buffer of min(k, 4096) keys)."""
     for band in (None, rows):
         plan = knn_plan(2, 21504, 21504 if band else rows, k, band)
         sr = plan.sort_rows
@@ -170,15 +173,15 @@ def test_knn_plan_select_path(k, rows):
             assert plan.route == "select" and plan.cache_keys == 0
             assert sr == 1 << (k - 1).bit_length() >= k
             assert plan.warps in (4, 8, 16) and 64 % plan.warps == 0
-            assert plan.tiled == (rows > WINDOW_ROWS_MAX)
-            assert plan.tile_rows == min(rows, WINDOW_ROWS_MAX)
-            assert plan.smem_bytes == plan.tile_rows * 16 + plan.warps * (sr * 8 + 256 * 4)
-            assert plan.smem_bytes <= SMEM_MAX
+            assert plan.tiled == (rows > SELECT_BOX_ROWS_MAX) and plan.tile_rows == 0
+            assert plan.box_rows == min(-(-rows // 32) * 32, SELECT_BOX_ROWS_MAX)
+            assert plan.smem_bytes == plan.box_rows // 32 * 32 + plan.warps * sr * 8
+            assert plan.smem_bytes <= SELECT_BLOCK_BYTES <= SMEM_MAX // 2
             assert plan == select_plan(2, 21504, 21504 if band else rows, k, band)
         else:
             ck = plan.cache_keys
             assert plan.route == "block" and plan.warps == 16
-            assert plan.tile_rows == 0 and ck & (ck - 1) == 0
+            assert plan.tile_rows == plan.box_rows == 0 and ck & (ck - 1) == 0
             assert ck == min(1 << (rows - 1).bit_length(), BLOCK_CACHE_KEYS_MAX)
             assert sr == min(1 << (k - 1).bit_length(), BLOCK_SORT_ROWS_MAX)
             assert plan.tiled == (rows > ck)
@@ -189,19 +192,25 @@ def test_knn_plan_select_path(k, rows):
 def test_knn_plan_select_path_spreads_and_fits():
     assert knn_plan(2, 21504, 21504, 320, 5120).warps == 16  # phase 16's level-0 search
     # below the threshold: a warp's sort buffer of 1024 keys (8 KB) beside
-    # 112 KB, 8 warps a block
+    # 8 KB of boxes, 8 warps a block, two blocks an SM
     top = knn_plan(2, 21504, 21504, BLOCK_K_MIN - 1, 8192)
-    assert (top.route, top.warps, top.sort_rows) == ("select", 8, 1024)
+    assert (top.route, top.warps, top.sort_rows, top.box_rows) == ("select", 8, 1024, 8192)
     assert knn_plan(1, 300, 300, 512).warps == 4             # too few queries to spread
     # k = 2048 takes the block select path: a CTA a query, two CTAs an SM
     big = knn_plan(2, 21504, 21504, 2048, 8192)
     assert (big.route, big.warps, big.cache_keys, big.sort_rows) == ("block", 16, 8192, 2048)
     assert 2 * (big.smem_bytes + 1024) <= 228 * 1024
     # the threshold: k <= 1024 (phase 16's k = 320 among them) stays on the
-    # warp select path, whose sort buffer would reach 2048 keys past it
+    # warp select path
     assert knn_plan(2, 21504, 21504, BLOCK_K_MIN - 1, 5120).route == "select"
     assert knn_plan(2, 21504, 21504, BLOCK_K_MIN, 5120).route == "block"
     assert BLOCK_K_MIN == 1025
+    # the warp select path's own plan holds k to 2048 (4 warps of 2048 keys,
+    # two blocks an SM), which the route tables time past the threshold
+    wide = select_plan(2, 21504, 21504, 2048, 5120)
+    assert (wide.warps, wide.sort_rows) == (4, 2048)
+    with pytest.raises(ValueError, match="does not fit the warp select path"):
+        select_plan(2, 21504, 21504, 2049, 5120)
     # the list path's plans are unchanged: the same buckets, no sort buffer
     assert knn_plan(2, 21504, 21504, LIST_KMAX, 5120) == knn_plan(2, 21504, 21504, 256, 5120)
     assert knn_plan(2, 21504, 21504, 40, 5120).sort_rows == 0
@@ -236,13 +245,16 @@ def _group_ranges():
 
 @pytest.mark.parametrize("k1", [1, 17, 32, 33, 80, 81, 129, 144, 145, 208, 209, 257, 304, 305,
                                 412, 413, 513, 546, 547, 576, 577, 600, 601, 623, 624, 1025,
-                                2624, 2625, 2640, 2641, 4097])
+                                2624, 2625, 2640, 2641, 3000, 4096, 4097])
 def test_sinkhorn_plan_routes(k1):
     """The register path to K1 = 208; then the smallest cluster of 2, 4 or 8
     CTAs whose CTA fits in 232,448 bytes (the first and last K1 of each size
     among the cases); then the smallest group of G <= 132 CTAs whose CTA
     fits (the first and last K1 of G = 6, 7, 125 and 132 among the cases);
-    past the group path's last K1, 2640, the streaming path."""
+    past 2640, where no band of ceil(K1 / 132) rows fits, groups of G =
+    ceil(K1 / B) CTAs of B = ceil(K1 / 132) rows, the rows that do not fit
+    in a CTA's shared memory read from device memory (1 of 21 at 2641, 5 of
+    23 at 3000, 19 of 32 at 4096 and at 4097)."""
     plan = sinkhorn_plan(k1)
     limits = _cluster_limits()
     if k1 <= REGISTER_K1_MAX:
@@ -259,9 +271,28 @@ def test_sinkhorn_plan_routes(k1):
         assert plan.group == {547: 6, 576: 6, 577: 7, 600: 7, 601: 7, 623: 7, 624: 8,
                               1025: 20, 2624: 125, 2625: 132, 2640: 132}[k1]
     else:
-        # u, v and 16 warps' column partials (max, sum), K1 floats each
-        assert plan == SinkhornPlan("stream", k1 * (2 + 2 * 16), 0, 0)
+        band = -(-k1 // GROUP_CTAS_MAX)
+        g, spill = -(-k1 // band), {2641: 1, 3000: 5, 4096: 19, 4097: 19}[k1]
+        assert (g, spill) == group_spill(k1)
+        assert g == {2641: 126, 3000: 131, 4096: 128, 4097: 129}[k1]
+        assert plan == SinkhornPlan("group", 2 * (g + 1) * k1, 0,
+                                    group_cta_bytes(k1, g, spill), g, spill)
+        assert group_cta_bytes(k1, g, spill) <= SMEM_MAX < group_cta_bytes(k1, g, spill - 1)
+        assert k1 - (g - 1) * band >= 1  # the last CTA's band is not empty
     assert sinkhorn_plan(129).route == "register"  # the main path's patch
+
+
+@pytest.mark.parametrize("k1", [57216, 57217])
+def test_group_spill_ends_where_v_passes_shared_memory(k1):
+    """The group path's last K1 is 57216: a CTA of 132 there keeps none of
+    its 434 rows, only v (57216 floats), u and log_mu, in 232,336 bytes; at
+    57217 v rounds up to 57248 columns and the plan raises."""
+    if k1 == 57216:
+        assert group_spill(k1) == (132, 434)
+        assert sinkhorn_plan(k1).cta_bytes == 4 * (57216 + 2 * 434) == 232_336 <= SMEM_MAX
+    else:
+        with pytest.raises(ValueError, match="does not fit the group path"):
+            sinkhorn_plan(k1)
 
 
 def test_group_sizes_from_the_byte_count():
@@ -287,10 +318,35 @@ def test_group_sizes_from_the_byte_count():
     assert group_size(GROUP_K1_MAX + 1) == 0
 
 
+@pytest.mark.parametrize("rows", [1, 31, 32, 300, 5120, 8192, 19200, 32768, 32769, 100000])
+def test_warp_select_plan_fits_for_every_k(rows):
+    """For every k the warp select path's plan holds (257 to 2048: the k the
+    plan sends it, to ``BLOCK_K_MIN`` - 1, and those the route tables time
+    past it), the plan's boxes (a 32-byte box a 32-row chunk, at most
+    ``SELECT_BOX_ROWS_MAX`` rows at once) and 16, 8 or 4 warps' sort buffers
+    of next_pow2(k) keys (the radix histogram's 1 KB laid over the first)
+    fit in ``SELECT_BLOCK_BYTES``, so two blocks share an SM, for a search
+    that spreads (16 warps at k <= 512, 8 to 1024, 4 above) and one that
+    does not."""
+    assert BLOCK_K_MIN - 1 <= 2048
+    for k in range(LIST_KMAX + 1, 2049):
+        for nq in (300, 21504):
+            plan = select_plan(2, nq, 21504, k, rows)
+            sr = plan.sort_rows
+            assert sr == 1 << (k - 1).bit_length() and sr * 8 >= 256 * 4
+            assert plan.box_rows % 32 == 0 and plan.box_rows >= min(rows, SELECT_BOX_ROWS_MAX)
+            assert plan.tiled == (rows > plan.box_rows) and plan.tile_rows == 0
+            assert plan.smem_bytes == plan.box_rows + plan.warps * sr * 8
+            assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024 and plan.smem_bytes <= SMEM_MAX
+            assert plan.warps == (4 if nq == 300 or k > 1024 else 16 if k <= 512 else 8), (k, plan)
+
+
 def test_every_plan_fits_a_cta():
     """No plan of either kernel asks more than 232,448 bytes of shared memory
     of a CTA, at any K1 or k, window or query count."""
     for k1 in range(1, GROUP_K1_MAX + 200):
+        assert sinkhorn_plan(k1).cta_bytes <= SMEM_MAX, k1
+    for k1 in (2641, 3000, 4096, 8192, 20000, 50000, 57216):
         assert sinkhorn_plan(k1).cta_bytes <= SMEM_MAX, k1
     for k in (1, 16, 40, 64, 128, 256, 257, 320, 512, 513, 1024, 1025, 2048, 4096, 20000):
         for rows in (1, 64, 300, 4096, 5120, 7168, 7169, 8192, 8193, 21504, 100000):
@@ -322,7 +378,7 @@ def test_full_width_config_at_large_shapes_plans():
     assert routes == [sp.k > LIST_KMAX for sp in search_plan(pyr)] and sum(routes) == 2
     assert all(knn_plan(2, pyr.caps[sp.q_lvl], pyr.caps[sp.s_lvl], sp.k, sp.band).route
                == "select" for sp in search_plan(pyr) if sp.k > LIST_KMAX)
-    assert sinkhorn_plan(257) == ("cluster", 0, 2, cluster_cta_bytes(257, 2), 0)
+    assert sinkhorn_plan(257) == ("cluster", 0, 2, cluster_cta_bytes(257, 2), 0, 0)
 
 
 def test_full_width_config_at_the_group_path_plans():

@@ -109,3 +109,46 @@ def test_library_path_covers_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") == first
     (tmp_path / "other.cuh").write_text("\n")
     assert _build.library_path("k") != first
+
+
+@pytest.mark.parametrize("banded", [False, True])
+def test_knn_work_counts_the_chunks_the_radius_reaches(banded):
+    """``kernel_probe.knn_work``, which sets the kNN paths' bound: the valid
+    rows of each valid query's window, and those of the window's 32-row
+    chunks (from the window's first row) whose bounding box lies within the
+    radius, against a direct count; every in-radius pair lies in such a
+    chunk."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.ops.radius_search import band_windows
+    from rdmnet_tpu_torch.tools.kernel_probe import knn_bound, knn_work
+
+    rng = np.random.RandomState(5)
+    n, r, chunk, band = 1000, 0.7, 128, 512
+    pts = (rng.rand(2, n, 3) * [6.0, 3.0, 2.0]).astype(np.float32)
+    pts = np.stack([p[np.argsort(np.floor(p[:, 0] / 0.6), kind="stable")] for p in pts])
+    s = torch.from_numpy(pts)
+    cnt = torch.tensor([900, n], dtype=torch.int32)
+    qcnt = torch.tensor([800, n], dtype=torch.int32)
+    kw = {}
+    if banded:
+        win, _ = band_windows(s, s, qcnt, r, 0.6, band, chunk)
+        kw = dict(win=win, chunk=chunk, band=band)
+    window = reached = inside = 0
+    for b in range(2):
+        for qi in range(int(qcnt[b])):
+            w = int(kw["win"][b, qi // chunk]) if banded else 0
+            end = min(w + (band if banded else n), int(cnt[b]))
+            q = pts[b, qi].astype(np.float64)
+            for c0 in range(w, end, 32):
+                rows = pts[b, c0:min(c0 + 32, end)].astype(np.float64)
+                gap = np.maximum(rows.min(0) - q, 0) + np.maximum(q - rows.max(0), 0)
+                near = ((rows - q) ** 2).sum(1) <= np.float32(r * r)
+                window += len(rows)
+                reached += len(rows) if (gap ** 2).sum() <= np.float32(r * r) else 0
+                inside += int(near.sum())
+    assert knn_work(s, s, cnt, qcnt, r, **kw) == (window, reached)
+    assert inside <= reached < window
+    ms, by, *pairs = knn_bound(s, s, cnt, qcnt, r, 320, **kw)
+    assert pairs == [window, reached] and by in ("bytes", "operations") and ms > 0

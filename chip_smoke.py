@@ -176,18 +176,33 @@ Phases, each fatal on failure:
    and 1 cluster-path Sinkhorn launch a pair), its 12 searches equal the plain
    version's (the two warp-select searches' device ms summed beside their
    bound), the graph build at level-0 limit 2048 launches the block path
-   twice (tables equal), and against the CPU port on the same weights:
-   tables and node
-   masks equal, the matched node pairs equal but for near-ties at the top-256
-   boundary (within 1e-4 of the lowest matched score), plans through the
-   common pairs within 1e-3, LGR on the
-   CPU's plans with equal correspondence sets and residuals within 1e-4 m,
-   the pose within 1e-4 when the CPU's registers the pair; then the same
+   twice (tables equal), and against the CPU port on the same weights
+   (``overfit_demo.hold_card_to_cpu``): tables and node masks equal, the
+   matched node pairs equal but for near-ties at the top-256 boundary
+   (within 1e-4 of the lowest matched score), plans through the common
+   pairs (at least one) within 1e-3, LGR on the CPU's plans with equal
+   correspondence sets, scores within 1e-6 and residuals within 1e-4 m, the
+   card's model replayed on the CPU's node pairs with plans within 1e-3, and
+   the LGR and replay poses within 1e-4 when the CPU's registers the pair
+   (the whole-path pose too where no node pair parted); then the same
    model with 600 points a patch (K1 = 601, neighbour limits as phase 4): 2
    warm-up and 4 timed pairs launch the 12 list-path searches and one
    group-path Sinkhorn each, one more pair's Sinkhorn is held against the
    plain version on its own inputs (as phase 8 does), with ms/pair,
    per-stage ms (OT among them) and peak memory; no CPU pipeline there.
+17. the learning loop: (a) ``tools/overfit_demo.run`` at ``make_cfg()``
+   width, 0.7 bucket, lr 5e-4, on the phase-4 ref against its copy moved by
+   the demo's known pose (104 degrees, 0.02 m noise), 150 steps from seeded
+   weights with the batch built once, evaluated at steps 1, 50, 100 and 150
+   and after the last (PIR, IR, RR, RRE, RTE): every metric finite, the mean
+   loss of steps 141-150 below that of steps 1-10, 12 kNN launches for the
+   build, none in a train step, one Sinkhorn launch and no kNN per eval step;
+   (b) the vote-rescue recipe (the seed-31337 290-degree field-of-view pair,
+   tiny config, 75 steps) from the port's seeded weights for target-draw
+   seeds 1-4, held to the range of the same recipe's 48 draws on the CPU:
+   summed over the four, at least 7 true node pairs (of 32 a draw) with the
+   vote on, at most 9 with it off and no fewer on than off; a draw at most 6
+   off.
 
 ``python3 chip_smoke.py --dp-only`` runs phases 1, 2 and 14 alone (with two
 cards or more, the NCCL path).
@@ -227,8 +242,8 @@ WORKFLOW_SCAN = dict(n_rings=80, n_azimuths=3000, step=10.0)
 # the JAX CLI's --json_out keys (rdmnet_tpu/cli/eval.py)
 EVAL_JSON_KEYS = {"method", "n_pairs", "RR", "RRE_deg", "RTE_m", "PIR", "IR", "overlap",
                   "failed_pairs", "per_pair"}
-LGR_INPUTS = ("ref_node_corr_knn_points", "src_node_corr_knn_points", "ref_node_corr_knn_masks",
-              "src_node_corr_knn_masks", "matching_scores", "node_corr_valid")
+# phase 16: the checks of hold_card_to_cpu held only where they can be (the CPU's pose registers)
+POSES = ("LGR pose", "replay pose", "whole-path pose")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 SFU_PER_SM_CLK = 16           # exp2 throughput per SM per clock (compute capability 9.0)
@@ -320,23 +335,6 @@ def knn_diagnosis(q, s, got, want, rows: int = 3):
             lines.append(f"  cloud {b} query {r} {side}: "
                          + ", ".join(f"{i}:{x:.6f}" for i, x in zip(valid.tolist(), d.tolist())))
     return lines
-
-
-def hypothesis_residuals(corr):
-    """Per-patch Procrustes hypotheses of an LGR correspondence set, as LGR
-    forms them: each hypothesis's weighted mean residual on its own patch
-    (m) and the patch's number of correspondences."""
-    import torch
-
-    from rdmnet_tpu_torch.ops.geometry import apply_transform
-    from rdmnet_tpu_torch.ops.procrustes import weighted_procrustes
-
-    p = int(corr.patch_ids.max()) + 1
-    src, ref = corr.src_points.reshape(p, -1, 3), corr.ref_points.reshape(p, -1, 3)
-    w = corr.scores.reshape(p, -1)
-    hyp = weighted_procrustes(src, ref, w)
-    res = torch.linalg.norm(ref - apply_transform(src, hyp), dim=-1)
-    return (res * w).sum(-1) / (w.sum(-1) + 1e-12), (w > 0).sum(-1)
 
 
 def check_knn(pts, cnts, sp, kernels):
@@ -572,18 +570,6 @@ def train_card_vs_cpu(cfg, host, dev):
         if e_g != e_c or loss_err > 1e-4 or glob > 2e-3 or worst > 1.0 or p_err > 1e-7 \
                 or step_max > lr * (1 + 1e-3):
             fail(f"train card vs CPU (weights {seed}): outside the tolerances")
-
-
-def host_pair(ref, src, transform, cap):
-    """One padded pair as the host batch ``batch_to_device`` takes."""
-    import numpy as np
-
-    from rdmnet_tpu_torch.graph.pyramid import pad_cloud
-
-    (rp, rc), (sp, sc) = pad_cloud(ref, cap), pad_cloud(src, cap)
-    return {"ref_points": rp.numpy()[None], "ref_counts": rc.numpy()[None],
-            "src_points": sp.numpy()[None], "src_counts": sc.numpy()[None],
-            "transform": np.asarray(transform, np.float32)[None]}
 
 
 def post(url, body):
@@ -1487,6 +1473,7 @@ def model_surface_phase(dev, kernels, ref, src, gt):
     from rdmnet_tpu_torch.models import RDMNet, pipeline
     from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from rdmnet_tpu_torch.ops.kernels.radius_knn import knn_plan
+    from rdmnet_tpu_torch.tools.overfit_demo import host_batch
     from rdmnet_tpu_torch.utils.convert import params_from_jax, params_to_jax
     from rdmnet_tpu_torch.utils.torch_convert import export_state_dict, port_key_and_kind
 
@@ -1546,7 +1533,7 @@ def model_surface_phase(dev, kernels, ref, src, gt):
 
     # ---- the other families at full width --------------------------------------
     base = dataclasses.replace(make_cfg(), pyramid=make_cfg().pyramid.scaled(0.7))
-    host = host_pair(ref, src, gt, cap)
+    host = host_batch(ref, src, gt, cap)
     tiny = make_tiny_cfg()
     small, _, _ = procedural_pair(SEED + 2, n_rings=16, n_azimuths=200)
     small = small[np.random.RandomState(0).permutation(len(small))[:500]]
@@ -1647,6 +1634,7 @@ def bf16_phase(dev, cfg, ref, src, gt):
     from rdmnet_tpu_torch.graph.pyramid import pad_cloud
     from rdmnet_tpu_torch.models import RDMNet, pipeline
     from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.tools.overfit_demo import host_batch
 
     cfgs = {"float32": cfg, "bfloat16": dataclasses.replace(cfg, compute_dtype="bfloat16")}
     models = {name: RDMNet(c, device=dev, generator=torch.Generator().manual_seed(SEED))
@@ -1741,7 +1729,7 @@ def bf16_phase(dev, cfg, ref, src, gt):
         torch.cuda.empty_cache()
 
     # ---- train steps in turns --------------------------------------------------
-    host = host_pair(ref, src, gt, cap)
+    host = host_batch(ref, src, gt, cap)
     states = {name: create_train_state(c, RDMNet(c, device=dev,
                                                  generator=torch.Generator().manual_seed(SEED)))
               for name, c in cfgs.items()}
@@ -2246,6 +2234,7 @@ def dp_phase(dev, card, kernels, cfg, ref, src, gt, root, cli_args=()):
     from rdmnet_tpu_torch.engine.checkpoint import CheckpointManager
     from rdmnet_tpu_torch.graph.pyramid import pad_cloud
     from rdmnet_tpu_torch.models import RDMNet
+    from rdmnet_tpu_torch.tools.overfit_demo import host_batch
 
     t_phase = time.perf_counter()
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
@@ -2262,7 +2251,7 @@ def dp_phase(dev, card, kernels, cfg, ref, src, gt, root, cli_args=()):
     motion[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
     motion[:3, 3] = rng.uniform(-2, 2, 3)
     src2 = (src @ motion[:3, :3].T + motion[:3, 3]).astype(np.float32)
-    pairs = [host_pair(ref, src, gt, cap), host_pair(ref, src2, gt @ np.linalg.inv(motion), cap)]
+    pairs = [host_batch(ref, src, gt, cap), host_batch(ref, src2, gt @ np.linalg.inv(motion), cap)]
     both = {k: np.concatenate([p[k] for p in pairs]) for k in pairs[0]}
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2986,41 +2975,6 @@ def large_shapes_check(dev, kernels, max_clock_mhz):
           + json.dumps(occupancy))
 
 
-NEAR_TIE_RTOL = 1e-4  # phase 16: a node pair matched on one device only, above that side's floor
-
-
-def near_tie_plan_error(a, b):
-    """Two runs' (a: card, b: CPU) matched node pairs: (max abs difference of
-    their log transport plans through the pairs both matched, the number of
-    those, the number matched on one side only, the largest relative height
-    of such a pair's score above its side's lowest matched score). None for
-    the error when the common pairs' patches mask other rows."""
-    import torch
-
-    m = b["src_node_masks"].shape[0]
-    runs = []
-    for o in (a, b):
-        valid = o["node_corr_valid"].cpu()
-        keys = (o["ref_node_corr_indices"].long().cpu() * m
-                + o["src_node_corr_indices"].long().cpu()).tolist()
-        runs.append(({k: i for i, k in enumerate(keys) if valid[i]},
-                     o["node_corr_scores"].cpu(), valid))
-    common = sorted(runs[0][0].keys() & runs[1][0].keys())
-    gap, parted = 0.0, 0
-    for (mine, scores, valid), (other, _, _) in (runs, runs[::-1]):
-        floor = float(scores[valid].min())
-        for k, i in mine.items():
-            if k not in other:
-                parted += 1
-                gap = max(gap, (float(scores[i]) - floor) / floor)
-    pa = a["matching_scores"].cpu()[[runs[0][0][k] for k in common]]
-    pb = b["matching_scores"].cpu()[[runs[1][0][k] for k in common]]
-    live = pb > -1e11
-    if not torch.equal(pa > -1e11, live):
-        return None, len(common), parted, gap
-    return float((pa - pb)[live].abs().max()), len(common), parted, gap
-
-
 def record_large_phase(per_pair, block_launches, kernels):
     """Phase 16's launches into the kernels line: per pair by kernel, and in
     its timed window by the large-shape path; the block path's in its graph
@@ -3039,22 +2993,19 @@ def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
     ``LARGE_PATCH`` on the phase-4 pair: the model builds on the card, both
     kernels' large-shape paths launch inside the timed window, its 12
     searches equal the plain version, and the card's run against the CPU
-    port's with the same weights: every table and node mask equal, the
-    matched node pairs equal but for near-ties at the top-k boundary (a pair
-    matched on one side only scores within ``NEAR_TIE_RTOL`` of that side's
-    lowest matched score), log transport plans through the pairs both matched
-    within 1e-3, LGR on the CPU's plans with
-    equal correspondence sets and hypothesis residuals within 1e-4 m, the pose
-    within 1e-4 when the CPU's registers the pair (phase 5's tolerances).
+    port's with the same weights by ``overfit_demo.hold_card_to_cpu`` (every
+    table and node mask equal, the matched node pairs equal but for
+    near-ties at the top-k boundary, plans through the common pairs, LGR on
+    the CPU's plans, the card's model replayed on the CPU's node pairs):
+    every check but the three poses' must hold, and no pose may fail.
     Returns the launches per pair by kernel and path."""
-    import numpy as np
     import torch
 
     from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud, search_plan
     from rdmnet_tpu_torch.models import RDMNet, pipeline
     from rdmnet_tpu_torch.models.rdmnet import STAGES
     from rdmnet_tpu_torch.ops.kernels import path_launch_counts, reset_launch_counts
-    from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
+    from rdmnet_tpu_torch.tools.overfit_demo import hold_card_to_cpu, report_text
 
     t_phase = time.perf_counter()
     big = dataclasses.replace(
@@ -3148,56 +3099,18 @@ def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
     t0 = time.perf_counter()
     o_cpu = pipeline(m_cpu, *pad_cloud(ref, cap), *pad_cloud(src, cap), device="cpu")
     print(f"large-shape phase: the CPU port's pipeline {time.perf_counter() - t0:.3f} s")
-    for side in ("ref", "src"):
-        g, c = getattr(o_gpu["batch"], side), getattr(o_cpu["batch"], side)
-        for field in ("points", "neighbors", "subsampling", "upsampling"):
-            for lvl, (a, b) in enumerate(zip(getattr(g, field), getattr(c, field))):
-                if not torch.equal(a.cpu(), b):
-                    fail(f"large-shape phase: card vs CPU {side} {field}[{lvl}] differ")
-    for key in ("dropped", "nodes_ref_valid", "nodes_src_valid", "ref_node_masks",
-                "src_node_masks"):
-        if not torch.equal(o_gpu[key].cpu(), o_cpu[key]):
-            fail(f"large-shape phase: card vs CPU {key} differ")
-    # the matched node pairs: at full width with random weights the top-256
-    # of ~10^5 node-pair scores has near-ties at its boundary, which the two
-    # devices' roundings may break either way; a pair only one side matched
-    # must sit at that side's boundary, and the plans agree through the rest
-    ms_err, common, parted, gap = near_tie_plan_error(o_gpu, o_cpu)
-    if ms_err is None:
-        fail("large-shape phase: card vs CPU patches of the common node pairs mask other rows")
-    if gap > NEAR_TIE_RTOL:
-        fail(f"large-shape phase: a node pair matched on one side only stands {gap:.3e} (relative) "
-             f"above that side's lowest matched score, more than {NEAR_TIE_RTOL}")
-    if ms_err > 1e-3:
-        fail(f"large-shape phase: card vs CPU matching scores differ by {ms_err} > 1e-3")
-    lgr_in = [o_cpu[key] for key in LGR_INPUTS]
-    corr_c, tf_c = local_to_global_registration(*lgr_in, big.fine_matching)
-    corr_g, tf_g = local_to_global_registration(*[x.to(dev) for x in lgr_in], big.fine_matching)
-    if not (torch.equal(corr_g.ref_points.cpu(), corr_c.ref_points)
-            and torch.equal(corr_g.src_points.cpu(), corr_c.src_points)):
-        fail("large-shape phase: card vs CPU LGR correspondence sets differ")
-    sc_err = float((corr_g.scores.cpu() - corr_c.scores).abs().max())
-    if sc_err > 1e-6:
-        fail(f"large-shape phase: card vs CPU correspondence scores differ by {sc_err} > 1e-6")
-    (res_g, _), (res_c, n_c) = hypothesis_residuals(corr_g), hypothesis_residuals(corr_c)
-    posed = n_c >= big.fine_matching.correspondence_threshold
-    hyp_err = float((res_g.cpu() - res_c)[posed].abs().max()) if bool(posed.any()) else 0.0
-    if hyp_err > 1e-4:
-        fail(f"large-shape phase: card vs CPU hypothesis residuals differ by {hyp_err} m")
-    tf_err = float((o_gpu["estimated_transform"].cpu() - o_cpu["estimated_transform"]).abs().max())
-    lgr_err = float((tf_g.cpu() - tf_c).abs().max())
-    reg_err = float(np.abs(o_cpu["estimated_transform"].numpy() - gt).max())
-    held = reg_err <= 0.05
-    if held and max(tf_err, lgr_err) > 1e-4:
-        fail(f"large-shape phase: registered card and CPU poses differ by {max(tf_err, lgr_err)}")
-    print(f"large-shape phase, card vs CPU: tables and node masks equal; {common} matched node "
-          f"pairs on both, {parted} on one side only (each within {gap:.3e} of its side's lowest "
-          f"matched score, relative), matching scores (K1 {o_cpu['matching_scores'].shape[-1]}) "
-          f"through the common pairs max abs diff {ms_err:.3e}; LGR on "
-          f"the same plans: correspondence sets equal, scores {sc_err:.3e}, {int(posed.sum())} "
-          f"hypotheses' residuals within {hyp_err:.3e} m, pose {lgr_err:.3e}; whole-path pose "
-          f"{tf_err:.3e} ({'held to 1e-4' if held else 'not held'}: CPU pose vs ground truth "
-          f"{reg_err:.3e}); phase {time.perf_counter() - t_phase:.3f} s")
+    # at full width with random weights the top-256 of ~10^5 node-pair
+    # scores has near-ties at its boundary, which the two devices' roundings
+    # may break either way: hold_card_to_cpu accepts a pair only one side
+    # matched at that side's boundary and holds the plans through the rest
+    report = hold_card_to_cpu(big, model, o_gpu["batch"], o_cpu["batch"], o_gpu, o_cpu, gt)
+    bad = [c for c in report["checks"]
+           if c.status == "FAILED" or (c.name not in POSES and c.status != "ok")]
+    print(f"large-shape phase, card vs CPU (CPU pose RRE {report['cpu_rre']:.3f} deg, RTE "
+          f"{report['cpu_rte']:.3f} m); phase {time.perf_counter() - t_phase:.3f} s\n"
+          + report_text(report))
+    if bad:
+        fail("large-shape phase: card vs CPU: " + "; ".join(c.text() for c in bad))
     return per_pair, block_paths["block"]
 
 
@@ -3279,6 +3192,82 @@ def group_model_phase(dev, card, kernels, cfg, ref, src):
     return per_pair
 
 
+DEMO_STEPS, DEMO_LOG = 150, 50  # phase 17 (a): overfit demo steps, evaluated at 1 and every 50
+VOTE_SEEDS = (1, 2, 3, 4)        # phase 17 (b): target-draw seeds of the vote-rescue recipe
+# phase 17 (b): true node pairs (of 32) from the port's own init seeded 0, the range of its
+# draws 1-48 on the CPU (`python -m tests.test_torch_port_vote_rescue own 1-48`): summed over
+# each of the 12 windows of four draws, and vote-off of one draw
+VOTE_ON_MIN, VOTE_OFF_MAX, VOTE_CONTRAST_MIN, VOTE_OFF_MAX_DRAW = 7, 9, 0, 6
+
+
+def learning_phase(dev, card, kernels, scan):
+    """Phase 17: the learning loop on the card. (a) ``overfit_demo.run`` at
+    ``make_cfg()`` width, 0.7 bucket, lr 5e-4, on ``scan`` (the phase-4 ref)
+    against its copy moved by the demo's known pose, ``DEMO_STEPS`` steps
+    from the seeded init, the batch built once: every logged metric finite,
+    the mean loss of the last 10 steps below that of the first 10, and 12 kNN
+    launches for the build, none in the train steps and one Sinkhorn launch
+    (no kNN) per eval step. (b) the vote-rescue recipe (the seed-31337
+    290-degree field-of-view pair, tiny config, 75 steps) from the port's
+    seeded init for each target-draw seed of ``VOTE_SEEDS``, held to the
+    range of the same recipe's draws on the CPU: summed over the draws, at
+    least ``VOTE_ON_MIN`` true node pairs with the vote on, at most
+    ``VOTE_OFF_MAX`` with it off, and at least ``VOTE_CONTRAST_MIN`` more on
+    than off; each draw at most ``VOTE_OFF_MAX_DRAW`` off. Returns the launches of (a) by part and the
+    number of eval steps."""
+    import numpy as np
+
+    from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.tools import overfit_demo
+
+    t_phase = time.perf_counter()
+    cfg = overfit_demo.demo_cfg()
+    ref, src, tf_gt = overfit_demo.demo_pair(scan)
+    print(f"learning phase (a): overfit demo at make_cfg() width, caps {cfg.pyramid.caps}, lr "
+          f"{cfg.optim.lr}, {DEMO_STEPS} steps ({card}):")
+    reset_launch_counts()
+    demo = overfit_demo.run(cfg, ref, src, tf_gt, steps=DEMO_STEPS, log_every=DEMO_LOG,
+                            device=dev)
+    counts = launch_counts()
+    if not all(np.isfinite(v) for r in demo.rows + [demo.final] for v in r.values()) \
+            or not all(np.isfinite(demo.losses)):
+        fail(f"learning phase: a non-finite metric in {demo.rows} {demo.final}")
+    first, last = float(np.mean(demo.losses[:10])), float(np.mean(demo.losses[-10:]))
+    if not last < first:
+        fail(f"learning phase: the mean loss of the last 10 steps {last} is not below that of "
+             f"the first 10 {first}")
+    want = {"build": {"radius_knn": 12, "sinkhorn": 0}, "train": {"radius_knn": 0, "sinkhorn": 0},
+            "eval": {"radius_knn": 0, "sinkhorn": demo.n_evals}}
+    total = {name: sum(part[name] for part in demo.launches.values()) for name in counts}
+    if demo.launches != want or counts != total:
+        fail(f"learning phase: launches {demo.launches} (total {counts}), expected {want}")
+    print(f"learning phase (a): mean loss steps 1-10 {first:.4f}, steps {DEMO_STEPS - 9}-"
+          f"{DEMO_STEPS} {last:.4f}; {demo.rows[-1]['ms_per_step']:.3f} ms/step (batch built "
+          f"once); launches: build {demo.launches['build']}, {DEMO_STEPS} train steps "
+          f"{demo.launches['train']}, {demo.n_evals} eval steps {demo.launches['eval']}")
+
+    vref, vsrc, vgt = overfit_demo.fov_pair()
+    vcfg = overfit_demo.vote_rescue_cfg(vref, vsrc)
+    pirs = []
+    for seed in VOTE_SEEDS:
+        t0 = time.perf_counter()
+        pirs.append(overfit_demo.vote_rescue(vcfg, vref, vsrc, vgt, device=dev, draw_seed=seed))
+        print(f"learning phase (b): vote rescue, draws seeded {seed}: vote-on PIR "
+              f"{pirs[-1]['on']:.5f}, vote-off PIR {pirs[-1]['off']:.5f} "
+              f"({time.perf_counter() - t0:.3f} s)")
+    hits = [(round(p["on"] * 32), round(p["off"] * 32)) for p in pirs]
+    on, off = sum(h[0] for h in hits), sum(h[1] for h in hits)
+    print(f"learning phase (b): over seeds {VOTE_SEEDS}, {on} true node pairs of "
+          f"{32 * len(pirs)} with the vote on, {off} with it off (held: on >= {VOTE_ON_MIN}, "
+          f"off <= {VOTE_OFF_MAX}, on - off >= {VOTE_CONTRAST_MIN}; a draw's off <= "
+          f"{VOTE_OFF_MAX_DRAW}); phase "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    if on < VOTE_ON_MIN or off > VOTE_OFF_MAX or on - off < VOTE_CONTRAST_MIN or any(
+            h[1] > VOTE_OFF_MAX_DRAW for h in hits):
+        fail(f"learning phase: the vote rescue is outside the CPU draws' range: {pirs}")
+    return demo.launches, demo.n_evals
+
+
 def main() -> None:
     import torch
 
@@ -3296,6 +3285,7 @@ def main() -> None:
     from rdmnet_tpu_torch.ops.kernels import _build, launch_counts, reset_launch_counts
     from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain, sinkhorn_plan
     from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
+    from rdmnet_tpu_torch.tools.overfit_demo import LGR_INPUTS, host_batch, hypothesis_residuals
 
     card = smi("name,power.limit")
     max_clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -3533,7 +3523,7 @@ def main() -> None:
           f"and CPU poses more than 1e-4 apart: {diverged}")
 
     # ---- 6. training path at full width ------------------------------------
-    tr = train_phase(cfg, host_pair(ref, src, gt, cap), dev)
+    tr = train_phase(cfg, host_batch(ref, src, gt, cap), dev)
     for name, n in tr["train_counts"].items():
         kernels[name]["launches_per_train_step"] = n / (TRAIN_WARM + TRAIN_TIMED)
     for name, n in tr["eval_counts"].items():
@@ -3554,7 +3544,7 @@ def main() -> None:
     pick = np.random.RandomState(0)
     small_ref = scans[0][pick.permutation(len(scans[0]))[:500], :3]
     small_src = scans[1][pick.permutation(len(scans[1]))[:480], :3]
-    train_card_vs_cpu(tiny, host_pair(small_ref, small_src, np.linalg.inv(poses[0]) @ poses[1],
+    train_card_vs_cpu(tiny, host_batch(small_ref, small_src, np.linalg.inv(poses[0]) @ poses[1],
                                       tcap), dev)
 
     # ---- 8. serving at full width ---------------------------------------------
@@ -3603,6 +3593,13 @@ def main() -> None:
         launches=round(group_per_pair["sinkhorn"]["group"] * GROUP_TIMED),
         launches_per_pair=group_per_pair["sinkhorn"]["group"])
     kernels["sinkhorn"]["launches_per_group_pass_pair"] = sum(group_per_pair["sinkhorn"].values())
+
+    # ---- 17. the learning loop: the overfit demo and the vote-rescue recipe --------------
+    demo_launches, n_evals = learning_phase(dev, card, kernels, ref)
+    kernels["radius_knn"]["launches_per_demo_build"] = demo_launches["build"]["radius_knn"]
+    for name in kernels:
+        kernels[name]["launches_per_demo_train_step"] = demo_launches["train"][name] / DEMO_STEPS
+        kernels[name]["launches_per_demo_eval"] = demo_launches["eval"][name] / n_evals
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -126,7 +126,8 @@ class RDMNet(nn.Module):
 
     def forward(self, batch: PairBatch, training: bool = False, with_gt: bool = False,
                 generator: Optional[torch.Generator] = None,
-                stage_hook: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+                stage_hook: Optional[Callable[[str], None]] = None,
+                node_corr: Optional[Tuple[torch.Tensor, ...]] = None) -> Dict[str, Any]:
         """One pair. Autograd stays on unless the caller turns it off
         (``pipeline`` runs inference under ``no_grad``).
 
@@ -134,7 +135,11 @@ class RDMNet(nn.Module):
         device for the target sample; it runs Sinkhorn's plain version under
         autograd (the CUDA kernel has no backward), inference the kernel.
         ``stage_hook(name)``, when given, is called after each stage of
-        ``STAGES[1:]`` (timing breakdowns)."""
+        ``STAGES[1:]`` (timing breakdowns). ``node_corr`` (ref indices, src
+        indices, scores, valid), when given, replaces the matched node pairs
+        that the patches, optimal transport and LGR take (the outputs'
+        ``node_corr_*`` stay the model's own): one device's run replayed on
+        another's node pairs."""
         if training and (not with_gt or generator is None):
             raise ValueError("training=True needs with_gt=True and a generator")
         cfg = self.cfg
@@ -239,6 +244,8 @@ class RDMNet(nn.Module):
             ref_corr, src_corr, corr_scores, corr_valid = superpoint_target_sample(
                 out["gt_node_corr_overlaps"], cfg.coarse_matching.num_targets,
                 cfg.coarse_matching.overlap_threshold, generator)
+        elif node_corr is not None:
+            ref_corr, src_corr, corr_scores, corr_valid = node_corr
         mark("matching")
 
         rc, sc = ref_corr.long(), src_corr.long()

@@ -108,9 +108,16 @@ def _inlier_weights(corr: Correspondences, transform, radius):
 
 def local_to_global_registration(ref_knn_points, src_knn_points, ref_knn_masks, src_knn_masks,
                                  matching_scores, corr_valid, cfg: FineMatchingConfig,
-                                 node_corr_scores: Optional[torch.Tensor] = None
+                                 node_corr_scores: Optional[torch.Tensor] = None,
+                                 trace: Optional[dict] = None
                                  ) -> Tuple[Correspondences, torch.Tensor]:
-    """Full LGR: returns the flat correspondence set and the (4, 4) transform."""
+    """Full LGR: returns the flat correspondence set and the (4, 4) transform.
+    ``trace``, when given, receives LGR's decisions: ``ver_scores`` (the
+    scores ``correspondence_limit`` selects from) and ``ver_index`` (its
+    selection, None without one), ``residuals`` (one (M, N) tensor per
+    inlier decision: the P + 1 hypotheses, then each refinement's pose),
+    ``gate`` (the hypotheses that may be chosen), ``best`` (the chosen one)
+    and ``weights`` (those of each fit after it, the last giving the pose)."""
     scores = torch.exp(matching_scores)
     corr, counts = _extract_correspondences(scores, ref_knn_points, src_knn_points,
                                             ref_knn_masks, src_knn_masks, corr_valid, cfg)
@@ -126,6 +133,7 @@ def local_to_global_registration(ref_knn_points, src_knn_points, ref_knn_masks, 
         ver = Correspondences(corr.ref_points[sel], corr.src_points[sel], ver_scores,
                               corr.patch_ids[sel])
     else:
+        sel = None
         ver = corr
 
     hyp = weighted_procrustes(corr.src_points.reshape(p, cpp, 3),
@@ -142,10 +150,16 @@ def local_to_global_registration(ref_knn_points, src_knn_points, ref_knn_masks, 
     gate = torch.cat([hyp_ok, ~hyp_ok.any()[None]])
     inlier_counts = torch.where(gate, inlier_counts, torch.full_like(inlier_counts, -1))
     best = torch.argmax(inlier_counts)  # first maximum, as jnp.argmax
-
     cur_scores = ver.scores * inlier[best].to(ver.scores.dtype)
+    if trace is not None:
+        trace.update(ver_scores=corr.scores, ver_index=sel, residuals=[res], gate=gate,
+                     best=best, weights=[cur_scores])
     transform = weighted_procrustes(ver.src_points, ver.ref_points, cur_scores)
     for _ in range(cfg.num_refinement_steps - 1):
         cur_scores = _inlier_weights(ver, transform, cfg.acceptance_radius)
+        if trace is not None:
+            trace["residuals"].append(torch.linalg.norm(
+                ver.ref_points - apply_transform(ver.src_points, transform), dim=-1)[None])
+            trace["weights"].append(cur_scores)
         transform = weighted_procrustes(ver.src_points, ver.ref_points, cur_scores)
     return corr, transform

@@ -380,7 +380,7 @@ def test_port_imports_no_jax():
         "          'data.calibration', 'data.transforms', 'cli.preprocess', 'parallel.mesh',\n"
         "          'parallel.sharded_search', 'utils.common', 'utils.visualization',\n"
         "          'utils.html_viewer', 'utils.eval_figures', 'utils.baselines', 'nn.layers',\n"
-        "          'nn.point_matching', 'utils.golden', 'utils.contracts'):\n"
+        "          'nn.point_matching', 'utils.golden', 'utils.contracts', 'tools.overfit_demo'):\n"
         "    assert 'rdmnet_tpu_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('rdmnet_tpu_torch')]))\n"
     )

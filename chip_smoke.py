@@ -58,17 +58,20 @@ Phases, each fatal on failure:
 8. serving at ``make_cfg()`` full width: ``export_inference`` with buckets
    (0.5, 0.7, 1.0) into a temporary directory, ``load_exported`` on the card
    (the load must allocate one set of weights, ~101 MB, shared by the
-   buckets), ``make_handler`` on a ``ThreadingHTTPServer`` at 127.0.0.1 in a
+   buckets, beside what each bucket's captured program keeps),
+   ``make_handler`` on a ``ThreadingHTTPServer`` at 127.0.0.1 in a
    thread; seeded procedural pairs of ~13k, ~20k and ~28k points and one
    above the largest capacity (truncated) posted over HTTP: every response
    equal to a direct ``serve`` call (pose within 1e-6, the same number of
    correspondences) and to ``pipeline`` on the model at that bucket's
-   config, 12 kNN and 1 Sinkhorn launches per request, ``/healthz`` counting
+   config, each request a replay of its bucket's program (12 kNN and 1
+   Sinkhorn launches in it, counted at its capture; no wrapper ticked by the
+   replay), ``/healthz`` counting
    every request per bucket, a malformed body answered 400 with the server
    still up; for each of these requests, both kernels against their plain
    versions at that bucket's shapes: the 12 searches of the request's graph
    build at the bucket's caps, bands and launch plans (tables equal), and
-   Sinkhorn on the request's own inputs (against a float64 run of the
+   Sinkhorn on the request's own inputs, taken from its eager twin (against a float64 run of the
    plain version: within 1e-4 + 1e-4 of each entry's magnitude, or no
    further than twice the float32 plain version); per bucket, after
    warm-up, the ms per request over HTTP, per direct call, per direct call
@@ -202,10 +205,42 @@ Phases, each fatal on failure:
    seeds 1-4, held to the range of the same recipe's 48 draws on the CPU:
    summed over the four, at least 7 true node pairs (of 32 a draw) with the
    vote on, at most 9 with it off and no fewer on than off; a draw at most 6
-   off.
+   off;
+18. the compiled serving program: (a) one eager ``pipeline`` call at
+   ``make_cfg()``, 0.7 bucket, on the phase-4 pair under
+   ``torch.cuda.set_sync_debug_mode("error")`` between the upload and the
+   fetch: no host sync; (b) the port's own kernels against their plain
+   versions at the main path's shapes: ``segment_sums`` bit-equal at every
+   level of the phase-4 pair and on a cloud with over 2000 points in one
+   voxel, ``nms_peel`` keep masks and rounds equal on the phase-4 nodes and
+   on a 512-node chain 0.9 r apart (256 rounds), and at M = 1600 (random
+   nodes and a chain), where the rows leave shared memory for device
+   memory, ``eigh4``'s rotation within
+   1e-5 of ``torch.linalg.eigh``'s on the phase-4 LGR fits and 10^5 seeded
+   random fits whose relative eigen-gap is at least 0.1 (closer fits within
+   max(1e-5, 32 u / gap), the worst printed beside its gap), each with its
+   device ms, plain ms, bound and library ms (``index_add_``;
+   ``torch.linalg.eigh``); (c) ``load_exported`` of a ``make_cfg()`` artifact
+   with buckets 0.5/0.7/1.0 captures every bucket (time to capture, memory
+   kept; in each program 12 kNN, 1 Sinkhorn, 4 segment-sum, 1 NMS and 7
+   eigh4 launches, counted at the capture); (d) requests of ~13k, ~20k,
+   ~28k, ~20k and ~13k points and one above the capacity, each replay held
+   against the eager ``pipeline`` on its bucket's model: tables, dropped
+   counts, NMS keep masks and rounds and matched node pairs equal, the pose
+   and scores within 1e-5, bit-equality printed; (e) 8 HTTP clients sending
+   4 requests each at once, every answer equal to its eager twin; (f) per
+   bucket, replayed and eager requests timed in turns (direct, over HTTP, on
+   a new thread) with spread, one profiled request of each (the card's busy
+   share; the replay's kernels must be the program's 12/1/4/1/7) and the
+   peak memory of each; (g) phase 16's cluster-path (K1 257)
+   and group-path (K1 601) models, the parity config and phase 11's other
+   families (GeoTransformer, APE, ``k2``, vote off) captured (each capture's
+   warm-up under the sync check), two replays of each held to eager the
+   same way.
 
 ``python3 chip_smoke.py --dp-only`` runs phases 1, 2 and 14 alone (with two
-cards or more, the NCCL path).
+cards or more, the NCCL path); ``python3 chip_smoke.py --program-only``
+phases 1, 2 and 18.
 
 Phase 2 fails if ``-Xptxas -v`` reports a spilled register in any kernel.
 Prints a ``kernels`` JSON line, the card line, and as the last line
@@ -593,28 +628,31 @@ def spread(ms):
             f"max {ms[-1]:.3f}")
 
 
-def serve_checked(serve, r, s, kernels):
-    """One direct ``serve`` call whose Sinkhorn inputs are kept and run again
-    through the plain version, in float32 and in float64. On the entries that
-    are not masked, the kernel's log plan must lie within the card tests'
-    tolerance, 1e-4 + 1e-4 * |x|, of the float64 run, or no further from it
-    than twice the float32 plain version does: a model's scores reach
-    magnitudes of a few hundred, where 100 iterations of float32 rounding
-    alone can leave the tolerance. Returns the call's outputs."""
-    import torch
+def serve_checked(view, padded, dev, kernels):
+    """The eager ``pipeline`` on a served request's padded pair at its bucket
+    (``view``), the model the served program was captured from, with its
+    Sinkhorn inputs kept and run again through the plain version, in float32
+    and in float64 (a replayed program runs no Python, so the request's own
+    inputs are taken from its eager twin). On the entries that are not
+    masked, the kernel's log plan must lie within the card tests' tolerance,
+    1e-4 + 1e-4 * |x|, of the float64 run, or no further from it than twice
+    the float32 plain version does: a model's scores reach magnitudes of a
+    few hundred, where 100 iterations of float32 rounding alone can leave the
+    tolerance. Returns the pipeline's outputs."""
+    from rdmnet_tpu_torch.models import pipeline
 
-    ot = serve.model.optimal_transport  # shared by every bucket's view
+    ot = view.optimal_transport  # shared by every bucket's view
     seen = []
     handle = ot.register_forward_hook(
         lambda mod, args, kwargs, out: seen.append((args, kwargs, out)), with_kwargs=True)
     try:
-        direct = serve(r, s)
+        live = pipeline(view, *padded, device=dev)
     finally:
         handle.remove()
     (args, kwargs, got), = seen
     err = sinkhorn_against_plain(ot, args, kwargs, got, "serving", "a served request's")
     kernels["sinkhorn"]["max_abs_err"] = max(kernels["sinkhorn"]["max_abs_err"], err)
-    return direct
+    return live
 
 
 def sinkhorn_against_plain(ot, args, kwargs, got, where, whose) -> float:
@@ -682,12 +720,17 @@ def serving_phase(dev, card, kernels):
     caps = [b["cap"] for b in buckets]
     storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
                 for t in list(serve.model.parameters()) + list(serve.model.buffers())}
+    # the load also captures each bucket's program, which keeps its inputs and outputs
+    programs = sum(p.memory_bytes for p in serve.programs.values())
     print(f"serving: exported {n_params} parameters ({meta['n_weights']} arrays) for buckets "
           f"{caps} in {export_s:.3f} s, loaded in {load_s:.3f} s; the load allocated "
-          f"{loaded / 1e6:.3f} MB on the card for {resident / 1e6:.3f} MB of parameters and "
-          f"buffers, held in {len(storages)} device storages of {sum(storages.values()) / 1e6:.3f} "
-          "MB")
-    if serve.model.device.type != "cuda" or not resident <= loaded < 1.5 * resident:
+          f"{loaded / 1e6:.3f} MB on the card: {programs / 1e6:.3f} MB kept by the captured "
+          f"programs ({sorted(serve.programs)}) and {(loaded - programs) / 1e6:.3f} MB for "
+          f"{resident / 1e6:.3f} MB of parameters and buffers, held in {len(storages)} device "
+          f"storages of {sum(storages.values()) / 1e6:.3f} MB")
+    loaded -= programs
+    if serve.model.device.type != "cuda" or sorted(serve.programs) != caps \
+            or not resident <= loaded < 1.5 * resident:
         fail(f"serving: the load allocated {loaded} bytes for {resident} bytes of weights "
              "(one shared copy expected)")
 
@@ -711,20 +754,24 @@ def serving_phase(dev, card, kernels):
             buf = io.BytesIO()
             np.savez(buf, ref_points=r, src_points=s)
             body = buf.getvalue()
-            # the checked request: over HTTP, launches counted around it alone
+            # the checked request, over HTTP: it replays its bucket's program, whose
+            # launches were counted at the capture; the wrappers' counters stay at 0
             reset_launch_counts()
             status, data = post(url + "/register", body)
-            counts = launch_counts()
+            ticked = launch_counts()
             n_requests += 1
             expected[str(want_cap)] = expected.get(str(want_cap), 0) + 1
             if status != 200:
                 fail(f"serving: HTTP {status} for a {len(r)}-point pair: {data[:200]!r}")
-            if counts != {"radius_knn": 12, "sinkhorn": 1}:
-                fail(f"serving: launches {counts} for one request, expected 12 kNN and 1 Sinkhorn")
+            program = serve.programs[want_cap].launches
+            counts = {name: program[name] for name in ticked}
+            if counts != {"radius_knn": 12, "sinkhorn": 1} or any(ticked.values()):
+                fail(f"serving: launches {counts} in the request's program (expected 12 kNN and "
+                     f"1 Sinkhorn), wrappers ticked {ticked} by the replay (expected none)")
             for name, n in counts.items():
                 served[name] += n
             resp = dict(np.load(io.BytesIO(data)))
-            direct = serve_checked(serve, r, s, kernels)
+            direct = serve(r, s)
             if serve.last_cap != want_cap:
                 fail(f"serving: a {len(r)}-point pair went to bucket {serve.last_cap}, "
                      f"expected {want_cap}")
@@ -737,10 +784,9 @@ def serving_phase(dev, card, kernels):
                                   torch.eye(4, device=dev), pyr)
             check_searches(*pair_levels(kb, pyr.num_stages), pyr, kernels,
                            prefix=f"bucket {want_cap} ({len(r)} points) ")
-            rp, rc = pad_points_np(r, want_cap)
-            sp, sc = pad_points_np(s, want_cap)
-            live = pipeline(with_pyramid(serve.model, bucket["cfg"].pyramid), rp, rc, sp, sc,
-                            device=dev)
+            live = serve_checked(with_pyramid(serve.model, bucket["cfg"].pyramid),
+                                 (*pad_points_np(r, want_cap), *pad_points_np(s, want_cap)), dev,
+                                 kernels)
             live_tf = live["estimated_transform"].cpu().numpy()
             n_corr = int((direct["corr_scores"] > 0).sum())
             est = direct["estimated_transform"]
@@ -3268,6 +3314,554 @@ def learning_phase(dev, card, kernels, scan):
     return demo.launches, demo.n_evals
 
 
+PROGRAM_SIZES = (13000, 20000, 28000, 20000, 13000)  # phase 18: requests that rise, then fall
+PROGRAM_WARM, PROGRAM_TURNS = 2, 6    # phase 18: per bucket, warm-up and timed turns of each kind
+LOAD_CLIENTS, LOAD_REQUESTS = 8, 4    # phase 18: concurrent HTTP clients, requests each
+EIGH_FITS = 100_000                   # phase 18: seeded random Horn fits for eigh4
+NMS_DEVICE_ROWS = 1600                # phase 18: nms_peel past shared memory (M > 1348)
+EIGH_GAP = 0.1                        # relative eigen-gap from which a fit is held within 1e-5
+F32_UNIT = 2.0 ** -24                 # float32 unit roundoff
+JACOBI_FLOPS = 6 * 50                 # eigh4: one sweep of six rotations, ~50 operations each
+PROFILED_KERNELS = {"radius_knn": "radius_knn", "sinkhorn": "sinkhorn",  # kernel name parts
+                    "segment_sums": "segment_sum_kernel", "nms_peel": "nms_peel_kernel",
+                    "eigh4": "eigh4_top_kernel"}
+
+
+def rotation_of(q):
+    """(..., 4) unit quaternions (w, x, y, z) -> (..., 3, 3), Horn's formula."""
+    import torch
+
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def eigh4_against_plain(ks, where):
+    """``eigh4_cuda`` on the (n, 4, 4) Horn matrices ``ks`` against the plain
+    version (``torch.linalg.eigh``) through the rotation each top
+    eigenvector gives (its sign is free). Fits whose top eigenvalue stands
+    ``EIGH_GAP`` of the largest |eigenvalue| clear of the next are held
+    within 1e-5; closer ones, where float32 fixes the vector only to ~u / gap
+    in either solver, within max(1e-5, 32 u / gap), and a zero gap (a top
+    eigenvector that is not unique) is not held. Prints the worst distance
+    beside its gap; returns the worst distance of the held fits."""
+    import torch
+
+    from rdmnet_tpu_torch.ops.kernels.eigh4 import eigh4_cuda, top_eigenvector_plain
+
+    got = rotation_of(eigh4_cuda(ks))
+    # cuSOLVER's batched eigh refuses batches past some size: the plain version in chunks
+    want = rotation_of(torch.cat([top_eigenvector_plain(k) for k in ks.split(8192)]))
+    dist = (got - want).abs().flatten(1).amax(dim=1).double().cpu()
+    vals = torch.linalg.eigvalsh(ks.double().cpu())
+    gap = (vals[:, -1] - vals[:, -2]) / vals.abs().amax(dim=1).clamp_min(1e-300)
+    held = gap >= EIGH_GAP
+    close = ~held & (gap > 0)
+    worst = float(dist[held].max()) if bool(held.any()) else 0.0
+    limit = torch.clamp_min(32 * F32_UNIT / gap.clamp_min(1e-300), 1e-5)
+    over = close & (dist > limit)
+    # each solver against float64 (the CPU's eigh), where the gap leaves float32 some digits
+    exact = rotation_of(torch.linalg.eigh(ks.double().cpu()).eigenvectors[..., -1])
+    posed = gap >= 1e-3
+    to64 = {name: float((r.double().cpu() - exact).abs().flatten(1).amax(dim=1)[posed].max())
+            if bool(posed.any()) else 0.0 for name, r in (("eigh4", got), ("eigh", want))}
+    i = int(torch.argmax(dist))
+    bands = ", ".join(f"gap >= {g:g}: {int((gap >= g).sum())} fits, worst "
+                      f"{float(dist[gap >= g].max()) if bool((gap >= g).any()) else 0.0:.3e}"
+                      for g in (1e-2, 1e-3, 1e-4))
+    print(f"{where}: eigh4 against torch.linalg.eigh on {len(ks)} fits: {int(held.sum())} with a "
+          f"relative eigen-gap >= {EIGH_GAP} within {worst:.3e} of rotation; {int(close.sum())} "
+          f"closer ({int((gap == 0).sum())} with no gap), each within max(1e-5, 32 u / gap); "
+          f"{int((dist <= 1e-5).sum())} of all within 1e-5; {bands}; the worst fit "
+          f"{float(dist[i]):.3e} at gap {float(gap[i]):.3e}; against float64 at gap >= 1e-3: "
+          f"eigh4 {to64['eigh4']:.3e}, torch.linalg.eigh {to64['eigh']:.3e}")
+    if worst > 1e-5 or bool(over.any()):
+        fail(f"{where}: eigh4's rotation outside its tolerance")
+    return worst
+
+
+def peel_ops(adj, mask) -> int:
+    """Word ANDs the peeling needs on this adjacency: each round, every active
+    node reads its row's words up to its own (confirm) and every active node
+    left unconfirmed does again (kill)."""
+    import numpy as np
+
+    adj, active = adj.cpu().numpy(), mask.cpu().numpy().copy()
+    words = np.arange(adj.shape[1]) // 32 + 1
+    ops = 0
+    while active.any():
+        has = (adj & active[:, None, :]).any(-1)
+        confirm = active & ~has
+        killed = (adj & confirm[:, None, :]).any(-1)
+        ops += int(words[np.nonzero(active)[1]].sum()) + int(
+            words[np.nonzero(active & ~confirm)[1]].sum())
+        active = active & ~confirm & ~killed
+    return ops
+
+
+def held_to_eager(got, want, where):
+    """A replayed program's outputs against the eager ``pipeline``'s: every
+    table, count and ``dropped``, the NMS keep masks and rounds and the
+    matched node pairs equal; the pose and the correspondence scores within
+    1e-5. Returns (pose error, scores error, bit-equal)."""
+    import torch
+
+    for k in ("dropped", "nodes_ref_valid", "nodes_src_valid", "nms_rounds",
+              "ref_node_corr_indices", "src_node_corr_indices", "node_corr_valid"):
+        if not torch.equal(got[k], want[k]):
+            fail(f"{where}: {k} differs between the replayed program and eager pipeline")
+    for side in ("ref", "src"):
+        for field in ("points", "counts", "neighbors", "subsampling", "upsampling"):
+            for lvl, (a, b) in enumerate(zip(getattr(getattr(got["batch"], side), field),
+                                             getattr(getattr(want["batch"], side), field))):
+                if not torch.equal(a, b):
+                    fail(f"{where}: {side} {field}[{lvl}] differs between replay and eager")
+    pose = float((got["estimated_transform"] - want["estimated_transform"]).abs().max())
+    scores = float((got["corr_scores"] - want["corr_scores"]).abs().max())
+    if not pose <= 1e-5 or not scores <= 1e-5:
+        fail(f"{where}: replay against eager: pose {pose:.3e}, scores {scores:.3e} > 1e-5")
+    bit = all(torch.equal(got[k], want[k]) for k in (
+        "estimated_transform", "corr_scores", "ref_corr_points", "src_corr_points",
+        "matching_scores"))
+    return pose, scores, bit
+
+
+def program_phase(dev, card, kernels, cfg, model, ref, src):
+    """Phase 18: the compiled serving program. Returns each new kernel's
+    launches per pair in the captured program."""
+    import numpy as np
+    import torch
+    from http.server import ThreadingHTTPServer
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import rdmnet_tpu_torch.ops.procrustes as procrustes
+    from rdmnet_tpu_torch.cli.serve import make_handler
+    from rdmnet_tpu_torch.config import make_cfg, make_parity_cfg
+    from rdmnet_tpu_torch.data.procedural import procedural_pair
+    from rdmnet_tpu_torch.graph.pyramid import pad_cloud
+    from rdmnet_tpu_torch.models import RDMNet, capture_pipeline, pipeline, with_pyramid
+    from rdmnet_tpu_torch.ops.grid_subsample import voxel_segments
+    from rdmnet_tpu_torch.ops.kernels import all_launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.kernels.eigh4 import eigh4_cuda, top_eigenvector_plain
+    from rdmnet_tpu_torch.ops.kernels.nms import nms_peel_cuda, nms_peel_plain
+    from rdmnet_tpu_torch.ops.kernels.segment_sum import segment_sums_cuda, segment_sums_plain
+    from rdmnet_tpu_torch.ops.nms import nms_adjacency
+    from rdmnet_tpu_torch.ops.procrustes import cross_covariance, horn_matrix
+    from rdmnet_tpu_torch.serving import SERVE_OUTPUTS, _pad_np, export_inference, load_exported
+
+    t_phase = time.perf_counter()
+    pyr = cfg.pyramid
+    cap = pyr.caps[0]
+    rp, rc = pad_cloud(ref, cap, device=dev)
+    sp, sc = pad_cloud(src, cap, device=dev)
+
+    # (a) no host sync between the upload and the fetch of an eager pipeline call;
+    # the LGR fits' Horn matrices recorded on the way
+    fits = []
+    solve = procrustes.top_eigenvector
+    procrustes.top_eigenvector = lambda k: (fits.append(k.detach().reshape(-1, 4, 4).clone()),
+                                            solve(k))[1]
+    pipeline(model, rp, rc, sp, sc, device=dev)
+    torch.cuda.synchronize()
+    fits.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipeline(model, rp, rc, sp, sc, device=dev)
+    except RuntimeError as e:
+        fail(f"program: eager pipeline waited for the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        procrustes.top_eigenvector = solve
+    tf = out["estimated_transform"].cpu()
+    print(f"program: eager pipeline at make_cfg(), bucket {cap}, under "
+          f"set_sync_debug_mode('error') between the upload and the fetch: no host sync; "
+          f"pose finite {bool(torch.isfinite(tf).all())}, NMS rounds {int(out['nms_rounds'])}")
+
+    # (b) the new kernels against their plain versions at the main path's shapes
+    batch = out["batch"]
+    pts, cnts = pair_levels(batch, pyr.num_stages)
+    seg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, ops=0)
+    voxel = pyr.voxel_size
+    for lvl in range(1, pyr.num_stages):
+        voxel *= 2.0
+        spts, start, length, _, _ = voxel_segments(pts[lvl - 1], cnts[lvl - 1], voxel, pyr.caps[lvl])
+        st32, ln32 = start.int().contiguous(), length.int().contiguous()
+        got = segment_sums_cuda(spts, st32, ln32)
+        want = segment_sums_plain(spts, start, length)
+        if not torch.equal(got, want):
+            fail(f"program: segment_sums differs from its plain version at level {lvl}")
+        b, n, _ = spts.shape
+        c = pyr.caps[lvl]
+        ids = torch.full((b, n), c, dtype=torch.int64, device=dev)
+        for i in range(b):
+            seg_ids = torch.repeat_interleave(torch.arange(c, device=dev), length[i])
+            ids[i, :len(seg_ids)] = seg_ids
+        flat = (ids + torch.arange(b, device=dev)[:, None] * (c + 1)).reshape(-1)
+        sink = torch.zeros((b * (c + 1), 3), device=dev)
+        rows = spts.reshape(-1, 3)
+        ms = graph_ms(lambda: segment_sums_cuda(spts, st32, ln32), reps=20)
+        pms = cuda_ms(lambda: segment_sums_plain(spts, start, length), reps=3)
+        lms = cuda_ms(lambda: sink.index_add_(0, flat, rows), reps=20)
+        # the rows the kept segments hold (padding, invalid rows and dropped voxels are
+        # never read), the starts and lengths, the sums
+        nbytes = 12 * int(length.sum()) + b * c * 8 + b * c * 12
+        ops = 3 * int(length.sum())
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations"
+        print(f"program: segment_sums level {lvl} ({b} x {n} rows, {int(length.sum())} of them in "
+              f"{c} segments, the longest {int(length.max())}): bit-equal to the plain version; "
+              f"kernel {ms:.4f} ms on the device, plain {pms:.3f} ms, index_add_ {lms:.4f} ms, "
+              f"bound {bound:.6f} ms ({by}: {nbytes} bytes)")
+        for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bound),
+                       ("bytes", nbytes), ("ops", ops)):
+            seg[key] += v
+    rng = np.random.RandomState(SEED)
+    # 2500 points in a 5 cm cube inside one 0.6 m voxel (the grid is anchored at the
+    # scatter's minimum, ~-40.2 m: cells [7.2, 7.8) m), beside 6000 scattered points
+    dense = np.concatenate([(rng.rand(2500, 3) * 0.05 + 7.3), (rng.rand(6000, 3) - 0.5) * 80])
+    dense = torch.from_numpy(np.stack([dense, dense[::-1].copy()]).astype(np.float32)).to(dev)
+    counts = torch.tensor([8500, 8000], dtype=torch.int32, device=dev)
+    spts, start, length, _, _ = voxel_segments(dense, counts, 0.6, 4096)
+    if not torch.equal(segment_sums_cuda(spts, start.int().contiguous(), length.int().contiguous()),
+                       segment_sums_plain(spts, start, length)) or int(length.max()) < 2000:
+        fail("program: segment_sums differs from its plain version on the dense voxel")
+    print(f"program: segment_sums on a cloud with {int(length.max())} points in one voxel: "
+          "bit-equal to the plain version")
+
+    nodes = torch.stack([out["nodes_ref"], out["nodes_src"]])
+    masks = torch.stack([out["ref_mask_c"], out["src_mask_c"]])
+    adj = nms_adjacency(nodes, masks, cfg.vote.nms_radius, cfg.vote.nms_neighbor_limit)
+    keep, rounds = nms_peel_cuda(adj, masks)
+    pkeep, prounds = nms_peel_plain(adj, masks)
+    valid = torch.stack([out["nodes_ref_valid"], out["nodes_src_valid"]])
+    if not torch.equal(keep, pkeep) or int(rounds) != int(prounds) \
+            or not torch.equal(keep & masks, valid) or int(rounds) != int(out["nms_rounds"]):
+        fail("program: nms_peel differs from its plain version on the phase-4 nodes")
+    nms_ms = graph_ms(lambda: nms_peel_cuda(adj, masks), reps=20)
+    nms_pms = cuda_ms(lambda: nms_peel_plain(adj, masks), reps=3)
+    # the strict-lower bytes of the valid nodes' rows (row i: its i columns j < i), the
+    # mask read, keep written, a round count a cloud and their maximum
+    nms_bytes = (int(masks.nonzero()[:, 1].sum()) + 2 * masks.numel()
+                 + 4 * masks.shape[0] + 4)
+    nms_ops = peel_ops(adj, masks)
+    nms_bound = max(nms_bytes / HBM_BYTES_PER_S, nms_ops / F32_FLOPS) * 1e3
+    nms_by = "bytes" if nms_bytes / HBM_BYTES_PER_S >= nms_ops / F32_FLOPS else "operations"
+    chain = torch.zeros((2, 512, 3), device=dev)
+    chain[..., 0] = torch.arange(512, device=dev) * 0.9 * cfg.vote.nms_radius
+    chain_mask = torch.ones((2, 512), dtype=torch.bool, device=dev)
+    chain_adj = nms_adjacency(chain, chain_mask, cfg.vote.nms_radius)
+    ckeep, crounds = nms_peel_cuda(chain_adj, chain_mask)
+    pck, pcr = nms_peel_plain(chain_adj, chain_mask)
+    if not torch.equal(ckeep, pck) or int(crounds) != int(pcr) or int(crounds) < 200:
+        fail(f"program: nms_peel on the chain: {int(crounds)} rounds against {int(pcr)}")
+    print(f"program: nms_peel on the phase-4 nodes ({tuple(masks.shape)}, {int(rounds)} rounds): "
+          f"keep masks and rounds equal to the plain version and to the pipeline's; on a "
+          f"512-node chain 0.9 r apart: equal, {int(crounds)} rounds; kernel {nms_ms:.4f} ms on "
+          f"the device (packing and peeling; the strict-lower rows: {nms_bytes} bytes, "
+          f"{nms_ops} word ANDs), plain {nms_pms:.3f} ms, bound {nms_bound:.6f} ms ({nms_by}); "
+          f"no PyTorch call computes it")
+    # past 1348 nodes the packed rows leave shared memory for device memory: random nodes
+    # (some masked) and a chain at M = 1600, the 1.0 bucket's coarse cap at scale 2.5
+    big = NMS_DEVICE_ROWS
+    side = 80.0 * (big / 640) ** 0.5
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rand_nodes = torch.rand((2, big, 3), generator=gen, device=dev) * torch.tensor(
+        [side, side, 6.0], device=dev)
+    rand_mask = torch.rand((2, big), generator=gen, device=dev) > 0.1
+    long_chain = torch.zeros((2, big, 3), device=dev)
+    long_chain[..., 0] = torch.arange(big, device=dev) * 0.9 * cfg.vote.nms_radius
+    for what, n_, m_ in (("random nodes", rand_nodes, rand_mask),
+                         ("a chain", long_chain, torch.ones((2, big), dtype=torch.bool,
+                                                            device=dev))):
+        big_adj = nms_adjacency(n_, m_, cfg.vote.nms_radius)
+        before = nms_peel_cuda.path_launches["device"]
+        bkeep, brounds = nms_peel_cuda(big_adj, m_)
+        pbk, pbr = nms_peel_plain(big_adj, m_)
+        if nms_peel_cuda.path_launches["device"] != before + 1:
+            fail(f"program: nms_peel at M = {big} held its rows in shared memory")
+        if not torch.equal(bkeep, pbk) or int(brounds) != int(pbr):
+            fail(f"program: nms_peel at M = {big} ({what}, rows in device memory) differs "
+                 f"from its plain version: {int(brounds)} rounds against {int(pbr)}")
+        print(f"program: nms_peel at M = {big}, {what}, the rows in device memory: keep masks "
+              f"and rounds ({int(brounds)}) equal to the plain version")
+
+    lgr_worst = eigh4_against_plain(torch.cat(fits), "program: phase-4 LGR fits")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((EIGH_FITS, 4), generator=gen, device=dev)
+    rot = rotation_of(q / q.norm(dim=1, keepdim=True))
+    fit_src = torch.randn((EIGH_FITS, 40, 3), generator=gen, device=dev) * 10
+    fit_ref = (fit_src @ rot.transpose(1, 2)
+               + torch.randn((EIGH_FITS, 1, 3), generator=gen, device=dev) * 3
+               + torch.randn((EIGH_FITS, 40, 3), generator=gen, device=dev) * 0.05)
+    h, _, _ = cross_covariance(fit_src, fit_ref, torch.rand((EIGH_FITS, 40), generator=gen,
+                                                            device=dev))
+    rand_worst = eigh4_against_plain(horn_matrix(h).contiguous(), "program: random fits")
+    del fit_src, fit_ref, h
+    batch_k, single_k = fits[0].contiguous(), fits[-1].contiguous()
+    n_single = len(fits) - 1
+    eig_ms = (graph_ms(lambda: eigh4_cuda(batch_k), reps=20)
+              + n_single * graph_ms(lambda: eigh4_cuda(single_k), reps=20))
+    eig_pms = (cuda_ms(lambda: top_eigenvector_plain(batch_k), reps=10)
+               + n_single * cuda_ms(lambda: top_eigenvector_plain(single_k), reps=10))
+    n_mats = len(batch_k) + n_single * len(single_k)
+    eig_bytes, eig_ops = 80 * n_mats, JACOBI_FLOPS * n_mats
+    eig_bound = max(eig_bytes / HBM_BYTES_PER_S, eig_ops / F32_FLOPS) * 1e3
+    eig_by = "bytes" if eig_bytes / HBM_BYTES_PER_S >= eig_ops / F32_FLOPS else "operations"
+    print(f"program: eigh4 per pair ({len(fits)} launches: {len(batch_k)} hypotheses, then "
+          f"{n_single} single fits): kernel {eig_ms:.4f} ms on the device, torch.linalg.eigh "
+          f"(the plain version, one PyTorch call) {eig_pms:.3f} ms, bound {eig_bound:.6f} ms "
+          f"({eig_by}: {eig_bytes} bytes, at least {eig_ops} operations); rotation within "
+          f"{lgr_worst:.3e} (LGR fits) and {rand_worst:.3e} ({EIGH_FITS} random fits)")
+    kernels["segment_sums"].update(
+        ms=seg["ms"], plain_ms=seg["plain_ms"], library_ms=seg["library_ms"],
+        bound_ms=seg["bound_ms"], bound_by="bytes", max_abs_err=0.0)
+    kernels["nms_peel"].update(ms=nms_ms, plain_ms=nms_pms, library_ms=None, bound_ms=nms_bound,
+                               bound_by=nms_by, max_abs_err=0.0)
+    kernels["eigh4"].update(ms=eig_ms, plain_ms=eig_pms, library_ms=eig_pms, bound_ms=eig_bound,
+                            bound_by=eig_by, max_abs_err=max(lgr_worst, rand_worst))
+
+    # (c) the programs: every bucket captured at load, launches counted at the capture
+    full = make_cfg()
+    weights = RDMNet(full, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    expected = {"radius_knn": 12, "sinkhorn": 1, "segment_sums": full.pyramid.num_stages - 1,
+                "nms_peel": 1, "eigh4": 2 + full.fine_matching.num_refinement_steps}
+    with tempfile.TemporaryDirectory() as out_dir:
+        export_inference(full, weights, out_dir, bucket_scales=SERVE_SCALES)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        serve, meta = load_exported(out_dir)
+        load_s = time.perf_counter() - t0
+        counts = all_launch_counts()
+    del weights
+    resident = torch.cuda.memory_allocated(dev) - before
+    reserved = torch.cuda.memory_reserved(dev) - reserved
+    if sorted(serve.programs) != sorted(b["cap"] for b in meta["buckets"]):
+        fail(f"program: buckets {sorted(serve.programs)} captured, artifact {meta['buckets']}")
+    for c, program in serve.programs.items():
+        if program.launches != expected:
+            fail(f"program: bucket {c} launches {program.launches} at its capture, expected "
+                 f"{expected}")
+    if any(n == 0 for n in counts.values()):
+        fail(f"program: a kernel was not launched by the capture: {counts}")
+    print(f"program: load_exported on the card in {load_s:.3f} s, every bucket captured: "
+          + ", ".join(f"{c}: {p.capture_s:.3f} s, {p.memory_bytes / 2**20:.1f} MiB of outputs"
+                      for c, p in serve.programs.items())
+          + f"; the load allocated {resident / 2**20:.1f} MiB and reserved {reserved / 2**20:.1f} "
+          f"MiB (the weights and every bucket's graph memory pool); launches in each program "
+          f"{expected}; the wrappers' counters over the load {counts}")
+
+    # (d) each replay against the eager pipeline, requests rising then falling
+    dense_ref, dense_src, _ = procedural_pair(SEED, n_rings=192, n_azimuths=6000)
+    pick = np.random.RandomState(SEED + 18)
+    requests = [(dense_ref[pick.permutation(len(dense_ref))[:n]],
+                 dense_src[pick.permutation(len(dense_src))[:n]]) for n in PROGRAM_SIZES]
+    requests.append((dense_ref, dense_src))
+    views = {b["cap"]: with_pyramid(serve.model, b["cfg"].pyramid) for b in meta_buckets(meta)}
+
+    def eager(r, s):
+        c = next((c for c in sorted(views) if max(len(r), len(s)) <= c), max(views))
+        eager.last_cap = c
+        return pipeline(views[c], *_pad_np(r, c), *_pad_np(s, c), device=dev)
+
+    def eager_serve(r, s):
+        return {k: v.cpu().numpy() for k, v in eager(r, s).items() if k in SERVE_OUTPUTS}
+
+    twins = []
+    for i, (r, s) in enumerate(requests):
+        direct = serve(r, s)
+        c = serve.last_cap
+        got = serve.programs[c].outputs
+        want = eager(r, s)
+        torch.cuda.synchronize()
+        if eager.last_cap != c:
+            fail(f"program: request {i} went to bucket {c}, eager to {eager.last_cap}")
+        pose, scores, bit = held_to_eager(got, want, f"program: request {i} ({len(r)} points)")
+        if not all(np.array_equal(direct[k], got[k].cpu().numpy()) for k in SERVE_OUTPUTS):
+            fail(f"program: request {i}: serve's fetch differs from the program's outputs")
+        twins.append({k: want[k].cpu().numpy() for k in SERVE_OUTPUTS})
+        print(f"program: request {i}, {len(r)}/{len(s)} points -> bucket {c}: tables, NMS keep "
+              f"masks and rounds ({int(got['nms_rounds'])}), matched node pairs equal to eager; "
+              f"pose {pose:.3e}, scores {scores:.3e}, bit-equal {bit}")
+
+    # (e) under load: concurrent HTTP clients, every answer its eager twin's
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(serve, meta))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/register"
+    eager_server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(eager_serve, meta))
+    eager_thread = threading.Thread(target=eager_server.serve_forever, daemon=True)
+    eager_thread.start()
+    eager_url = f"http://127.0.0.1:{eager_server.server_address[1]}/register"
+    bodies = []
+    for r, s in requests:
+        buf = io.BytesIO()
+        np.savez(buf, ref_points=r, src_points=s)
+        bodies.append(buf.getvalue())
+    answers, errors = [], []
+
+    def client(cid):
+        for j in range(LOAD_REQUESTS):
+            i = (cid + j) % len(requests)
+            status, data = post(url, bodies[i])
+            if status != 200:
+                errors.append(f"HTTP {status}")
+                continue
+            answers.append((i, dict(np.load(io.BytesIO(data)))))
+
+    try:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(cid,)) for cid in range(LOAD_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        load_wall = time.perf_counter() - t0
+        if errors or len(answers) != LOAD_CLIENTS * LOAD_REQUESTS:
+            fail(f"program: {len(answers)} answers under load, errors {errors[:3]}")
+        worst = 0.0
+        for i, got in answers:
+            twin = twins[i]
+            sel = twin["corr_scores"] > 0
+            if len(got["corr_scores"]) != int(sel.sum()) or not np.array_equal(
+                    got["ref_corr_points"], twin["ref_corr_points"][sel]):
+                fail(f"program: an answer under load differs from its eager twin (request {i})")
+            worst = max(worst, float(np.abs(got["estimated_transform"]
+                                            - twin["estimated_transform"]).max()))
+        if worst > 1e-5:
+            fail(f"program: a pose under load is {worst:.3e} from its eager twin")
+        print(f"program: {LOAD_CLIENTS} HTTP clients x {LOAD_REQUESTS} requests at once in "
+              f"{load_wall:.3f} s: every answer equal to its eager twin (correspondences equal, "
+              f"poses within {worst:.3e})")
+
+        # (f) per bucket: replay against eager in turns, direct, over HTTP, on a new thread
+        kinds = ("replay direct", "replay HTTP", "replay thread", "eager direct", "eager HTTP",
+                 "eager thread")
+        seen = set()
+        for i, (r, s) in enumerate(requests):
+            serve(r, s)
+            c = serve.last_cap
+            if c in seen:
+                continue
+            seen.add(c)
+
+            def call(kind):
+                fn = serve if kind.startswith("replay") else eager_serve
+                if kind.endswith("HTTP"):
+                    status, _ = post(url if kind.startswith("replay") else eager_url, bodies[i])
+                    if status != 200:
+                        fail(f"program: HTTP {status} while timing bucket {c}")
+                elif kind.endswith("thread"):
+                    with ThreadPoolExecutor(max_workers=1) as worker:
+                        worker.submit(fn, r, s).result()
+                else:
+                    fn(r, s)
+
+            for _ in range(PROGRAM_WARM):
+                for kind in kinds:
+                    call(kind)
+            ms = {kind: [] for kind in kinds}
+            peaks = {}
+            for turn in range(PROGRAM_TURNS):
+                for kind in kinds[turn % 6:] + kinds[:turn % 6]:
+                    torch.cuda.synchronize(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    t0 = time.perf_counter()
+                    call(kind)
+                    ms[kind].append((time.perf_counter() - t0) * 1e3)
+                    side = kind.split()[0]
+                    peaks[side] = max(peaks.get(side, 0), torch.cuda.max_memory_allocated(dev))
+            busy, seen_launches = {}, {}
+            for side, fn in (("replay", serve), ("eager", eager_serve)):
+                torch.cuda.synchronize(dev)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    fn(r, s)
+                    wall = (time.perf_counter() - t0) * 1e3
+                events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False)]
+                kernel = sum(e.self_device_time_total for e in events) / 1e3
+                busy[side] = (wall, kernel)
+                seen_launches[side] = {name: sum(e.count for e in events if key in e.key)
+                                       for name, key in PROFILED_KERNELS.items()}
+            if seen_launches["replay"] != expected:
+                fail(f"program: a profiled replay launched {seen_launches['replay']}, its "
+                     f"program {expected}")
+            print(f"program bucket {c} ({len(r)}/{len(s)} points), {PROGRAM_TURNS} turns after "
+                  f"{PROGRAM_WARM} warm-up rounds, {card}: capture {serve.programs[c].capture_s:.3f} s\n"
+                  + "\n".join(f"  {kind} ms/request {spread(ms[kind])}" for kind in kinds)
+                  + "\n" + "\n".join(
+                      f"  {side}: one profiled request {w:.3f} ms wall, {k:.3f} ms of kernel time "
+                      f"({100 * k / w:.1f}% busy under the profiler)" for side, (w, k) in busy.items())
+                  + f"\n  kernels in one profiled request: replay {seen_launches['replay']}, "
+                  f"eager {seen_launches['eager']}"
+                  + f"\n  peak memory allocated: replay {peaks['replay'] / 2**20:.1f} MiB (all "
+                  f"buckets captured: their graphs' buffers sit in the {reserved / 2**20:.1f} MiB "
+                  f"the load reserved), eager {peaks['eager'] / 2**20:.1f} MiB")
+    finally:
+        for srv, th in ((server, thread), (eager_server, eager_thread)):
+            srv.shutdown()
+            srv.server_close()
+            th.join(timeout=60)
+    per_pair = {k: v for k, v in expected.items() if k in ("segment_sums", "nms_peel", "eigh4")}
+    del serve, views
+    torch.cuda.empty_cache()
+
+    # (g) more programs: phase 16's shapes (Sinkhorn's cluster and group paths), the parity
+    # config and phase 11's other families, each capture's warm-up a check for host syncs
+    r = dataclasses.replace
+    parity = make_parity_cfg()
+    shapes = {
+        "cluster": r(cfg, pyramid=r(cfg.pyramid, neighbor_limits=LARGE_LIMITS),
+                     model=r(cfg.model, num_points_in_patch=LARGE_PATCH)),
+        "group": r(cfg, model=r(cfg.model, num_points_in_patch=GROUP_PATCH)),
+        "parity": r(parity, pyramid=parity.pyramid.scaled(0.7)),
+        **family_cfgs(cfg),
+    }
+    for name, c in shapes.items():
+        m = RDMNet(c, device=dev, generator=torch.Generator().manual_seed(SEED))
+        if name == "parity":
+            rotate_kernel_points(m, SEED)
+        program = capture_pipeline(m, dev)
+        if name in ("cluster", "group") and program.path_launches["sinkhorn"][name] != 1:
+            fail(f"program: the {name}-path model's program launches {program.path_launches}")
+        c_cap = c.pyramid.caps[0]
+        args = (*pad_cloud(ref, c_cap, device=dev), *pad_cloud(src, c_cap, device=dev))
+        # replayed twice: a replay must find the group path's scratch zeroed again
+        # (its torch.zeros is a captured fill, run by every replay)
+        for replay in range(2):
+            got = program(ref[:c_cap], min(len(ref), c_cap), src[:c_cap], min(len(src), c_cap))
+            want = pipeline(m, *args, device=dev)
+            torch.cuda.synchronize()
+            pose, scores, bit = held_to_eager(got, want, f"program: {name}, replay {replay}")
+        print(f"program: the {name} model ({c.model.coarse_module}, K1 "
+              f"{c.model.num_points_in_patch + 1}) captured with no host sync in "
+              f"{program.capture_s:.3f} s, launches {program.launches}, Sinkhorn's path "
+              f"{[k for k, n in program.path_launches['sinkhorn'].items() if n]}; two replays "
+              f"against eager: tables, keep masks, node pairs equal, pose {pose:.3e}, scores "
+              f"{scores:.3e}, bit-equal {bit}")
+        del program, m, got, want
+        torch.cuda.empty_cache()
+    print(f"program phase: {time.perf_counter() - t_phase:.1f} s")
+    return per_pair
+
+
+def meta_buckets(meta):
+    """The bucket configs of a port artifact's ``serving.json``."""
+    from rdmnet_tpu_torch.config import Config, config_from_dict
+    from rdmnet_tpu_torch.serving import bucket_configs
+
+    return bucket_configs(config_from_dict(Config, meta["config"]),
+                          [b["scale"] for b in meta["buckets"]])
+
+
 def main() -> None:
     import torch
 
@@ -3282,7 +3876,7 @@ def main() -> None:
     from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud, search_plan
     from rdmnet_tpu_torch.models import RDMNet, pipeline
     from rdmnet_tpu_torch.models.rdmnet import STAGES
-    from rdmnet_tpu_torch.ops.kernels import _build, launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.ops.kernels import _build, all_launch_counts, reset_launch_counts
     from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain, sinkhorn_plan
     from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
     from rdmnet_tpu_torch.tools.overfit_demo import LGR_INPUTS, host_batch, hypothesis_residuals
@@ -3315,6 +3909,20 @@ def main() -> None:
                          source="rdmnet_tpu_torch/csrc/sinkhorn.cu",
                          replaces="rdmnet_tpu/ops/pallas/sinkhorn.py:59",
                          launches=0, max_abs_err=0.0, library_ms=None, design=DESIGN),
+        # the port's own kernels: no TPU kernel; each takes a host round trip off the path
+        "segment_sums": dict(name="segment_sums", route="cuda",
+                             source="rdmnet_tpu_torch/csrc/segment_sum.cu",
+                             replaces="none: jax.ops.segment_sum at "
+                                      "rdmnet_tpu/ops/grid_subsample.py:141 (no Pallas)",
+                             launches=0, max_abs_err=0.0, library_ms=None),
+        "nms_peel": dict(name="nms_peel", route="cuda", source="rdmnet_tpu_torch/csrc/nms.cu",
+                         replaces="none: the lax.while_loop at rdmnet_tpu/ops/nms.py:88-101 "
+                                  "(no Pallas)",
+                         launches=0, max_abs_err=0.0, library_ms=None),
+        "eigh4": dict(name="eigh4", route="cuda", source="rdmnet_tpu_torch/csrc/eigh4.cu",
+                      replaces="none: jnp.linalg.eigh at rdmnet_tpu/ops/procrustes.py:49 "
+                               "(no Pallas)",
+                      launches=0, max_abs_err=0.0, library_ms=None),
     }
 
     # ---- main-path input and model ------------------------------------------
@@ -3336,6 +3944,15 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             write_workflow_root(os.path.join(tmp, "kitti"))
             dp_phase(dev, card, kernels, cfg, ref, src, gt, os.path.join(tmp, "kitti"))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
+
+    if "--program-only" in sys.argv[1:]:
+        # phase 18 alone: the compiled serving program and the port's own kernels
+        program_phase(dev, card, kernels, cfg, model, ref, src)
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -3423,7 +4040,7 @@ def main() -> None:
         for name, t in marks:
             stage_ms[name] += (t - prev) * 1e3 / n_stage
             prev = t
-    counts = launch_counts()
+    counts = all_launch_counts()
     n_pairs = n_warm + n_timed + n_stage
     for name, n in counts.items():
         kernels[name]["launches"] = n
@@ -3438,7 +4055,7 @@ def main() -> None:
         n_stage, json.dumps({k: round(v, 3) for k, v in stage_ms.items()})))
     print(f"main path: {dt * 1e3:.3f} ms/pair, {1.0 / dt:.4f} pairs/s over {n_timed} pairs, "
           f"peak memory {peak / 2**20:.1f} MiB, dropped {out['dropped'].tolist()}, "
-          f"NMS rounds {out['nms_rounds']}, launches {counts} over {n_pairs} pairs "
+          f"NMS rounds {int(out['nms_rounds'])}, launches {counts} over {n_pairs} pairs "
           f"({ {k: v / n_pairs for k, v in counts.items()} } per pair), "
           f"rotation vs ground truth {rot_err:.2f} deg (random weights)")
 
@@ -3597,9 +4214,13 @@ def main() -> None:
     # ---- 17. the learning loop: the overfit demo and the vote-rescue recipe --------------
     demo_launches, n_evals = learning_phase(dev, card, kernels, ref)
     kernels["radius_knn"]["launches_per_demo_build"] = demo_launches["build"]["radius_knn"]
-    for name in kernels:
+    for name in demo_launches["train"]:  # the two the learning loop counts
         kernels[name]["launches_per_demo_train_step"] = demo_launches["train"][name] / DEMO_STEPS
         kernels[name]["launches_per_demo_eval"] = demo_launches["eval"][name] / n_evals
+
+    # ---- 18. the compiled serving program: each bucket captured as a CUDA graph ----------------
+    for name, n in program_phase(dev, card, kernels, cfg, model, ref, src).items():
+        kernels[name]["launches_per_pair"] = n
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -247,8 +247,9 @@ def build_pair_batch(ref_points, ref_count, src_points, src_count, transform,
     points = torch.stack([ref_points, src_points]).float()
     counts = torch.stack([torch.as_tensor(ref_count, device=dev),
                           torch.as_tensor(src_count, device=dev)]).to(torch.int32)
-    dropped0 = torch.tensor([int(ref_dropped0), int(src_dropped0)], dtype=torch.int32,
-                            device=dev)
+    # filled on the device: no copy from host memory (a CUDA graph refuses one)
+    dropped0 = torch.stack([torch.full((), int(d), dtype=torch.int32, device=dev)
+                            for d in (ref_dropped0, src_dropped0)])
     if sp_group is None:
         both = build_cloud_pyramid(points, counts, spec, dropped0=dropped0)
         ref, src = both.select(0), both.select(1)

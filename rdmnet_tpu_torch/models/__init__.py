@@ -1,6 +1,6 @@
 """Models (twin of ``rdmnet_tpu/models``)."""
 
-from rdmnet_tpu_torch.models.rdmnet import RDMNet, pipeline, with_pyramid
+from rdmnet_tpu_torch.models.rdmnet import RDMNet, capture_pipeline, pipeline, with_pyramid
 
 
 def create_model(cfg, device=None) -> RDMNet:
@@ -9,4 +9,4 @@ def create_model(cfg, device=None) -> RDMNet:
     return RDMNet(cfg, device=device)
 
 
-__all__ = ["RDMNet", "create_model", "pipeline", "with_pyramid"]
+__all__ = ["RDMNet", "capture_pipeline", "create_model", "pipeline", "with_pyramid"]

@@ -51,6 +51,7 @@ from rdmnet_tpu_torch.ops.nms import greedy_nms
 from rdmnet_tpu_torch.ops.partition import point_to_node_partition
 
 STAGES = ("build", "encoder+T1", "decoder", "vote/NMS/T2", "matching", "OT", "LGR")
+CAPTURE_WARMUP = 2  # eager passes on a side stream before a capture (PyTorch's recipe)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -214,7 +215,7 @@ class RDMNet(nn.Module):
             # MulRan setting): matching takes the unshifted nodes and the
             # first transformer's features
             nodes_pair, node_valid = points_c_pair, mask_pair
-            out["nms_rounds"] = 0
+            out["nms_rounds"] = torch.zeros((), dtype=torch.int32, device=mask_pair.device)
             out["nodes_ref"], out["nodes_src"] = ref_points_c, src_points_c
         out["nodes_ref_valid"], out["nodes_src_valid"] = node_valid[0], node_valid[1]
         ref_feats_c = ref_feats_c / (torch.linalg.norm(ref_feats_c, dim=1, keepdim=True) + 1e-12)
@@ -299,6 +300,111 @@ def pipeline(model: RDMNet, rp, rc, sp, sc, device=None,
     out["dropped"] = torch.stack([batch.ref.dropped, batch.src.dropped])
     out["batch"] = batch
     return out
+
+
+def capture_pipeline(model: RDMNet, device=None, pool=None):
+    """``pipeline`` at ``model``'s bucket captured once as a CUDA graph: the
+    card's counterpart of the JAX export's compiled program per capacity bucket
+    (``rdmnet_tpu/serving.py``: build, forward and LGR in one static-shape
+    program, replayed with the weights already on the device).
+
+    Returns ``run(rp, rc, sp, sc)``: rp/sp (n <= cap_0, 3) clouds (numpy or
+    CPU tensors; rows past n are written as ``PAD_COORD``, so no row of an
+    earlier request survives), rc/sc their valid counts. ``run`` stages them
+    in pinned host buffers, copies them into the program's static inputs on
+    the card, replays the graph and returns ``pipeline``'s outputs: the same
+    tensors on every call, overwritten by the next replay and valid once the
+    current stream reaches them. No Python model code runs per call. The
+    caller serialises calls and consumes each call's outputs before the
+    next one (``serving.load_exported`` holds a lock); graphs sharing a
+    ``pool`` (``torch.cuda.graph_pool_handle()``) are replayed one at a time.
+
+    Before the capture ``pipeline`` runs ``CAPTURE_WARMUP`` times on a side stream
+    (PyTorch's capture recipe: kernels built, cuBLAS handles made) under
+    ``torch.cuda.set_sync_debug_mode("error")``, so an op that waits for the
+    host raises there with its traceback; a capture that fails raises.
+    ``run.launches`` holds each kernel's launches in the program (counted
+    once, at the capture: a replay does not tick the wrappers' counters),
+    ``run.path_launches`` the kNN's and Sinkhorn's per path, ``run.capture_s``
+    the seconds the warm-up and capture took, ``run.memory_bytes`` the device
+    memory the program keeps allocated (its static inputs and outputs; the
+    graph's other buffers stay reserved in its pool). Raises on a CPU device:
+    ``pipeline`` runs eagerly there."""
+    import time
+
+    import numpy as np
+
+    from rdmnet_tpu_torch.graph.pyramid import PAD_COORD
+    from rdmnet_tpu_torch.ops.kernels import all_launch_counts, path_launch_counts
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"capture_pipeline: a CUDA graph needs a CUDA device, got {dev}; "
+                         "pipeline runs eagerly there")
+    if model.device.type != "cuda":
+        raise ValueError(f"capture_pipeline: model lives on {model.device}")
+    dev = model.device
+    cap = model.cfg.pyramid.caps[0]
+    t0 = time.perf_counter()
+    with torch.cuda.device(dev):
+        before = torch.cuda.memory_allocated(dev)
+        host = [torch.full((cap, 3), PAD_COORD, dtype=torch.float32, pin_memory=True),
+                torch.zeros((), dtype=torch.int32, pin_memory=True),
+                torch.full((cap, 3), PAD_COORD, dtype=torch.float32, pin_memory=True),
+                torch.zeros((), dtype=torch.int32, pin_memory=True)]
+        static = [h.to(dev) for h in host]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(CAPTURE_WARMUP):
+                    pipeline(model, *static, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        counts, paths = all_launch_counts(), path_launch_counts()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                out = pipeline(model, *static, device=dev)
+        except RuntimeError as e:
+            raise RuntimeError(f"capture_pipeline: capturing the pipeline at bucket {cap} "
+                               f"failed: {e}") from e
+        torch.cuda.synchronize(dev)
+        memory = torch.cuda.memory_allocated(dev) - before
+        copied = torch.cuda.Event()  # the last call's copies out of the staging buffers
+    capture_s = time.perf_counter() - t0
+
+    def stage(buf, points):
+        pts = torch.as_tensor(np.asarray(points, np.float32)[:, :3])
+        n = pts.shape[0]
+        if n > cap:
+            raise ValueError(f"capture_pipeline: {n} rows for a program of capacity {cap}")
+        buf[:n].copy_(pts)
+        buf[n:].fill_(PAD_COORD)
+
+    def run(rp, rc, sp, sc):
+        copied.synchronize()  # a call not yet fetched may still read the staging buffers
+        stage(host[0], rp)
+        host[1].fill_(int(rc))
+        stage(host[2], sp)
+        host[3].fill_(int(sc))
+        with torch.cuda.device(dev):
+            for h, s in zip(host, static):
+                s.copy_(h, non_blocking=True)
+            copied.record()
+            graph.replay()
+        return out
+
+    run.outputs = out
+    run.capture_s = capture_s
+    run.memory_bytes = memory
+    run.launches = {k: v - counts[k] for k, v in all_launch_counts().items()}
+    run.path_launches = {k: {p: n - paths[k][p] for p, n in v.items()}
+                         for k, v in path_launch_counts().items()}
+    return run
 
 
 def with_pyramid(model: RDMNet, pyramid: PyramidConfig) -> RDMNet:

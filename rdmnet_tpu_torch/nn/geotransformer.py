@@ -44,7 +44,7 @@ BIG = 1.0e12
 def sinusoidal_embedding(indices: torch.Tensor, d_model: int) -> torch.Tensor:
     """(*,) real-valued indices -> (*, d_model), sin and cos interleaved."""
     half = d_model // 2
-    scale = -torch.log(torch.tensor(10000.0, device=indices.device)) / half  # float32
+    scale = -torch.log(torch.full((), 10000.0, device=indices.device)) / half  # float32
     div = torch.exp(torch.arange(half, dtype=torch.float32, device=indices.device) * scale)
     angles = indices[..., None] * div
     return torch.stack([torch.sin(angles), torch.cos(angles)], dim=-1).reshape(
@@ -79,7 +79,7 @@ class GeometricStructureEmbedding(nn.Module):
         # fewer than k valid neighbours: the slot would point at a pad row's
         # sentinel coordinates; a unit vector keeps its angles bounded
         ref_vec = torch.where((vals < 0.5 * BIG)[..., None], ref_vec,
-                              ref_vec.new_tensor([1.0, 0.0, 0.0]))
+                              torch.eye(3, dtype=ref_vec.dtype, device=ref_vec.device)[0])
         anc_vec = points[None, :, :] - points[:, None, :]                       # (N, N, 3)
         ref_b = ref_vec[:, None, :, :].expand(-1, anc_vec.shape[1], -1, -1)
         anc_b = anc_vec[:, :, None, :].expand_as(ref_b)

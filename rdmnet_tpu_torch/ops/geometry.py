@@ -29,9 +29,10 @@ def f32_reciprocal(value: float, like: torch.Tensor) -> torch.Tensor:
     windows, so they must round as the JAX package does: XLA rewrites a
     division by a constant into a multiplication by the constant's float32
     reciprocal, and the port multiplies by the same reciprocal explicitly
-    (a plain ``x / cell`` would divide on the CPU and multiply on CUDA)."""
+    (a plain ``x / cell`` would divide on the CPU and multiply on CUDA).
+    Filled on the device: no copy from host memory (a CUDA graph refuses one)."""
     recip = np.float32(1.0) / np.float32(value)
-    return torch.tensor(float(recip), dtype=torch.float32, device=like.device)
+    return torch.full((), float(recip), dtype=torch.float32, device=like.device)
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -101,7 +102,7 @@ def get_transform_from_rotation_translation(rotation: torch.Tensor, translation:
     transform = torch.zeros(batch + (4, 4), dtype=rotation.dtype, device=rotation.device)
     transform[..., :3, :3] = rotation
     transform[..., :3, 3] = translation
-    transform[..., 3, 3] = 1.0
+    transform[..., 3, 3].fill_(1.0)  # a Python scalar assigned by index is a host copy
     return transform
 
 

@@ -8,9 +8,10 @@ Segment sums: the JAX package sums each voxel's points with
 ``segment_sum``, which XLA evaluates sequentially in sorted order in float32.
 ``index_add_``/``scatter_add_`` on CUDA add in a nondeterministic order, and
 a float32 ``cumsum`` difference loses precision against the running total.
-Here the sorted segments are summed column by column: step j adds every
-segment's j-th point in one elementwise float32 add, so each segment is
-summed left to right exactly as XLA does, on any device, deterministically.
+Here each sorted segment is summed left to right in float32 exactly as XLA
+does, deterministically (``ops/kernels/segment_sum``): on the CPU column by
+column (step j adds every segment's j-th point), on the card by a kernel
+with a thread per segment, which needs no host round trip.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from rdmnet_tpu_torch.ops.geometry import f32_reciprocal
+from rdmnet_tpu_torch.ops.kernels.segment_sum import segment_sums
 
 PAD_COORD = 1.0e9  # coordinate of padded output slots
 
@@ -36,7 +38,7 @@ def voxel_sort_key(points: torch.Tensor, valid: torch.Tensor, cell: float) -> Tu
     Grid anchored at floor(min / cell) * cell over valid points. Invalid
     points get the int32-max key. ``n_clipped`` counts valid points whose
     voxel coordinate fell outside the packable range."""
-    c = torch.tensor(cell, dtype=torch.float32, device=points.device)
+    c = torch.full((), cell, dtype=torch.float32, device=points.device)
     inv = f32_reciprocal(cell, points)
     masked = torch.where(valid[..., None], points, torch.full_like(points, float("inf")))
     anchor = torch.floor(masked.amin(dim=1, keepdim=True) * inv) * c
@@ -67,18 +69,13 @@ def voxel_sort_key_np(points, cell: float):
     )
 
 
-def grid_subsample(points: torch.Tensor, num_valid: torch.Tensor, voxel_size: float, cap: int):
-    """Voxel-centroid subsample of padded clouds.
+def voxel_segments(points: torch.Tensor, num_valid: torch.Tensor, voxel_size: float, cap: int):
+    """The segment layout of ``grid_subsample``: the points sorted by voxel
+    key and, for each of the first ``cap`` occupied voxels, its first sorted
+    row and its length (the ``segment_sums`` inputs).
 
-    Args:
-      points: (B, N, 3) float32; the first ``num_valid[b]`` rows are real.
-      num_valid: (B,) int32.
-      voxel_size: voxel edge length.
-      cap: output capacity (occupied voxels beyond it are dropped).
-
-    Returns (sub_points (B, cap, 3) with pad rows at 1e9, sub_count (B,)
-    int32, dropped (B,) int32 = overflow voxels + clipped points).
-    """
+    Returns (sorted_pts (B, N, 3), start (B, cap) int64, length (B, cap)
+    int64, true_count (B,) int64 occupied voxels, n_clipped (B,) int32)."""
     b, n, _ = points.shape
     dev = points.device
     pos = torch.arange(n, device=dev)
@@ -98,7 +95,6 @@ def grid_subsample(points: torch.Tensor, num_valid: torch.Tensor, voxel_size: fl
         torch.where(svalid, seg, torch.full_like(seg, -1)).amax(dim=1) + 1,
         torch.zeros_like(num_valid, dtype=torch.int64),
     )
-    sub_count = torch.clamp(true_count, max=cap)
 
     # segment layout on the sorted axis: first position and length of each
     # kept segment (row `cap` collects invalid points and overflow segments)
@@ -107,15 +103,26 @@ def grid_subsample(points: torch.Tensor, num_valid: torch.Tensor, voxel_size: fl
     start.scatter_reduce_(1, sid, pos.expand(b, n), reduce="amin")
     length = torch.zeros((b, cap + 1), dtype=torch.int64, device=dev)
     length.scatter_add_(1, sid, torch.ones_like(sid))
-    start, length = start[:, :cap], length[:, :cap]
+    return sorted_pts, start[:, :cap], length[:, :cap], true_count, n_clipped
 
-    sums = torch.zeros((b, cap, 3), dtype=points.dtype, device=dev)
-    steps = int(length.max()) if cap > 0 else 0
-    for j in range(steps):
-        take = torch.clamp(start + j, max=n - 1)
-        row = torch.gather(sorted_pts, 1, take[..., None].expand(b, cap, 3))
-        row = torch.where((j < length)[..., None], row, torch.zeros_like(row))
-        sums = sums + row
+
+def grid_subsample(points: torch.Tensor, num_valid: torch.Tensor, voxel_size: float, cap: int):
+    """Voxel-centroid subsample of padded clouds.
+
+    Args:
+      points: (B, N, 3) float32; the first ``num_valid[b]`` rows are real.
+      num_valid: (B,) int32.
+      voxel_size: voxel edge length.
+      cap: output capacity (occupied voxels beyond it are dropped).
+
+    Returns (sub_points (B, cap, 3) with pad rows at 1e9, sub_count (B,)
+    int32, dropped (B,) int32 = overflow voxels + clipped points).
+    """
+    dev = points.device
+    sorted_pts, start, length, true_count, n_clipped = voxel_segments(points, num_valid,
+                                                                     voxel_size, cap)
+    sub_count = torch.clamp(true_count, max=cap)
+    sums = segment_sums(sorted_pts, start, length)
     counts = length.to(points.dtype)
 
     out_valid = torch.arange(cap, device=dev)[None, :] < sub_count[:, None]

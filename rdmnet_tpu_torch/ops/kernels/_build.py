@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("radius_knn", "sinkhorn")
+KERNELS = ("radius_knn", "sinkhorn", "segment_sum", "nms", "eigh4")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -91,6 +91,16 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def launch(fn, device, *args) -> int:
+    """Call the C launch function ``fn`` with ``args`` and the current stream
+    of ``device``'s card, with that card current (whichever device is current
+    for the caller); returns its ``cudaError_t``."""
+    import torch
+
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def check(err: int, name: str) -> None:

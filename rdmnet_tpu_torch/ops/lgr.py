@@ -150,7 +150,8 @@ def local_to_global_registration(ref_knn_points, src_knn_points, ref_knn_masks, 
     gate = torch.cat([hyp_ok, ~hyp_ok.any()[None]])
     inlier_counts = torch.where(gate, inlier_counts, torch.full_like(inlier_counts, -1))
     best = torch.argmax(inlier_counts)  # first maximum, as jnp.argmax
-    cur_scores = ver.scores * inlier[best].to(ver.scores.dtype)
+    # a 1-element index: no host read of the 0-d argmax
+    cur_scores = ver.scores * torch.index_select(inlier, 0, best[None])[0].to(ver.scores.dtype)
     if trace is not None:
         trace.update(ver_scores=corr.scores, ver_index=sel, residuals=[res], gate=gate,
                      best=best, weights=[cur_scores])

@@ -4,9 +4,10 @@ Keep node i iff no already-kept, earlier-indexed node lies within
 ``radius``: the lexicographically-first maximal independent set, found by
 parallel peeling. Each round confirms every active node with no earlier
 active neighbour and kills the later actives that see a confirmed one. The
-JAX package runs the rounds in a ``while_loop``; here it is a Python loop on
-``active.any()``, one host sync per round (rounds = suppression-chain
-depth, typically < 10).
+JAX package runs the rounds in a ``while_loop`` on the device; here
+``ops/kernels/nms.nms_peel`` does: on the card one kernel launch runs every
+round (no host round trip), on the CPU a Python loop on ``active.any()``
+(rounds = suppression-chain depth, typically < 10).
 """
 
 from __future__ import annotations
@@ -16,11 +17,13 @@ from typing import Optional, Tuple
 import torch
 
 from rdmnet_tpu_torch.ops.geometry import pairwise_sq_dist
+from rdmnet_tpu_torch.ops.kernels.nms import nms_peel
 
 
-def greedy_nms(nodes: torch.Tensor, nodes_mask: torch.Tensor, radius: float,
-               neighbor_limit: Optional[int] = None) -> Tuple[torch.Tensor, int]:
-    """nodes (B, M, 3), nodes_mask (B, M) bool -> (keep (B, M) bool, rounds).
+def nms_adjacency(nodes: torch.Tensor, nodes_mask: torch.Tensor, radius: float,
+                  neighbor_limit: Optional[int] = None) -> torch.Tensor:
+    """nodes (B, M, 3), nodes_mask (B, M) bool -> the strict-lower adjacency
+    (B, M, M) bool the peeling reads: row i, column j < i, both valid.
 
     Strict ``<`` adjacency (a pair exactly at the radius does not suppress).
     ``neighbor_limit`` truncates each row's adjacency to its nearest entries
@@ -29,7 +32,7 @@ def greedy_nms(nodes: torch.Tensor, nodes_mask: torch.Tensor, radius: float,
     m = nodes.shape[1]
     dev = nodes.device
     sq = torch.stack([pairwise_sq_dist(n, n) for n in nodes])
-    r2 = torch.tensor(radius * radius, dtype=torch.float32, device=dev)
+    r2 = torch.full((), radius * radius, dtype=torch.float32, device=dev)
     adj = (sq < r2) & nodes_mask[:, None, :] & nodes_mask[:, :, None]
     eye = torch.eye(m, dtype=torch.bool, device=dev)
     if neighbor_limit is not None:
@@ -39,17 +42,11 @@ def greedy_nms(nodes: torch.Tensor, nodes_mask: torch.Tensor, radius: float,
         adj = adj & (rank < neighbor_limit)
     adj = adj & ~eye
     earlier = torch.tril(torch.ones((m, m), dtype=torch.bool, device=dev), diagonal=-1)
-    adj_earlier = (adj & earlier).float()
+    return adj & earlier
 
-    keep = torch.zeros_like(nodes_mask)
-    active = nodes_mask.clone()
-    rounds = 0
-    while bool(active.any()):
-        a = active.float()[..., None]
-        has_earlier_active = (adj_earlier @ a)[..., 0] > 0.0
-        confirm = active & ~has_earlier_active
-        killed = (adj_earlier @ confirm.float()[..., None])[..., 0] > 0.0
-        keep = keep | confirm
-        active = active & ~confirm & ~killed
-        rounds += 1
-    return keep, rounds
+
+def greedy_nms(nodes: torch.Tensor, nodes_mask: torch.Tensor, radius: float,
+               neighbor_limit: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """nodes (B, M, 3), nodes_mask (B, M) bool -> (keep (B, M) bool, rounds
+    () int32 tensor, the most any cloud took), on ``nms_adjacency``."""
+    return nms_peel(nms_adjacency(nodes, nodes_mask, radius, neighbor_limit), nodes_mask)

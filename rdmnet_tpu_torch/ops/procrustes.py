@@ -1,8 +1,9 @@
 """Weighted Procrustes pose solver (twin of ``rdmnet_tpu/ops/procrustes.py``).
 
 Horn's unit-quaternion method: the rotation is the top eigenvector of a
-symmetric 4x4 built from the weighted cross-covariance (``torch.linalg.eigh``
-over a batch). Kept instead of SVD Kabsch: LiDAR cross-covariances are
+symmetric 4x4 built from the weighted cross-covariance
+(``ops/kernels/eigh4.top_eigenvector`` over a batch: ``torch.linalg.eigh`` on
+the CPU, on the card a Jacobi kernel that needs no host round trip). Kept instead of SVD Kabsch: LiDAR cross-covariances are
 anisotropic, where float32 SVD loses the weak subspace, while Horn needs
 only the top eigenvector and yields a proper rotation by construction.
 Float32 throughout.
@@ -15,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from rdmnet_tpu_torch.ops.geometry import get_transform_from_rotation_translation
+from rdmnet_tpu_torch.ops.kernels.eigh4 import top_eigenvector
 
 
 def horn_matrix(h: torch.Tensor) -> torch.Tensor:
@@ -41,7 +43,7 @@ def horn_rotation(h: torch.Tensor) -> torch.Tensor:
     bias = 1e-12 + 1e-9 * h.abs().sum((-1, -2))
     k = k.clone()
     k[..., 0, 0] = k[..., 0, 0] + bias
-    q = torch.linalg.eigh(k).eigenvectors[..., -1]  # ascending eigenvalues
+    q = top_eigenvector(k)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     return torch.stack([
         torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),

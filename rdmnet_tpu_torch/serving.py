@@ -10,12 +10,19 @@ turns into a ready-to-call ``serve(ref_points, src_points)``:
   ``n_weights``, ``outputs``, ``pad_coord``) plus the port's ``config`` and
   each bucket's ``scale``.
 
-There is no compiled program: the port's program is its model code, so a
-bucket is the model with that bucket's pyramid (``models.with_pyramid``),
-all buckets over one copy of the weights on the device. An artifact written
-by the JAX package (StableHLO beside the same ``weights.npz``) serves too
-when the caller passes its ``cfg`` and ``bucket_scales``. Consumers filter
-correspondences by ``corr_scores > 0``, as with the JAX artifact.
+The JAX export lowers each bucket's pipeline (build, forward, LGR) to one
+static-shape StableHLO program. The port's program per bucket is a CUDA
+graph, made at load: ``load_exported`` builds the model once on the card,
+takes each bucket's view of it (``models.with_pyramid``, all buckets over one
+copy of the weights) and captures its ``pipeline`` once
+(``models.capture_pipeline``), every bucket's graph in one shared memory
+pool; a request is padded on the host, copied into the program's inputs,
+replayed and fetched once, with no Python model code and no host round trip
+inside. The artifact's files hold no program, so an artifact written by the
+JAX package (StableHLO beside the same ``weights.npz``) serves too when the
+caller passes its ``cfg`` and ``bucket_scales``. On the CPU the buckets run
+``pipeline`` eagerly. Consumers filter correspondences by ``corr_scores >
+0``, as with the JAX artifact.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import dataclasses
 import json
 import os
 import os.path as osp
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -90,9 +98,16 @@ def load_exported(out_dir: str, device=None, cfg=None,
 
     Returns ``(serve, meta)``. ``serve(ref_points, src_points)`` takes raw
     (N, >=3) clouds, pads or truncates them on the host to the smallest
-    bucket that fits both (the largest otherwise), runs ``pipeline`` there
-    and returns a numpy dict of ``SERVE_OUTPUTS`` in their padded shapes;
-    ``serve.last_cap`` is the bucket that served the last request.
+    bucket that fits both (the largest otherwise), runs that bucket's
+    program and returns a numpy dict of ``SERVE_OUTPUTS`` in their padded
+    shapes; ``serve.last_cap`` is the bucket that served the last request.
+    On the card every bucket's ``pipeline`` is captured here, at load, as a
+    CUDA graph (``models.capture_pipeline``) over one shared graph memory
+    pool, and a request replays its bucket's graph under a lock (copy in,
+    replay, one fetch), so concurrent callers (``cli/serve.py``'s threads)
+    are safe; a capture that fails raises. ``serve.programs`` maps each
+    capacity to its program (``launches``, ``capture_s``). On the CPU every
+    request runs ``pipeline`` eagerly.
 
     ``cfg`` and ``bucket_scales`` default to the artifact's own (its config
     names the coarse family, ``k2`` and the vote settings); an artifact of
@@ -100,9 +115,11 @@ def load_exported(out_dir: str, device=None, cfg=None,
     included) and the scales it was exported with. Raises if a bucket's capacity differs from
     the artifact's.
     """
+    import torch
+
     from rdmnet_tpu_torch.config import Config, config_from_dict
     from rdmnet_tpu_torch.device import resolve_device
-    from rdmnet_tpu_torch.models import RDMNet, pipeline, with_pyramid
+    from rdmnet_tpu_torch.models import RDMNet, capture_pipeline, pipeline, with_pyramid
     from rdmnet_tpu_torch.utils.convert import load_flat_params
 
     dev = resolve_device(device)
@@ -129,18 +146,40 @@ def load_exported(out_dir: str, device=None, cfg=None,
     # limits) and loaded once; every bucket is a view over the same tensors
     model = RDMNet(cfg, device=dev)
     load_flat_params(model, [weights[f"w{i}"] for i in range(meta["n_weights"])])
-    calls = [(b["cap"], with_pyramid(model, b["cfg"].pyramid)) for b in buckets]
+    views = [(b["cap"], with_pyramid(model, b["cfg"].pyramid)) for b in buckets]
+    programs: Dict[int, object] = {}
+    fetched: Dict[int, Dict[str, torch.Tensor]] = {}
+    if dev.type == "cuda":
+        pool = torch.cuda.graph_pool_handle()
+        # largest bucket first: the smaller captures then reuse the blocks it freed in
+        # the shared pool (captured smallest first, each needs larger blocks anew)
+        programs = {cap: capture_pipeline(view, dev, pool=pool) for cap, view in views[::-1]}
+        torch.cuda.empty_cache()  # the warm-ups' cached blocks; the graphs' pool stays
+        # pinned host copies of each program's outputs, so a request fetches once
+        fetched = {cap: {k: torch.empty(run.outputs[k].shape, dtype=run.outputs[k].dtype,
+                                        pin_memory=True) for k in SERVE_OUTPUTS}
+                   for cap, run in programs.items()}
+    lock = threading.Lock()
 
     def serve(ref_points: np.ndarray, src_points: np.ndarray) -> Dict[str, np.ndarray]:
         n = max(len(ref_points), len(src_points))
         # smallest bucket that fits; largest (with truncation) otherwise
-        cap, model_b = next((b for b in calls if n <= b[0]), calls[-1])
-        serve.last_cap = cap  # observability: which bucket served the request
+        cap, model_b = next((b for b in views if n <= b[0]), views[-1])
         rp, rc = _pad_np(np.asarray(ref_points, np.float32), cap)
         sp, sc = _pad_np(np.asarray(src_points, np.float32), cap)
-        out = pipeline(model_b, rp, rc, sp, sc, device=dev)
-        return {k: out[k].cpu().numpy() for k in SERVE_OUTPUTS}
+        with lock:  # one request at a time: a replay overwrites the program's outputs
+            serve.last_cap = cap  # observability: which bucket served the request
+            if not programs:
+                out = pipeline(model_b, rp, rc, sp, sc, device=dev)
+                return {k: out[k].cpu().numpy() for k in SERVE_OUTPUTS}
+            out = programs[cap](rp, rc, sp, sc)
+            host = fetched[cap]
+            for k in SERVE_OUTPUTS:
+                host[k].copy_(out[k], non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+            return {k: host[k].numpy().copy() for k in SERVE_OUTPUTS}
 
     serve.last_cap = None
     serve.model = model
+    serve.programs = programs
     return serve, meta

@@ -3,7 +3,12 @@ training, serving and evaluation paths against the CPU's, on the card; every
 path of each kernel (the kNN's register list and, for k > 256, its warp and
 block select paths; Sinkhorn's register patch, its cluster path for 208 < K1
 <= 546 and its group path past that, whose bands spill past K1 = 2640) and
-the model at such shapes.
+the model at such shapes; the serving program: the port's own kernels
+against their plain versions (segment sums bit-equal, NMS keep masks and
+rounds equal, eigh4's rotation within 1e-5 of ``torch.linalg.eigh``'s on
+well-conditioned fits), ``pipeline`` with no host sync, each bucket's
+captured program against the eager pipeline on requests that rise and fall
+in size, and eight HTTP clients at once against captured programs.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 
@@ -575,7 +580,11 @@ def test_serve_on_card_matches_cpu(cuda, tmp_path):
     assert on_card.model.device.type == "cuda"
     reset_launch_counts()
     got = on_card(small, moved)
-    assert launch_counts() == {"radius_knn": 12, "sinkhorn": 1}
+    # the request replays its bucket's program: its launches were counted at the capture
+    assert launch_counts() == {"radius_knn": 0, "sinkhorn": 0}
+    program = on_card.programs[512].launches
+    assert {k: program[k] for k in ("radius_knn", "sinkhorn")} == {"radius_knn": 12,
+                                                                   "sinkhorn": 1}
     want = on_cpu(small, moved)
     assert on_card.last_cap == on_cpu.last_cap == 512
     valid = want["corr_scores"] > 0
@@ -925,3 +934,257 @@ def test_overfit_demo_learns_on_card(cuda):
     assert demo.launches == {"build": {"radius_knn": 12, "sinkhorn": 0},
                              "train": {"radius_knn": 0, "sinkhorn": 0},
                              "eval": {"radius_knn": 0, "sinkhorn": demo.n_evals}}
+
+
+# ---- the serving program: host-sync-free ops, the captured pipeline --------------------------
+
+def _program_launches(cfg):
+    """Launches of one pair's pipeline by kernel, counted at its capture."""
+    return {"radius_knn": 12, "sinkhorn": 1, "segment_sums": cfg.pyramid.num_stages - 1,
+            "nms_peel": 1, "eigh4": 2 + cfg.fine_matching.num_refinement_steps}
+
+
+def test_segment_sums_kernel_bit_equal_to_plain(cuda):
+    """Random segments (one of 3000 rows) and the grid subsample of a
+    procedural scan through every level: the kernel's sums and the op's
+    centroids equal the plain version's bit for bit."""
+    from rdmnet_tpu_torch.ops.grid_subsample import grid_subsample
+    from rdmnet_tpu_torch.ops.kernels.segment_sum import segment_sums_cuda, segment_sums_plain
+
+    rng = np.random.RandomState(5)
+    lengths = np.concatenate([[3000], rng.randint(0, 40, size=999)])
+    n = int(lengths.sum())
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    pts = torch.from_numpy((rng.randn(2, n, 3) * 30).astype(np.float32)).to(cuda)
+    start = torch.from_numpy(np.stack([starts, starts]).astype(np.int32)).to(cuda)
+    length = torch.from_numpy(np.stack([lengths, lengths[::-1].copy()]).astype(np.int32))
+    start[1] = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths[::-1])[:-1]])
+                                .astype(np.int32)).to(cuda)
+    length = length.to(cuda)
+    before = segment_sums_cuda.launches
+    got = segment_sums_cuda(pts, start, length)
+    torch.cuda.synchronize()
+    assert segment_sums_cuda.launches == before + 1
+    assert torch.equal(got, segment_sums_plain(pts, start, length))
+    ref, _, _ = procedural_pair(3, n_rings=32, n_azimuths=800)
+    cpu_pts, _ = pad_cloud(ref, 16384)
+    count = torch.tensor([min(len(ref), 16384)], dtype=torch.int32)
+    card_pts, card_count = cpu_pts[None].to(cuda), count.to(cuda)
+    cpu_pts = cpu_pts[None]
+    voxel = 0.3
+    for cap in (8192, 4096, 2048, 1024):
+        voxel *= 2.0
+        card_pts, card_count, card_drop = grid_subsample(card_pts, card_count, voxel, cap)
+        cpu_pts, count, drop = grid_subsample(cpu_pts, count, voxel, cap)
+        assert torch.equal(card_pts.cpu(), cpu_pts) and torch.equal(card_count.cpu(), count)
+        assert torch.equal(card_drop.cpu(), drop)
+
+
+@pytest.mark.parametrize("case, m", [("random", 640), ("limit", 640), ("chain", 512),
+                                     ("random", 1600), ("chain", 1600)])
+def test_nms_peel_kernel_equals_plain(cuda, case, m):
+    """Keep masks and rounds of the kernel equal the plain version's on the
+    same adjacency, and the CPU's: m random nodes a cloud (with masked
+    ones), the parity config's truncated adjacency, and a chain (256 rounds
+    at 512 nodes, over 600 at 1600). At M = 1600 the packed rows pass a
+    CTA's shared memory and the kernel holds them in device memory."""
+    from rdmnet_tpu_torch.ops.kernels.nms import nms_peel_cuda, nms_peel_plain
+    from rdmnet_tpu_torch.ops.nms import greedy_nms
+
+    rng = np.random.RandomState(8)
+    radius, limit = 2.4, None
+    if case == "chain":
+        nodes = np.zeros((2, m, 3), np.float32)
+        nodes[:, :, 0] = np.arange(m) * 0.9 * radius
+        mask = np.ones((2, m), bool)
+    else:
+        side = 80 * np.sqrt(m / 640)  # the node density of 640 nodes in 80 m x 80 m
+        nodes = (rng.rand(2, m, 3) * np.float32([side, side, 6])).astype(np.float32)
+        mask = rng.rand(2, m) > 0.1
+        if case == "limit":
+            radius, limit = 6.0, 5
+    path = "shared" if m <= 1348 else "device"
+    before = nms_peel_cuda.path_launches[path]
+    keep, rounds = greedy_nms(torch.from_numpy(nodes).to(cuda), torch.from_numpy(mask).to(cuda),
+                              radius, neighbor_limit=limit)
+    assert nms_peel_cuda.path_launches[path] == before + 1
+    want_keep, want_rounds = greedy_nms(torch.from_numpy(nodes), torch.from_numpy(mask), radius,
+                                        neighbor_limit=limit)
+    assert torch.equal(keep.cpu(), want_keep) and int(rounds) == int(want_rounds)
+    if case == "chain":
+        # at 1600 nodes the chain's far end lies ~3.5 km out, where float32's squared
+        # distances drop some links: 673 rounds, not 800, on the CPU as on the card
+        assert int(rounds) == m // 2 if m == 512 else int(rounds) >= 600
+    adj = torch.from_numpy(np.tril(rng.rand(2, m, m) > 0.97, -1)).to(cuda)
+    live = torch.from_numpy(rng.rand(2, m) > 0.2).to(cuda)
+    got, got_rounds = nms_peel_cuda(adj, live)
+    plain, plain_rounds = nms_peel_plain(adj, live)
+    assert torch.equal(got, plain) and int(got_rounds) == int(plain_rounds)
+    # rows whose length is no multiple of 16 take the kernel's byte loads
+    odd = adj[:, : m - 7, : m - 7].contiguous()
+    got, got_rounds = nms_peel_cuda(odd, live[:, : m - 7].contiguous())
+    plain, plain_rounds = nms_peel_plain(odd, live[:, : m - 7])
+    assert torch.equal(got, plain) and int(got_rounds) == int(plain_rounds)
+
+
+def _rotation_of(q):
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def test_eigh4_kernel_rotation_matches_eigh(cuda):
+    """10^4 seeded fits (40 noisy correspondences under a random pose, random
+    weights): the kernel's rotation within 1e-5 of ``torch.linalg.eigh``'s
+    where the top eigenvalue stands 1e-2 of the norm clear of the next
+    (every fit here); a zero H gives the identity quaternion."""
+    from rdmnet_tpu_torch.ops.kernels.eigh4 import eigh4_cuda, top_eigenvector_plain
+    from rdmnet_tpu_torch.ops.procrustes import cross_covariance, horn_matrix
+
+    rng = np.random.RandomState(6)
+    n = 10_000
+    q = rng.randn(n, 4)
+    rot = _rotation_of(torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)))
+    src = torch.from_numpy(rng.randn(n, 40, 3) * 10)
+    ref = src @ rot.transpose(1, 2) + torch.from_numpy(rng.randn(n, 1, 3) * 3 + rng.randn(n, 40, 3)
+                                                       * 0.05)
+    w = torch.from_numpy(rng.rand(n, 40))
+    h, _, _ = cross_covariance(src.float().to(cuda), ref.float().to(cuda), w.float().to(cuda))
+    k = horn_matrix(h).contiguous()
+    got = _rotation_of(eigh4_cuda(k))
+    want = _rotation_of(top_eigenvector_plain(k))
+    vals = torch.linalg.eigvalsh(k.double())
+    gap = (vals[:, -1] - vals[:, -2]) / vals.abs().amax(dim=1)
+    assert bool((gap > 1e-2).all())
+    assert float((got - want).abs().amax()) <= 1e-5
+    zero = eigh4_cuda(torch.zeros((3, 4, 4), device=cuda))
+    assert torch.equal(zero.abs().cpu(), torch.tensor([[1.0, 0, 0, 0]] * 3))
+
+
+def test_pipeline_has_no_host_sync(cuda):
+    """``pipeline`` on inputs already on the card waits for the host nowhere:
+    under ``set_sync_debug_mode("error")`` a synchronising op raises."""
+    cfg = make_tiny_cfg()
+    ref, src, _ = procedural_pair(3, n_rings=16, n_azimuths=200)
+    model = RDMNet(cfg, device=cuda, generator=torch.Generator().manual_seed(1))
+    args = (*pad_cloud(ref[:500], 512, device=cuda), *pad_cloud(src[:500], 512, device=cuda))
+    pipeline(model, *args, device=cuda)  # kernels built, handles made
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipeline(model, *args, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out["estimated_transform"]).all()
+
+
+def _serving_pairs():
+    """Requests that rise, then fall in size, and one past the capacity."""
+    ref, src, _ = procedural_pair(7353, n_rings=16, n_azimuths=300)
+    rng = np.random.RandomState(0)
+    ref, src = ref[rng.permutation(len(ref))], src[rng.permutation(len(src))]
+    return [(ref[:n], src[:n - 9]) for n in (220, 480, 250, len(ref))]
+
+
+def _same_result(got, want, where):
+    for k in ("ref_node_corr_indices", "src_node_corr_indices", "node_corr_valid",
+              "nodes_ref_valid", "nodes_src_valid", "nms_rounds", "dropped"):
+        assert torch.equal(got[k].cpu(), want[k].cpu()), (where, k)
+    for side in ("ref", "src"):
+        for field in ("points", "neighbors", "subsampling", "upsampling"):
+            for a, b in zip(getattr(getattr(got["batch"], side), field),
+                            getattr(getattr(want["batch"], side), field)):
+                assert torch.equal(a.cpu(), b.cpu()), (where, side, field)
+    for k in ("estimated_transform", "corr_scores"):
+        assert float((got[k] - want[k]).abs().max()) <= 1e-5, (where, k)
+
+
+def test_captured_pipeline_replays_eager(cuda):
+    """Each bucket's program against the eager ``pipeline`` over requests
+    that rise and fall in size: tables, NMS keep masks and rounds and
+    matched node pairs equal, poses and scores within 1e-5."""
+    from rdmnet_tpu_torch.models import capture_pipeline, with_pyramid
+    from rdmnet_tpu_torch.serving import _pad_np
+
+    cfg = make_tiny_cfg()
+    model = RDMNet(cfg, device=cuda, generator=torch.Generator().manual_seed(1))
+    pool = torch.cuda.graph_pool_handle()
+    for scale in (0.5, 1.0):
+        pyr = cfg.pyramid if scale == 1.0 else cfg.pyramid.scaled(scale)
+        view = with_pyramid(model, pyr)
+        program = capture_pipeline(view, cuda, pool=pool)
+        assert program.launches == _program_launches(cfg)
+        cap = pyr.caps[0]
+        for i, (r, s) in enumerate(_serving_pairs()):
+            rp, rc = _pad_np(r, cap)
+            sp, sc = _pad_np(s, cap)
+            got = program(r[:cap], rc, s[:cap], sc)
+            want = pipeline(view, rp, rc, sp, sc, device=cuda)
+            torch.cuda.synchronize()
+            _same_result(got, want, (scale, i))
+
+
+def test_served_replays_over_http_threads_match_eager(cuda, tmp_path):
+    """Eight clients send four requests each at once over HTTP to a server
+    whose buckets replay captured programs: every answer equals the eager
+    pipeline's on the same model and bucket."""
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from rdmnet_tpu_torch.cli.serve import make_handler
+    from rdmnet_tpu_torch.models import with_pyramid
+    from rdmnet_tpu_torch.serving import SERVE_OUTPUTS, _pad_np, bucket_configs
+
+    cfg = make_tiny_cfg()
+    export_inference(cfg, RDMNet(cfg, device="cpu", generator=torch.Generator().manual_seed(1)),
+                     str(tmp_path), bucket_scales=(0.5, 1.0))
+    serve, meta = load_exported(str(tmp_path))
+    assert sorted(serve.programs) == [256, 512]
+    views = {b["cap"]: with_pyramid(serve.model, b["cfg"].pyramid)
+             for b in bucket_configs(cfg, (0.5, 1.0))}
+    pairs = _serving_pairs()
+    want = []
+    for r, s in pairs:
+        cap = 256 if max(len(r), len(s)) <= 256 else 512
+        out = pipeline(views[cap], *_pad_np(r, cap), *_pad_np(s, cap), device=cuda)
+        want.append({k: out[k].cpu().numpy() for k in SERVE_OUTPUTS})
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(serve, meta))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/register"
+    answers, errors = {}, []
+
+    def client(c):
+        try:
+            for j in range(4):
+                i = (c + j) % len(pairs)
+                buf = io.BytesIO()
+                np.savez(buf, ref_points=pairs[i][0], src_points=pairs[i][1])
+                req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    answers[(c, j)] = (i, dict(np.load(io.BytesIO(resp.read()))))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    try:
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    assert not errors and len(answers) == 32
+    for i, got in answers.values():
+        sel = want[i]["corr_scores"] > 0
+        assert len(got["corr_scores"]) == int(sel.sum())
+        np.testing.assert_array_equal(got["ref_corr_points"], want[i]["ref_corr_points"][sel])
+        np.testing.assert_allclose(got["estimated_transform"], want[i]["estimated_transform"],
+                                   rtol=0, atol=1e-5)

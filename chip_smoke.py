@@ -238,9 +238,38 @@ Phases, each fatal on failure:
    warm-up under the sync check), two replays of each held to eager the
    same way.
 
+19. the Trainer's compiled programs (``capture_train_step``,
+   ``capture_eval_step``), in a process of its own (``--train-program-only``;
+   a profiled replay of the train program has crashed in ``cudaGraphLaunch``
+   after phase 18 in one process), at ``make_cfg()``, 0.7 bucket, on the phase-4 pair
+   and copies of it with src moved by seeded rigid motions: (a) one eager
+   train step and one eval step, each with its graph build, under
+   ``set_sync_debug_mode("error")`` between the upload and the fetch: no
+   host sync; (b) the train program (2 eager warm-ups, the capture, replays)
+   against an eager twin from the same weights, generator and batches over 7
+   steps, one with a NaN in its ground truth: metrics, weights, Adam's
+   moments and steps, the lr, the counters and the generators bit-equal
+   after every step, the NaN step skipped; (c) the same at
+   ``grad_acc_steps`` 2 over three groups (the second non-finite); (d) the
+   eval program on batches of two pairs against the eager step, ``valid``
+   weighting included: metrics and transforms bit-equal; (f) each program's
+   launches counted at its capture (12/0 kNN/Sinkhorn a train pair,
+   12/1/4/1/7 an eval pair) and a profiled replay launching exactly them;
+   (g) replayed against eager train steps in turns (ms/step, spread, peak
+   memory) and eval steps (ms a pair), a replayed and an eager train step
+   profiled (busy share), the kernel ms of the eager step by part with its
+   top operators, the replay's top kernels, capture s, memory kept and
+   reserved; (e) ``cli.trainval.main`` on phase 10's root
+   for 2 epochs on the programs and with the Trainer kept eager: every
+   ``metrics.jsonl`` record and every logged step's values equal, windowed
+   steps/s of both; (h) ``compute_dtype="bfloat16"`` and phase 11's families
+   (GeoTransformer, APE, ``k2``, vote off): two warm-ups, the capture and a
+   replay each, bit-equal to eager.
+
 ``python3 chip_smoke.py --dp-only`` runs phases 1, 2 and 14 alone (with two
 cards or more, the NCCL path); ``python3 chip_smoke.py --program-only``
-phases 1, 2 and 18.
+phases 1, 2 and 18; ``python3 chip_smoke.py --train-program-only`` phases 1,
+2 and 19.
 
 Phase 2 fails if ``-Xptxas -v`` reports a spilled register in any kernel.
 Prints a ``kernels`` JSON line, the card line, and as the last line
@@ -973,6 +1002,31 @@ def _launch_recorder(events, kind):
     return wrap
 
 
+def _program_recorder(events, kind, replayed):
+    """Wraps a capture function of the port so each call of the program it
+    makes appends (kind, the cumulative launch counts after the call) to
+    ``events``. A replay ticks no wrapper counter, so each replay adds its
+    program's launches (counted at the capture) to ``replayed``, which the
+    counts carry; the eager warm-ups and the capture tick the counters."""
+    from rdmnet_tpu_torch.ops.kernels import launch_counts
+
+    def wrap(capture):
+        def make(*args, **kwargs):
+            program = capture(*args, **kwargs)
+
+            def counted(*a, **kw):
+                captured = program.graph is not None
+                out = program(*a, **kw)
+                if captured:
+                    for name in replayed:
+                        replayed[name] += program.launches[name]
+                events.append((kind, {k: v + replayed[k] for k, v in launch_counts().items()}))
+                return out
+            return counted
+        return make
+    return wrap
+
+
 def _per_event(events):
     """Launches per event from cumulative counts: each event owns what was
     launched since the one before it (its batch's graph build included)."""
@@ -1041,7 +1095,9 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, root, cli_args=()):
     cli_args = ["--device", dev.type, *cli_args]
     events, resumed, test_cfgs = [], [], []
     orig = (trainer_mod.make_train_step, trainer_mod.make_eval_step, trainer_mod.Trainer.resume,
-            test_cli._make_eval_forward, test_cli.run_eval_loop)
+            test_cli._make_eval_forward, test_cli.run_eval_loop, trainer_mod.capture_train_step,
+            trainer_mod.capture_eval_step)
+    replayed = {"radius_knn": 0, "sinkhorn": 0}
     loop_s = []
 
     def resume_and_keep(self):
@@ -1062,6 +1118,9 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, root, cli_args=()):
     # per step and pair, keep the resumed state and time the test loop
     trainer_mod.make_train_step = _launch_recorder(events, "train")(orig[0])
     trainer_mod.make_eval_step = _launch_recorder(events, "val")(orig[1])
+    # on the card the Trainer steps through its captured programs
+    trainer_mod.capture_train_step = _program_recorder(events, "train", replayed)(orig[5])
+    trainer_mod.capture_eval_step = _program_recorder(events, "val", replayed)(orig[6])
     trainer_mod.Trainer.resume = resume_and_keep
     test_cli._make_eval_forward = test_forward
     test_cli.run_eval_loop = timed_loop
@@ -1284,7 +1343,8 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, root, cli_args=()):
                   f"exports and viewer.html present ({card})")
     finally:
         (trainer_mod.make_train_step, trainer_mod.make_eval_step, trainer_mod.Trainer.resume,
-         test_cli._make_eval_forward, test_cli.run_eval_loop) = orig
+         test_cli._make_eval_forward, test_cli.run_eval_loop, trainer_mod.capture_train_step,
+         trainer_mod.capture_eval_step) = orig
     counts = {}
     for key, kind, events_of in (("launches_per_trainer_step", "train", train_events),
                                  ("launches_per_val_pair", "val", train_events),
@@ -3853,6 +3913,452 @@ def program_phase(dev, card, kernels, cfg, model, ref, src):
     return per_pair
 
 
+TRAIN_PROGRAM_STEPS = 7      # phase 19 (b): train steps held bit for bit against the eager twin
+TRAIN_PROGRAM_NAN = 4        # phase 19 (b): the step whose ground truth holds a NaN (a replay)
+ACC_PROGRAM_STEPS = 6        # phase 19 (c): micro-batches at grad_acc_steps 2 (three groups)
+ACC_PROGRAM_NAN = 3          # phase 19 (c): the NaN micro-batch (the second group's last)
+EVAL_PROGRAM_VALID = ((True, True), (True, False), (True, True), (False, True))  # (d), 2 pairs
+TRAIN_PROGRAM_TURNS = 6      # phase 19 (g): timed turns of a replayed and an eager step
+PARTS = ("build", "forward", "losses", "backward", "optimizer")
+
+
+def moved_pairs(ref, src, gt, cap, n, seed):
+    """``n`` one-pair host batches: the phase-4 pair with its src moved by
+    seeded rigid motions (up to 10 degrees about z and 1 m), the ground
+    truth following each motion."""
+    import numpy as np
+
+    from rdmnet_tpu_torch.tools.overfit_demo import host_batch
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        a = np.deg2rad(rng.uniform(-10, 10))
+        m = np.eye(4)
+        m[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        m[:3, 3] = rng.uniform(-1, 1, 3)
+        moved = (src.astype(np.float64) @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
+        out.append(host_batch(ref, moved, (gt.astype(np.float64) @ np.linalg.inv(m)), cap))
+    return out
+
+
+def bits(t):
+    """A tensor's bytes, flattened: equal bits compare equal, NaNs included."""
+    import torch
+
+    return t.detach().reshape(-1).contiguous().view(torch.uint8)
+
+
+def state_bits(state):
+    """Every tensor a train step writes, as bytes per kind: weights, Adam's
+    moments and steps, the counters, the accumulator."""
+    import torch
+
+    opt = [state.optimizer.state[p] for p in state.params if p in state.optimizer.state]
+    parts = {"weights": state.params, "exp_avg": [s["exp_avg"] for s in opt],
+             "exp_avg_sq": [s["exp_avg_sq"] for s in opt], "adam step": [s["step"] for s in opt],
+             "counters": list(state.counters.values()), "lr": [state.lr],
+             "accumulator": state.accumulator or []}
+    return {k: torch.cat([bits(t) for t in v]) if v else None for k, v in parts.items()}
+
+
+def held_bitwise(got, want, where):
+    """Two dicts of tensors (or of bytes) equal bit for bit."""
+    import torch
+
+    if sorted(got) != sorted(want):
+        fail(f"{where}: keys {sorted(got)} against {sorted(want)}")
+    for k in got:
+        if got[k] is None and want[k] is None:
+            continue
+        if not torch.equal(bits(got[k]), bits(want[k])):
+            fail(f"{where}: {k} differs between the replayed program and the eager step")
+
+
+def twin_run(dev, c, batches, nan_at, where):
+    """The train program against an eager twin from the same weights,
+    generator state and batches, held bit for bit after every step: the
+    metrics, every tensor the step writes and the generators' states. The
+    step at ``nan_at`` (a NaN in its ground truth) must leave the weights and
+    ``count`` as they were and count one non-finite step. Returns (program,
+    its state, the eager state, the eager step, the two generators)."""
+    import torch
+
+    from rdmnet_tpu_torch.engine import (batch_to_device, capture_train_step,
+                                         create_train_state, make_train_step)
+    from rdmnet_tpu_torch.models import RDMNet
+
+    states = [create_train_state(c, RDMNet(c, device=dev,
+                                           generator=torch.Generator().manual_seed(SEED)))
+              for _ in range(2)]
+    gens = [torch.Generator(device=dev).manual_seed(SEED + 19) for _ in range(2)]
+    program = capture_train_step(states[0], c, 1, gens[0], dev)
+    step = make_train_step(c, dev)
+    held_bitwise(state_bits(states[0]), state_bits(states[1]), f"{where}: the starting states")
+    for i, host in enumerate(batches):
+        before = state_bits(states[0])
+        got = program(host)
+        _, want = step(states[1], batch_to_device(host, c.pyramid, dev), gens[1])
+        held_bitwise(got, want, f"{where}: step {i} metrics")
+        after = state_bits(states[0])
+        held_bitwise(after, state_bits(states[1]), f"{where}: step {i} state")
+        if not torch.equal(gens[0].get_state(), gens[1].get_state()):
+            fail(f"{where}: step {i}: the program's generator stands elsewhere than the "
+                 "eager one's")
+        finite = bool(torch.isfinite(got["grad_norm"]))
+        if (i == nan_at) == finite:
+            fail(f"{where}: step {i}: grad_norm {float(got['grad_norm'])}, a NaN step at {nan_at}")
+        if i == nan_at:
+            if not torch.equal(before["weights"], after["weights"]) \
+                    or not torch.equal(before["exp_avg"], after["exp_avg"]) \
+                    or states[0].notfinite_count != 1:
+                fail(f"{where}: the non-finite step {i} moved the weights or the moments, or "
+                     f"counted {states[0].notfinite_count} non-finite steps")
+    return program, states[0], states[1], step, gens
+
+
+def profiled_kernels(fn, dev):
+    """``fn()`` under the profiler: (wall ms, kernel ms, launches of the
+    port's kernels by name, the profiler's events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False) and not e.key.startswith("part:")]
+    kernel = sum(e.self_device_time_total for e in events) / 1e3
+    seen = {name: sum(e.count for e in events if key in e.key)
+            for name, key in PROFILED_KERNELS.items()}
+    return wall, kernel, seen, prof
+
+
+def parts_of_step(prof, marks):
+    """Kernel ms by part of a profiled eager step: each operator's own
+    kernels go to the part whose host window (``marks``, the
+    ``record_function`` ranges named ``part:<name>``) holds the operator's
+    start, whatever thread launched it (the backward runs on autograd's).
+    Returns {part: (ms, [(ms, operator), ...] by ms)}."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    # the host ranges only: each range also has a device-side annotation, on the
+    # device's later timeline
+    windows = [(e.name[5:], e.time_range.start, e.time_range.end) for e in events
+               if e.name.startswith("part:") and e.device_type == DeviceType.CPU]
+    out = {name: [0.0, {}] for name, _, _ in windows}
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.name.startswith("part:") \
+                or e.self_device_time_total <= 0:
+            continue
+        for name, start, end in windows:
+            if start <= e.time_range.start <= end:
+                out[name][0] += e.self_device_time_total / 1e3
+                ops = out[name][1]
+                ops[e.name] = ops.get(e.name, 0.0) + e.self_device_time_total / 1e3
+                break
+    return {k: (ms, sorted(((v, op) for op, v in ops.items()), reverse=True))
+            for k, (ms, ops) in out.items()}
+
+
+def train_program_phase(dev, card, kernels, cfg, ref, src, gt, scan=WORKFLOW_SCAN, cli_args=()):
+    """Phase 19: the Trainer's compiled programs. (e) trains on phase 10's
+    root written with ``scan``; ``cli_args`` go to its CLI. Returns the
+    launches a pair in the train and the eval program."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    import rdmnet_tpu_torch.engine.trainer as trainer_mod
+    from rdmnet_tpu_torch.cli import trainval
+    from rdmnet_tpu_torch.engine import (batch_to_device, capture_eval_step, create_train_state,
+                                         make_eval_step, make_train_step)
+    from rdmnet_tpu_torch.engine.train_step import batch_inputs, build_batch
+    from rdmnet_tpu_torch.models import RDMNet
+    from rdmnet_tpu_torch.ops.kernels import all_launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    spec = cfg.pyramid
+    cap = spec.caps[0]
+    pairs = moved_pairs(ref, src, gt, cap, max(TRAIN_PROGRAM_STEPS, 8), SEED + 19)
+    nan_pair = {k: v.copy() for k, v in pairs[TRAIN_PROGRAM_NAN].items()}
+    nan_pair["transform"][0, 0, 3] = np.nan
+    acc_nan_pair = {k: v.copy() for k, v in pairs[ACC_PROGRAM_NAN].items()}
+    acc_nan_pair["transform"][0, 0, 3] = np.nan
+
+    # (a) no host sync between the upload and the fetch of an eager train and eval step
+    state = create_train_state(cfg, RDMNet(cfg, device=dev,
+                                           generator=torch.Generator().manual_seed(SEED)))
+    step, evaluate = make_train_step(cfg, dev), make_eval_step(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    inputs = {k: torch.tensor(v, device=dev) for k, v in batch_inputs(pairs[0]).items()}
+    reset_launch_counts()
+    step(state, build_batch(inputs, spec), gen)  # lazy set-up (cuBLAS, Adam's state) first
+    train_launches = all_launch_counts()
+    reset_launch_counts()
+    evaluate(state, build_batch(inputs, spec))
+    eval_launches = all_launch_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, metrics = step(state, build_batch(inputs, spec), gen)
+        ev, tfs = evaluate(state, build_batch(inputs, spec))
+    except RuntimeError as e:
+        fail(f"train program: an eager step waited for the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not all(bool(torch.isfinite(v)) for v in metrics.values()) or \
+            not bool(torch.isfinite(tfs).all()) or state.count != 2:
+        fail(f"train program: the checked steps gave {metrics}, {ev}, count {state.count}")
+    if train_launches["radius_knn"] != 12 or train_launches["sinkhorn"] != 0 or \
+            {k: eval_launches[k] for k in ("radius_knn", "sinkhorn", "segment_sums", "nms_peel",
+                                          "eigh4")} != \
+            {"radius_knn": 12, "sinkhorn": 1, "segment_sums": spec.num_stages - 1,
+             "nms_peel": 1, "eigh4": 2 + cfg.fine_matching.num_refinement_steps}:
+        fail(f"train program: eager launches {train_launches} a train pair, {eval_launches} an "
+             f"eval pair")
+    print(f"train program: one eager train step and one eval step at make_cfg(), bucket {cap}, "
+          f"each with its graph build, under set_sync_debug_mode('error') between the upload "
+          f"and the fetch: no host sync; launches a train pair {train_launches}, an eval pair "
+          f"{eval_launches}")
+    del state, inputs, metrics, ev, tfs
+
+    # (b) the train program against its eager twin, a NaN step among them
+    batches = pairs[:TRAIN_PROGRAM_STEPS]
+    batches[TRAIN_PROGRAM_NAN] = nan_pair
+    program, p_state, e_state, e_step, gens = twin_run(dev, cfg, batches, TRAIN_PROGRAM_NAN,
+                                                       "train program")
+    if program.launches != train_launches:
+        fail(f"train program: {program.launches} launches at the capture, the eager step "
+             f"{train_launches}")
+    print(f"train program: {TRAIN_PROGRAM_STEPS} steps (2 eager warm-ups, the capture, "
+          f"replays; a NaN ground truth at step {TRAIN_PROGRAM_NAN}) against the eager step "
+          f"from the same weights, generator and batches: losses, grad_norm, weights, Adam's "
+          f"moments and steps, lr, count and notfinite_count bit-equal after every step, the "
+          f"generators at one offset; the NaN step skipped (weights and moments unchanged, "
+          f"count {p_state.count}, notfinite_count reset by the next finite step to "
+          f"{p_state.notfinite_count}); captured in {program.capture_s:.3f} s, "
+          f"{program.memory_bytes / 2**10:.1f} KiB kept (its outputs), "
+          f"{program.reserved_bytes / 2**20:.1f} MiB reserved (its graph pool), launches "
+          f"{program.launches}")
+
+    # (c) accumulation: one program for every micro-batch of a group
+    acc_cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, grad_acc_steps=2))
+    acc_batches = pairs[:ACC_PROGRAM_STEPS]
+    acc_batches[ACC_PROGRAM_NAN] = acc_nan_pair
+    acc_program, acc_state, _, _, _ = twin_run(dev, acc_cfg, acc_batches, ACC_PROGRAM_NAN,
+                                               "train program, grad_acc_steps 2")
+    if acc_state.count != 2 or acc_state.mini_step != 0:
+        fail(f"train program, grad_acc_steps 2: count {acc_state.count}, mini_step "
+             f"{acc_state.mini_step} after three groups, the second non-finite")
+    print(f"train program, grad_acc_steps 2: {ACC_PROGRAM_STEPS} micro-batches (three groups, "
+          f"the second's last with a NaN ground truth) bit-equal to the eager steps after every "
+          f"micro-batch, accumulator included; {acc_state.count} updates applied")
+    del acc_program, acc_state
+    torch.cuda.empty_cache()
+
+    # (d) the eval program on two pairs a batch, valid weighting included
+    e_program = capture_eval_step(e_state, cfg, 2, dev)
+    e_eval = make_eval_step(cfg, dev)
+    for i, valid in enumerate(EVAL_PROGRAM_VALID):
+        host = {k: np.concatenate([pairs[(2 * i) % 8][k], pairs[(2 * i + 1) % 8][k]])
+                for k in pairs[0]}
+        got, got_tf = e_program(host, np.array(valid))
+        want, want_tf = e_eval(e_state, batch_to_device(host, spec, dev), torch.tensor(valid))
+        held_bitwise(got, want, f"eval program: batch {i} metrics")
+        held_bitwise({"transforms": got_tf}, {"transforms": want_tf},
+                     f"eval program: batch {i}")
+    per_eval_pair = {k: v / 2 for k, v in e_program.launches.items()}
+    if per_eval_pair != {k: float(v) for k, v in eval_launches.items()}:
+        fail(f"eval program: {e_program.launches} launches for two pairs at the capture, the "
+             f"eager step {eval_launches} a pair")
+    print(f"eval program: {len(EVAL_PROGRAM_VALID)} batches of two pairs (valid "
+          f"{EVAL_PROGRAM_VALID}; 2 eager warm-ups, the capture, a replay) against the eager "
+          f"step: metrics and transforms bit-equal; captured in {e_program.capture_s:.3f} s, "
+          f"{e_program.memory_bytes / 2**10:.1f} KiB kept, "
+          f"{e_program.reserved_bytes / 2**20:.1f} MiB reserved, launches {e_program.launches}")
+
+    # (f) a profiled replay of each launches exactly what its capture counted
+    for name, prog, call in (("train", program, lambda: program(pairs[0])),
+                             ("eval", e_program, lambda: e_program(
+                                 {k: np.concatenate([pairs[0][k], pairs[1][k]])
+                                  for k in pairs[0]}))):
+        _, _, seen, _ = profiled_kernels(call, dev)
+        if seen != {k: prog.launches[k] for k in PROFILED_KERNELS}:
+            fail(f"{name} program: a profiled replay launched {seen}, its capture counted "
+                 f"{prog.launches}")
+        print(f"{name} program: a profiled replay launched {seen}, as its capture counted")
+    step(e_state, batch_to_device(pairs[0], spec, dev), gens[1])  # the twin takes that step too
+    held_bitwise(state_bits(p_state), state_bits(e_state), "train program: after the profiled step")
+
+    # (g) replayed against eager steps in turns; the parts of a step's kernels
+    ms = {"replay": [], "eager": []}
+    peaks = {}
+    for turn in range(TRAIN_PROGRAM_TURNS):
+        host = pairs[turn % 8]
+        for kind in (("replay", "eager") if turn % 2 == 0 else ("eager", "replay")):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            if kind == "replay":
+                got = program(host)
+            else:
+                _, want = e_step(e_state, batch_to_device(host, spec, dev), gens[1])
+            torch.cuda.synchronize(dev)
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            peaks[kind] = max(peaks.get(kind, 0), torch.cuda.max_memory_allocated(dev))
+        held_bitwise(got, want, f"train program: timed turn {turn}")
+    held_bitwise(state_bits(p_state), state_bits(e_state), "train program: after the timed turns")
+    eval_ms = {"replay": [], "eager": []}
+    for turn in range(TRAIN_PROGRAM_TURNS):
+        host = {k: np.concatenate([pairs[turn % 8][k], pairs[(turn + 1) % 8][k]]) for k in pairs[0]}
+        for kind in (("replay", "eager") if turn % 2 == 0 else ("eager", "replay")):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if kind == "replay":
+                got_ev = e_program(host)
+            else:
+                want_ev = e_eval(e_state, batch_to_device(host, spec, dev))
+            torch.cuda.synchronize(dev)
+            eval_ms[kind].append((time.perf_counter() - t0) * 1e3 / 2)
+        held_bitwise(got_ev[0], want_ev[0], f"eval program: timed turn {turn}")
+    r_wall, r_kernel, r_seen, r_prof = profiled_kernels(lambda: program(pairs[1]), dev)
+    marks = []
+
+    def part_hook(name):
+        marks[-1].__exit__(None, None, None)
+        nxt = PARTS.index(name) + 1
+        if nxt < len(PARTS):
+            marks.append(torch.profiler.record_function(f"part:{PARTS[nxt]}"))
+            marks[-1].__enter__()
+
+    def eager_parts():
+        marks.append(torch.profiler.record_function("part:build"))
+        marks[-1].__enter__()
+        batch = batch_to_device(pairs[1], spec, dev)
+        part_hook("build")
+        e_step(e_state, batch, gens[1], stage_hook=part_hook)
+
+    e_wall, e_kernel, e_seen, e_prof = profiled_kernels(eager_parts, dev)
+    held_bitwise(state_bits(p_state), state_bits(e_state), "train program: after the profiled pair")
+    parts = parts_of_step(e_prof, marks)
+    r_events = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in r_prof.key_averages() if e.self_device_time_total > 0
+                       and not getattr(e, "is_user_annotation", False)
+                       and e.device_type == DeviceType.CUDA),
+                      reverse=True)
+    print(f"train program: replayed against eager steps in {TRAIN_PROGRAM_TURNS} turns "
+          f"({card}): replay ms/step {spread(ms['replay'])}, eager {spread(ms['eager'])}; one "
+          f"profiled replay {r_wall:.3f} ms wall, {r_kernel:.3f} ms of kernels "
+          f"({100 * r_kernel / r_wall:.1f}% busy), one profiled eager step {e_wall:.3f} ms wall, "
+          f"{e_kernel:.3f} ms of kernels ({100 * e_kernel / e_wall:.1f}% busy); peak memory "
+          f"allocated: replay "
+          f"{peaks['replay'] / 2**20:.1f} MiB (the graph's buffers sit in its pool's "
+          f"{program.reserved_bytes / 2**20:.1f} MiB), eager {peaks['eager'] / 2**20:.1f} MiB; "
+          f"the eval step on two pairs, ms a pair: replay {spread(eval_ms['replay'])}, eager "
+          f"{spread(eval_ms['eager'])}")
+    attributed = sum(ms for ms, _ in parts.values())
+    print(f"train program: kernel ms by part of the profiled eager step, {attributed:.3f} ms "
+          f"of its {e_kernel:.3f} attributed (the replay runs the same kernels: "
+          f"{r_kernel:.3f} ms, launches {r_seen} / {e_seen}):")
+    for part in PARTS:
+        p_ms, ops = parts.get(part, (0.0, []))
+        print(f"  {part:9s} {p_ms:9.3f} ms  "
+              + "; ".join(f"{op[:48]} {v:.3f}" for v, op in ops[:4]))
+    print("train program: the replay's top kernels by device ms:")
+    for v, n, key in r_events[:8]:
+        print(f"  {v:9.3f} ms  {n:5d} launches  {key[:90]}")
+    del program, e_program, p_state, e_state, got, want
+    torch.cuda.empty_cache()
+
+    # (e) the Trainer through cli.trainval on its programs against an eager Trainer
+    class Recorded(trainer_mod.SummaryBoard):
+        rows = []
+
+        def update_from_dict(self, d):
+            Recorded.rows.append(dict(d))
+            super().update_from_dict(d)
+
+    init = trainer_mod.Trainer.__init__
+
+    def eager_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.use_programs = False
+
+    runs = {}
+    orig_board = trainer_mod.SummaryBoard
+    trainer_mod.SummaryBoard = Recorded
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "kitti")
+            write_workflow_root(root, scan=scan)
+            for kind in ("programs", "eager"):
+                Recorded.rows = []
+                out_dir = os.path.join(tmp, kind)
+                if kind == "eager":
+                    trainer_mod.Trainer.__init__ = eager_init
+                t0 = time.perf_counter()
+                try:
+                    trainer = trainval.main(["--root", root, "--output_dir", out_dir,
+                                             "--bucket_scale", "0.7", "--log_steps", "2",
+                                             "--keep_snapshots", "1", "--max_epoch", "2",
+                                             "--device", dev.type, *cli_args])
+                finally:
+                    trainer_mod.Trainer.__init__ = init
+                wall = time.perf_counter() - t0
+                with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                    records = [json.loads(line) for line in f]
+                runs[kind] = dict(records=records, rows=list(Recorded.rows), wall=wall,
+                                  timings=trainer.epoch_timings, vals=trainer.val_timings,
+                                  programs=trainer.use_programs,
+                                  captured=(trainer.train_program is not None,
+                                            trainer.eval_program is not None))
+                del trainer
+                torch.cuda.empty_cache()
+    finally:
+        trainer_mod.SummaryBoard = orig_board
+    if runs["programs"]["captured"] != (True, True) or runs["eager"]["programs"]:
+        fail(f"train program: the Trainer's programs {runs['programs']['captured']}, the eager "
+             f"Trainer's {runs['eager']['programs']}")
+    if runs["programs"]["records"] != runs["eager"]["records"]:
+        fail(f"train program: metrics.jsonl on the programs {runs['programs']['records']} "
+             f"against eager {runs['eager']['records']}")
+    if runs["programs"]["rows"] != runs["eager"]["rows"] or \
+            len({json.dumps(r, sort_keys=True) for r in runs["programs"]["rows"]}) != \
+            len(runs["programs"]["rows"]):
+        fail("train program: the Trainer's logged steps differ from the eager Trainer's, or "
+             "two logged steps share their values")
+    n_steps = sum(t["steps"] for t in runs["programs"]["timings"])
+    print(f"train program: cli.trainval.main on phase 10's root, 2 epochs: every record of "
+          f"metrics.jsonl ({len(runs['programs']['records'])}) and every logged step "
+          f"({len(runs['programs']['rows'])} rows, {n_steps} train steps, no two alike) equal to "
+          f"the eager Trainer's ({card})")
+    for kind, r in runs.items():
+        rates = [x for t in r["timings"] for x in t["window_steps_per_s"]]
+        print(f"  {kind}: trainval.main {r['wall']:.3f} s; windowed steps/s "
+              f"{[round(x, 3) for x in rates]} ({[round(1e3 / x, 3) for x in rates]} ms/step); "
+              f"epochs {[round(t['seconds'], 3) for t in r['timings']]} s; validation "
+              f"{[round(v['seconds'] / v['pairs'] * 1e3, 3) for v in r['vals']]} ms/pair")
+
+    # (h) bfloat16 and phase 11's families: two replayed steps each, held to eager
+    variants = {"bfloat16": dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                **family_cfgs(cfg)}
+    for name, c in variants.items():
+        prog, _, _, _, _ = twin_run(dev, c, pairs[:4], None, f"train program, {name}")
+        print(f"train program, {name}: two eager warm-ups, the capture and a replay "
+              f"bit-equal to the eager steps; captured in {prog.capture_s:.3f} s, launches "
+              f"{ {k: v for k, v in prog.launches.items() if v} }")
+        del prog
+        torch.cuda.empty_cache()
+    print(f"train program phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"train": train_launches, "eval": eval_launches}
+
+
 def meta_buckets(meta):
     """The bucket configs of a port artifact's ``serving.json``."""
     from rdmnet_tpu_torch.config import Config, config_from_dict
@@ -3944,6 +4450,17 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             write_workflow_root(os.path.join(tmp, "kitti"))
             dp_phase(dev, card, kernels, cfg, ref, src, gt, os.path.join(tmp, "kitti"))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
+
+    if "--train-program-only" in sys.argv[1:]:
+        # phase 19 alone: the Trainer's compiled programs; its launches a pair
+        # on a line of their own for a parent run
+        launches = train_program_phase(dev, card, kernels, cfg, ref, src, gt)
+        print(json.dumps({"train_program_launches": launches}))
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -4221,6 +4738,26 @@ def main() -> None:
     # ---- 18. the compiled serving program: each bucket captured as a CUDA graph ----------------
     for name, n in program_phase(dev, card, kernels, cfg, model, ref, src).items():
         kernels[name]["launches_per_pair"] = n
+
+    # ---- 19. the Trainer's compiled programs: the train and eval steps as CUDA graphs ---------
+    # in a process of its own: a profiled replay of the train program has crashed
+    # (SIGSEGV in cudaGraphLaunch under the profiler) after phase 18 in one process,
+    # never in a fresh one
+    del model, batch
+    torch.cuda.empty_cache()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-program-only"],
+                           capture_output=True, text=True, timeout=900)
+    print("\n".join(line for line in child.stdout.splitlines()
+                    if not line.startswith(("{", "[")) and line != card))
+    if child.returncode != 0:
+        fail(f"train program phase: the child process ended with {child.returncode}: "
+             f"{child.stderr[-3000:]}")
+    launches = next(json.loads(line)["train_program_launches"]
+                    for line in child.stdout.splitlines()
+                    if line.startswith('{"train_program_launches"'))
+    for kind, per in launches.items():
+        for name, n in per.items():
+            kernels[name][f"launches_per_{kind}_program_pair"] = n
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -7,8 +7,9 @@ into a temporary directory and renamed into place, so a run killed while
 writing never leaves a half snapshot that ``latest_step`` would pick. A
 snapshot holds everything a ``TrainState`` keeps: the model's
 ``state_dict``, the optimizer's state keyed by parameter name, the counters
-``count``, ``mini_step`` and ``notfinite_count``, and the gradient
-accumulator when one is open.
+``count``, ``mini_step`` and ``notfinite_count`` (device tensors in the state,
+ints in the snapshot, restored into the state's tensors in place), and the
+gradient accumulator when a group is open.
 
 Writes run on one background thread: ``save`` copies the tensors to the host
 on the caller's thread and returns; readers wait for pending writes first,
@@ -50,13 +51,13 @@ def state_to_host(state: TrainState) -> dict:
             "state": {name_of[i]: {k: _host(v) if isinstance(v, torch.Tensor) else v
                                    for k, v in st.items()}
                       for i, st in opt["state"].items()},
-            "param_groups": [dict(g, params=[name_of[i] for i in g["params"]])
-                             for g in opt["param_groups"]],
+            # the lr is a device tensor the step rewrites from the count: saved as a float
+            "param_groups": [dict(g, params=[name_of[i] for i in g["params"]],
+                                  lr=float(g["lr"])) for g in opt["param_groups"]],
         },
-        "count": state.count,
-        "mini_step": state.mini_step,
-        "notfinite_count": state.notfinite_count,
-        "accumulator": None if state.accumulator is None else {
+        # the device counters as ints
+        **{k: int(v) for k, v in state.counters.items()},
+        "accumulator": None if state.accumulator is None or state.mini_step == 0 else {
             n: _host(a) for n, a in zip(state.param_names, state.accumulator)},
     }
 
@@ -78,12 +79,18 @@ def load_state(state: TrainState, payload: dict) -> TrainState:
         "param_groups": [dict(s, params=g["params"])
                          for s, g in zip(saved["param_groups"], current)],
     })
-    state.count = int(payload["count"])
-    state.mini_step = int(payload["mini_step"])
-    state.notfinite_count = int(payload["notfinite_count"])
+    state.pin_lr()
+    for k in state.COUNTERS:  # into the device tensors a captured step reads
+        setattr(state, k, payload[k])
     acc = payload["accumulator"]
-    state.accumulator = None if acc is None else [acc[n].to(state.device)
-                                                  for n in state.param_names]
+    if acc is not None and state.accumulator is None:
+        raise ValueError("the snapshot holds an open accumulation group; the state "
+                         "accumulates no gradients (grad_acc_steps 1)")
+    for n, a in zip(state.param_names, state.accumulator or ()):
+        if acc is None:
+            a.zero_()
+        else:
+            a.copy_(acc[n])
     return state
 
 

@@ -18,6 +18,14 @@ The optimizer is the JAX package's optax chain, rebuilt on ``torch.optim``:
   trains again. This departs from optax on purpose: its ``(1 - emit) * acc``
   keeps a NaN, and the JAX chain skips every later group.
 
+The guard's decision, the counters, the lr and the group's position are
+device tensors, as they are inside the JAX Trainer's compiled step: a step
+reads nothing back. So on the card the step, with its graph build, is
+captured once as a CUDA graph and replayed (``capture_train_step``,
+``capture_eval_step``): the counterparts of the JAX Trainer's jitted graph
+build (``batch_to_device``), train step and eval step. The eager step and
+the replay run this same code.
+
 Data parallelism: with a process group, ``make_value_and_grad`` all-reduces
 one flat buffer of the rank's gradients (SUM, then / world), the counterpart
 of the psum XLA inserts under the JAX package's ``dp`` mesh, and averages
@@ -31,16 +39,19 @@ that accumulate into ``.grad``, and the step takes them with
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from rdmnet_tpu_torch.config import Config
+from rdmnet_tpu_torch.config import Config, PyramidConfig
 from rdmnet_tpu_torch.device import resolve_device
-from rdmnet_tpu_torch.graph.pyramid import PairBatch
+from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch
 from rdmnet_tpu_torch.losses import Evaluator, OverallLoss
+from rdmnet_tpu_torch.models.rdmnet import CAPTURE_WARMUP
 
 MAX_CONSECUTIVE_ERRORS = 100
 # synchronised parts of one train step (``build`` is ``batch_to_device``)
@@ -48,30 +59,29 @@ TRAIN_STAGES = ("build", "forward", "losses", "backward", "optimizer")
 
 
 def warmup_cosine_schedule(base_lr: float, total_steps: int, warmup_steps: int,
-                           eta_init: float = 0.1, eta_min: float = 0.1) -> Callable[[int], float]:
+                           eta_init: float = 0.1, eta_min: float = 0.1) -> Callable:
     """Linear warmup eta_init -> 1 over ``warmup_steps``, then a half cosine
     1 -> eta_min until ``total_steps``, eta_min after. Update ``count`` (0 for
     the first) takes the factor at ``count + 1``, as torch's LambdaLR in the
-    reference does."""
+    reference does. ``schedule(count)`` takes an int or an integer tensor and
+    returns a float64 tensor on the count's device (no host read)."""
     warmup = max(0, warmup_steps)
     normal = max(1, total_steps - warmup)
 
-    def schedule(count: int) -> float:
-        step = count + 1.0
-        if step < warmup:
-            factor = eta_init + (1.0 - eta_init) * step / max(warmup, 1)
-        elif step > total_steps:
-            factor = eta_min
-        else:
-            factor = eta_min + 0.5 * (1.0 - eta_min) * (
-                1.0 + math.cos(math.pi * (step - warmup) / normal))
+    def schedule(count) -> torch.Tensor:
+        step = torch.as_tensor(count).double() + 1.0
+        warm = eta_init + (1.0 - eta_init) * step / max(warmup, 1)
+        cosine = eta_min + 0.5 * (1.0 - eta_min) * (
+            1.0 + torch.cos(math.pi * (step - warmup) / normal))
+        factor = torch.where(step < warmup, warm, torch.where(step > total_steps, eta_min, cosine))
         return base_lr * factor
 
     return schedule
 
 
-def make_schedule(cfg: Config, steps_per_epoch: int, dp_size: int = 1) -> Callable[[int], float]:
-    """The learning rate as a function of the applied-update count. Under
+def make_schedule(cfg: Config, steps_per_epoch: int, dp_size: int = 1) -> Callable:
+    """The learning rate as a function of the applied-update count (an int or
+    an integer tensor; a float64 tensor on its device comes back). Under
     accumulation an epoch holds steps_per_epoch // grad_acc_steps updates, so
     "decay every lr_decay_steps epochs" stays in epochs. The base lr is
     multiplied by ``dp_size`` when ``cfg.parallel.scale_lr_by_dp``, as the
@@ -81,7 +91,12 @@ def make_schedule(cfg: Config, steps_per_epoch: int, dp_size: int = 1) -> Callab
     applied_per_epoch = max(1, steps_per_epoch // max(1, o.grad_acc_steps))
     if o.scheduler == "step":
         every = o.lr_decay_steps * applied_per_epoch
-        return lambda count: lr * o.lr_decay ** (count // every)
+
+        def staircase(count) -> torch.Tensor:
+            decays = torch.div(torch.as_tensor(count), every, rounding_mode="floor")
+            return lr * o.lr_decay ** decays.double()
+
+        return staircase
     if o.scheduler == "warmup_cosine":
         return warmup_cosine_schedule(lr, o.max_epoch * applied_per_epoch,
                                       o.warmup_steps // max(1, o.grad_acc_steps),
@@ -91,19 +106,50 @@ def make_schedule(cfg: Config, steps_per_epoch: int, dp_size: int = 1) -> Callab
 
 
 def create_optimizer(cfg: Config, params: Sequence[torch.Tensor], steps_per_epoch: int,
-                     dp_size: int = 1) -> Tuple[torch.optim.Adam, Callable[[int], float]]:
-    """Adam with coupled L2 decay over ``params``, and its schedule."""
+                     dp_size: int = 1) -> Tuple[torch.optim.Adam, Callable]:
+    """Adam with coupled L2 decay over ``params``, and its schedule. The lr is
+    a float32 tensor on the parameters' device, which ``apply_gradients``
+    rewrites from the count before every step."""
     schedule = make_schedule(cfg, steps_per_epoch, dp_size)
-    # fused: one multi-tensor kernel per step over all 475 tensors at make_cfg()
-    return torch.optim.Adam(params, lr=schedule(0), weight_decay=cfg.optim.weight_decay,
-                            fused=True), schedule
+    dev = params[0].device
+    lr = schedule(torch.zeros((), dtype=torch.int64, device=dev)).float()
+    # fused: one multi-tensor kernel per step over all 475 tensors at make_cfg();
+    # capturable: the step may be captured in a CUDA graph (the lr and the
+    # skip flag are read on the device)
+    return torch.optim.Adam(params, lr=lr, weight_decay=cfg.optim.weight_decay, fused=True,
+                            capturable=dev.type == "cuda"), schedule
+
+
+class _Counter:
+    """One of ``TrainState``'s device counters, read (a host copy) and
+    written (in place) as a Python int."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, state, owner=None):
+        return self if state is None else int(state.counters[self.name])
+
+    def __set__(self, state, value):
+        state.counters[self.name].fill_(int(value))
 
 
 class TrainState:
-    """A model, its optimizer and the counters optax keeps in its state."""
+    """A model, its optimizer and the counters optax keeps in its state.
+
+    ``count`` (applied updates: the schedule's argument), ``mini_step``
+    (micro-batches in the open group) and ``notfinite_count`` (skipped
+    updates in a row) live on the device as int64 tensors (``counters``),
+    and so do the lr and, under accumulation, the group's running mean: a
+    step reads nothing back, so that it can be captured. Reading one of the
+    three as an attribute copies it to the host; assigning one writes it in
+    place."""
+
+    COUNTERS = ("count", "mini_step", "notfinite_count")
+    count, mini_step, notfinite_count = _Counter(), _Counter(), _Counter()
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Adam,
-                 schedule: Callable[[int], float], grad_acc_steps: int = 1):
+                 schedule: Callable, grad_acc_steps: int = 1):
         self.model = model
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.param_names: List[str] = [n for n, _ in named]
@@ -111,48 +157,72 @@ class TrainState:
         self.optimizer = optimizer
         self.schedule = schedule
         self.grad_acc_steps = max(1, grad_acc_steps)
-        self.count = 0            # applied updates: the schedule's argument
-        self.mini_step = 0        # micro-batches in the current group
-        self.notfinite_count = 0  # skipped updates in a row
-        # running mean of the current group's gradients (grad_acc_steps > 1)
+        dev = self.device
+        self.counters = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in self.COUNTERS}
+        self.lr = optimizer.param_groups[0]["lr"]
+        self._one = torch.ones((), device=dev)
+        # running mean of the current group's gradients (grad_acc_steps > 1),
+        # views of one flat buffer so that the restart after a group is one fill
         self.accumulator: Optional[List[torch.Tensor]] = None
+        if self.grad_acc_steps > 1:
+            flat = torch.zeros(sum(p.numel() for p in self.params), device=dev)
+            self.accumulator = [part.view_as(p) for part, p in
+                                zip(torch.split(flat, [p.numel() for p in self.params]),
+                                    self.params)]
+            self._flat_accumulator = flat
 
     @property
     def device(self) -> torch.device:
         return self.params[0].device
 
-    def apply_gradients(self, grads: Sequence[torch.Tensor]) -> bool:
-        """Take one micro-batch's gradients (in ``params`` order). Returns
-        whether an update was applied. Reads one flag from the device (the
-        finiteness of the update)."""
+    def pin_lr(self) -> None:
+        """Point every param group at ``self.lr`` again (a loaded optimizer
+        state carries its own lr; a captured step reads this tensor)."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr
+            group["capturable"] = self.device.type == "cuda"
+
+    def apply_gradients(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Take one micro-batch's gradients (in ``params`` order). Returns a
+        0-d bool tensor: whether an update was applied. Reads nothing from the
+        device: the guard's decision is a flag that fused Adam honours (it
+        skips the update and takes its ``step`` back), the lr is computed
+        from ``count`` on the device, and the group's position is a tensor,
+        so a captured step replays exactly this code."""
+        c = self.counters
+        emit = None
         if self.grad_acc_steps > 1:
-            if self.accumulator is None:
-                self.accumulator = [torch.zeros_like(g) for g in grads]
+            n = c["mini_step"] + 1
             for acc, g in zip(self.accumulator, grads):
-                acc.add_((g - acc) / (self.mini_step + 1))
-            self.mini_step += 1
-            if self.mini_step < self.grad_acc_steps:
-                return False
-            grads, self.accumulator = self.accumulator, None
-            self.mini_step = 0
+                acc.add_((g - acc) / n)
+            emit = n == self.grad_acc_steps
+            grads = self.accumulator
         # GradScaler's multi-tensor check: one pass over the gradients, no
         # flat copy (the scale of 1 leaves every value as it was)
         found = torch.zeros((), device=self.device)
-        torch._amp_foreach_non_finite_check_and_unscale_(
-            list(grads), found, torch.ones((), device=self.device))
-        finite = not bool(found)
-        self.notfinite_count = 0 if finite else self.notfinite_count + 1
-        if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
-            return False
+        torch._amp_foreach_non_finite_check_and_unscale_(list(grads), found, self._one)
+        bad = found > 0
+        notfinite = torch.where(bad, c["notfinite_count"] + 1, 0)
+        if emit is not None:
+            notfinite = torch.where(emit, notfinite, c["notfinite_count"])
+        skip = bad & (notfinite <= MAX_CONSECUTIVE_ERRORS)
+        if emit is not None:
+            skip = skip | ~emit
+        c["notfinite_count"].copy_(notfinite)
+        self.lr.copy_(self.schedule(c["count"]))
         for p, g in zip(self.params, grads):
             p.grad = g
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.count)
+        self.optimizer.found_inf = skip.float()
         self.optimizer.step()
+        self.optimizer.found_inf = None
         for p in self.params:
             p.grad = None
-        self.count += 1
-        return True
+        c["count"].add_((~skip).long())
+        if emit is not None:
+            c["mini_step"].copy_(torch.where(emit, 0, n))
+            # the group's restart from zero: a non-finite group leaves no NaN behind
+            self._flat_accumulator.masked_fill_(emit, 0.0)
+        return ~skip
 
 
 def create_train_state(cfg: Config, model: nn.Module, steps_per_epoch: int = 1000,
@@ -306,11 +376,211 @@ def make_eval_step(cfg: Config, device=None, with_transform: bool = True) -> Cal
             transforms.append(out["estimated_transform"])
         if valid is None or len(batch) == 1:
             w = torch.ones(len(batch), device=dev)
-        else:
-            w = torch.as_tensor(valid, device=dev).float()
+        else:  # a host mask is copied without a host sync; a card mask is read in place
+            w = torch.as_tensor(valid).to(dev, non_blocking=True).float()
         denom = torch.clamp_min(w.sum(), 1.0)
         means = {name: (torch.stack([m[name] for m in per_pair]) * w).sum() / denom
                  for name in per_pair[0]}
         return means, torch.stack(transforms)
 
     return eval_step
+
+
+# ------------------------------------------------------------------ batches
+
+BATCH_INPUTS = {"ref_points": torch.float32, "ref_counts": torch.int32,
+                "src_points": torch.float32, "src_counts": torch.int32,
+                "transform": torch.float32, "ref_dropped": torch.int32,
+                "src_dropped": torch.int32}
+_NUMPY = {torch.float32: np.float32, torch.int32: np.int32}
+
+
+def batch_inputs(np_batch: Mapping) -> Dict[str, np.ndarray]:
+    """The arrays of a host batch of padded pairs that a step reads, in
+    ``BATCH_INPUTS``'s dtypes: ``ref_points``/``src_points`` (B, cap_0, 3),
+    ``ref_counts``/``src_counts`` (B,), ``transform`` (B, 4, 4) and the host
+    truncation counts ``ref_dropped``/``src_dropped`` (B,), zeros where the
+    batch has none."""
+    bsz = len(np_batch["ref_points"])
+    return {key: np.asarray(np_batch[key] if key in np_batch else np.zeros(bsz), _NUMPY[dtype])
+            for key, dtype in BATCH_INPUTS.items()}
+
+
+def build_batch(inputs: Mapping[str, torch.Tensor], spec: PyramidConfig) -> List[PairBatch]:
+    """Device tensors of ``BATCH_INPUTS`` (B, ...) -> one ``PairBatch`` per
+    pair, its pyramid built on their device (the radius-kNN kernel on the
+    card). Reads nothing back: the truncation counts stay tensors, so a
+    captured step can take them as static inputs."""
+    t = inputs
+    return [build_pair_batch(t["ref_points"][b], t["ref_counts"][b], t["src_points"][b],
+                             t["src_counts"][b], t["transform"][b], spec,
+                             ref_dropped0=t["ref_dropped"][b], src_dropped0=t["src_dropped"][b])
+            for b in range(t["ref_points"].shape[0])]
+
+
+# ----------------------------------------------------------------- programs
+
+class StepProgram:
+    """A step captured once as a CUDA graph and replayed: the card's
+    counterpart of the JAX Trainer's compiled step. The first
+    ``CAPTURE_WARMUP`` calls run the step eagerly on a side stream under
+    ``torch.cuda.set_sync_debug_mode("error")``, so an op that waits for the
+    host raises there with its traceback; the next call captures the step on
+    its inputs and replays the capture at once, and every later call
+    replays it. Every call stages its host arrays in pinned buffers and
+    copies them into the program's static inputs first, so an eager call
+    and a replay run the same code on the same tensors.
+
+    A replay returns the program's static outputs: the same tensors every
+    call, overwritten by the next replay, valid once the current stream
+    reaches them. Calls are serialised by the caller, which consumes (or
+    copies) a call's outputs before the next one. A failed capture raises;
+    nothing falls back to eager. After the capture, ``launches`` holds each
+    kernel's launches in the program (counted at the capture: a replay ticks
+    no wrapper counter), ``path_launches`` the kNN's and Sinkhorn's per
+    path, ``capture_s`` the capture's seconds, ``memory_bytes`` the device
+    memory it keeps allocated (its outputs) and ``reserved_bytes`` what its
+    graph pool reserved."""
+
+    def __init__(self, what: str, body: Callable, stage: Callable, shapes: Mapping,
+                 device: torch.device, generator: Optional[torch.Generator] = None):
+        self.what, self.body, self.stage = what, body, stage
+        self.device, self.generator = device, generator
+        # at least one: the optimizer's state must exist before the capture
+        self.eager_calls_left = CAPTURE_WARMUP
+        with torch.cuda.device(device):
+            self.static = {k: torch.zeros(shape, dtype=dtype, device=device)
+                           for k, (shape, dtype) in shapes.items()}
+            self.host = {k: torch.zeros(shape, dtype=dtype, pin_memory=True)
+                         for k, (shape, dtype) in shapes.items()}
+            self.side = torch.cuda.Stream(device)
+            self.copied = torch.cuda.Event()  # the last call's copies out of the staging buffers
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs = None
+        self.launches = self.path_launches = None
+        self.capture_s = self.memory_bytes = self.reserved_bytes = None
+
+    def __call__(self, *args):
+        arrays = self.stage(*args)
+        self.copied.synchronize()  # a call not yet run may still read the staging buffers
+        for key, buf in self.host.items():
+            value = torch.from_numpy(np.ascontiguousarray(arrays[key]))
+            if tuple(value.shape) != tuple(buf.shape):
+                raise ValueError(f"capture_{self.what}_step: {key} of shape {tuple(value.shape)} "
+                                 f"for a program of shape {tuple(buf.shape)}")
+            buf.copy_(value)
+        with torch.cuda.device(self.device):
+            for key, buf in self.static.items():
+                buf.copy_(self.host[key], non_blocking=True)
+            self.copied.record()
+            if self.graph is None and self.eager_calls_left > 0:
+                self.eager_calls_left -= 1
+                return self._eager()
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+        return self.outputs
+
+    def _eager(self):
+        current = torch.cuda.current_stream(self.device)
+        self.side.wait_stream(current)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(self.side):
+                out = self.body(self.static)
+        except RuntimeError as e:
+            raise RuntimeError(f"capture_{self.what}_step: the eager warm-up waited for the "
+                               f"host: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        current.wait_stream(self.side)
+        return out
+
+    def _capture(self) -> None:
+        from rdmnet_tpu_torch.ops.kernels import all_launch_counts, path_launch_counts
+
+        t0 = time.perf_counter()
+        dev = self.device
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        allocated, reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:  # each replay advances it as the eager step does
+            graph.register_generator_state(self.generator)
+        counts, paths = all_launch_counts(), path_launch_counts()
+        try:
+            with torch.cuda.graph(graph, stream=self.side):  # a pool of its own
+                outputs = self.body(self.static)
+        except RuntimeError as e:
+            raise RuntimeError(f"capture_{self.what}_step: capturing the step failed: {e}") from e
+        torch.cuda.synchronize(dev)
+        self.launches = {k: v - counts[k] for k, v in all_launch_counts().items()}
+        self.path_launches = {k: {p: n - paths[k][p] for p, n in v.items()}
+                              for k, v in path_launch_counts().items()}
+        self.memory_bytes = torch.cuda.memory_allocated(dev) - allocated
+        self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_s = time.perf_counter() - t0
+        self.graph, self.outputs = graph, outputs
+
+
+def _program_device(what: str, state: TrainState, device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"capture_{what}_step: a CUDA graph needs a CUDA device, got {dev}; "
+                         f"the {what} step runs eagerly there")
+    _check_device(state, dev)
+    return state.device
+
+
+def _input_shapes(cfg: Config, batch_size: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    cap = cfg.pyramid.caps[0]
+    per_pair = {"ref_points": (cap, 3), "src_points": (cap, 3), "transform": (4, 4)}
+    return {k: ((batch_size,) + per_pair.get(k, ()), dtype) for k, dtype in BATCH_INPUTS.items()}
+
+
+def capture_train_step(state: TrainState, cfg: Config, batch_size: int,
+                       generator: torch.Generator, device=None) -> StepProgram:
+    """``make_train_step``'s step with its graph build as a program on the
+    card (``StepProgram``): ``program(np_batch) -> metrics`` takes a host
+    batch of ``batch_size`` pairs padded to ``cfg.pyramid.caps[0]``
+    (``batch_inputs``), builds its pyramids, runs the forward, the losses,
+    the backward, the flat gradient and its norm, the non-finite guard and
+    fused Adam, and returns ``make_train_step``'s metrics. The targets are
+    drawn from ``generator`` (a CUDA generator, registered with the graph:
+    each replay draws what the eager step would have drawn), so the eager
+    warm-up calls and the replays after them give the steps an eager loop
+    gives. Gradient accumulation runs inside: one program serves
+    every micro-batch of a group. Raises on a CPU device, where the step
+    runs eagerly."""
+    dev = _program_device("train", state, device)
+    value_and_grad = make_value_and_grad(cfg, dev)
+
+    def body(static):
+        metrics, grads = value_and_grad(state, build_batch(static, cfg.pyramid), generator)
+        state.apply_gradients(grads)
+        return metrics
+
+    return StepProgram("train", body, batch_inputs, _input_shapes(cfg, batch_size), dev,
+                       generator)
+
+
+def capture_eval_step(state: TrainState, cfg: Config, batch_size: int, device=None,
+                      with_transform: bool = True) -> StepProgram:
+    """``make_eval_step``'s step with its graph build as a program on the
+    card (``StepProgram``): ``program(np_batch, valid=None) -> (metrics,
+    transforms)`` over a host batch of ``batch_size`` pairs; ``valid`` (B,)
+    bool weights the pairs (all of them when None). Raises on a CPU device,
+    where the step runs eagerly."""
+    dev = _program_device("eval", state, device)
+    eval_step = make_eval_step(cfg, dev, with_transform)
+    shapes = dict(_input_shapes(cfg, batch_size), valid=((batch_size,), torch.bool))
+
+    def stage(np_batch, valid=None):
+        return dict(batch_inputs(np_batch),
+                    valid=np.ones(batch_size, bool) if valid is None else np.asarray(valid, bool))
+
+    def body(static):
+        return eval_step(state, build_batch(static, cfg.pyramid), static["valid"])
+
+    return StepProgram("eval", body, stage, shapes, dev)

@@ -25,8 +25,10 @@ from rdmnet_tpu_torch.device import resolve_device
 from rdmnet_tpu_torch.engine.checkpoint import CheckpointManager
 from rdmnet_tpu_torch.engine.logger import create_logger
 from rdmnet_tpu_torch.engine.meters import SummaryBoard, Timer, to_floats
-from rdmnet_tpu_torch.engine.train_step import create_train_state, make_eval_step, make_train_step
-from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch
+from rdmnet_tpu_torch.engine.train_step import (batch_inputs, build_batch, capture_eval_step,
+                                                capture_train_step, create_train_state,
+                                                make_eval_step, make_train_step)
+from rdmnet_tpu_torch.graph.pyramid import PairBatch
 from rdmnet_tpu_torch.models import RDMNet
 from rdmnet_tpu_torch.parallel.mesh import is_main, replicate
 from rdmnet_tpu_torch.parallel.mesh import rank as group_rank
@@ -43,19 +45,8 @@ def batch_to_device(np_batch: Mapping, spec: PyramidConfig, device=None) -> List
     ``ref_dropped``/``src_dropped`` (B,) host truncation counts. Runs on CUDA
     unless ``device`` names another device; raises without a card."""
     dev = resolve_device(device)
-    bsz = len(np_batch["ref_points"])
-    zeros = np.zeros(bsz, np.int32)
-    ref_dropped = np.asarray(np_batch.get("ref_dropped", zeros))
-    src_dropped = np.asarray(np_batch.get("src_dropped", zeros))
-
-    def put(key, b, dtype):
-        return torch.tensor(np.asarray(np_batch[key][b]), dtype=dtype, device=dev)
-
-    return [build_pair_batch(put("ref_points", b, torch.float32), put("ref_counts", b, torch.int32),
-                             put("src_points", b, torch.float32), put("src_counts", b, torch.int32),
-                             put("transform", b, torch.float32), spec,
-                             ref_dropped0=int(ref_dropped[b]), src_dropped0=int(src_dropped[b]))
-            for b in range(bsz)]
+    return build_batch({k: torch.tensor(v, device=dev) for k, v in batch_inputs(np_batch).items()},
+                       spec)
 
 
 class Trainer:
@@ -73,6 +64,13 @@ class Trainer:
     restarts from ``cfg.seed + 1`` and the loaders' shuffle (with their
     datasets' draws) from their seeds, rather than continuing where the
     interrupted run stood.
+
+    On one card the train and eval steps, each with its graph build, run as
+    captured programs (``capture_train_step``, ``capture_eval_step``: CUDA
+    graphs made at the first batch of each, after their eager warm-up
+    steps); the CPU and a Trainer with a process group step eagerly. Each
+    step's metrics are copied out of the step's outputs on the device, and
+    a log window's are read back in one copy at its end.
 
     ``epoch_timings`` gets one record per training epoch: its wall seconds,
     the seconds the loop waited on the loader, the steps and the windowed
@@ -126,6 +124,10 @@ class Trainer:
         self._replicate()
         self.train_step = make_train_step(cfg, self.device, group)
         self.eval_step = make_eval_step(cfg, self.device)
+        # on one card each step runs as a captured program (a CUDA graph),
+        # made at its first batch; the CPU and a process group step eagerly
+        self.use_programs = self.device.type == "cuda" and group is None
+        self.train_program = self.eval_program = None
         self.epoch = 0
         self.target_seed = rank_seed(cfg.seed + 1, self.rank)
         self.generator = torch.Generator(device=self.device).manual_seed(self.target_seed)
@@ -138,6 +140,8 @@ class Trainer:
             self.logger.info("no snapshot found; training from scratch")
             return
         self.state, meta = self.snapshots.restore(self.state, step)
+        # the restored optimizer holds new moment tensors: capture anew
+        self.train_program = self.eval_program = None
         self._replicate()
         self.epoch = int(meta.get("epoch", step))
         try:
@@ -166,13 +170,16 @@ class Trainer:
     def train_epoch(self) -> dict:
         board = SummaryBoard(last_n=self.log_steps)
         timer = Timer()
-        pending = []  # metric tensors of the window, read in one pass at its end
+        # each step's metrics copied into one tensor on the device (a replayed
+        # program overwrites its outputs), the window read in one copy at its end
+        names, pending = [], []
         rates = []
         steps, wait = 0, 0.0
 
         def flush():
-            for m in pending:
-                board.update_from_dict(to_floats(m))
+            if pending:
+                for row in torch.stack(pending).tolist():
+                    board.update_from_dict(dict(zip(names, row)))
             pending.clear()
 
         loader = iter(self.train_loader)
@@ -184,10 +191,19 @@ class Trainer:
             wait += time.perf_counter() - t0
             if np_batch is None:
                 break
-            batch = batch_to_device(np_batch, self.cfg.pyramid, self.device)
-            timer.record_prepare()
-            self.state, metrics = self.train_step(self.state, batch, self.generator)
-            pending.append(metrics)
+            if self.use_programs:
+                if self.train_program is None:
+                    self.train_program = capture_train_step(
+                        self.state, self.cfg, len(np_batch["ref_points"]), self.generator,
+                        self.device)
+                timer.record_prepare()  # the graph build runs inside the program
+                metrics = self.train_program(np_batch)
+            else:
+                batch = batch_to_device(np_batch, self.cfg.pyramid, self.device)
+                timer.record_prepare()
+                self.state, metrics = self.train_step(self.state, batch, self.generator)
+            names[:] = list(metrics)
+            pending.append(torch.stack([metrics[k].float() for k in names]))
             timer.record_process()
             steps += 1
             if steps % self.log_steps == 0:
@@ -214,15 +230,21 @@ class Trainer:
         denom = 0.0
         t0 = time.perf_counter()
         for b, np_batch in enumerate(self.val_loader):
-            batch = batch_to_device(np_batch, self.cfg.pyramid, self.device)
+            bsz = len(np_batch["ref_points"])
             valid = np_batch.get("batch_valid")
             if self.group is not None:
                 # a shard's repeats of the head count on the rank that owns it
-                valid = (np.ones(len(batch), bool) if valid is None else valid) \
+                valid = (np.ones(bsz, bool) if valid is None else valid) \
                     & ~self.val_loader.repeated(b)
-            metrics, _ = self.eval_step(
-                self.state, batch, None if valid is None else torch.as_tensor(valid))
-            n_valid = float(np.sum(valid)) if valid is not None else float(len(batch))
+            if self.use_programs:
+                if self.eval_program is None:
+                    self.eval_program = capture_eval_step(self.state, self.cfg, bsz, self.device)
+                metrics, _ = self.eval_program(np_batch, valid)
+            else:
+                batch = batch_to_device(np_batch, self.cfg.pyramid, self.device)
+                metrics, _ = self.eval_step(
+                    self.state, batch, None if valid is None else torch.as_tensor(valid))
+            n_valid = float(np.sum(valid)) if valid is not None else float(bsz)
             for k, v in to_floats(metrics).items():
                 sums[k] = sums.get(k, 0.0) + v * n_valid
             denom += n_valid

@@ -239,7 +239,8 @@ def build_pair_batch(ref_points, ref_count, src_points, src_count, transform,
     """Build both pyramids of a registration pair in one batched pass.
 
     Input features are all-ones on valid rows, zero on pad rows.
-    ``*_dropped0`` record host-side level-0 truncation. With ``sp_group``
+    ``*_dropped0`` record host-side level-0 truncation: ints, or 0-d integer
+    tensors on the clouds' device. With ``sp_group``
     (see ``build_cloud_pyramid``) the two clouds build one after the other,
     as the JAX package drops its pair ``vmap`` under a mesh.
     """
@@ -247,8 +248,11 @@ def build_pair_batch(ref_points, ref_count, src_points, src_count, transform,
     points = torch.stack([ref_points, src_points]).float()
     counts = torch.stack([torch.as_tensor(ref_count, device=dev),
                           torch.as_tensor(src_count, device=dev)]).to(torch.int32)
-    # filled on the device: no copy from host memory (a CUDA graph refuses one)
-    dropped0 = torch.stack([torch.full((), int(d), dtype=torch.int32, device=dev)
+    # a host int is filled on the device (no copy from host memory, which a
+    # CUDA graph refuses); a tensor is read where it lies, so it can be a
+    # captured program's static input
+    dropped0 = torch.stack([d.to(dev, torch.int32).reshape(()) if torch.is_tensor(d)
+                            else torch.full((), int(d), dtype=torch.int32, device=dev)
                             for d in (ref_dropped0, src_dropped0)])
     if sp_group is None:
         both = build_cloud_pyramid(points, counts, spec, dropped0=dropped0)

@@ -76,7 +76,7 @@ class GapLoss:
         dev = scores.device
         src_pts = apply_transform(out["src_node_corr_knn_points"], batch.transform)
         dists = pairwise_sq_dist(ref_pts, src_pts)  # (P, K, K) squared
-        r2 = torch.tensor(self.positive_radius ** 2, dtype=torch.float32, device=dev)
+        r2 = torch.full((), self.positive_radius ** 2, dtype=torch.float32, device=dev)
         big = torch.full_like(dists, BIG)
         kk = torch.full((p, k), k, dtype=torch.int64, device=dev)
 
@@ -93,7 +93,8 @@ class GapLoss:
         ref_label = torch.where((ref_min < r2) & arg_real, ref_arg, kk)    # (P, K) in [0, K]
         ref_rows = scores[:, :k, :]                                        # (P, K, K+1)
         pos = -torch.gather(ref_rows, 2, ref_label[..., None])[..., 0]
-        onehot = torch.nn.functional.one_hot(ref_label, k1).bool()
+        # one_hot's range check reads the labels back on the CPU; a compare does not
+        onehot = ref_label[..., None] == torch.arange(k1, device=dev)
         neg_all = torch.where(onehot, torch.full_like(ref_rows, float("inf")), -ref_rows)
         neg = -torch.sort(-neg_all, dim=2, stable=True).values[:, :, 1:]   # the label dropped
         hinge = torch.clamp_min(pos[..., None] - neg + self.gamma, 0.0)

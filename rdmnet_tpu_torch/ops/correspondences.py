@@ -31,7 +31,8 @@ BIG = 1.0e12
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
     """A float32 threshold on ``like``'s device, as JAX rounds a Python float."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    # filled on the device: torch.tensor(value, device=cuda) copies from host memory
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 @torch.no_grad()

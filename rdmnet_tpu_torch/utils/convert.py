@@ -209,11 +209,13 @@ def train_state_from_jax(state_np: Any, model: nn.Module, cfg, steps_per_epoch: 
                   for i, n in enumerate(names)},
         "param_groups": state.optimizer.state_dict()["param_groups"],
     })
+    state.pin_lr()
     state.count = int(np.asarray(parts["schedule"]["count"]))
     state.notfinite_count = int(np.asarray(parts["finite"]["notfinite_count"]))
     if "multisteps" in parts:
         state.mini_step = int(np.asarray(parts["multisteps"]["mini_step"]))
         if state.mini_step:
             acc = params_from_jax(parts["multisteps"]["acc_grads"])
-            state.accumulator = [acc[n].to(state.device) for n in names]
+            for n, a in zip(names, state.accumulator):
+                a.copy_(acc[n])
     return state

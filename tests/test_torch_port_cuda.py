@@ -8,7 +8,10 @@ against their plain versions (segment sums bit-equal, NMS keep masks and
 rounds equal, eigh4's rotation within 1e-5 of ``torch.linalg.eigh``'s on
 well-conditioned fits), ``pipeline`` with no host sync, each bucket's
 captured program against the eager pipeline on requests that rise and fall
-in size, and eight HTTP clients at once against captured programs.
+in size, and eight HTTP clients at once against captured programs; the
+Trainer's programs: the captured train step (grad_acc_steps 1 and 2, a NaN
+step among them) and eval step bit-equal to the eager steps, and a Trainer
+on its programs against one kept eager.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 
@@ -1188,3 +1191,112 @@ def test_served_replays_over_http_threads_match_eager(cuda, tmp_path):
         np.testing.assert_array_equal(got["ref_corr_points"], want[i]["ref_corr_points"][sel])
         np.testing.assert_allclose(got["estimated_transform"], want[i]["estimated_transform"],
                                    rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------- the Trainer's programs
+
+def _train_pairs(n, nan_at=None):
+    """``n`` one-pair host batches of the tiny config (a procedural pair, src
+    moved by seeded rigid motions); the one at ``nan_at`` has a NaN in its
+    ground truth."""
+    ref, src, gt = procedural_pair(7354, n_rings=16, n_azimuths=200)
+    rng = np.random.RandomState(1)
+    ref, src = ref[rng.permutation(len(ref))[:500]], src[rng.permutation(len(src))[:480]]
+    out = []
+    for i in range(n):
+        a = rng.uniform(-0.2, 0.2)
+        m = np.eye(4)
+        m[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        m[:3, 3] = rng.uniform(-1, 1, 3)
+        (rp, rc), (sp, sc) = pad_cloud(ref, 512), pad_cloud(src @ m[:3, :3].T.astype(np.float32)
+                                                             + m[:3, 3].astype(np.float32), 512)
+        tf = (gt @ np.linalg.inv(m)).astype(np.float32)
+        if i == nan_at:
+            tf[0, 3] = np.nan
+        out.append({"ref_points": rp.numpy()[None], "ref_counts": rc.numpy()[None],
+                    "src_points": sp.numpy()[None], "src_counts": sc.numpy()[None],
+                    "transform": tf[None]})
+    return out
+
+
+def _bits(t):
+    return t.detach().reshape(-1).contiguous().view(torch.uint8)
+
+
+def _written(state):
+    """Every tensor a train step writes, as bytes."""
+    opt = [state.optimizer.state[p] for p in state.params if p in state.optimizer.state]
+    tensors = (list(state.params) + [s[k] for s in opt for k in ("exp_avg", "exp_avg_sq", "step")]
+               + list(state.counters.values()) + [state.lr] + (state.accumulator or []))
+    return torch.cat([_bits(t) for t in tensors])
+
+
+@pytest.mark.parametrize("grad_acc", [1, 2])
+def test_train_program_replays_equal_eager(cuda, grad_acc):
+    """The captured train step (2 eager warm-ups, the capture, replays)
+    against the eager step from the same weights, generator and batches,
+    one with a NaN ground truth: metrics and every tensor the step writes
+    bit-equal after every step, the generators at one offset, the NaN
+    update skipped; launches counted at the capture."""
+    from rdmnet_tpu_torch.engine import capture_train_step, make_train_step
+
+    cfg = make_tiny_cfg()
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, grad_acc_steps=grad_acc))
+    states = [create_train_state(cfg, RDMNet(cfg, device=cuda,
+                                             generator=torch.Generator().manual_seed(3)))
+              for _ in range(2)]
+    gens = [torch.Generator(device=cuda).manual_seed(5) for _ in range(2)]
+    program = capture_train_step(states[0], cfg, 1, gens[0], cuda)
+    step = make_train_step(cfg, cuda)
+    for i, host in enumerate(_train_pairs(6, nan_at=3)):
+        got = program(host)
+        _, want = step(states[1], batch_to_device(host, cfg.pyramid, cuda), gens[1])
+        for k in want:
+            assert torch.equal(_bits(got[k]), _bits(want[k])), (i, k)
+        assert torch.equal(_written(states[0]), _written(states[1])), i
+        assert torch.equal(gens[0].get_state(), gens[1].get_state()), i
+    assert program.graph is not None and program.launches["radius_knn"] == 12
+    assert program.launches["sinkhorn"] == 0
+    assert states[0].count == (5 if grad_acc == 1 else 2) and states[0].notfinite_count == 0
+
+
+def test_eval_program_replays_equal_eager(cuda):
+    """The captured eval step on two pairs a batch, ``valid`` weighting
+    included: metrics and transforms bit-equal to the eager step's."""
+    from rdmnet_tpu_torch.engine import capture_eval_step, make_eval_step
+
+    cfg = make_tiny_cfg()
+    state = create_train_state(cfg, RDMNet(cfg, device=cuda,
+                                           generator=torch.Generator().manual_seed(3)))
+    program = capture_eval_step(state, cfg, 2, cuda)
+    evaluate = make_eval_step(cfg, cuda)
+    pairs = _train_pairs(4)
+    for i, valid in enumerate([(True, True), (True, False), (False, True), (True, True)]):
+        host = {k: np.concatenate([pairs[i][k], pairs[(i + 1) % 4][k]]) for k in pairs[0]}
+        got, got_tf = program(host, np.array(valid))
+        want, want_tf = evaluate(state, batch_to_device(host, cfg.pyramid, cuda),
+                                 torch.tensor(valid))
+        for k in want:
+            assert torch.equal(_bits(got[k]), _bits(want[k])), (i, k)
+        assert torch.equal(got_tf, want_tf), i
+    assert program.launches == {k: 2 * v for k, v in _program_launches(cfg).items()}
+
+
+def test_trainer_on_programs_equals_an_eager_trainer(cuda, tmp_path):
+    """Two epochs of the Trainer on its captured programs and of a Trainer
+    kept eager: equal ``metrics.jsonl`` records and final states."""
+    root = _tiny_root(tmp_path / "root")
+    cfg = make_tiny_cfg()
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, max_epoch=3))
+    records, states = [], []
+    for programs in (True, False):
+        out = tmp_path / f"run{programs}"
+        trainer = Trainer(cfg, *_loaders(root), output_dir=str(out), log_steps=1, device=cuda)
+        trainer.use_programs = programs
+        trainer.run()
+        assert (trainer.train_program is not None) == programs
+        with open(out / "metrics.jsonl") as f:
+            records.append([json.loads(line) for line in f])
+        states.append(state_to_host(trainer.state))
+    assert records[0] == records[1]
+    _host_states_equal(*states)

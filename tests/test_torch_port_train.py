@@ -59,7 +59,7 @@ from rdmnet_tpu_torch.engine import (
 from rdmnet_tpu_torch.engine.train_step import make_schedule
 from rdmnet_tpu_torch.models import RDMNet
 from rdmnet_tpu_torch.ops.kernels import launch_counts
-from rdmnet_tpu_torch.utils.convert import params_from_jax
+from rdmnet_tpu_torch.utils.convert import _optax_states, params_from_jax
 
 CAP = 512
 LOSSES = ("loss", "c_loss", "g_loss", "n_loss", "p_loss", "v_loss", "nn_loss", "d_loss")
@@ -272,11 +272,15 @@ def _optim_cfgs(scheduler, grad_acc):
 @pytest.mark.parametrize("grad_acc", [1, 3])
 @pytest.mark.parametrize("scheduler", ["step", "warmup_cosine"])
 def test_schedules_match_optax(scheduler, grad_acc):
+    """The schedule the step computes on the device from its count tensor
+    (one count at a time, as the step does, and all at once) against optax's."""
     jc, tc = _optim_cfgs(scheduler, grad_acc)
     _, want = jts.create_optimizer(jc, steps_per_epoch=10)
     got = make_schedule(tc, steps_per_epoch=10)
-    values = [got(c) for c in range(51)]
+    values = [float(got(torch.tensor(c))) for c in range(51)]
     np.testing.assert_allclose(values, [float(want(c)) for c in range(51)], rtol=1e-6)
+    np.testing.assert_array_equal(got(torch.arange(51)).numpy(), values)
+    assert got(torch.tensor(0)).dtype == torch.float64
     assert len(set(np.round(values, 12))) >= 3  # the schedule moves inside the window
 
 
@@ -287,12 +291,17 @@ class _Toy(torch.nn.Module):
         self.b = torch.nn.Linear(3, 2)
 
 
-@pytest.mark.parametrize("case", ["decay", "nonfinite", "multisteps", "multisteps_nonfinite"])
+@pytest.mark.parametrize("case", ["decay", "nonfinite", "nonfinite_run", "multisteps",
+                                  "multisteps_nonfinite"])
 def test_adam_matches_optax(case):
     """The optimizer against the JAX package's optax chain on a toy model,
-    fed the same gradients: decay and Adam, a skipped non-finite step, and
-    MultiSteps (a non-finite micro-batch skips its whole group; the last
-    group, as optax's accumulator stays NaN after it)."""
+    fed the same gradients: decay and Adam, a skipped non-finite step, a run
+    of 102 non-finite steps (``apply_if_finite`` skips 100 in a row, then
+    applies the 101st and 102nd, NaNs and all), and MultiSteps (a non-finite
+    micro-batch skips its whole group; the last group, as optax's
+    accumulator stays NaN after it). The guard, the counters, the lr and
+    the group live on the device: ``apply_gradients`` returns a device
+    flag."""
     grad_acc = 3 if case.startswith("multisteps") else 1
     jc, tc = _optim_cfgs("step", grad_acc)
     toy = _Toy()
@@ -306,12 +315,13 @@ def test_adam_matches_optax(case):
     update = jax.jit(tx.update)
     state = create_train_state(tc, toy, steps_per_epoch=2)
     rng = np.random.RandomState(7)
-    steps = 9
-    bad = {"nonfinite": 3, "multisteps_nonfinite": 7}.get(case)
+    steps = 104 if case == "nonfinite_run" else 9
+    bad = {"nonfinite": [3], "nonfinite_run": range(1, 103), "multisteps_nonfinite": [7]}.get(
+        case, [])
     applied = 0
     for i in range(steps):
         grads = {n: rng.randn(*p.shape).astype(np.float32) for n, p in toy.named_parameters()}
-        if i == bad:
+        if i in bad:
             grads[names[1]][0] = np.nan
         upd, opt_state = update({n: jnp.asarray(g) for n, g in grads.items()}, opt_state, jparams)
         jparams = optax.apply_updates(jparams, upd)
@@ -319,9 +329,11 @@ def test_adam_matches_optax(case):
         for n, p in toy.named_parameters():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[n]), rtol=0,
                                        atol=1e-6, err_msg=f"step {i} {n}")
-    expected = {"decay": 9, "nonfinite": 8, "multisteps": 3, "multisteps_nonfinite": 2}[case]
+    expected = {"decay": 9, "nonfinite": 8, "nonfinite_run": 4, "multisteps": 3,
+                "multisteps_nonfinite": 2}[case]
     assert applied == state.count == expected
     assert state.notfinite_count == (case == "multisteps_nonfinite")
+    assert int(_optax_states(opt_state)["finite"]["notfinite_count"]) == state.notfinite_count
 
 
 def test_multisteps_recovers_after_nonfinite_group():

@@ -82,7 +82,8 @@ Phases, each fatal on failure:
 9. RANSAC on the card: 2048 correspondences under a known pose with noise
    and 60% outliers, the same uniforms on the card and on the CPU
    (transforms within 1e-5, the pose within 1e-3 of the known one), and the
-   ms of ``ransac_registration_host`` for 50,000 iterations;
+   ms of ``ransac_registration_host`` for 50,000 iterations (a replay of its
+   program; the untimed first call captures it);
 10. the train -> snapshot -> test -> eval workflow at ``make_cfg()`` full
    width, 0.7 bucket, on a KITTI-layout root of procedural scans written
    into a temporary directory (train sequence 00 of 5 frames, val 06 and
@@ -91,7 +92,8 @@ Phases, each fatal on failure:
    (the resumed state equal to the saved one bit for bit, 3 train and 3 val
    records, every loss finite, the best snapshot the best val record);
    ``cli.test.main`` on the best snapshot with buckets 0.7/1.0 (each dump
-   equal to ``make_forward`` + ``trim_outputs`` at its bucket); ``cli.eval.main``
+   equal to ``make_forward`` + ``trim_outputs`` at its bucket; with two pairs
+   both are a bucket program's eager warm-ups); ``cli.eval.main``
    with lgr, svd and ransac on the card (the JAX CLI's JSON keys, 2 pairs,
    finite numbers); 12 kNN and 0 Sinkhorn launches per train step, 12 and 1
    per validation and test pair; ``cli.test.main --vis`` (each pair's PLY
@@ -266,10 +268,40 @@ Phases, each fatal on failure:
    (GeoTransformer, APE, ``k2``, vote off): two warm-ups, the capture and a
    replay each, bit-equal to eager.
 
+20. the offline CLIs' compiled programs, in a process of its own
+   (``--cli-program-only``), at ``make_cfg()``: (a) one eager forward with
+   ground truth (build, model, Evaluator) on the phase-4 pair at 0.7 and one
+   eager ``ransac_registration`` on phase 9's correspondences at 50,000
+   iterations under ``set_sync_debug_mode("error")`` between the upload and
+   the fetch: no host sync; (b) ``cli.test.main`` with ``--vis`` at buckets
+   0.7/1.0 on a KITTI-layout root whose test split holds 5 pairs a bucket
+   (sequence 08 of ~16-19k-point scans, 09 of ~26-28k), each bucket a
+   program (two eager warm-ups, the capture, 3 replays), against the same
+   run on the eager forward: every ``.npz``, every vis file and every
+   logged metric line equal bit for bit; (c) ``cli.infer.main`` on three of
+   those scans, on the programs (``capture_pipeline``, RANSAC) and eager:
+   the pose file and every ``.npz`` equal; (d) RANSAC programs at
+   capacities 512/1024/2048 and 5,000/50,000 iterations, seeds 0-4 in a
+   row at thresholds 0.3 and 0.015 on each program, every transform equal
+   to an eager call's bit for bit, the draws shown to follow the seed,
+   phase 9's pose within 1e-3; ``cli.eval.main --method ransac`` and
+   ``ransac_featurematch`` on (b)'s dumps, the JSON equal to an eager run's;
+   (e) bfloat16: ``load_exported`` of a bf16 artifact at 0.7 (two replayed
+   requests) and the bf16 test program (two replays), bit-equal to eager
+   bf16; (f) the launches counted at each capture (12/1/4/1/7 a test pair,
+   ``eigh4`` chunks + 2 a RANSAC call) and a profiled replay of the test,
+   infer and RANSAC programs launching exactly them; (g) in turns, with
+   spread: the test loop's wall and proc ms a pair on the programs and
+   eager, the ``.npz`` write alone, a test pair, an infer pair (forward and
+   trim), a RANSAC call at 50,000 iterations, the bf16 replays beside
+   float32's (test pair, served request), each with its peak allocated
+   memory; the busy share of each profiled replay; capture s, memory kept
+   and reserved.
+
 ``python3 chip_smoke.py --dp-only`` runs phases 1, 2 and 14 alone (with two
 cards or more, the NCCL path); ``python3 chip_smoke.py --program-only``
 phases 1, 2 and 18; ``python3 chip_smoke.py --train-program-only`` phases 1,
-2 and 19.
+2 and 19; ``python3 chip_smoke.py --cli-program-only`` phases 1, 2 and 20.
 
 Phase 2 fails if ``-Xptxas -v`` reports a spilled register in any kernel.
 Prints a ``kernels`` JSON line, the card line, and as the last line
@@ -289,7 +321,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 SEED = 7351
 WEIGHT_SEEDS = (1, 2, 3, 4, 5, 6, 7, 8)  # weight draws of the card-vs-CPU phase (phase 5)
@@ -938,18 +970,19 @@ def serving_phase(dev, card, kernels):
     return {name: n / n_requests for name, n in served.items()}
 
 
-def ransac_phase(dev, card):
-    """Phase 9: RANSAC on the card against the CPU on the same uniforms, the
-    known pose recovered, and the time of 50,000 iterations."""
-    import numpy as np
-    import torch
+RANSAC_INLIERS = 820  # of phase 9's 2048 correspondences (60% outliers)
 
-    from rdmnet_tpu_torch.ops.ransac import (ransac_capacity, ransac_registration,
-                                             ransac_registration_host)
+
+def ransac_case():
+    """Phase 9's correspondences: (src, ref, pose) with 2048 rows, the first
+    ``RANSAC_INLIERS`` under the pose with +-0.01 m noise, the rest outliers
+    in a 40 m cube."""
+    import numpy as np
+
     from rdmnet_tpu_torch.utils.se3_np import get_transform_from_rotation_translation
 
     rng = np.random.RandomState(SEED)
-    n, n_in = 2048, 820  # 60% outliers
+    n, n_in = 2048, RANSAC_INLIERS
     q = rng.randn(4)
     w, x, y, z = q / np.linalg.norm(q)
     rot = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
@@ -959,6 +992,20 @@ def ransac_phase(dev, card):
     src = ((rng.rand(n, 3) - 0.5) * 40).astype(np.float32)
     ref = (src @ rot.T + tf[:3, 3] + (rng.rand(n, 3) - 0.5) * 0.02).astype(np.float32)
     ref[n_in:] = (rng.rand(n - n_in, 3) - 0.5) * 40
+    return src, ref, tf
+
+
+def ransac_phase(dev, card):
+    """Phase 9: RANSAC on the card against the CPU on the same uniforms, the
+    known pose recovered, and the time of 50,000 iterations."""
+    import numpy as np
+    import torch
+
+    from rdmnet_tpu_torch.ops.ransac import (ransac_capacity, ransac_registration,
+                                             ransac_registration_host)
+
+    src, ref, tf = ransac_case()
+    n, n_in = len(src), RANSAC_INLIERS
     cap, chunk = ransac_capacity(n)
     n_chunks = -(-RANSAC_ITERATIONS // chunk)
     u = torch.rand(n_chunks, chunk, 4, generator=torch.Generator().manual_seed(SEED))
@@ -1096,7 +1143,7 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, root, cli_args=()):
     events, resumed, test_cfgs = [], [], []
     orig = (trainer_mod.make_train_step, trainer_mod.make_eval_step, trainer_mod.Trainer.resume,
             test_cli._make_eval_forward, test_cli.run_eval_loop, trainer_mod.capture_train_step,
-            trainer_mod.capture_eval_step)
+            trainer_mod.capture_eval_step, test_cli._make_eval_program)
     replayed = {"radius_knn": 0, "sinkhorn": 0}
     loop_s = []
 
@@ -1104,9 +1151,13 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, root, cli_args=()):
         orig[2](self)
         resumed.append(state_to_host(self.state))
 
-    def test_forward(cfg, *args, **kwargs):
+    def test_forward(cfg, *args, **kwargs):  # the CPU's
         test_cfgs.append(cfg)
         return _launch_recorder(events, "test")(orig[3])(cfg, *args, **kwargs)
+
+    def test_program(cfg, *args, **kwargs):  # the card's
+        test_cfgs.append(cfg)
+        return _program_recorder(events, "test", replayed)(orig[7])(cfg, *args, **kwargs)
 
     def timed_loop(*args, **kwargs):
         t0 = time.perf_counter()
@@ -1123,6 +1174,7 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, root, cli_args=()):
     trainer_mod.capture_eval_step = _program_recorder(events, "val", replayed)(orig[6])
     trainer_mod.Trainer.resume = resume_and_keep
     test_cli._make_eval_forward = test_forward
+    test_cli._make_eval_program = test_program
     test_cli.run_eval_loop = timed_loop
     try:
         with tempfile.TemporaryDirectory() as tmp:
@@ -1251,6 +1303,7 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, root, cli_args=()):
             # ---- test the best snapshot
             feature_dir = os.path.join(tmp, "features")
             events.clear()
+            replayed.update(dict.fromkeys(replayed, 0))
             reset_launch_counts()
             out = io.StringIO()
             t0 = time.perf_counter()
@@ -1344,7 +1397,7 @@ def workflow_phase(dev, card, kernels, isolated_step_ms, root, cli_args=()):
     finally:
         (trainer_mod.make_train_step, trainer_mod.make_eval_step, trainer_mod.Trainer.resume,
          test_cli._make_eval_forward, test_cli.run_eval_loop, trainer_mod.capture_train_step,
-         trainer_mod.capture_eval_step) = orig
+         trainer_mod.capture_eval_step, test_cli._make_eval_program) = orig
     counts = {}
     for key, kind, events_of in (("launches_per_trainer_step", "train", train_events),
                                  ("launches_per_val_pair", "val", train_events),
@@ -4359,6 +4412,477 @@ def train_program_phase(dev, card, kernels, cfg, ref, src, gt, scan=WORKFLOW_SCA
     return {"train": train_launches, "eval": eval_launches}
 
 
+CLI_SEQUENCES = {8: (SEED + 30, 6), 9: (SEED + 31, 6)}  # phase 20's test split: 5 pairs each
+CLI_SCANS = {8: dict(n_rings=64, n_azimuths=2000, step=10.0), 9: WORKFLOW_SCAN}
+CLI_DENSE = 3            # phase 20: seq 09's scans gain every 3rd point again, 0.1 m higher
+CLI_TURNS = 2            # phase 20 (g): timed turns a mode (program, eager, eager, program)
+CLI_PAIR_KERNELS = {"radius_knn": 12, "sinkhorn": 1, "segment_sums": 4, "nms_peel": 1, "eigh4": 7}
+RANSAC_ROWS = (500, 1000, 2048)          # phase 20 (d): phase 9's first rows, capacities 512-2048
+RANSAC_PROGRAM_ITERATIONS = (5000, 50000)
+RANSAC_SEEDS = (0, 1, 2, 3, 4)           # called in a row on each program
+RANSAC_THRESHOLDS = (0.3, 0.015)         # 0.015: inlier sets, and so the refits, differ by draw
+
+
+def write_cli_root(root):
+    """Phase 20's KITTI-layout root: test sequence 08 of ~16-18k-point scans
+    (the 0.7 bucket) and 09 of ~20k-point scans, each given every
+    ``CLI_DENSE``-th point again 0.1 m higher (~25-29k points: the 1.0
+    bucket); 6 frames, so 5 pairs, each. The two sequences are rendered in
+    two processes."""
+    import multiprocessing
+
+    import numpy as np
+
+    from rdmnet_tpu_torch.data.datasets import write_procedural_root
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        for done in [pool.submit(write_procedural_root, root, "kitti", {seq: spec},
+                                 **CLI_SCANS[seq]) for seq, spec in CLI_SEQUENCES.items()]:
+            done.result()
+    sizes = {}
+    for seq, (_, n) in CLI_SEQUENCES.items():
+        for i in range(n):
+            path = os.path.join(root, "downsampled_xyzi", f"{seq:02d}", f"{i:06d}.npy")
+            scan = np.load(path)
+            if seq == 9:
+                extra = scan[::CLI_DENSE].copy()
+                extra[:, 2] += 0.1
+                scan = np.concatenate([scan, extra])
+                np.save(path, scan)
+            sizes.setdefault(seq, []).append(len(scan))
+    print(f"cli programs: root of {sum(map(len, sizes.values()))} procedural scans, points per "
+          f"scan {sizes}, written in {time.perf_counter() - t0:.3f} s")
+
+
+class CountedProgram:
+    """A program whose calls are counted (the first ``CAPTURE_WARMUP`` run
+    eagerly, the rest replay)."""
+
+    def __init__(self, program):
+        self.program, self.calls = program, 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.program(*args)
+
+
+def host_copy(parts):
+    """Every tensor of (outputs, metrics) cloned: a program's next call
+    overwrites them."""
+    import torch
+
+    return {f"{i}:{k}": v.clone() for i, part in enumerate(parts) for k, v in part.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def same_files(a_dir, b_dir, where):
+    """Every ``.npz`` (each array bit for bit) and every other file of two
+    output directories, subdirectories included, equal; returns the
+    ``.npz`` names of the top directory."""
+    import numpy as np
+
+    names = sorted(os.listdir(a_dir))
+    if names != sorted(os.listdir(b_dir)):
+        fail(f"{where}: files {names} against {sorted(os.listdir(b_dir))}")
+    for name in names:
+        pa, pb = os.path.join(a_dir, name), os.path.join(b_dir, name)
+        if os.path.isdir(pa):
+            same_files(pa, pb, f"{where}/{name}")
+        elif name.endswith(".npz"):
+            with np.load(pa) as a, np.load(pb) as b:
+                if sorted(a.files) != sorted(b.files) or any(
+                        a[k].dtype != b[k].dtype or a[k].tobytes() != b[k].tobytes()
+                        for k in a.files):
+                    fail(f"{where}: {name} differs between the programs and eager")
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                if fa.read() != fb.read():
+                    fail(f"{where}: {name} differs between the programs and eager")
+    return [n for n in names if n.endswith(".npz")]
+
+
+def cli_program_phase(dev, card, kernels, cfg, ref, src, gt, full=None, cli_args=()):
+    """Phase 20: the offline CLIs' compiled programs, at ``make_cfg()`` full
+    width (``full``, the unscaled config; ``cfg`` its 0.7 bucket):
+    ``test``'s forward with ground truth a program per bucket, ``infer``'s
+    forward replayed, RANSAC a program per capacity, the bfloat16 captures.
+    ``cli_args`` go to every CLI (``--cfg_preset tiny`` with ``full`` the
+    tiny config rehearses the phase on the CPU with stand-in programs).
+    Returns the launches of a test program's pair and of a RANSAC call at
+    ``RANSAC_ITERATIONS``, and the mean ms of each replayed and eager."""
+    import numpy as np
+    import torch
+
+    import rdmnet_tpu_torch.cli.infer as infer_cli
+    import rdmnet_tpu_torch.cli.test as test_cli
+    from rdmnet_tpu_torch.cli import eval as eval_cli
+    from rdmnet_tpu_torch.cli.common import make_forward, pad_pair_np, trim_outputs
+    from rdmnet_tpu_torch.config import make_cfg
+    from rdmnet_tpu_torch.graph.pyramid import pad_cloud
+    from rdmnet_tpu_torch.losses import Evaluator
+    from rdmnet_tpu_torch.models import RDMNet, capture_pipeline, pipeline, with_pyramid
+    from rdmnet_tpu_torch.ops import ransac
+    from rdmnet_tpu_torch.ops.kernels import all_launch_counts, reset_launch_counts
+    from rdmnet_tpu_torch.program import CAPTURE_WARMUP
+    from rdmnet_tpu_torch.serving import SERVE_OUTPUTS, _pad_np, export_inference, load_exported
+
+    t_phase = time.perf_counter()
+    full = full or make_cfg()
+    cap = cfg.pyramid.caps[0]
+    model = RDMNet(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    evaluator = Evaluator(cfg)
+    r_src, r_ref, r_pose = ransac_case()
+    orig_solver, orig_program, orig_loop = ransac.solver, test_cli._make_eval_program, \
+        test_cli.run_eval_loop
+
+    # (a) no host sync between the upload and the fetch of an eager forward with
+    # ground truth (its build and the Evaluator) and of an eager RANSAC
+    body = test_cli._eval_body(cfg, model, evaluator)
+    (rp, rc), (sp, sc) = pad_cloud(ref, cap, device=dev), pad_cloud(src, cap, device=dev)
+    pose = torch.tensor(gt, dtype=torch.float32, device=dev)
+    r_args = [torch.tensor(r_src, device=dev), torch.tensor(r_ref, device=dev),
+              torch.ones(len(r_src), dtype=torch.bool, device=dev)]
+    r_cap, r_chunk = ransac.ransac_capacity(len(r_src))
+
+    def eager_ransac():
+        with torch.no_grad():
+            return ransac.ransac_registration(
+                *r_args, torch.Generator(device=dev).manual_seed(SEED),
+                num_iterations=RANSAC_ITERATIONS, chunk=r_chunk, threshold=0.3)
+
+    body(rp, rc, sp, sc, pose)  # lazy set-up (cuBLAS handles) first
+    eager_ransac()
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, metrics = body(rp, rc, sp, sc, pose)
+        r_tf = eager_ransac()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    r_err = float(np.abs(r_tf.cpu().numpy() - r_pose).max())
+    if not all(np.isfinite(v) for v in metrics.values()) or r_err > 1e-3:
+        fail(f"cli programs (a): metrics {metrics}, RANSAC pose off by {r_err}")
+    print(f"cli programs (a): no host sync between the upload and the fetch of an eager forward "
+          f"with ground truth (build, model, Evaluator; {metrics}) nor of an eager "
+          f"ransac_registration ({len(r_src)} correspondences, {RANSAC_ITERATIONS} iterations, "
+          f"pose within {r_err:.3e})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        write_cli_root(root)
+
+        def run_test(mode, feature_dir, vis):
+            """``cli.test.main`` on the root at buckets 0.7/1.0, its forward the
+            programs (``program``) or the eager forward (``eager``): (log lines,
+            run_eval_loop s, [(cap, CountedProgram)])."""
+            made, loop_s = [], []
+
+            def make_program(c, *args):
+                made.append((c.pyramid.caps[0], CountedProgram(orig_program(c, *args))))
+                return made[-1][1]
+
+            def timed_loop(*args, **kwargs):
+                t0 = time.perf_counter()
+                board = orig_loop(*args, **kwargs)
+                loop_s.append(time.perf_counter() - t0)
+                return board
+
+            test_cli._make_eval_program = (make_program if mode == "program"
+                                           else test_cli._make_eval_forward)
+            test_cli.run_eval_loop = timed_loop
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    test_cli.main(["--root", root, "--buckets", "0.7,1.0", "--subset", "test",
+                                   "--feature_dir", feature_dir, "--device", dev.type,
+                                   *cli_args] + (["--vis"] if vis else []))
+            finally:
+                test_cli._make_eval_program, test_cli.run_eval_loop = orig_program, orig_loop
+            return out.getvalue().splitlines(), loop_s[0], made
+
+        def untimed(lines):
+            return [re.sub(r" \| prep [0-9.]+s proc [0-9.]+s", "", line) for line in lines]
+
+        # (b) cli.test.main on the programs against the eager forward, --vis on
+        reset_launch_counts()
+        p_lines, _, made = run_test("program", os.path.join(tmp, "test_program"), True)
+        counted = all_launch_counts()
+        e_lines, _, _ = run_test("eager", os.path.join(tmp, "test_eager"), True)
+        names = same_files(os.path.join(tmp, "test_program"), os.path.join(tmp, "test_eager"),
+                           "cli programs (b): test")
+        if untimed(p_lines) != untimed(e_lines):
+            fail("cli programs (b): test's log lines differ between the programs and eager:\n"
+                 + "\n".join(untimed(p_lines)) + "\n--\n" + "\n".join(untimed(e_lines)))
+        check_vis_exports(os.path.join(tmp, "test_program"), names)
+        if sorted(c for c, _ in made) != [cap, full.pyramid.caps[0]]:
+            fail(f"cli programs (b): programs at {[c for c, _ in made]}")
+        for c, prog in made:
+            if prog.calls - CAPTURE_WARMUP < 3:
+                fail(f"cli programs (b): bucket {c} replayed {prog.calls - CAPTURE_WARMUP} times")
+            if prog.program.launches != CLI_PAIR_KERNELS:
+                fail(f"cli programs (f): the test program at {c} launches "
+                     f"{prog.program.launches} a pair, not {CLI_PAIR_KERNELS}")
+        if any(n == 0 for n in counted.values()):
+            fail(f"cli programs (b): a kernel of the path was not launched: {counted}")
+        replayed = {k: sum(p.program.launches[k] * (p.calls - CAPTURE_WARMUP) for _, p in made)
+                    for k in counted}
+        print(f"cli programs (b): cli.test.main at buckets 0.7/1.0 with --vis, {len(names)} "
+              f"pairs ({', '.join(f'{p.calls} at cap {c}' for c, p in made)}: two eager "
+              f"warm-ups, then the capture and replays): every .npz, every vis file and every "
+              f"logged metric line equal to the eager forward's run bit for bit; launches "
+              f"{counted} in the warm-ups and captures, {replayed} in the replays (counted at "
+              f"the capture)")
+        for c, p in made:
+            print(f"  test program at cap {c}: captured in {p.program.capture_s:.3f} s, "
+                  f"{p.program.memory_bytes / 2**20:.1f} MiB kept, "
+                  f"{p.program.reserved_bytes / 2**20:.1f} MiB reserved, launches a pair "
+                  f"{p.program.launches}")
+
+        # (c) cli.infer.main on three scans: programs against eager
+        assets = os.path.join(tmp, "assets")
+        os.makedirs(assets)
+        for i, name in enumerate(("000000", "000004", "000007")):
+            np.save(os.path.join(assets, name + ".npy"),
+                    np.load(os.path.join(root, "downsampled_xyzi", "08", f"{i:06d}.npy")))
+        kept = []
+        orig_infer = infer_cli._make_forward
+
+        def run_infer(mode, out_dir):
+            if mode == "program":
+                infer_cli._make_forward = lambda c, m, d: (kept.append((c, m, orig_infer(c, m, d)))
+                                                           or kept[-1][2])
+            else:
+                infer_cli._make_forward = lambda c, m, d: (
+                    lambda *padded: make_forward(c, m, with_gt=False, device=d)(
+                        *padded, np.eye(4, dtype=np.float32)))
+                ransac.solver = ransac.eager_solver
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    infer_cli.main(["--asset_dir", assets, "--output_dir", out_dir,
+                                    "--device", dev.type, *cli_args])
+                return time.perf_counter() - t0
+            finally:
+                infer_cli._make_forward, ransac.solver = orig_infer, orig_solver
+
+        infer_s = {m: run_infer(m, os.path.join(tmp, f"infer_{m}")) for m in ("program", "eager")}
+        inferred = same_files(os.path.join(tmp, "infer_program"), os.path.join(tmp, "infer_eager"),
+                              "cli programs (c): infer")
+        i_cfg, i_model, i_run = kept[0]
+        print(f"cli programs (c): cli.infer.main on 3 scans: the pose file and {len(inferred)} "
+              f".npz (ransac_transform among them) equal to the eager run's bit for bit; "
+              f"infer.main {infer_s['program']:.3f} s on the programs, {infer_s['eager']:.3f} s "
+              f"eager (model build, capture, 2 pairs, RANSAC); the forward at cap "
+              f"{i_cfg.pyramid.caps[0]} captured in {i_run.capture_s:.3f} s, launches "
+              f"{i_run.launches}")
+
+        # (d) the RANSAC programs against eager calls, bit for bit
+        weights = np.random.RandomState(SEED).rand(len(r_src)).astype(np.float32)
+        spread_seeds, r_programs = 0, {}
+        for n in RANSAC_ROWS:
+            n_cap, n_chunk = ransac.ransac_capacity(n)
+            for iters in RANSAC_PROGRAM_ITERATIONS:
+                program = ransac.solver(n_cap, n_chunk, iters, 4, dev)
+                r_programs[(n_cap, iters)] = program
+                want_eigh = -(-iters // n_chunk) + 2
+                if program.launches != dict.fromkeys(CLI_PAIR_KERNELS, 0) | {"eigh4": want_eigh}:
+                    fail(f"cli programs (f): the RANSAC program at capacity {n_cap}, {iters} "
+                         f"iterations launches {program.launches}, not {want_eigh} eigh4")
+                for thr in RANSAC_THRESHOLDS:
+                    args = (r_src[:n], r_ref[:n], weights[:n])
+                    kw = dict(num_iterations=iters, threshold=thr, device=dev)
+                    got = [ransac.ransac_registration_host(*args, seed=s, **kw)
+                           for s in RANSAC_SEEDS]
+                    ransac.solver = ransac.eager_solver
+                    try:
+                        want = [ransac.ransac_registration_host(*args, seed=s, **kw)
+                                for s in RANSAC_SEEDS]
+                    finally:
+                        ransac.solver = orig_solver
+                    for s, a, b in zip(RANSAC_SEEDS, got, want):
+                        if a.tobytes() != b.tobytes():
+                            fail(f"cli programs (d): RANSAC at capacity {n_cap}, {iters} "
+                                 f"iterations, threshold {thr}, seed {s}: the replay differs "
+                                 f"from eager by {np.abs(a - b).max():.3e}")
+                    spread_seeds += len({w.tobytes() for w in want}) > 1
+                    if thr == RANSAC_THRESHOLDS[0]:
+                        err = max(float(np.abs(a - r_pose).max()) for a in got)
+                        if err > 1e-3:
+                            fail(f"cli programs (d): RANSAC at capacity {n_cap}, {iters} "
+                                 f"iterations: pose off by {err:.3e}")
+        if not spread_seeds:
+            fail("cli programs (d): no case's eager transforms differ by seed: the draws "
+                 "are not checked")
+        print(f"cli programs (d): RANSAC programs at capacities "
+              f"{sorted({c for c, _ in r_programs})}, {RANSAC_PROGRAM_ITERATIONS} iterations: "
+              f"seeds {RANSAC_SEEDS} in a row at thresholds {RANSAC_THRESHOLDS} on each program "
+              f"(the threshold an input, not a constant), every transform equal to an eager "
+              f"call's bit for bit; {spread_seeds} of {len(r_programs) * 2} cases' transforms "
+              f"differ by seed; phase 9's pose within 1e-3 at 0.3; eigh4 launches a call "
+              f"{ {k: p.launches['eigh4'] for k, p in r_programs.items()} }; captured in "
+              f"{ {k: round(p.capture_s, 3) for k, p in r_programs.items()} } s")
+        caps_seen = set()
+        for name in names:
+            with np.load(os.path.join(tmp, "test_program", name)) as d:
+                caps_seen.add(ransac.ransac_capacity(len(d["corr_scores"]))[0])
+        for method in ("ransac", "ransac_featurematch"):
+            written, eval_s = set(), {}
+            for mode in ("program", "eager", "eager", "program"):
+                json_out = os.path.join(tmp, f"eval_{method}_{mode}.json")
+                if mode == "eager":
+                    ransac.solver = ransac.eager_solver
+                try:
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        eval_cli.main(["--feature_dir", os.path.join(tmp, "test_program"),
+                                       "--method", method, "--json_out", json_out,
+                                       "--device", dev.type])
+                    eval_s.setdefault(mode, []).append(
+                        (time.perf_counter() - t0) * 1e3 / len(names))
+                finally:
+                    ransac.solver = orig_solver
+                with open(json_out) as f:
+                    written.add(f.read())
+            if len(written) != 1:
+                fail(f"cli programs (d): eval {method}'s JSON differs between the programs and "
+                     f"eager")
+            print(f"cli programs (d): cli.eval.main --method {method} on (b)'s {len(names)} "
+                  f"dumps (--method ransac: capacities {sorted(caps_seen)}, a program each) : "
+                  f"the JSON equal to the eager run's; ms a pair in turns: programs "
+                  f"{[round(x, 3) for x in eval_s['program']]}, eager "
+                  f"{[round(x, 3) for x in eval_s['eager']]} ({card})")
+
+        # (e) bfloat16: the served pipeline through load_exported, and the test program
+        cfg_b = dataclasses.replace(full, compute_dtype="bfloat16")
+        model_b = RDMNet(cfg_b, device=dev, generator=torch.Generator().manual_seed(SEED))
+        export_inference(cfg_b, model_b, os.path.join(tmp, "bf16"), bucket_scales=(0.7,))
+        serve, _ = load_exported(os.path.join(tmp, "bf16"), device=dev)
+        b_cfg = dataclasses.replace(cfg_b, pyramid=cfg.pyramid)
+        b_view = with_pyramid(serve.model, b_cfg.pyramid)
+        pairs = moved_pairs(ref, src, gt, cap, 4, SEED + 20)
+        padded = [tuple(p[k][0] for k in ("ref_points", "ref_counts", "src_points", "src_counts",
+                                          "transform")) for p in pairs]
+        for i in range(2):
+            r_pts, s_pts = padded[i][0][:padded[i][1]], padded[i][2][:padded[i][3]]
+            got = serve(r_pts, s_pts)
+            want = pipeline(b_view, *_pad_np(r_pts, cap), *_pad_np(s_pts, cap), device=dev)
+            for k in SERVE_OUTPUTS:
+                if got[k].tobytes() != want[k].cpu().numpy().tobytes():
+                    fail(f"cli programs (e): bf16 served request {i}: {k} differs from eager")
+        b_served = serve.programs[cap]
+        b_eval = Evaluator(b_cfg)
+        b_program = test_cli._make_eval_program(b_cfg, model_b, b_eval, dev)
+        b_eager = test_cli._make_eval_forward(b_cfg, model_b, b_eval, dev)
+        for i, args in enumerate(padded):
+            got = host_copy(b_program(*args))
+            held_bitwise(got, host_copy(b_eager(*args)), f"cli programs (e): bf16 test pair {i}")
+        print(f"cli programs (e): bfloat16: load_exported captured the served pipeline at cap "
+              f"{cap} (warm-ups under the sync check) in {b_served.capture_s:.3f} s, two replayed "
+              f"requests bit-equal to the eager bf16 pipeline; the bf16 test program (2 eager "
+              f"warm-ups, the capture) replayed twice, outputs and metrics bit-equal to the "
+              f"eager bf16 forward; launches {b_program.launches}")
+
+        # (f) a profiled replay of each program launches what its capture counted; the
+        # card's busy share in it
+        t_program = next(p.program for c, p in made if c == cap)
+        f_program = test_cli._make_eval_program(cfg, model, evaluator, dev)
+        f_eager = test_cli._make_eval_forward(cfg, model, evaluator, dev)
+        for args in padded[:3]:
+            f_program(*args)
+        i_padded = pad_pair_np(i_cfg, ref, src)
+        r_program = r_programs[(r_cap, RANSAC_ITERATIONS)]
+        r_host = (r_src, r_ref, weights)
+        busy = {}
+        for name, prog, call in (
+                ("test", f_program, lambda: f_program(*padded[0])),
+                ("infer", i_run, lambda: i_run(*i_padded)),
+                ("ransac", r_program, lambda: ransac.ransac_registration_host(
+                    *r_host, num_iterations=RANSAC_ITERATIONS, device=dev))):
+            wall, kernel, seen, _ = profiled_kernels(call, dev)
+            if seen != {k: prog.launches[k] for k in PROFILED_KERNELS}:
+                fail(f"cli programs (f): a profiled {name} replay launched {seen}, its capture "
+                     f"counted {prog.launches}")
+            busy[name] = (wall, kernel)
+            print(f"cli programs (f): a profiled {name} replay launched {seen}, as its capture "
+                  f"counted; {wall:.3f} ms wall, {kernel:.3f} ms of kernels "
+                  f"({100 * kernel / wall:.1f}% busy)")
+
+        # (g) replayed against eager in turns: the test loop, infer's forward, RANSAC
+        loop = {"program": [], "eager": []}
+        for turn in range(CLI_TURNS):
+            for mode in (("program", "eager") if turn % 2 == 0 else ("eager", "program")):
+                lines, loop_s, _ = run_test(mode, os.path.join(tmp, f"t{turn}{mode}"), False)
+                proc = [float(x) * 1e3 for x in re.findall(r"proc ([0-9.]+)s", "\n".join(lines))]
+                loop[mode].append((loop_s * 1e3 / len(names), proc))
+        write_ms = []
+        for name in names[:3]:
+            with np.load(os.path.join(tmp, "test_program", name)) as d:
+                arrays = {k: d[k] for k in d.files}
+            t0 = time.perf_counter()
+            np.savez_compressed(os.path.join(tmp, "write_" + name), **arrays)
+            write_ms.append((time.perf_counter() - t0) * 1e3)
+        for mode, runs in loop.items():
+            print(f"cli programs (g): test loop, {mode}: wall ms a pair "
+                  f"{[round(w, 3) for w, _ in runs]}; proc ms a pair (issue only) "
+                  f"{[[round(p, 3) for p in proc] for _, proc in runs]} ({card})")
+        print(f"cli programs (g): the .npz write alone {[round(w, 3) for w in write_ms]} ms")
+
+        timed = {}
+        f_served = capture_pipeline(with_pyramid(model, cfg.pyramid), dev)
+        i_eager = make_forward(i_cfg, i_model, with_gt=False, device=dev)
+        f_cases = {
+            "test pair": (lambda: host_copy(f_program(*padded[0])),
+                          lambda: host_copy(f_eager(*padded[0]))),
+            "infer pair": (lambda: trim_outputs(i_run(*i_padded), np.eye(4)),
+                           lambda: trim_outputs(i_eager(*i_padded, np.eye(4, dtype=np.float32)),
+                                                np.eye(4))),
+            "RANSAC call": (lambda: ransac.ransac_registration_host(
+                *r_host, num_iterations=RANSAC_ITERATIONS, device=dev),
+                lambda: ransac.eager_solver(r_cap, r_chunk, RANSAC_ITERATIONS, 4, dev)(
+                    r_src, r_ref, np.ones(r_cap, bool), weights, 0.3, 0).cpu()),
+            "bf16 test pair": (lambda: host_copy(b_program(*padded[0])),
+                               lambda: host_copy(f_program(*padded[0]))),
+            "bf16 served request": (lambda: b_served(*padded[0][:4]),
+                                    lambda: f_served(*padded[0][:4])),
+        }
+        peaks = {}
+        for name, fns in f_cases.items():
+            labels = (("bf16 replay", "float32 replay") if name.startswith("bf16")
+                      else ("replay", "eager"))
+            for turn in range(3 * CLI_TURNS):
+                for which in ((0, 1) if turn % 2 == 0 else (1, 0)):
+                    torch.cuda.synchronize(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    t0 = time.perf_counter()
+                    fns[which]()
+                    torch.cuda.synchronize(dev)
+                    timed.setdefault((name, labels[which]), []).append(
+                        (time.perf_counter() - t0) * 1e3)
+                    peaks[(name, labels[which])] = max(peaks.get((name, labels[which]), 0),
+                                                       torch.cuda.max_memory_allocated(dev))
+            print(f"cli programs (g): {name} in {3 * CLI_TURNS} turns, ms: "
+                  + "; ".join(f"{lab} {spread(timed[(name, lab)])} (peak allocated "
+                              f"{peaks[(name, lab)] / 2**20:.1f} MiB)" for lab in labels)
+                  + f" ({card})")
+        for name, (wall, kernel) in busy.items():
+            print(f"cli programs (g): one profiled {name} replay {wall:.3f} ms wall, "
+                  f"{kernel:.3f} ms of kernels, {100 * kernel / wall:.1f}% busy ({card})")
+        print(f"cli programs (g): test program at cap {cap}: captured in "
+              f"{t_program.capture_s:.3f} s, {t_program.memory_bytes / 2**20:.1f} MiB kept, "
+              f"{t_program.reserved_bytes / 2**20:.1f} MiB reserved; RANSAC pool "
+              f"{ {k: round(p.reserved_bytes / 2**20, 1) for k, p in r_programs.items()} } MiB "
+              f"reserved at each capture; infer's forward {i_run.memory_bytes / 2**20:.1f} MiB "
+              f"kept; bf16 test program {b_program.capture_s:.3f} s, "
+              f"{b_program.reserved_bytes / 2**20:.1f} MiB reserved")
+    print(f"cli program phase: {time.perf_counter() - t_phase:.1f} s")
+    mean = {k: sum(v) / len(v) for k, v in timed.items()}
+    return {"test_program": t_program.launches, "ransac_program": r_program.launches,
+            "test_pair_ms": {k: mean[("test pair", k)] for k in ("replay", "eager")},
+            "ransac_call_ms": {k: mean[("RANSAC call", k)] for k in ("replay", "eager")}}
+
+
 def meta_buckets(meta):
     """The bucket configs of a port artifact's ``serving.json``."""
     from rdmnet_tpu_torch.config import Config, config_from_dict
@@ -4461,6 +4985,17 @@ def main() -> None:
         # on a line of their own for a parent run
         launches = train_program_phase(dev, card, kernels, cfg, ref, src, gt)
         print(json.dumps({"train_program_launches": launches}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
+
+    if "--cli-program-only" in sys.argv[1:]:
+        # phase 20 alone: the offline CLIs' compiled programs; their launches on a
+        # line of their own for a parent run
+        launches = cli_program_phase(dev, card, kernels, cfg, ref, src, gt)
+        print(json.dumps({"cli_program_launches": launches}))
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -4758,6 +5293,25 @@ def main() -> None:
     for kind, per in launches.items():
         for name, n in per.items():
             kernels[name][f"launches_per_{kind}_program_pair"] = n
+
+    # ---- 20. the offline CLIs' compiled programs: test, infer, RANSAC, bf16 ----------------
+    # in a process of its own, as phase 19
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli-program-only"],
+                           capture_output=True, text=True, timeout=900)
+    print("\n".join(line for line in child.stdout.splitlines()
+                    if not line.startswith(("{", "[")) and line != card))
+    if child.returncode != 0:
+        fail(f"cli program phase: the child process ended with {child.returncode}: "
+             f"{child.stderr[-3000:]}")
+    launches = next(json.loads(line)["cli_program_launches"]
+                    for line in child.stdout.splitlines()
+                    if line.startswith('{"cli_program_launches"'))
+    for name, n in launches["test_program"].items():
+        kernels[name]["launches_per_test_program_pair"] = n
+        kernels[name]["test_program_pair_ms"] = launches["test_pair_ms"]
+    for name, n in launches["ransac_program"].items():
+        kernels[name]["launches_per_ransac_program_call"] = n
+    kernels["eigh4"]["ransac_program_call_ms"] = launches["ransac_call_ms"]
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

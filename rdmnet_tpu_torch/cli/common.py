@@ -3,8 +3,8 @@ config selection and overrides, the seeded model, host padding, the
 forward, and padded -> dynamic output trimming.
 
 ``--device`` (``cuda`` or ``cpu``) takes the place of the JAX CLIs'
-``--platform``. The port does not JIT, so there is no compile cache to set
-up.
+``--platform``. Where the JAX CLIs jit, the port captures CUDA graphs on the
+card, at run time, so there is no compile cache to set up.
 """
 
 from __future__ import annotations
@@ -159,7 +159,10 @@ def pad_pair_np(cfg: Config, ref_points: np.ndarray, src_points: np.ndarray):
 def make_forward(cfg: Config, model, with_gt: bool, device=None):
     """Padded arrays in -> the model's outputs: the graph build at
     ``cfg.pyramid`` and the forward on ``device`` (CUDA unless told
-    otherwise), without autograd."""
+    otherwise), without autograd, run eagerly. On the card ``infer`` and
+    ``test`` replay captured programs of this forward
+    (``models.capture_pipeline``, ``cli/test.py``'s program per bucket); this
+    eager function is what they are held to."""
     from rdmnet_tpu_torch.device import resolve_device
     from rdmnet_tpu_torch.graph.pyramid import build_pair_batch
 

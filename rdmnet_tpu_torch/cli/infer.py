@@ -11,7 +11,9 @@ Usage:
 
 ``--asset_dir`` holds ``000000.npy``, ``000004.npy`` and ``000007.npy``.
 Without ``--snapshot_dir`` or ``--torch_checkpoint`` the weights are drawn
-from the config's seed.
+from the config's seed. On the card each pair replays the forward captured
+once as a CUDA graph (``models.capture_pipeline``), and the RANSAC re-solve
+replays its program (``ops.ransac``); on the CPU both run eagerly.
 """
 
 from __future__ import annotations
@@ -31,10 +33,26 @@ def format_pose_line(ref_frame: int, src_frame: int, est: np.ndarray) -> str:
     )
 
 
+def _make_forward(cfg, model, device):
+    """``(rp, rc, sp, sc) -> outputs`` without ground truth: on the card a
+    replay of ``models.capture_pipeline`` at ``cfg``'s bucket (its outputs
+    are overwritten by the next call), elsewhere ``common.make_forward``,
+    the eager oracle, with the identity transform."""
+    from rdmnet_tpu_torch.cli.common import make_forward
+    from rdmnet_tpu_torch.device import resolve_device
+    from rdmnet_tpu_torch.models import capture_pipeline
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return capture_pipeline(model, dev)
+    forward = make_forward(cfg, model, with_gt=False, device=dev)
+    return lambda rp, rc, sp, sc: forward(rp, rc, sp, sc, np.eye(4, dtype=np.float32))
+
+
 def main(argv=None):
     from rdmnet_tpu_torch.cli.common import (add_model_overrides, add_pyramid_overrides,
-                                             build_model_and_params, make_cli_cfg, make_forward,
-                                             pad_pair_np, trim_outputs)
+                                             build_model_and_params, make_cli_cfg, pad_pair_np,
+                                             trim_outputs)
     from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset
 
     parser = argparse.ArgumentParser()
@@ -55,13 +73,13 @@ def main(argv=None):
     )
     model = build_model_and_params(cfg, args.snapshot_dir, args.test_epoch, device=args.device,
                                    torch_checkpoint=args.torch_checkpoint)
-    forward = make_forward(cfg, model, with_gt=False, device=args.device)
+    forward = _make_forward(cfg, model, args.device)
 
     pose_lines = []
     for i in range(len(dataset)):
         item = dataset[i]
         rp, rc, sp, sc = pad_pair_np(cfg, item["ref_points"], item["src_points"])
-        out = forward(rp, rc, sp, sc, np.eye(4, dtype=np.float32))
+        out = forward(rp, rc, sp, sc)
         dumped = trim_outputs(out, np.eye(4, dtype=np.float32))
         est = dumped["estimated_transform"]
 

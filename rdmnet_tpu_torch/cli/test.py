@@ -155,26 +155,84 @@ def _export_pair_vis(pair_dir, dumped, vis, transform, acceptance_radius):
             export_grouping(pair_dir, points, _nearest_owner(points, nodes), prefix=f"{side}_")
 
 
-def _make_eval_forward(cfg, model, evaluator, dev):
-    """Padded pair -> (outputs, metrics): the graph build at ``cfg.pyramid``,
-    the model with ground truth, the Evaluator and ``dropped`` (points or
-    voxels the pyramid's capacities cut)."""
+def _eval_body(cfg, model, evaluator):
+    """Device tensors of a padded pair -> (outputs, metrics): the graph build
+    at ``cfg.pyramid``, the model with ground truth, the Evaluator and
+    ``dropped`` (points or voxels the pyramid's capacities cut)."""
     from rdmnet_tpu_torch.graph.pyramid import build_pair_batch
     from rdmnet_tpu_torch.models import with_pyramid
 
     view = with_pyramid(model, cfg.pyramid)
 
     @torch.no_grad()
-    def forward(rp, rc, sp, sc, transform):
-        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
-        i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
-        batch = build_pair_batch(f32(rp), i32(rc), f32(sp), i32(sc), f32(transform), cfg.pyramid)
+    def body(rp, rc, sp, sc, transform):
+        batch = build_pair_batch(rp, rc, sp, sc, transform, cfg.pyramid)
         out = view(batch, training=False, with_gt=True)
         metrics = evaluator(out, batch, evaling=True)
         metrics["dropped"] = (batch.ref.dropped.sum() + batch.src.dropped.sum()).float()
         return out, metrics
 
+    return body
+
+
+def _make_eval_forward(cfg, model, evaluator, dev):
+    """Padded host pair -> (outputs, metrics) of ``_eval_body``, run eagerly
+    on ``dev``: the CPU's forward, and the oracle of the card's program."""
+    body = _eval_body(cfg, model, evaluator)
+
+    def forward(rp, rc, sp, sc, transform):
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+        i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+        return body(f32(rp), i32(rc), f32(sp), i32(sc), f32(transform))
+
     return forward
+
+
+def _make_eval_program(cfg, model, evaluator, dev):
+    """``_make_eval_forward``'s forward at one capacity bucket as a program
+    on the card (``program.StepProgram``: two eager warm-ups under the sync
+    check, then captured once as a CUDA graph and replayed), the
+    counterpart of the JAX CLI's jitted forward per bucket. Its outputs are
+    the same tensors every call: copy them out before the next call."""
+    from rdmnet_tpu_torch.program import StepProgram
+
+    body = _eval_body(cfg, model, evaluator)
+    cap = cfg.pyramid.caps[0]
+    shapes = {"rp": ((cap, 3), torch.float32), "rc": ((), torch.int32),
+              "sp": ((cap, 3), torch.float32), "sc": ((), torch.int32),
+              "transform": ((4, 4), torch.float32)}
+
+    def stage(rp, rc, sp, sc, transform):
+        return {"rp": np.asarray(rp, np.float32), "rc": np.int32(rc),
+                "sp": np.asarray(sp, np.float32), "sc": np.int32(sc),
+                "transform": np.asarray(transform, np.float32)}
+
+    return StepProgram("test forward program",
+                       lambda t: body(t["rp"], t["rc"], t["sp"], t["sc"], t["transform"]),
+                       stage, shapes, dev)
+
+
+def _host_copies(out, metrics, vis):
+    """The outputs ``trim_outputs`` reads and the metrics, copied to the
+    host (pinned, without waiting, from a CUDA pair), and an event to wait
+    on before reading them (None on the CPU): the next pair's forward, a
+    replay of the same program, overwrites ``out`` and ``metrics``."""
+    from rdmnet_tpu_torch.cli.common import _TRIM_KEYS, _TRIM_VIS_KEYS
+
+    cuda = out["estimated_transform"].is_cuda
+
+    def copy(tensors):
+        return {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=cuda).copy_(v, non_blocking=cuda)
+                for k, v in tensors.items()}
+
+    keys = _TRIM_KEYS + (_TRIM_VIS_KEYS if vis else ())
+    host = copy({k: out[k] for k in keys if isinstance(out.get(k), torch.Tensor)})
+    host_metrics = copy(metrics)
+    done = None
+    if cuda:
+        done = torch.cuda.Event()
+        done.record()
+    return host, host_metrics, done
 
 
 def run_eval_loop(cfg, model, dataset, indices, feature_dir, compress=True, log=print,
@@ -185,7 +243,10 @@ def run_eval_loop(cfg, model, dataset, indices, feature_dir, compress=True, log=
 
     One pair in flight: pair i+1's forward is issued before pair i's outputs
     are read back and trimmed, and the ``.npz`` writes run on two worker
-    threads (host arrays only), at most four queued.
+    threads (host arrays only), at most four queued. Each pair's outputs
+    and metrics are copied to the host as its forward is issued, since the
+    next forward may overwrite them. On the card each bucket's forward is a
+    program (``_make_eval_program``), on the CPU the eager forward.
 
     ``cfgs``: capacity-bucket variants of ``cfg`` (the same model at other
     ``pyramid`` caps); each pair runs at the smallest that fits both
@@ -200,7 +261,8 @@ def run_eval_loop(cfg, model, dataset, indices, feature_dir, compress=True, log=
     evaluator = Evaluator(cfg)
     cfgs = sorted(cfgs or [cfg], key=lambda c: c.pyramid.caps[0])
     caps = [c.pyramid.caps[0] for c in cfgs]
-    forwards = [_make_eval_forward(c, model, evaluator, dev) for c in cfgs]
+    make = _make_eval_program if dev.type == "cuda" else _make_eval_forward
+    forwards = [make(c, model, evaluator, dev) for c in cfgs]
 
     board = SummaryBoard()
     timer = Timer()
@@ -209,7 +271,9 @@ def run_eval_loop(cfg, model, dataset, indices, feature_dir, compress=True, log=
     writes = []
 
     def finalize(pending, n_done):
-        out, metrics, item, trunc0, cap, prep_s, proc_s = pending
+        out, metrics, done, item, trunc0, cap, prep_s, proc_s = pending
+        if done is not None:
+            done.synchronize()
         metrics = to_floats(metrics)
         metrics["dropped"] += trunc0
         board.update_from_dict(metrics)
@@ -238,13 +302,14 @@ def run_eval_loop(cfg, model, dataset, indices, feature_dir, compress=True, log=
             trunc0 = (max(0, len(item["ref_points"]) - len(rp))
                       + max(0, len(item["src_points"]) - len(sp)))
             timer.record_prepare()
-            out, metrics = forwards[bi](rp, rc, sp, sc, item["transform"])
+            out, metrics, done = _host_copies(*forwards[bi](rp, rc, sp, sc, item["transform"]),
+                                              vis=vis_dir is not None)
             timer.record_process()
             if pending is not None:
                 finalize(pending, n_done)
             # this pair's own intervals ride with it to its log line, one
             # iteration later
-            pending = (out, metrics, item, trunc0, caps[bi],
+            pending = (out, metrics, done, item, trunc0, caps[bi],
                        timer.last_prepare(), timer.last_process())
         if pending is not None:
             finalize(pending, len(indices))

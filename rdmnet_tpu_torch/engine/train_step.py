@@ -39,7 +39,6 @@ that accumulate into ``.grad``, and the step takes them with
 from __future__ import annotations
 
 import math
-import time
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,7 +50,7 @@ from rdmnet_tpu_torch.config import Config, PyramidConfig
 from rdmnet_tpu_torch.device import resolve_device
 from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch
 from rdmnet_tpu_torch.losses import Evaluator, OverallLoss
-from rdmnet_tpu_torch.models.rdmnet import CAPTURE_WARMUP
+from rdmnet_tpu_torch.program import StepProgram
 
 MAX_CONSECUTIVE_ERRORS = 100
 # synchronised parts of one train step (``build`` is ``batch_to_device``)
@@ -420,110 +419,6 @@ def build_batch(inputs: Mapping[str, torch.Tensor], spec: PyramidConfig) -> List
 
 # ----------------------------------------------------------------- programs
 
-class StepProgram:
-    """A step captured once as a CUDA graph and replayed: the card's
-    counterpart of the JAX Trainer's compiled step. The first
-    ``CAPTURE_WARMUP`` calls run the step eagerly on a side stream under
-    ``torch.cuda.set_sync_debug_mode("error")``, so an op that waits for the
-    host raises there with its traceback; the next call captures the step on
-    its inputs and replays the capture at once, and every later call
-    replays it. Every call stages its host arrays in pinned buffers and
-    copies them into the program's static inputs first, so an eager call
-    and a replay run the same code on the same tensors.
-
-    A replay returns the program's static outputs: the same tensors every
-    call, overwritten by the next replay, valid once the current stream
-    reaches them. Calls are serialised by the caller, which consumes (or
-    copies) a call's outputs before the next one. A failed capture raises;
-    nothing falls back to eager. After the capture, ``launches`` holds each
-    kernel's launches in the program (counted at the capture: a replay ticks
-    no wrapper counter), ``path_launches`` the kNN's and Sinkhorn's per
-    path, ``capture_s`` the capture's seconds, ``memory_bytes`` the device
-    memory it keeps allocated (its outputs) and ``reserved_bytes`` what its
-    graph pool reserved."""
-
-    def __init__(self, what: str, body: Callable, stage: Callable, shapes: Mapping,
-                 device: torch.device, generator: Optional[torch.Generator] = None):
-        self.what, self.body, self.stage = what, body, stage
-        self.device, self.generator = device, generator
-        # at least one: the optimizer's state must exist before the capture
-        self.eager_calls_left = CAPTURE_WARMUP
-        with torch.cuda.device(device):
-            self.static = {k: torch.zeros(shape, dtype=dtype, device=device)
-                           for k, (shape, dtype) in shapes.items()}
-            self.host = {k: torch.zeros(shape, dtype=dtype, pin_memory=True)
-                         for k, (shape, dtype) in shapes.items()}
-            self.side = torch.cuda.Stream(device)
-            self.copied = torch.cuda.Event()  # the last call's copies out of the staging buffers
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.outputs = None
-        self.launches = self.path_launches = None
-        self.capture_s = self.memory_bytes = self.reserved_bytes = None
-
-    def __call__(self, *args):
-        arrays = self.stage(*args)
-        self.copied.synchronize()  # a call not yet run may still read the staging buffers
-        for key, buf in self.host.items():
-            value = torch.from_numpy(np.ascontiguousarray(arrays[key]))
-            if tuple(value.shape) != tuple(buf.shape):
-                raise ValueError(f"capture_{self.what}_step: {key} of shape {tuple(value.shape)} "
-                                 f"for a program of shape {tuple(buf.shape)}")
-            buf.copy_(value)
-        with torch.cuda.device(self.device):
-            for key, buf in self.static.items():
-                buf.copy_(self.host[key], non_blocking=True)
-            self.copied.record()
-            if self.graph is None and self.eager_calls_left > 0:
-                self.eager_calls_left -= 1
-                return self._eager()
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
-        return self.outputs
-
-    def _eager(self):
-        current = torch.cuda.current_stream(self.device)
-        self.side.wait_stream(current)
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with torch.cuda.stream(self.side):
-                out = self.body(self.static)
-        except RuntimeError as e:
-            raise RuntimeError(f"capture_{self.what}_step: the eager warm-up waited for the "
-                               f"host: {e}") from e
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        current.wait_stream(self.side)
-        return out
-
-    def _capture(self) -> None:
-        from rdmnet_tpu_torch.ops.kernels import all_launch_counts, path_launch_counts
-
-        t0 = time.perf_counter()
-        dev = self.device
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        allocated, reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:  # each replay advances it as the eager step does
-            graph.register_generator_state(self.generator)
-        counts, paths = all_launch_counts(), path_launch_counts()
-        try:
-            with torch.cuda.graph(graph, stream=self.side):  # a pool of its own
-                outputs = self.body(self.static)
-        except RuntimeError as e:
-            raise RuntimeError(f"capture_{self.what}_step: capturing the step failed: {e}") from e
-        torch.cuda.synchronize(dev)
-        self.launches = {k: v - counts[k] for k, v in all_launch_counts().items()}
-        self.path_launches = {k: {p: n - paths[k][p] for p, n in v.items()}
-                              for k, v in path_launch_counts().items()}
-        self.memory_bytes = torch.cuda.memory_allocated(dev) - allocated
-        self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.capture_s = time.perf_counter() - t0
-        self.graph, self.outputs = graph, outputs
-
-
 def _program_device(what: str, state: TrainState, device) -> torch.device:
     dev = resolve_device(device)
     if dev.type != "cuda":
@@ -561,8 +456,8 @@ def capture_train_step(state: TrainState, cfg: Config, batch_size: int,
         state.apply_gradients(grads)
         return metrics
 
-    return StepProgram("train", body, batch_inputs, _input_shapes(cfg, batch_size), dev,
-                       generator)
+    return StepProgram("capture_train_step", body, batch_inputs, _input_shapes(cfg, batch_size),
+                       dev, generator)
 
 
 def capture_eval_step(state: TrainState, cfg: Config, batch_size: int, device=None,
@@ -583,4 +478,4 @@ def capture_eval_step(state: TrainState, cfg: Config, batch_size: int, device=No
     def body(static):
         return eval_step(state, build_batch(static, cfg.pyramid), static["valid"])
 
-    return StepProgram("eval", body, stage, shapes, dev)
+    return StepProgram("capture_eval_step", body, stage, shapes, dev)

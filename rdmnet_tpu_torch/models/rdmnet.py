@@ -49,9 +49,9 @@ from rdmnet_tpu_torch.ops.geometry import take_padded
 from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
 from rdmnet_tpu_torch.ops.nms import greedy_nms
 from rdmnet_tpu_torch.ops.partition import point_to_node_partition
+from rdmnet_tpu_torch.program import CAPTURE_WARMUP
 
 STAGES = ("build", "encoder+T1", "decoder", "vote/NMS/T2", "matching", "OT", "LGR")
-CAPTURE_WARMUP = 2  # eager passes on a side stream before a capture (PyTorch's recipe)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

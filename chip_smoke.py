@@ -153,10 +153,31 @@ Phases, each fatal on failure:
    (b) the phase-4 pair's build with its searches of 2048 query rows or more
    sharded: every table equal to the unsharded build, each shard's table
    equal to the plain version, launches per rank, build ms beside the whole
-   build in turns; (c) ``cli.trainval.main --dp 2`` on phase 10's root for an
-   epoch and a resumed one: weights bit-equal across ranks, 12 kNN and 0
-   Sinkhorn launches per train step, 12 and 1 per validation pair, the
-   validation means within 1e-5 of one process validating the snapshot.
+   build in turns; (d) the dp programs at ``make_cfg()``, 0.7 bucket, on
+   each rank: the dp train program (``capture_train_step(..., group)``: two
+   eager warm-ups, both halves captured into one pool, replays with the
+   exchange between them) against an eager dp twin from the same weights,
+   generators and batches over 7 steps, rank 1's ground truth NaN at step 4:
+   metrics, weights, Adam's moments and steps, the lr, the counters and the
+   generators bit-equal after every step, the NaN step skipped on both
+   ranks, the ranks' states bit-equal; the same at ``grad_acc_steps`` 2 over
+   three groups (the second NaN); the eval program under the group on
+   two-pair batches against the eager eval step, bit-equal; the launches at
+   each capture (12/0 kNN/Sinkhorn a train pair, all in the gradient half;
+   12/1 an eval pair) and in profiled replays (the whole step, each half
+   apart, the eval program); replayed against eager dp steps in turns
+   (ms/step a rank with spread, peak memory), the busy share of a profiled
+   replay, capture s, memory kept and reserved per rank; (e) on NCCL, 10
+   graphs a rank recorded in the programs' "global" capture mode while the
+   NCCL watchdog still holds an all-reduce, each captured and replayed
+   right; (c)
+   ``cli.trainval.main --dp 2`` on phase 10's root for an epoch and a run
+   resumed to epoch 4, on the programs and with the Trainer kept eager:
+   every ``metrics.jsonl`` record, every logged step and the weights after
+   each run equal, the weights bit-equal across ranks, the launches of the
+   resumed run's programs (12/0 a train step, 12/1 a validation pair), the
+   validation means within 1e-5 of one process validating the snapshot,
+   windowed steps/s of both.
 15. the library surface no model path calls: (a) ``run_fast_contracts()``
    on the card, three ``pass`` and one launch of each kernel, each kernel's
    device time at the contract shapes; (b) the correspondence toolkit, the
@@ -266,7 +287,12 @@ Phases, each fatal on failure:
    ``metrics.jsonl`` record and every logged step's values equal, windowed
    steps/s of both; (h) ``compute_dtype="bfloat16"`` and phase 11's families
    (GeoTransformer, APE, ``k2``, vote off): two warm-ups, the capture and a
-   replay each, bit-equal to eager.
+   replay each, bit-equal to eager; (i) ``IterBasedTrainer`` on phase 10's
+   root for 6 iterations (validation every 2, a snapshot every 3), then the
+   same object resumed from its snapshot 6 to 9, on the programs and kept
+   eager: every step's metrics, logged line, validation record and the
+   final weights bit-equal, the train program captured anew after the
+   restore.
 
 20. the offline CLIs' compiled programs, in a process of its own
    (``--cli-program-only``), at ``make_cfg()``: (a) one eager forward with
@@ -2207,6 +2233,11 @@ def data_prep_phase(dev, kernels, frames=ICP_FRAMES, scan_kwargs=ICP_SCAN):
 DP_WORLD = 2                 # ranks of phase 14
 DP_WARM, DP_TIMED = 1, 3     # train steps of phase 14 (a), per rank and for the one process
 SP_MIN_QUERIES = 2048        # phase 14 (b): query levels of at least this many rows shard
+DP_EPOCHS = 4                # phase 14 (c): epochs of the resumed trainval run (1 before it)
+DP_PROGRAM_STEPS, DP_PROGRAM_NAN = 7, 4  # phase 14 (d): dp train steps; rank 1's NaN step
+DP_ACC_STEPS, DP_ACC_NAN = 6, 3          # (d) at grad_acc_steps 2: three groups, the second NaN
+DP_PROGRAM_TURNS = 4         # phase 14 (d): timed turns of a replayed and an eager dp step
+DP_WATCHDOG_PROBES = 10      # phase 14 (e), NCCL: captures with the watchdog's work pending
 
 
 def _sha1(tensors) -> str:
@@ -2220,10 +2251,163 @@ def _sha1(tensors) -> str:
     return h.hexdigest()
 
 
+def profiled_halves(program, host, dev):
+    """One call of a ``SplitProgram`` with each half's replay under a
+    profiler of its own (the exchange between them unprofiled): the
+    launches of the port's kernels in each half's replay."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    profs = [profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])]
+    between = program.between
+
+    def split(mid):
+        torch.cuda.synchronize(dev)
+        profs[0].__exit__(None, None, None)
+        between(mid)
+        torch.cuda.synchronize(dev)
+        profs.append(profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        profs[1].__enter__()
+
+    program.between = split
+    try:
+        torch.cuda.synchronize(dev)
+        profs[0].__enter__()
+        out = program(host)
+        torch.cuda.synchronize(dev)
+        profs[1].__exit__(None, None, None)
+    finally:
+        program.between = between
+    seen = [{name: sum(e.count for e in p.key_averages() if e.device_type == DeviceType.CUDA
+                       and key in e.key) for name, key in PROFILED_KERNELS.items()}
+            for p in profs]
+    return seen, out
+
+
+def _dp_programs(rank, dev, cfg, group, spec):
+    """Phase 14 (d) on one rank: the dp train program against an eager dp
+    twin over ``DP_PROGRAM_STEPS`` steps (rank 1's ground truth NaN at
+    ``DP_PROGRAM_NAN``) and at grad_acc_steps 2, the eval program against the
+    eager eval step, the launches at each capture and in profiled replays,
+    and replayed against eager dp steps in turns. Fails on a mismatch;
+    returns its findings."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rdmnet_tpu_torch.engine import batch_to_device, capture_eval_step, make_eval_step
+
+    pairs = moved_pairs(spec["ref"], spec["src"], spec["gt"], cfg.pyramid.caps[0],
+                        DP_PROGRAM_STEPS, SEED + 140 + rank)
+    where = f"dp train program, rank {rank}"
+
+    def with_nan(batches, at):
+        batches = list(batches)
+        if rank == 1:
+            batches[at] = {k: v.copy() for k, v in batches[at].items()}
+            batches[at]["transform"][0, 0, 3] = np.nan
+        return batches
+
+    out = {"trace": [], "acc_trace": []}
+    acc_cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, grad_acc_steps=2))
+    acc_program, acc_state, _, _, _ = twin_run(
+        dev, acc_cfg, with_nan(pairs[:DP_ACC_STEPS], DP_ACC_NAN), DP_ACC_NAN,
+        f"{where}, grad_acc_steps 2", group=group, gen_seed=SEED + 29 + 1000 * rank,
+        trace=out["acc_trace"])
+    out["acc_counters"] = (acc_state.count, acc_state.mini_step, acc_state.notfinite_count)
+    del acc_program, acc_state
+    torch.cuda.empty_cache()
+    program, p_state, e_state, e_step, gens = twin_run(
+        dev, cfg, with_nan(pairs, DP_PROGRAM_NAN), DP_PROGRAM_NAN, where, group=group,
+        gen_seed=SEED + 19 + 1000 * rank, trace=out["trace"])
+
+    # the eval program under the group against the eager eval step
+    e_program = capture_eval_step(e_state, cfg, 2, dev)
+    e_eval = make_eval_step(cfg, dev)
+    for i, valid in enumerate(EVAL_PROGRAM_VALID):
+        host = {k: np.concatenate([pairs[(2 * i) % len(pairs)][k],
+                                   pairs[(2 * i + 1) % len(pairs)][k]]) for k in pairs[0]}
+        got, got_tf = e_program(host, np.array(valid))
+        want, want_tf = e_eval(e_state, batch_to_device(host, cfg.pyramid, dev),
+                               torch.tensor(valid))
+        held_bitwise(got, want, f"dp eval program, rank {rank}: batch {i} metrics")
+        held_bitwise({"transforms": got_tf}, {"transforms": want_tf},
+                     f"dp eval program, rank {rank}: batch {i}")
+
+    # launches at the captures and in profiled replays; the twin takes the same steps
+    out.update(train_launches=program.launches, half_launches=program.half_launches,
+               eval_launches=e_program.launches)
+    _, _, seen, _ = profiled_kernels(lambda: e_program(
+        {k: np.concatenate([pairs[0][k], pairs[1][k]]) for k in pairs[0]}), dev)
+    out["eval_seen"] = seen
+    out["half_seen"], _ = profiled_halves(program, pairs[0], dev)
+    e_step(e_state, batch_to_device(pairs[0], cfg.pyramid, dev), gens[1])
+    wall, kernel, seen, _ = profiled_kernels(lambda: program(pairs[1]), dev)
+    e_step(e_state, batch_to_device(pairs[1], cfg.pyramid, dev), gens[1])
+    out.update(train_seen=seen, busy=(wall, kernel))
+    held_bitwise(state_bits(p_state), state_bits(e_state), f"{where}: after the profiled steps")
+
+    # replayed against eager dp steps in turns, the ranks meeting before each
+    ms = {"replay": [], "eager": []}
+    peaks = {}
+    for turn in range(DP_PROGRAM_TURNS):
+        host = pairs[turn % len(pairs)]
+        for kind in (("replay", "eager") if turn % 2 == 0 else ("eager", "replay")):
+            torch.cuda.synchronize(dev)
+            dist.barrier(group=group)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            if kind == "replay":
+                got = program(host)
+            else:
+                _, want = e_step(e_state, batch_to_device(host, cfg.pyramid, dev), gens[1])
+            torch.cuda.synchronize(dev)
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            peaks[kind] = max(peaks.get(kind, 0), torch.cuda.max_memory_allocated(dev))
+        held_bitwise(got, want, f"{where}: timed turn {turn}")
+    held_bitwise(state_bits(p_state), state_bits(e_state), f"{where}: after the timed turns")
+    out.update(ms=ms, peaks=peaks, state_sha1=_sha1(state_bits(p_state)[k] for k in
+                                                     ("weights", "exp_avg", "exp_avg_sq")),
+               capture=(program.capture_s, program.memory_bytes, program.reserved_bytes),
+               eval_capture=(e_program.capture_s, e_program.memory_bytes,
+                             e_program.reserved_bytes))
+    del program, e_program, p_state, e_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _captures_beside_watchdog(dev, group):
+    """Phase 14 (e), NCCL only: ``DP_WATCHDOG_PROBES`` graphs, each recorded
+    in the default "global" capture mode, which every program of the port
+    uses, right after an all-reduce the NCCL watchdog has not yet retired,
+    and held open 0.3 s, so its thread queries the work's event while the
+    capture runs. Returns how many captured and replayed right."""
+    import torch
+    import torch.distributed as dist
+
+    flag = torch.ones(1024, device=dev)
+    x = torch.zeros(1024, device=dev)
+    side = torch.cuda.Stream(dev)
+    ok = 0
+    for _ in range(DP_WATCHDOG_PROBES):
+        dist.all_reduce(flag, group=group)  # NCCL: enqueued, left to the watchdog
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            y = x + flag
+            time.sleep(0.3)
+        graph.replay()
+        sync(dev)
+        ok += bool((y == flag).all())
+    return ok
+
+
 def _dp_rank(rank, world, backend, store, spec):
     """One rank of phase 14 (a spawned process): (a) the dp train step, an
-    eval step and timed steps, (b) the sp-sharded build, (c) ``trainval --dp``
-    for an epoch and a resumed one. Its findings go to ``<out>/rank<r>.pt``."""
+    eval step and timed steps, (b) the sp-sharded build, (d) the dp programs
+    against eager dp twins, (e) on NCCL, captures beside the watchdog, (c)
+    ``trainval --dp`` for an epoch and a resumed run, on the programs and
+    kept eager. Its findings go to ``<out>/rank<r>.pt``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2345,29 +2529,61 @@ def _dp_rank(rank, world, backend, store, spec):
             build_ms[turn].append((time.perf_counter() - t0) * 1e3)
         res["build_ms"] = build_ms
 
-        # ---- (c) trainval --dp on phase 10's root, one epoch and a resumed one
-        events = []
-        orig = trainer_mod.make_train_step, trainer_mod.make_eval_step
-        trainer_mod.make_train_step = _launch_recorder(events, "train")(orig[0])
-        trainer_mod.make_eval_step = _launch_recorder(events, "val")(orig[1])
+        # ---- (d) the dp programs against eager dp twins
+        res["programs"] = _dp_programs(rank, dev, cfg, group, spec)
+        # ---- (e) global-mode captures beside the NCCL watchdog
+        res["watchdog_probes"] = (_captures_beside_watchdog(dev, group)
+                                  if on_card and backend == "nccl" else None)
+
+        # ---- (c) trainval --dp on phase 10's root, an epoch and a resumed run to
+        # DP_EPOCHS, on the programs and with the Trainer kept eager
+        class Recorded(trainer_mod.SummaryBoard):
+            rows = []
+
+            def update_from_dict(self, d):
+                Recorded.rows.append(dict(d))
+                super().update_from_dict(d)
+
+        init = trainer_mod.Trainer.__init__
+
+        def eager_init(self, *args, **kwargs):
+            init(self, *args, **kwargs)
+            self.use_programs = False
+
+        runs = {}
+        orig_board = trainer_mod.SummaryBoard
+        trainer_mod.SummaryBoard = Recorded
         try:
-            argv = ["--root", spec["root"], "--output_dir", spec["run"], "--bucket_scale", "0.7",
-                    "--log_steps", "2", "--keep_snapshots", "1", "--dp", str(world),
-                    "--device", dev.type, *spec["cli_args"]]
-            reset_launch_counts()
-            runs = []
-            with contextlib.redirect_stdout(io.StringIO()):
-                for extra in (["--max_epoch", "1"], ["--max_epoch", "2", "--resume"]):
-                    t0 = time.perf_counter()
-                    trainer = trainval.main(argv + extra)
-                    runs.append(dict(seconds=time.perf_counter() - t0,
-                                     params_sha1=_sha1(trainer.state.params),
-                                     epoch=trainer.epoch, count=trainer.state.count,
-                                     epochs=trainer.epoch_timings, vals=trainer.val_timings))
+            for kind, run_dir in (("programs", spec["run"]), ("eager", spec["run"] + "_eager")):
+                argv = ["--root", spec["root"], "--output_dir", run_dir, "--bucket_scale",
+                        "0.7", "--log_steps", "2", "--keep_snapshots", "1", "--dp", str(world),
+                        "--device", dev.type, *spec["cli_args"]]
+                Recorded.rows = []
+                runs[kind] = {"runs": []}
+                if kind == "eager":
+                    trainer_mod.Trainer.__init__ = eager_init
+                with contextlib.redirect_stdout(io.StringIO()):
+                    for extra in (["--max_epoch", "1"],
+                                  ["--max_epoch", str(DP_EPOCHS), "--resume"]):
+                        t0 = time.perf_counter()
+                        trainer = trainval.main(argv + extra)
+                        programs = (trainer.train_program, trainer.eval_program)
+                        runs[kind]["runs"].append(dict(
+                            seconds=time.perf_counter() - t0,
+                            params_sha1=_sha1(trainer.state.params), epoch=trainer.epoch,
+                            count=trainer.state.count, epochs=trainer.epoch_timings,
+                            vals=trainer.val_timings, programs=trainer.use_programs,
+                            launches=[None if p is None or p.graph is None else p.launches
+                                      for p in programs]))
+                        del trainer, programs
+                        if on_card:
+                            torch.cuda.empty_cache()
+                trainer_mod.Trainer.__init__ = init
+                runs[kind]["rows"] = list(Recorded.rows)
         finally:
-            trainer_mod.make_train_step, trainer_mod.make_eval_step = orig
+            trainer_mod.SummaryBoard = orig_board
+            trainer_mod.Trainer.__init__ = init
         res["runs"] = runs
-        res["workflow_launches"] = _per_event(events)
         torch.save(res, os.path.join(spec["out"], f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -2377,10 +2593,12 @@ def dp_phase(dev, card, kernels, cfg, ref, src, gt, root, cli_args=()):
     """Phase 14: data parallelism on the card, world 2 (NCCL with a card per
     rank where there are two, else gloo with both ranks on card 0): the dp
     train step against the one-process two-pair step, the sp-sharded build,
-    ``trainval --dp 2`` on ``root`` (phase 10's) and its validation against
+    the dp programs against eager dp twins, ``trainval --dp 2`` on ``root``
+    (phase 10's) on the programs and kept eager, and its validation against
     one process. Returns the launches per rank and pair by kernel. On the CPU
-    (gloo, ``cli_args=["--cfg_preset", "tiny"]`` with the tiny config) it
-    rehearses the phase; only its launch checks fail there."""
+    (gloo, ``cli_args=["--cfg_preset", "tiny"]`` with the tiny config, CPU
+    stand-ins for the programs) it rehearses the phase; only its launch
+    checks fail there."""
     import numpy as np
     import torch
     import torch.multiprocessing as mp
@@ -2455,7 +2673,7 @@ def dp_phase(dev, card, kernels, cfg, ref, src, gt, root, cli_args=()):
         spec = dict(cfg=cfg, weights=weights, pairs=pairs, gen_states=gen_states[:DP_WORLD],
                     grads_out=os.path.join(tmp, "grads.pt"), padded=padded, root=root,
                     run=os.path.join(tmp, "run"), out=tmp, device_type=dev.type,
-                    cli_args=list(cli_args))
+                    cli_args=list(cli_args), ref=ref, src=src, gt=gt)
         t0 = time.perf_counter()
         ctx = mp.start_processes(_dp_rank, args=(DP_WORLD, backend, os.path.join(tmp, "store"),
                                                  spec), nprocs=DP_WORLD, join=False,
@@ -2524,23 +2742,103 @@ def dp_phase(dev, card, kernels, cfg, ref, src, gt, root, cli_args=()):
               f"build ms sharded {[round(x, 3) for x in b['sharded']]}, whole "
               f"{[round(x, 3) for x in b['whole']]} on rank 0, in turns ({backend}, {card})")
 
+        # ---- (d)
+        train_pair = {"radius_knn": 12, "sinkhorn": 0}
+        eval_pair = {"radius_knn": 12, "sinkhorn": 1}
+        pr = [r["programs"] for r in res]
+        for key in ("trace", "acc_trace", "state_sha1"):
+            if pr[0][key] != pr[1][key]:
+                fail(f"dp programs: the ranks' states differ ({key})")
+        for r, p in zip(res, pr):
+            tl, (first, second) = p["train_launches"], p["half_launches"]
+            per_eval = {k: v / 2 for k, v in p["eval_launches"].items()}
+            if {k: tl[k] for k in train_pair} != train_pair or first != tl or any(second.values()) \
+                    or {k: per_eval[k] for k in eval_pair} != eval_pair:
+                fail(f"dp programs: rank {r['rank']} launches {tl} a train pair ({first} / "
+                     f"{second} by half), {per_eval} an eval pair at the captures")
+            want = {k: tl[k] for k in PROFILED_KERNELS}
+            if p["train_seen"] != want or p["half_seen"] != [want, {k: 0 for k in want}] or \
+                    p["eval_seen"] != {k: p["eval_launches"][k] for k in PROFILED_KERNELS}:
+                fail(f"dp programs: rank {r['rank']} profiled replays launched "
+                     f"{p['train_seen']} (halves {p['half_seen']}), eval {p['eval_seen']}; the "
+                     f"captures counted {tl}, {p['eval_launches']}")
+            if p["acc_counters"] != (2, 0, 0):
+                fail(f"dp programs: rank {r['rank']} (count, mini_step, notfinite_count) "
+                     f"{p['acc_counters']} after three groups at grad_acc_steps 2")
+        p = pr[0]
+        wall, kernel = p["busy"]
+        print(f"dp programs ({backend}, {card}): the dp train program (2 eager warm-ups, both "
+              f"halves captured into one pool, replays; the exchange between them) against the "
+              f"eager dp step over {DP_PROGRAM_STEPS} steps from the same weights, generators and "
+              f"batches, rank 1's ground truth NaN at step {DP_PROGRAM_NAN}: metrics, weights, "
+              f"Adam's moments and steps, lr, counters and generators bit-equal after every step "
+              f"on both ranks, the NaN step skipped on both, the ranks' states bit-equal; the same "
+              f"at grad_acc_steps 2 over {DP_ACC_STEPS // 2} groups (the second NaN: 2 updates); "
+              f"the eval program on {len(EVAL_PROGRAM_VALID)} two-pair batches bit-equal to the "
+              f"eager eval step; launches at the captures {p['train_launches']} a train pair "
+              f"(halves {p['half_launches'][0]} / {p['half_launches'][1]}), "
+              f"{ {k: v / 2 for k, v in p['eval_launches'].items()} } an eval pair, and in "
+              f"profiled replays")
+        for r, p in zip(res, pr):
+            cap_s, kept, reserved = p["capture"]
+            e_cap_s, e_kept, e_reserved = p["eval_capture"]
+            print(f"  rank {r['rank']}: replay ms/step {spread(p['ms']['replay'])}, eager "
+                  f"{spread(p['ms']['eager'])} ({DP_PROGRAM_TURNS} turns); peak allocated "
+                  f"replay {p['peaks']['replay'] / 2**20:.1f} MiB, eager "
+                  f"{p['peaks']['eager'] / 2**20:.1f} MiB; train program captured in "
+                  f"{cap_s:.3f} s, {kept / 2**20:.1f} MiB kept, {reserved / 2**20:.1f} MiB "
+                  f"reserved; eval program {e_cap_s:.3f} s, {e_kept / 2**20:.1f} MiB kept, "
+                  f"{e_reserved / 2**20:.1f} MiB reserved; a profiled replay {p['busy'][0]:.3f} "
+                  f"ms wall, {p['busy'][1]:.3f} ms of kernels "
+                  f"({100 * p['busy'][1] / p['busy'][0]:.1f}% busy)")
+
+        # ---- (e)
+        if backend == "nccl":
+            probes = [r["watchdog_probes"] for r in res]
+            if probes != [DP_WATCHDOG_PROBES] * len(res):
+                fail(f"dp watchdog probes: {probes} of {DP_WATCHDOG_PROBES} captures right a rank")
+            print(f"dp watchdog probes (nccl, {card}): {DP_WATCHDOG_PROBES} graphs a rank recorded "
+                  f"in the global capture mode of every program, each held open 0.3 s right after "
+                  f"an all-reduce left to the NCCL watchdog, all captured and replayed right")
+        else:
+            print(f"dp watchdog probes: not run ({backend}: its exchange waits for its end, so "
+                  f"nothing of it runs while a program is recorded)")
+
         # ---- (c)
         run_dir = spec["run"]
-        for i in range(2):
-            if len({r["runs"][i]["params_sha1"] for r in res}) != 1:
-                fail(f"trainval --dp: the ranks' weights differ after run {i + 1}")
-        per = res[0]["workflow_launches"]
-        train_l = [c for k, c in per if k == "train"]
-        val_l = [c for k, c in per if k == "val"]
-        if any(c != {"radius_knn": 12, "sinkhorn": 0} for c in train_l) or \
-                any(c != {"radius_knn": 12, "sinkhorn": 1} for c in val_l) or not val_l:
-            fail(f"trainval --dp: launches per train step {train_l}, per val pair {val_l}")
-        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
+        for kind in ("programs", "eager"):
+            for i in range(2):
+                if len({r["runs"][kind]["runs"][i]["params_sha1"] for r in res}) != 1:
+                    fail(f"trainval --dp ({kind}): the ranks' weights differ after run {i + 1}")
+        for r in res:
+            got, eager = r["runs"]["programs"], r["runs"]["eager"]
+            last = got["runs"][-1]
+            if not all(x["programs"] for x in got["runs"]) or any(x["programs"]
+                                                                  for x in eager["runs"]):
+                fail(f"trainval --dp: rank {r['rank']}: the Trainer on programs "
+                     f"{[x['programs'] for x in got['runs']]}, kept eager "
+                     f"{[x['programs'] for x in eager['runs']]}")
+            if last["launches"][0] is None or last["launches"][1] is None or \
+                    {k: last["launches"][0][k] for k in train_pair} != train_pair or \
+                    {k: last["launches"][1][k] for k in eval_pair} != eval_pair:
+                fail(f"trainval --dp: rank {r['rank']}: launches of the resumed run's programs "
+                     f"{last['launches']} (captured at its third train step and validation)")
+            if got["rows"] != eager["rows"] or [x["params_sha1"] for x in got["runs"]] != \
+                    [x["params_sha1"] for x in eager["runs"]]:
+                fail(f"trainval --dp: rank {r['rank']}: the logged steps or the weights on the "
+                     f"programs differ from the eager Trainer's")
+        records = {}
+        for kind, d in (("programs", run_dir), ("eager", run_dir + "_eager")):
+            with open(os.path.join(d, "metrics.jsonl")) as f:
+                records[kind] = [json.loads(line) for line in f]
+        if records["programs"] != records["eager"]:
+            fail(f"trainval --dp: metrics.jsonl on the programs {records['programs']} against "
+                 f"the eager Trainer's {records['eager']}")
+        records = records["programs"]
         with open(os.path.join(run_dir, "config.json")) as f:
             run_cfg = config_from_dict(Config, json.load(f))
         if run_cfg.parallel.dp != DP_WORLD or [(x["phase"], x["epoch"]) for x in records] != [
-                ("train", 0), ("val", 0), ("train", 1), ("val", 1)]:
+                (phase, e) for e in range(DP_EPOCHS) for phase in ("train", "val")]:
             fail(f"trainval --dp: parallel {run_cfg.parallel}, records {records}")
         one_cfg = dataclasses.replace(run_cfg, parallel=dataclasses.replace(run_cfg.parallel,
                                                                             dp=1))
@@ -2551,30 +2849,41 @@ def dp_phase(dev, card, kernels, cfg, ref, src, gt, root, cli_args=()):
         with contextlib.redirect_stdout(io.StringIO()):
             single = Trainer(one_cfg, *loaders, output_dir=os.path.join(tmp, "single"),
                              device=dev)
+            single.use_programs = False
             single.state.model.load_state_dict(
-                CheckpointManager(os.path.join(run_dir, "snapshots")).restore_params(2))
+                CheckpointManager(os.path.join(run_dir, "snapshots")).restore_params(DP_EPOCHS))
             got = single.validate()
         want = records[-1]
         worst = max(abs(got[k] - want[k]) for k in got)
         if set(got) != set(want) - {"phase", "epoch"} or worst > 1e-5:
             fail(f"trainval --dp: validation {want} against one process's {got}")
-        r0 = res[0]["runs"]
-        epochs = [e for run in r0 for e in run["epochs"]]
-        vals = [v for run in r0 for v in run["vals"]]
-        print(f"trainval --dp {DP_WORLD}: {r0[0]['seconds']:.3f} s (1 epoch) and "
-              f"{r0[1]['seconds']:.3f} s resumed (1 epoch) on rank 0; per epoch "
-              f"{[round(e['seconds'] / e['steps'] * 1e3, 3) for e in epochs]} ms/step "
-              f"({[e['steps'] for e in epochs]} steps a rank), validation "
-              f"{[round(v['seconds'] / v['pairs'] * 1e3, 3) for v in vals]} ms/pair over "
-              f"{[v['pairs'] for v in vals]} pairs in all; weights bit-equal across ranks after "
-              f"each run; launches per train step {train_l[0]}, per val pair {val_l[0]}; "
-              f"validation means within {worst:.3e} of one process on snapshot 2 "
-              f"({backend}, {card})")
+        rows = res[0]["runs"]["programs"]["rows"]
+        print(f"trainval --dp {DP_WORLD} on the programs and with the Trainer kept eager (an "
+              f"epoch, then resumed to {DP_EPOCHS}): every record of metrics.jsonl "
+              f"({len(records)}) and every logged step ({len(rows)} rows on rank 0) equal, the "
+              f"weights equal after each run and across ranks; launches per train step "
+              f"{ {k: last['launches'][0][k] for k in train_pair} }, per val pair "
+              f"{ {k: last['launches'][1][k] for k in eval_pair} } (the resumed run's programs, "
+              f"counted at their captures); validation means within {worst:.3e} of one process "
+              f"on snapshot {DP_EPOCHS} ({backend}, {card})")
+        for kind in ("programs", "eager"):
+            r0 = res[0]["runs"][kind]["runs"]
+            epochs = [e for run in r0 for e in run["epochs"]]
+            vals = [v for run in r0 for v in run["vals"]]
+            rates = [x for e in epochs for x in e["window_steps_per_s"]]
+            print(f"  {kind}: {r0[0]['seconds']:.3f} s (1 epoch) and {r0[1]['seconds']:.3f} s "
+                  f"resumed ({DP_EPOCHS - 1} epochs) on rank 0; windowed steps/s "
+                  f"{[round(x, 3) for x in rates]}; per epoch "
+                  f"{[round(e['seconds'] / e['steps'] * 1e3, 3) for e in epochs]} ms/step "
+                  f"({[e['steps'] for e in epochs]} steps a rank), validation "
+                  f"{[round(v['seconds'] / v['pairs'] * 1e3, 3) for v in vals]} ms/pair")
         print(f"dp phase: {time.perf_counter() - t_phase:.3f} s in all, of it the ranks "
               f"{ranks_s:.3f} s, their start-up included")
     return {"launches_per_dp_train_step_rank": res[0]["step_launches"],
             "launches_per_sp_build_rank": res[0]["sp_launches"],
-            "launches_per_dp_val_pair": val_l[0]}
+            "launches_per_dp_train_program_pair": res[0]["programs"]["train_launches"],
+            "launches_per_dp_val_pair": {k: v / 2 for k, v in
+                                         res[0]["programs"]["eval_launches"].items()}}
 
 
 # ---- phase 15: the library surface -------------------------------------------------------
@@ -3971,7 +4280,9 @@ TRAIN_PROGRAM_NAN = 4        # phase 19 (b): the step whose ground truth holds a
 ACC_PROGRAM_STEPS = 6        # phase 19 (c): micro-batches at grad_acc_steps 2 (three groups)
 ACC_PROGRAM_NAN = 3          # phase 19 (c): the NaN micro-batch (the second group's last)
 EVAL_PROGRAM_VALID = ((True, True), (True, False), (True, True), (False, True))  # (d), 2 pairs
-TRAIN_PROGRAM_TURNS = 6      # phase 19 (g): timed turns of a replayed and an eager step
+TRAIN_PROGRAM_TURNS = 4      # phase 19 (g): timed turns of a replayed and an eager step
+ITER_FIRST, ITER_RESUMED = 6, 9  # phase 19 (i): iterations of the first run and the resumed one
+ITER_SNAPSHOT, ITER_VAL = 3, 2   # phase 19 (i): snapshot and validation every so many iterations
 PARTS = ("build", "forward", "losses", "backward", "optimizer")
 
 
@@ -4028,25 +4339,31 @@ def held_bitwise(got, want, where):
             fail(f"{where}: {k} differs between the replayed program and the eager step")
 
 
-def twin_run(dev, c, batches, nan_at, where):
+def twin_run(dev, c, batches, nan_at, where, group=None, gen_seed=SEED + 19, trace=None):
     """The train program against an eager twin from the same weights,
     generator state and batches, held bit for bit after every step: the
     metrics, every tensor the step writes and the generators' states. The
-    step at ``nan_at`` (a NaN in its ground truth) must leave the weights and
-    ``count`` as they were and count one non-finite step. Returns (program,
-    its state, the eager state, the eager step, the two generators)."""
+    step at ``nan_at`` (a NaN in its ground truth, on this rank or another
+    of ``group``) must leave the weights and ``count`` as they were and count
+    one non-finite step. With a data-parallel ``group`` both step over it
+    (the program and the eager step each exchange their gradients) and
+    ``trace`` gets the digest of the state after each step. Returns
+    (program, its state, the eager state, the eager step, the two
+    generators)."""
     import torch
 
     from rdmnet_tpu_torch.engine import (batch_to_device, capture_train_step,
                                          create_train_state, make_train_step)
     from rdmnet_tpu_torch.models import RDMNet
 
+    world = 1 if group is None else torch.distributed.get_world_size(group)
     states = [create_train_state(c, RDMNet(c, device=dev,
-                                           generator=torch.Generator().manual_seed(SEED)))
+                                           generator=torch.Generator().manual_seed(SEED)),
+                                 dp_size=world)
               for _ in range(2)]
-    gens = [torch.Generator(device=dev).manual_seed(SEED + 19) for _ in range(2)]
-    program = capture_train_step(states[0], c, 1, gens[0], dev)
-    step = make_train_step(c, dev)
+    gens = [torch.Generator(device=dev).manual_seed(gen_seed) for _ in range(2)]
+    program = capture_train_step(states[0], c, 1, gens[0], dev, group)
+    step = make_train_step(c, dev, group)
     held_bitwise(state_bits(states[0]), state_bits(states[1]), f"{where}: the starting states")
     for i, host in enumerate(batches):
         before = state_bits(states[0])
@@ -4055,6 +4372,8 @@ def twin_run(dev, c, batches, nan_at, where):
         held_bitwise(got, want, f"{where}: step {i} metrics")
         after = state_bits(states[0])
         held_bitwise(after, state_bits(states[1]), f"{where}: step {i} state")
+        if trace is not None:
+            trace.append(_sha1(t for t in after.values() if t is not None))
         if not torch.equal(gens[0].get_state(), gens[1].get_state()):
             fail(f"{where}: step {i}: the program's generator stands elsewhere than the "
                  "eager one's")
@@ -4119,9 +4438,97 @@ def parts_of_step(prof, marks):
             for k, (ms, ops) in out.items()}
 
 
+def iter_trainer_check(dev, card, cfg, root, tmp):
+    """Phase 19 (i): ``IterBasedTrainer`` on ``root`` for ``ITER_FIRST``
+    iterations (validation every ``ITER_VAL``, a snapshot every
+    ``ITER_SNAPSHOT``), then on the same object resumed from its last
+    snapshot to ``ITER_RESUMED``, on the programs and kept eager: every
+    logged line, step's metrics and validation record and the final weights
+    bit-equal, and the resumed run on a program captured after the
+    restore."""
+    import logging
+
+    import torch
+
+    from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset
+    from rdmnet_tpu_torch.data.loader import PairLoader
+    from rdmnet_tpu_torch.engine.iter_trainer import IterBasedTrainer
+    from rdmnet_tpu_torch.engine.meters import to_floats
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    t, cap = cfg.train, cfg.pyramid.caps[0]
+    runs = {}
+    for kind in ("programs", "eager"):
+        train = RegistrationPairDataset(
+            "kitti", root=root, subset="train", point_limit=t.point_limit,
+            use_augmentation=t.use_augmentation, augmentation_noise=t.augmentation_noise,
+            augmentation_min_scale=t.augmentation_min_scale,
+            augmentation_max_scale=t.augmentation_max_scale,
+            augmentation_shift=t.augmentation_shift,
+            augmentation_rotation=t.augmentation_rotation, seed=cfg.seed)
+        val = RegistrationPairDataset("kitti", root=root, subset="val", point_limit=t.point_limit)
+        trainer = IterBasedTrainer(
+            cfg, PairLoader(train, cap=cap, batch_size=t.batch_size, shuffle=True, drop_last=True,
+                            seed=cfg.seed),
+            PairLoader(val, cap=cap, batch_size=t.batch_size), output_dir=os.path.join(tmp, kind),
+            log_steps=1, device=dev, max_iterations=ITER_FIRST, snapshot_every=ITER_SNAPSHOT,
+            val_every=ITER_VAL)
+        if kind == "eager":
+            trainer.use_programs = False
+        lines = Lines()
+        trainer.logger.addHandler(lines)
+        steps, vals = [], []
+        train_batch, validate = trainer._train_batch, trainer.validate
+
+        def recorded(np_batch):
+            metrics = train_batch(np_batch)
+            steps.append(to_floats(metrics))
+            return metrics
+
+        trainer._train_batch = recorded
+        trainer.validate = lambda: vals.append(validate()) or vals[-1]
+        t0 = time.perf_counter()
+        trainer.run()
+        first = (trainer.train_program, trainer.eval_program)
+        trainer.max_iterations = ITER_RESUMED
+        trainer.run(resume=True)
+        trainer.logger.removeHandler(lines)
+        runs[kind] = dict(steps=steps, vals=vals, lines=lines.lines,
+                          weights=_sha1(trainer.state.params), seconds=time.perf_counter() - t0,
+                          first=[p is not None and p.graph is not None for p in first],
+                          after=(trainer.train_program is not None
+                                 and trainer.train_program is not first[0]
+                                 and trainer.train_program.graph is not None),
+                          iteration=trainer.iteration)
+        del trainer, first
+        torch.cuda.empty_cache()
+    got, want = runs["programs"], runs["eager"]
+    if got["first"] != [True, True] or not got["after"] or got["iteration"] != ITER_RESUMED:
+        fail(f"iter trainer: programs captured in the first run {got['first']}, a new train "
+             f"program captured after the restore {got['after']}, iteration {got['iteration']}")
+    for key in ("steps", "vals", "lines", "weights"):
+        if got[key] != want[key]:
+            fail(f"iter trainer: {key} on the programs differ from the eager run's")
+    n_resumed = ITER_RESUMED - (ITER_FIRST // ITER_SNAPSHOT) * ITER_SNAPSHOT
+    print(f"train program (i): IterBasedTrainer on phase 10's root, {ITER_FIRST} iterations "
+          f"(validation every {ITER_VAL}, a snapshot every {ITER_SNAPSHOT}), then resumed on the "
+          f"same object to {ITER_RESUMED}: {len(got['steps'])} steps' metrics, "
+          f"{len(got['vals'])} validation records, {len(got['lines'])} logged lines and the final "
+          f"weights bit-equal to the eager run; both programs captured in the first run, the "
+          f"train program captured anew after the restore ({n_resumed} steps); "
+          f"{got['seconds']:.3f} s on the programs, {want['seconds']:.3f} s eager ({card})")
+
+
 def train_program_phase(dev, card, kernels, cfg, ref, src, gt, scan=WORKFLOW_SCAN, cli_args=()):
-    """Phase 19: the Trainer's compiled programs. (e) trains on phase 10's
-    root written with ``scan``; ``cli_args`` go to its CLI. Returns the
+    """Phase 19: the Trainer's compiled programs. (e) and (i) train on phase
+    10's root written with ``scan``; ``cli_args`` go to (e)'s CLI. Returns the
     launches a pair in the train and the eval program."""
     import numpy as np
     import torch
@@ -4346,33 +4753,34 @@ def train_program_phase(dev, card, kernels, cfg, ref, src, gt, scan=WORKFLOW_SCA
     runs = {}
     orig_board = trainer_mod.SummaryBoard
     trainer_mod.SummaryBoard = Recorded
+    tmp_dir = tempfile.TemporaryDirectory()  # phase 10's root, for (e) and (i)
+    tmp = tmp_dir.name
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            root = os.path.join(tmp, "kitti")
-            write_workflow_root(root, scan=scan)
-            for kind in ("programs", "eager"):
-                Recorded.rows = []
-                out_dir = os.path.join(tmp, kind)
-                if kind == "eager":
-                    trainer_mod.Trainer.__init__ = eager_init
-                t0 = time.perf_counter()
-                try:
-                    trainer = trainval.main(["--root", root, "--output_dir", out_dir,
-                                             "--bucket_scale", "0.7", "--log_steps", "2",
-                                             "--keep_snapshots", "1", "--max_epoch", "2",
-                                             "--device", dev.type, *cli_args])
-                finally:
-                    trainer_mod.Trainer.__init__ = init
-                wall = time.perf_counter() - t0
-                with open(os.path.join(out_dir, "metrics.jsonl")) as f:
-                    records = [json.loads(line) for line in f]
-                runs[kind] = dict(records=records, rows=list(Recorded.rows), wall=wall,
-                                  timings=trainer.epoch_timings, vals=trainer.val_timings,
-                                  programs=trainer.use_programs,
-                                  captured=(trainer.train_program is not None,
-                                            trainer.eval_program is not None))
-                del trainer
-                torch.cuda.empty_cache()
+        write_workflow_root(os.path.join(tmp, "kitti"), scan=scan)
+        for kind in ("programs", "eager"):
+            Recorded.rows = []
+            out_dir = os.path.join(tmp, kind)
+            if kind == "eager":
+                trainer_mod.Trainer.__init__ = eager_init
+            t0 = time.perf_counter()
+            try:
+                trainer = trainval.main(["--root", os.path.join(tmp, "kitti"),
+                                         "--output_dir", out_dir,
+                                         "--bucket_scale", "0.7", "--log_steps", "2",
+                                         "--keep_snapshots", "1", "--max_epoch", "2",
+                                         "--device", dev.type, *cli_args])
+            finally:
+                trainer_mod.Trainer.__init__ = init
+            wall = time.perf_counter() - t0
+            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            runs[kind] = dict(records=records, rows=list(Recorded.rows), wall=wall,
+                              timings=trainer.epoch_timings, vals=trainer.val_timings,
+                              programs=trainer.use_programs,
+                              captured=(trainer.train_program is not None,
+                                        trainer.eval_program is not None))
+            del trainer
+            torch.cuda.empty_cache()
     finally:
         trainer_mod.SummaryBoard = orig_board
     if runs["programs"]["captured"] != (True, True) or runs["eager"]["programs"]:
@@ -4397,6 +4805,10 @@ def train_program_phase(dev, card, kernels, cfg, ref, src, gt, scan=WORKFLOW_SCA
               f"{[round(x, 3) for x in rates]} ({[round(1e3 / x, 3) for x in rates]} ms/step); "
               f"epochs {[round(t['seconds'], 3) for t in r['timings']]} s; validation "
               f"{[round(v['seconds'] / v['pairs'] * 1e3, 3) for v in r['vals']]} ms/pair")
+
+    # (i) the iteration-based Trainer on its programs, across a resume
+    iter_trainer_check(dev, card, cfg, os.path.join(tmp, "kitti"), os.path.join(tmp, "iter"))
+    tmp_dir.cleanup()
 
     # (h) bfloat16 and phase 11's families: two replayed steps each, held to eager
     variants = {"bfloat16": dataclasses.replace(cfg, compute_dtype="bfloat16"),

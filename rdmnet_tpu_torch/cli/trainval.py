@@ -13,7 +13,10 @@ or, without torchrun, the same command on every process with
 --process_id I`` (``LOCAL_RANK`` names the card, else the process id).
 Each rank loads its own shard (``PairLoader(num_hosts, host_id)``) with
 augmentation seeded ``seed + rank``; rank 0 writes the files. The lr is
-multiplied by the world size (``parallel.scale_lr_by_dp``).
+multiplied by the world size (``parallel.scale_lr_by_dp``). On the cards
+each rank trains and validates on captured programs, as one process does:
+its train step replays two CUDA graphs with the gradient all-reduce between
+them; with ``--device cpu`` the ranks step eagerly.
 
 CUDA unless ``--device cpu``. ``--coarse_module`` picks the coarse
 transformer family.
@@ -78,7 +81,8 @@ def main(argv=None):
                         help="warmup micro-steps for --scheduler warmup_cosine")
     parser.add_argument("--dp", type=int, default=None,
                         help="data-parallel ranks: N, -1 = the world, 1 = one process "
-                             "(default: the world of a started process group, else 1)")
+                             "(default: the world of a started process group, else 1); "
+                             "each rank's steps run as captured programs on its card")
     parser.add_argument("--multihost", action="store_true",
                         help="join a process group from the flags below (torchrun's "
                              "environment joins one without it)")

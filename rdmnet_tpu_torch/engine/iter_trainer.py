@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 
 from rdmnet_tpu_torch.engine.meters import to_floats
-from rdmnet_tpu_torch.engine.trainer import Trainer, batch_to_device
+from rdmnet_tpu_torch.engine.trainer import Trainer
 
 
 class CycleLoader:
@@ -41,7 +41,9 @@ class IterBasedTrainer(Trainer):
     """Trains for ``max_iterations`` steps instead of epochs: a log line every
     ``log_steps``, validation every ``val_every`` and a snapshot (metadata
     ``iteration``) every ``snapshot_every`` iterations. Data parallel with a
-    ``group`` as the ``Trainer``."""
+    ``group`` as the ``Trainer``; its steps run on the ``Trainer``'s
+    programs on a card (``_train_batch``), and a resume drops them before
+    the first step."""
 
     def __init__(self, *args, max_iterations: int = 100000, snapshot_every: int = 1000,
                  val_every: int = 1000, **kwargs):
@@ -55,8 +57,7 @@ class IterBasedTrainer(Trainer):
         if resume:
             step = self.snapshots.latest_step()
             if step is not None:
-                self.state, meta = self.snapshots.restore(self.state, step)
-                self._replicate()
+                meta = self._restore(step)
                 self.iteration = int(meta.get("iteration", step))
                 self.generator.manual_seed(iteration_seed(self.target_seed, self.iteration))
                 self.logger.info(f"resumed at iteration {self.iteration}")
@@ -64,10 +65,9 @@ class IterBasedTrainer(Trainer):
         stream = iter(CycleLoader(self.train_loader, start_iteration=self.iteration))
         try:
             while self.iteration < self.max_iterations:
-                batch = batch_to_device(next(stream), self.cfg.pyramid, self.device)
-                self.state, metrics = self.train_step(self.state, batch, self.generator)
+                metrics = self._train_batch(next(stream))
                 self.iteration += 1
-                if self.iteration % self.log_steps == 0:
+                if self.iteration % self.log_steps == 0:  # read before the next step overwrites it
                     self.logger.info(f"iter {self.iteration}/{self.max_iterations} | " + ", ".join(
                         f"{k}: {v:.4f}" for k, v in to_floats(metrics).items()))
                 if self.iteration % self.val_every == 0:

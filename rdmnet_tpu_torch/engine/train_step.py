@@ -26,14 +26,21 @@ captured once as a CUDA graph and replayed (``capture_train_step``,
 build (``batch_to_device``), train step and eval step. The eager step and
 the replay run this same code.
 
-Data parallelism: with a process group, ``make_value_and_grad`` all-reduces
-one flat buffer of the rank's gradients (SUM, then / world), the counterpart
-of the psum XLA inserts under the JAX package's ``dp`` mesh, and averages
-the metrics with one stacked all-reduce. Every rank then holds the same
-gradients, so the non-finite guard and the update agree on every rank.
-``DistributedDataParallel`` does not apply: its reducer sees only gradients
-that accumulate into ``.grad``, and the step takes them with
-``torch.autograd.grad``.
+Data parallelism: with a process group the step is three pieces, run in
+this order eagerly (``make_train_step``) and by the program
+(``capture_train_step``): the gradient half (``make_gradient_half``: the
+graph build, forward, losses, PIR and backward of each pair, one flat
+buffer of the rank's gradients and the metrics stacked in one insertion
+order), the exchange (``exchange``: one all-reduce of each buffer, the
+counterpart of the psum XLA inserts under the JAX package's ``dp`` mesh)
+and the update half (``_update_half``: the means over the world, the
+views of ``grads``, the norm, then ``apply_gradients``). Every rank then
+holds the same gradients, so the non-finite guard and the update agree on
+every rank. On the card each half is a CUDA graph and the exchange runs
+between the replays (``program.SplitProgram``): NCCL enqueues it on the
+stream without waiting, gloo passes it through host memory. ``DistributedDataParallel``
+does not apply: its reducer sees only gradients that accumulate into
+``.grad``, and the step takes them with ``torch.autograd.grad``.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from rdmnet_tpu_torch.config import Config, PyramidConfig
 from rdmnet_tpu_torch.device import resolve_device
 from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch
 from rdmnet_tpu_torch.losses import Evaluator, OverallLoss
-from rdmnet_tpu_torch.program import StepProgram
+from rdmnet_tpu_torch.program import SplitProgram, StepProgram
 
 MAX_CONSECUTIVE_ERRORS = 100
 # synchronised parts of one train step (``build`` is ``batch_to_device``)
@@ -263,26 +270,15 @@ def make_batch_loss(cfg: Config, device=None) -> Callable:
     return batch_loss
 
 
-def make_value_and_grad(cfg: Config, device=None, group=None) -> Callable:
-    """``value_and_grad(state, batch, generator, stage_hook=None) ->
-    (metrics, grads)`` without the update. ``batch`` is a sequence of
-    ``PairBatch`` (``batch_to_device``); the loss is the mean of the pairs'
-    losses, each pair drawing its targets from ``generator`` in turn.
-    ``metrics`` holds the eight loss values, PIR and ``grad_norm`` (the global
-    norm), as 0-d tensors; ``grads`` follow ``state.params``. Runs on CUDA
-    unless ``device`` names another device; raises without a card.
-
-    ``group``: a data-parallel process group whose ranks each hold an equal
-    share of the global batch. The gradients and metrics come back as the
-    means over the ranks, the same on every rank."""
-    dev = resolve_device(device)
+def _pair_gradients(cfg: Config) -> Callable:
+    """``gradients(state, batch, generator, mark) -> (sums, grads)``: each
+    pair's forward, losses, PIR and backward in turn; ``sums`` the metrics'
+    means over the pairs (in the losses' insertion order), ``grads`` the mean
+    gradient, one tensor a parameter."""
     loss_module, evaluator = OverallLoss(cfg), Evaluator(cfg)
 
-    def value_and_grad(state: TrainState, batch: Sequence[PairBatch],
-                       generator: torch.Generator,
-                       stage_hook: Optional[Callable[[str], None]] = None):
-        _check_device(state, dev)
-        mark = stage_hook or (lambda name: None)
+    def gradients(state: TrainState, batch: Sequence[PairBatch], generator: torch.Generator,
+                  mark: Callable[[str], None]):
         scale = 1.0 / len(batch)
         sums: Dict[str, torch.Tensor] = {}
         grads: Optional[List[torch.Tensor]] = None
@@ -301,36 +297,104 @@ def make_value_and_grad(cfg: Config, device=None, group=None) -> Callable:
                 for name, value in losses.items():
                     sums[name] = sums.get(name, 0.0) + value.detach() * scale
                 mark("backward")
+        return sums, grads
+
+    return gradients
+
+
+def make_value_and_grad(cfg: Config, device=None, group=None) -> Callable:
+    """``value_and_grad(state, batch, generator, stage_hook=None) ->
+    (metrics, grads)`` without the update. ``batch`` is a sequence of
+    ``PairBatch`` (``batch_to_device``); the loss is the mean of the pairs'
+    losses, each pair drawing its targets from ``generator`` in turn.
+    ``metrics`` holds the eight loss values, PIR and ``grad_norm`` (the global
+    norm), as 0-d tensors; ``grads`` follow ``state.params``. Runs on CUDA
+    unless ``device`` names another device; raises without a card.
+
+    ``group``: a data-parallel process group whose ranks each hold an equal
+    share of the global batch. The gradients and metrics come back as the
+    means over the ranks, the same on every rank: the gradient half, the
+    exchange and the means of the update half (module docstring)."""
+    dev = resolve_device(device)
+    if group is not None:
+        gradient_half = make_gradient_half(cfg, dev)
+
+        def value_and_grad_dp(state: TrainState, batch: Sequence[PairBatch],
+                              generator: torch.Generator,
+                              stage_hook: Optional[Callable[[str], None]] = None):
+            flat, stacked, names = gradient_half(state, batch, generator, stage_hook)
+            exchange(flat, stacked, group)
+            return _means(state, flat, stacked, names, dist.get_world_size(group))
+
+        return value_and_grad_dp
+    gradients = _pair_gradients(cfg)
+
+    def value_and_grad(state: TrainState, batch: Sequence[PairBatch],
+                       generator: torch.Generator,
+                       stage_hook: Optional[Callable[[str], None]] = None):
+        _check_device(state, dev)
+        sums, grads = gradients(state, batch, generator, stage_hook or (lambda name: None))
         # one flat copy: a few launches instead of two per tensor, and the
         # float32 sum stays pairwise on the CPU (its vector_norm of a
         # 4M-entry tensor is ~1e-4 off)
         flat = torch.cat([g.reshape(-1) for g in grads])
-        if group is not None:
-            flat, grads, sums = _all_reduce_mean(flat, grads, sums, group)
         sums["grad_norm"] = torch.sqrt((flat * flat).sum())
         return sums, grads
 
     return value_and_grad
 
 
-def _all_reduce_mean(flat: torch.Tensor, grads: List[torch.Tensor],
-                     metrics: Dict[str, torch.Tensor], group):
-    """The means over ``group``'s ranks of the flat gradient buffer (one
-    all-reduce; ``grads`` come back as views into it) and of the metrics (one
-    stacked all-reduce)."""
+def make_gradient_half(cfg: Config, device=None) -> Callable:
+    """The data-parallel step's gradient half: ``gradients(state, batch,
+    generator, stage_hook=None) -> (flat, stacked, names)``, the rank's mean
+    gradient over its pairs as one flat float32 buffer in ``state.params``
+    order and its metrics (the eight losses and PIR) stacked in the order of
+    ``names``, both for ``exchange`` to sum in place. Reads nothing back."""
+    dev = resolve_device(device)
+    gradients = _pair_gradients(cfg)
+
+    def gradient_half(state: TrainState, batch: Sequence[PairBatch], generator: torch.Generator,
+                      stage_hook: Optional[Callable[[str], None]] = None):
+        _check_device(state, dev)
+        sums, grads = gradients(state, batch, generator, stage_hook or (lambda name: None))
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        names = list(sums)  # one insertion order on every rank
+        return flat, torch.stack([sums[k] for k in names]), names
+
+    return gradient_half
+
+
+def exchange(flat: torch.Tensor, stacked: torch.Tensor, group) -> None:
+    """The data-parallel exchange: ``flat`` and ``stacked`` summed over
+    ``group``'s ranks in place, one all-reduce each, on the current stream
+    (NCCL) or through host memory (gloo)."""
     from rdmnet_tpu_torch.parallel.mesh import check_collective_device
 
     check_collective_device(flat, group)
-    n = dist.get_world_size(group)
     dist.all_reduce(flat, group=group)
-    flat /= n
-    grads = [part.view_as(g) for part, g in zip(torch.split(flat, [g.numel() for g in grads]),
-                                                grads)]
-    names = list(metrics)  # one insertion order on every rank
-    stacked = torch.stack([metrics[k] for k in names])
     dist.all_reduce(stacked, group=group)
-    stacked /= n
-    return flat, grads, dict(zip(names, stacked.unbind()))
+
+
+def _means(state: TrainState, flat: torch.Tensor, stacked: torch.Tensor, names: List[str],
+           world: int):
+    """The exchanged sums -> (metrics with ``grad_norm``, grads): both means
+    over the ``world`` ranks in place, ``grads`` views into ``flat``."""
+    flat /= world
+    stacked /= world
+    grads = [part.view_as(p) for part, p in zip(torch.split(flat, [p.numel() for p in state.params]),
+                                                state.params)]
+    metrics = dict(zip(names, stacked.unbind()))
+    metrics["grad_norm"] = torch.sqrt((flat * flat).sum())
+    return metrics, grads
+
+
+def _update_half(state: TrainState, mid, world: int) -> Dict[str, torch.Tensor]:
+    """The program's update half on ``mid`` (the gradient half's outputs,
+    exchanged): ``_means``, then ``state.apply_gradients``, as
+    ``make_train_step`` runs them over a group. Returns the metrics."""
+    metrics, grads = _means(state, *mid, world)
+    state.apply_gradients(grads)
+    return metrics
 
 
 def make_train_step(cfg: Config, device=None, group=None) -> Callable:
@@ -435,7 +499,7 @@ def _input_shapes(cfg: Config, batch_size: int) -> Dict[str, Tuple[tuple, torch.
 
 
 def capture_train_step(state: TrainState, cfg: Config, batch_size: int,
-                       generator: torch.Generator, device=None) -> StepProgram:
+                       generator: torch.Generator, device=None, group=None) -> StepProgram:
     """``make_train_step``'s step with its graph build as a program on the
     card (``StepProgram``): ``program(np_batch) -> metrics`` takes a host
     batch of ``batch_size`` pairs padded to ``cfg.pyramid.caps[0]``
@@ -447,8 +511,23 @@ def capture_train_step(state: TrainState, cfg: Config, batch_size: int,
     warm-up calls and the replays after them give the steps an eager loop
     gives. Gradient accumulation runs inside: one program serves
     every micro-batch of a group. Raises on a CPU device, where the step
-    runs eagerly."""
+    runs eagerly.
+
+    With a data-parallel ``group`` the program is a ``SplitProgram``: the
+    gradient half with the graph build and the update half, each a graph,
+    the exchange between their replays (one exchange a micro-batch), as
+    ``make_train_step(cfg, device, group)`` runs them."""
     dev = _program_device("train", state, device)
+    shapes = _input_shapes(cfg, batch_size)
+    if group is not None:
+        gradient_half = make_gradient_half(cfg, dev)
+        world = dist.get_world_size(group)
+        return SplitProgram(
+            "capture_train_step",
+            lambda static: gradient_half(state, build_batch(static, cfg.pyramid), generator),
+            lambda mid: exchange(mid[0], mid[1], group),
+            lambda mid: _update_half(state, mid, world),
+            batch_inputs, shapes, dev, generator)
     value_and_grad = make_value_and_grad(cfg, dev)
 
     def body(static):
@@ -456,8 +535,7 @@ def capture_train_step(state: TrainState, cfg: Config, batch_size: int,
         state.apply_gradients(grads)
         return metrics
 
-    return StepProgram("capture_train_step", body, batch_inputs, _input_shapes(cfg, batch_size),
-                       dev, generator)
+    return StepProgram("capture_train_step", body, batch_inputs, shapes, dev, generator)
 
 
 def capture_eval_step(state: TrainState, cfg: Config, batch_size: int, device=None,

@@ -4,7 +4,8 @@ host batches to pyramids on the device, the train step, validation, rolling
 snapshots, the best-by-validation snapshot, resume, ``metrics.jsonl``.
 
 Data parallel with a process group: one rank per card, each on its own
-loader shard, the gradients all-reduced in the step (``train_step.py``).
+loader shard, the gradients all-reduced in the step (``train_step.py``:
+between the two graphs of its program on the card).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import json
 import logging
 import os
 import time
-from typing import List, Mapping, Optional
+from typing import Callable, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -65,12 +66,17 @@ class Trainer:
     datasets' draws) from their seeds, rather than continuing where the
     interrupted run stood.
 
-    On one card the train and eval steps, each with its graph build, run as
+    On a card the train and eval steps, each with its graph build, run as
     captured programs (``capture_train_step``, ``capture_eval_step``: CUDA
     graphs made at the first batch of each, after their eager warm-up
-    steps); the CPU and a Trainer with a process group step eagerly. Each
+    steps), with or without a process group: under a group the train
+    program is two graphs with the gradient exchange between their replays
+    (``program.SplitProgram``), and the validation sums cross the ranks
+    after the loop. A failed capture raises. The CPU steps eagerly. Each
     step's metrics are copied out of the step's outputs on the device, and
-    a log window's are read back in one copy at its end.
+    a log window's are read back in one copy at its end. Restoring a
+    snapshot drops both programs (the restored optimizer holds new moment
+    tensors): they are captured anew.
 
     ``epoch_timings`` gets one record per training epoch: its wall seconds,
     the seconds the loop waited on the loader, the steps and the windowed
@@ -124,9 +130,9 @@ class Trainer:
         self._replicate()
         self.train_step = make_train_step(cfg, self.device, group)
         self.eval_step = make_eval_step(cfg, self.device)
-        # on one card each step runs as a captured program (a CUDA graph),
-        # made at its first batch; the CPU and a process group step eagerly
-        self.use_programs = self.device.type == "cuda" and group is None
+        # on a card each step runs as a captured program, made at its first
+        # batch; the CPU steps eagerly
+        self.use_programs = self.device.type == "cuda"
         self.train_program = self.eval_program = None
         self.epoch = 0
         self.target_seed = rank_seed(cfg.seed + 1, self.rank)
@@ -139,10 +145,7 @@ class Trainer:
         if step is None:
             self.logger.info("no snapshot found; training from scratch")
             return
-        self.state, meta = self.snapshots.restore(self.state, step)
-        # the restored optimizer holds new moment tensors: capture anew
-        self.train_program = self.eval_program = None
-        self._replicate()
+        meta = self._restore(step)
         self.epoch = int(meta.get("epoch", step))
         try:
             self._best_score = tuple(self.best_snapshots.read_metadata()["score"])
@@ -158,6 +161,34 @@ class Trainer:
         self.state.model.load_state_dict(params, strict=True)
         self._replicate()
         self.logger.info(f"warm-started params from {snapshot_dir}")
+
+    def _restore(self, step: int) -> dict:
+        """The state of snapshot ``step`` (rank 0's weights on every rank);
+        returns its metadata. Drops both programs: the restored optimizer
+        holds new moment tensors, so they are captured anew."""
+        self.state, meta = self.snapshots.restore(self.state, step)
+        self.train_program = self.eval_program = None
+        self._replicate()
+        return meta
+
+    def _train_batch(self, np_batch: Mapping, built: Callable[[], None] = lambda: None) -> dict:
+        """One train step on a host batch: the program's replay on a card,
+        the eager step elsewhere. ``built()`` is called once the batch's
+        graph is built: after ``batch_to_device`` eagerly, before the replay
+        on a program (which builds inside). Returns the step's metrics (0-d
+        device tensors), which the next step overwrites: consume them
+        first."""
+        if not self.use_programs:
+            batch = batch_to_device(np_batch, self.cfg.pyramid, self.device)
+            built()
+            self.state, metrics = self.train_step(self.state, batch, self.generator)
+            return metrics
+        if self.train_program is None:
+            self.train_program = capture_train_step(
+                self.state, self.cfg, len(np_batch["ref_points"]), self.generator, self.device,
+                self.group)
+        built()  # the graph build runs inside the program
+        return self.train_program(np_batch)
 
     def _replicate(self):
         if self.group is not None:
@@ -191,17 +222,7 @@ class Trainer:
             wait += time.perf_counter() - t0
             if np_batch is None:
                 break
-            if self.use_programs:
-                if self.train_program is None:
-                    self.train_program = capture_train_step(
-                        self.state, self.cfg, len(np_batch["ref_points"]), self.generator,
-                        self.device)
-                timer.record_prepare()  # the graph build runs inside the program
-                metrics = self.train_program(np_batch)
-            else:
-                batch = batch_to_device(np_batch, self.cfg.pyramid, self.device)
-                timer.record_prepare()
-                self.state, metrics = self.train_step(self.state, batch, self.generator)
+            metrics = self._train_batch(np_batch, timer.record_prepare)
             names[:] = list(metrics)
             pending.append(torch.stack([metrics[k].float() for k in names]))
             timer.record_process()

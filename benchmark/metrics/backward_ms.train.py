@@ -1,0 +1,9 @@
+"""Device ms a traced call spends in the backward of a train step:
+the union of the card's intervals (the marks' own kernels left out) between
+the program's marks ``losses`` and ``backward``, over the window's calls."""
+
+from benchmark.harness.stages import stage_ms_per_call
+
+
+def read(run):
+    return stage_ms_per_call(run, "losses", "backward")

@@ -34,8 +34,10 @@ Phases, each fatal on failure:
    device time, time per call, plain time, bound and plan;
 4. the main path at ``make_cfg()`` full width, 0.7 bucket: a seeded ~20k
    point procedural pair through ``pipeline`` (graph build to pose), 3
-   warm-up pairs, 12 timed pairs, 5 pairs with a per-stage breakdown; every
-   kernel must have launched inside that window;
+   warm-up pairs, 12 timed pairs and one more, every kernel launched inside
+   that window; then the device ms by stage of 5 profiled replays of the
+   pipeline captured (its stage marks read by ``trace.attribute``; every
+   mark once a replay, in order);
 5. the same weights and inputs on the card and on the CPU at
    ``make_tiny_cfg()``, for 8 weight draws: every index table equal, log
    transport plans within 1e-3, LGR on the same plans with equal
@@ -44,8 +46,8 @@ Phases, each fatal on failure:
 6. the training path at ``make_cfg()`` full width, 0.7 bucket, on the
    phase-4 pair with its true pose: ``batch_to_device`` then
    ``make_train_step`` (forward with ground truth, the seven losses,
-   backward, Adam), 2 warm-up and 8 timed steps with each part synchronised,
-   the peak memory and every step's losses (finite, ``grad_norm`` > 0, the
+   backward, Adam), 2 warm-up and 8 timed steps, the device ms by part of
+   8 profiled replays of the step captured (its stage marks), the peak memory and every step's losses (finite, ``grad_norm`` > 0, the
    weights move); 12 kNN and 0 Sinkhorn launches per step (training runs the
    plain Sinkhorn under autograd); then one eval step (PIR, IR, RRE, RTE, RR)
    with 12 kNN launches and 1 Sinkhorn launch;
@@ -108,7 +110,7 @@ Phases, each fatal on failure:
    pair: ``make_parity_cfg()`` with a random kernel disposition per KPConv
    layer, its 12 searches (9 at K 63-81, 3 at K = 1) against the plain
    version with device and per-call ms beside the bound, ``pipeline`` ms per
-   pair, per-stage ms and peak memory with 12 kNN and 1 Sinkhorn launches per
+   pair, per-stage ms (profiled replays) and peak memory with 12 kNN and 1 Sinkhorn launches per
    pair; level-0 searches at K = 81 and K = 256 (the 128- and 256-entry
    lists) against the plain version; an upstream-schema ``.pth.tar`` of the
    parity model converted on load (``--torch_checkpoint``'s path) against the
@@ -121,10 +123,12 @@ Phases, each fatal on failure:
    same matched node pairs, plans within 1e-3);
 12. ``compute_dtype="bfloat16"`` beside float32 at ``make_cfg()`` width, 0.7
    bucket, on the phase-4 pair with one set of weights: ``pipeline`` in
-   turns (3 warm-up and 12 timed pairs each; ms/pair, per-stage ms, peak
+   turns (3 warm-up and 12 timed pairs each; ms/pair, per-stage ms of
+   profiled replays, peak
    memory; 12 kNN and 1 Sinkhorn launches per bf16 pair; the coarse features'
    median cosine to float32 > 0.98); 1 + 3 train steps each in turns (finite
-   losses, ``grad_norm`` > 0, float32 weights, parts, peak memory; 12/0
+   losses, ``grad_norm`` > 0, float32 weights, parts of profiled replays,
+   peak memory; 12/0
    launches per step); card against CPU at ``make_tiny_cfg()`` for 2 weight
    draws (tables equal; the card's bf16 features no further from the CPU's
    bf16 than twice the CPU's bf16 from its float32);
@@ -197,7 +201,7 @@ Phases, each fatal on failure:
 16. the model at shapes past the kernels' first paths: ``make_cfg()`` at the
    0.7 bucket with neighbour limits (320, 40, 40, 40, 40) and 256 points a
    patch, on the phase-4 pair: ``pipeline`` builds and runs on the card (2
-   warm-up, 6 timed pairs, 2 with a per-stage breakdown; ms/pair, peak
+   warm-up, 6 timed pairs, then 2 profiled replays by stage; ms/pair, peak
    memory), both second paths launch inside the window (2 select-path kNN
    and 1 cluster-path Sinkhorn launch a pair), its 12 searches equal the plain
    version's (the two warp-select searches' device ms summed beside their
@@ -215,7 +219,8 @@ Phases, each fatal on failure:
    warm-up and 4 timed pairs launch the 12 list-path searches and one
    group-path Sinkhorn each, one more pair's Sinkhorn is held against the
    plain version on its own inputs (as phase 8 does), with ms/pair,
-   per-stage ms (OT among them) and peak memory; no CPU pipeline there.
+   per-stage ms of profiled replays (OT among them) and peak memory; no CPU
+   pipeline there.
 17. the learning loop: (a) ``tools/overfit_demo.run`` at ``make_cfg()``
    width, 0.7 bucket, lr 5e-4, on the phase-4 ref against its copy moved by
    the demo's known pose (104 degrees, 0.02 m noise), 150 steps from seeded
@@ -280,8 +285,8 @@ Phases, each fatal on failure:
    12/1/4/1/7 an eval pair) and a profiled replay launching exactly them;
    (g) replayed against eager train steps in turns (ms/step, spread, peak
    memory) and eval steps (ms a pair), a replayed and an eager train step
-   profiled (busy share), the kernel ms of the eager step by part with its
-   top operators, the replay's top kernels, capture s, memory kept and
+   profiled (busy share), the replay's device ms by part (its stage marks),
+   the replay's top kernels, capture s, memory kept and
    reserved; (e) ``cli.trainval.main`` on phase 10's root
    for 2 epochs on the programs and with the Trainer kept eager: every
    ``metrics.jsonl`` record and every logged step's values equal, windowed
@@ -441,6 +446,86 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profile_events(prof) -> list:
+    """A finished ``torch.profiler`` profile's Chrome trace events."""
+    from rdmnet_tpu_torch import trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        return trace.load_events(path)
+
+
+def replayed_stages(call, dev, reps: int, marks, label: str) -> dict:
+    """``call()``, one replay of a captured program, ``reps`` + 2 times under
+    the profiler: device ms a replay by stage (``trace.attribute`` bounded by
+    ``marks``, its first mark the program's entry) over ``reps`` replays in a
+    row whose marks came out once each, in ``marks``' order; the phase fails
+    without them. The first and the last replay only open and close the
+    window: a profile can begin or end without the records of the card's
+    first or last kernels (seen in phases 6 and 11)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rdmnet_tpu_torch import trace
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps + 2):
+            call()
+        torch.cuda.synchronize(dev)
+    trace.reset()
+    events = profile_events(prof)
+    bounds = sorted((e for e in events if e.get("cat") == "kernel"
+                     and str(e.get("name", "")).startswith(trace.MARK_KERNEL)
+                     and e["name"][len(trace.MARK_KERNEL):] in marks), key=lambda e: e["ts"])
+    seen = [e["name"][len(trace.MARK_KERNEL):] for e in bounds]
+    want = list(marks) * reps
+    start = next((i for i in range(len(seen) - len(want)) if seen[i:i + len(want)] == want),
+                 None)
+    if start is None:
+        fail(f"{label}: the replays' marks came out as {seen}, not {list(marks)} a replay")
+    lo, hi = bounds[start]["ts"], bounds[start + len(want)]["ts"]
+    stages, _ = trace.attribute([e for e in events if lo <= e.get("ts", lo - 1) < hi], marks)
+    return {name: stages.get(name, 0.0) / reps for name in marks[1:]}
+
+
+def pipeline_stages(model, args, dev, reps: int, label: str) -> dict:
+    """Device ms a replayed pair by stage: ``pipeline`` at ``model``'s bucket
+    captured (``capture_pipeline``) and replayed ``reps`` times on ``args``
+    (the padded pair) under the profiler. The capture counts its launches
+    in the kernels' counters."""
+    import torch
+
+    from rdmnet_tpu_torch.models import capture_pipeline
+    from rdmnet_tpu_torch.models.rdmnet import STAGES
+
+    run = capture_pipeline(model, dev)
+    host = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    stage_ms = replayed_stages(lambda: run(*host), dev, reps, ("begin", *STAGES), label)
+    del run
+    torch.cuda.empty_cache()
+    return stage_ms
+
+
+def train_stages(state, cfg, host, generator, dev, reps: int, label: str) -> dict:
+    """Device ms a replayed train step by part (``TRAIN_STAGES``): the step
+    captured (``capture_train_step``) on ``host``'s batch size and replayed
+    ``reps`` times after its warm-ups and capture, under the profiler. The
+    steps train ``state``."""
+    import torch
+
+    from rdmnet_tpu_torch.engine import TRAIN_STAGES, capture_train_step
+
+    program = capture_train_step(state, cfg, len(host["ref_points"]), generator, dev)
+    for _ in range(3):  # two eager warm-ups, the capture
+        program(host)
+    stage_ms = replayed_stages(lambda: program(host), dev, reps, ("begin", *TRAIN_STAGES), label)
+    del program
+    torch.cuda.empty_cache()
+    return stage_ms
+
+
 def knn_diagnosis(q, s, got, want, rows: int = 3):
     """Lines describing the first ``rows`` rows where the kernel's table
     differs from the plain version's: each side's neighbours with their
@@ -544,13 +629,14 @@ def check_searches(pts, cnts, pyramid, kernels, prefix="", v1=None):
 
 def train_phase(cfg, host, dev):
     """Phase 6: ``TRAIN_WARM`` + ``TRAIN_TIMED`` train steps on ``host`` (a
-    one-pair host batch), each part synchronised, then one eval step. Returns
+    one-pair host batch), then the step's parts from ``TRAIN_TIMED`` profiled
+    replays of it captured (``train_stages``), then one eval step. Returns
     the printed summary's numbers and the launch counts."""
     import numpy as np
     import torch
 
-    from rdmnet_tpu_torch.engine import (TRAIN_STAGES, batch_to_device, create_train_state,
-                                         make_eval_step, make_train_step)
+    from rdmnet_tpu_torch.engine import (batch_to_device, create_train_state, make_eval_step,
+                                         make_train_step)
     from rdmnet_tpu_torch.models import RDMNet
     from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
@@ -559,25 +645,18 @@ def train_phase(cfg, host, dev):
     step = make_train_step(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     start = [p.detach().clone() for p in state.params]
-    parts = {name: 0.0 for name in TRAIN_STAGES}
     train_counts = {name: 0 for name in launch_counts()}
     step_ms = []
     for i in range(TRAIN_WARM + TRAIN_TIMED):
         if i == TRAIN_WARM:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-        marks = []
-
-        def hook(name):
-            torch.cuda.synchronize(dev)
-            marks.append((name, time.perf_counter()))
-
         reset_launch_counts()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        batch = batch_to_device(host, cfg.pyramid, device=dev)
-        hook("build")
-        state, metrics = step(state, batch, gen, stage_hook=hook)
+        state, metrics = step(state, batch_to_device(host, cfg.pyramid, device=dev), gen)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
         counts = launch_counts()
         metrics = {k: float(v) for k, v in metrics.items()}
         if counts != {"radius_knn": 12, "sinkhorn": 0}:
@@ -587,14 +666,10 @@ def train_phase(cfg, host, dev):
         for name in counts:
             train_counts[name] += counts[name]
         kind = "warm-up" if i < TRAIN_WARM else "timed"
-        print(f"train step {i} ({kind}): {(marks[-1][1] - t0) * 1e3:.3f} ms, "
+        print(f"train step {i} ({kind}): {ms:.3f} ms, "
               + ", ".join(f"{k} {v:.6g}" for k, v in metrics.items()))
         if i >= TRAIN_WARM:
-            step_ms.append((marks[-1][1] - t0) * 1e3)
-            prev = t0
-            for name, t in marks:
-                parts[name] += (t - prev) * 1e3 / TRAIN_TIMED
-                prev = t
+            step_ms.append(ms)
     peak = torch.cuda.max_memory_allocated(dev)
     moved = max(float((p.detach() - q).abs().max()) for p, q in zip(state.params, start))
     if state.count != TRAIN_WARM + TRAIN_TIMED or moved <= 0:
@@ -624,6 +699,7 @@ def train_phase(cfg, host, dev):
           "operators by the device time of their kernels:")
     for e in ops[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    parts = train_stages(state, cfg, host, gen, dev, TRAIN_TIMED, "train path")
 
     reset_launch_counts()
     batch = batch_to_device(host, cfg.pyramid, device=dev)
@@ -1577,9 +1653,11 @@ def rotate_kernel_points(model, seed):
 
 
 def timed_pipeline(model, args, dev, warm, timed, n_stage, label):
-    """``warm`` + ``timed`` + ``n_stage`` pipeline calls on ``args`` (the
-    padded pair on the card); 12 kNN and 1 Sinkhorn launches per call or
-    fail. Returns (ms/pair, peak bytes, per-stage ms, the last outputs)."""
+    """``warm`` + ``timed`` pipeline calls on ``args`` (the padded pair on
+    the card); 12 kNN and 1 Sinkhorn launches per call or fail; then, with
+    ``n_stage``, the device ms by stage of ``n_stage`` profiled replays of the
+    pipeline captured (``pipeline_stages``). Returns (ms/pair, peak bytes,
+    per-stage ms, the last outputs)."""
     import torch
 
     from rdmnet_tpu_torch.models import pipeline
@@ -1596,24 +1674,11 @@ def timed_pipeline(model, args, dev, warm, timed, n_stage, label):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / timed
     peak = torch.cuda.max_memory_allocated()
-    stage_ms = {}
-    for _ in range(n_stage):
-        marks = []
-
-        def hook(name):
-            torch.cuda.synchronize()
-            marks.append((name, time.perf_counter()))
-
-        torch.cuda.synchronize()
-        prev = time.perf_counter()
-        out = pipeline(model, *args, device=dev, stage_hook=hook)
-        for name, t in marks:
-            stage_ms[name] = stage_ms.get(name, 0.0) + (t - prev) * 1e3 / n_stage
-            prev = t
-    n = warm + timed + n_stage
+    n = warm + timed
     counts = launch_counts()
     if counts != {"radius_knn": 12 * n, "sinkhorn": n}:
         fail(f"{label}: launches {counts} over {n} pairs, expected 12 kNN and 1 Sinkhorn each")
+    stage_ms = pipeline_stages(model, args, dev, n_stage, label) if n_stage else {}
     tf = out["estimated_transform"]
     if tf.shape != (4, 4) or not bool(torch.isfinite(tf).all()):
         fail(f"{label}: non-finite or misshapen estimated_transform")
@@ -1814,8 +1879,7 @@ def bf16_phase(dev, cfg, ref, src, gt):
 
     from rdmnet_tpu_torch.config import make_tiny_cfg
     from rdmnet_tpu_torch.data.procedural import procedural_pair
-    from rdmnet_tpu_torch.engine import (TRAIN_STAGES, batch_to_device, create_train_state,
-                                         make_train_step)
+    from rdmnet_tpu_torch.engine import batch_to_device, create_train_state, make_train_step
     from rdmnet_tpu_torch.graph.pyramid import pad_cloud
     from rdmnet_tpu_torch.models import RDMNet, pipeline
     from rdmnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -1829,9 +1893,9 @@ def bf16_phase(dev, cfg, ref, src, gt):
     args = (*pad_cloud(ref, cap, device=dev), *pad_cloud(src, cap, device=dev))
     per_pair = {"radius_knn": 12, "sinkhorn": 1}
 
-    def run(name, hook=None):
+    def run(name):
         reset_launch_counts()
-        out = pipeline(models[name], *args, device=dev, stage_hook=hook)
+        out = pipeline(models[name], *args, device=dev)
         counts = launch_counts()
         if dev.type == "cuda" and counts != per_pair:
             fail(f"{name} pipeline: launches {counts}, expected 12 kNN and 1 Sinkhorn per pair")
@@ -1846,21 +1910,8 @@ def bf16_phase(dev, cfg, ref, src, gt):
             sync(dev)
             if i >= BF16_WARM:
                 ms[name].append((time.perf_counter() - t0) * 1e3)
-    stage_ms = {name: {} for name in models}
-    for _ in range(BF16_STAGE):
-        for name in models:
-            marks = []
-
-            def hook(stage):
-                sync(dev)
-                marks.append((stage, time.perf_counter()))
-
-            sync(dev)
-            prev = time.perf_counter()
-            run(name, hook)
-            for stage, t in marks:
-                stage_ms[name][stage] = stage_ms[name].get(stage, 0.0) + (t - prev) * 1e3 / BF16_STAGE
-                prev = t
+    stage_ms = {name: pipeline_stages(models[name], args, dev, BF16_STAGE, f"{name} pipeline")
+                for name in models} if dev.type == "cuda" else {name: {} for name in models}
     outs, peak = {}, {}
     for name in models:
         sync(dev)
@@ -1874,7 +1925,7 @@ def bf16_phase(dev, cfg, ref, src, gt):
         print(f"bf16 phase, {name} pipeline (0.7 bucket, the phase-4 pair, timed in turns): "
               f"{sum(t) / len(t):.3f} ms/pair (median {t[len(t) // 2]:.3f}, min {t[0]:.3f}, max "
               f"{t[-1]:.3f}) over {BF16_TIMED} pairs after {BF16_WARM} warm-up; peak memory "
-              f"{peak[name]:.1f} MiB; stages "
+              f"{peak[name]:.1f} MiB; stages (device ms, {BF16_STAGE} profiled replays) "
               + json.dumps({k: round(v, 3) for k, v in stage_ms[name].items()}))
     if dev.type == "cuda":
         # one profiled pair each: kernels launched and their device time
@@ -1921,24 +1972,18 @@ def bf16_phase(dev, cfg, ref, src, gt):
     steps = {name: make_train_step(c, device=dev) for name, c in cfgs.items()}
     gens = {name: torch.Generator(device=dev).manual_seed(SEED) for name in cfgs}
     step_ms = {name: [] for name in cfgs}
-    parts = {name: {k: 0.0 for k in TRAIN_STAGES} for name in cfgs}
     tpeak = {name: 0.0 for name in cfgs}
     for i in range(BF16_STEP_WARM + BF16_STEPS):
         for name in (("bfloat16", "float32") if i % 2 == 0 else ("float32", "bfloat16")):
-            marks = []
-
-            def hook(stage):
-                sync(dev)
-                marks.append((stage, time.perf_counter()))
-
             sync(dev)
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
             reset_launch_counts()
             t0 = time.perf_counter()
             batch = batch_to_device(host, cfgs[name].pyramid, device=dev)
-            hook("build")
-            states[name], metrics = steps[name](states[name], batch, gens[name], stage_hook=hook)
+            states[name], metrics = steps[name](states[name], batch, gens[name])
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
             counts = launch_counts()
             metrics = {k: float(val) for k, val in metrics.items()}
             if dev.type == "cuda" and counts != {"radius_knn": 12, "sinkhorn": 0}:
@@ -1947,21 +1992,20 @@ def bf16_phase(dev, cfg, ref, src, gt):
                 fail(f"{name} train step {i}: non-finite losses or zero gradient: {metrics}")
             kind = "warm-up" if i < BF16_STEP_WARM else "timed"
             if kind == "timed":
-                step_ms[name].append((marks[-1][1] - t0) * 1e3)
-                prev = t0
-                for stage, t in marks:
-                    parts[name][stage] += (t - prev) * 1e3 / BF16_STEPS
-                    prev = t
+                step_ms[name].append(ms)
             if dev.type == "cuda":
                 tpeak[name] = max(tpeak[name], torch.cuda.max_memory_allocated(dev) / 2**20)
-            print(f"{name} train step {i} ({kind}): {(marks[-1][1] - t0) * 1e3:.3f} ms, "
+            print(f"{name} train step {i} ({kind}): {ms:.3f} ms, "
                   + ", ".join(f"{k} {val:.6g}" for k, val in metrics.items()))
+    parts = {name: train_stages(states[name], cfgs[name], host, gens[name], dev, BF16_STEPS,
+                                f"{name} train step") if dev.type == "cuda" else {}
+             for name in cfgs}
     for name in cfgs:
         if {p.dtype for p in states[name].params} != {torch.float32}:
             fail(f"{name} training: weights are not float32")
         print(f"bf16 phase, {name} training: {sum(step_ms[name]) / BF16_STEPS:.3f} ms/step over "
               f"{BF16_STEPS} steps in turns after {BF16_STEP_WARM} warm-up, peak memory {tpeak[name]:.1f} MiB, float32 weights; "
-              "parts " + json.dumps({k: round(val, 3) for k, val in parts[name].items()}))
+              f"parts (device ms, {BF16_STEPS} profiled replays) " + json.dumps({k: round(val, 3) for k, val in parts[name].items()}))
     del states, steps
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2603,6 +2647,7 @@ def dp_phase(dev, card, kernels, cfg, ref, src, gt, root, cli_args=()):
     import torch
     import torch.multiprocessing as mp
 
+    from rdmnet_tpu_torch import trace
     from rdmnet_tpu_torch.config import Config, config_from_dict
     from rdmnet_tpu_torch.data.datasets import RegistrationPairDataset
     from rdmnet_tpu_torch.data.loader import PairLoader
@@ -2641,17 +2686,21 @@ def dp_phase(dev, card, kernels, cfg, ref, src, gt, root, cli_args=()):
         gen = torch.Generator(device=dev)
         runs, gen_states = [], []
 
-        def mark(stage):  # the generator's state after each pair: rank r starts at pair r's
+        def mark(stage, device):  # the generator's state after each pair: rank r starts at pair r's
             if stage == "backward":
                 gen_states.append(gen.get_state())
 
-        for _ in range(2):
-            gen.manual_seed(cfg.seed + 1)
-            gen_states[:] = [gen.get_state()]
-            m, g = vag(state, batch_to_device(both, cfg.pyramid, dev), gen, stage_hook=mark)
-            runs.append(({k: float(v) for k, v in m.items()},
-                         torch.cat([x.reshape(-1) for x in g])))
-            del g
+        real_mark, trace.mark = trace.mark, mark
+        try:
+            for _ in range(2):
+                gen.manual_seed(cfg.seed + 1)
+                gen_states[:] = [gen.get_state()]
+                m, g = vag(state, batch_to_device(both, cfg.pyramid, dev), gen)
+                runs.append(({k: float(v) for k, v in m.items()},
+                             torch.cat([x.reshape(-1) for x in g])))
+                del g
+        finally:
+            trace.mark = real_mark
         step = make_train_step(cfg, dev)
         sync(dev)
         if n_cards:
@@ -3471,7 +3520,6 @@ def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
 
     from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud, search_plan
     from rdmnet_tpu_torch.models import RDMNet, pipeline
-    from rdmnet_tpu_torch.models.rdmnet import STAGES
     from rdmnet_tpu_torch.ops.kernels import path_launch_counts, reset_launch_counts
     from rdmnet_tpu_torch.tools.overfit_demo import hold_card_to_cpu, report_text
 
@@ -3501,24 +3549,11 @@ def large_model_phase(dev, card, kernels, cfg, ref, src, gt):
         fail("large-shape phase: non-finite estimated_transform")
     per_pair = {name: {path: n / LARGE_TIMED for path, n in per.items()}
                 for name, per in paths.items()}
-    stage_ms = {name: 0.0 for name in STAGES}
-    for _ in range(LARGE_STAGE):
-        marks = []
-
-        def hook(name):
-            torch.cuda.synchronize()
-            marks.append((name, time.perf_counter()))
-
-        torch.cuda.synchronize()
-        prev = time.perf_counter()
-        pipeline(model, rp, rc, sp, sc, device=dev, stage_hook=hook)
-        for name, t in marks:
-            stage_ms[name] += (t - prev) * 1e3 / LARGE_STAGE
-            prev = t
+    stage_ms = pipeline_stages(model, (rp, rc, sp, sc), dev, LARGE_STAGE, "large-shape phase")
     print(f"large-shape phase (neighbor_limits {LARGE_LIMITS}, num_points_in_patch "
           f"{LARGE_PATCH}, caps {big.pyramid.caps}, band caps {big.pyramid.band_caps}; {card}): "
           f"{dt * 1e3:.3f} ms/pair over {LARGE_TIMED} pairs, peak memory {peak / 2**20:.1f} MiB; "
-          f"launches per pair {per_pair}; stages (ms, mean of {LARGE_STAGE} synchronised pairs) "
+          f"launches per pair {per_pair}; stages (device ms, {LARGE_STAGE} profiled replays) "
           + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}))
 
     # its 12 searches against the plain version; the select-path ones summed
@@ -3595,7 +3630,6 @@ def group_model_phase(dev, card, kernels, cfg, ref, src):
 
     from rdmnet_tpu_torch.graph.pyramid import pad_cloud
     from rdmnet_tpu_torch.models import RDMNet, pipeline
-    from rdmnet_tpu_torch.models.rdmnet import STAGES
     from rdmnet_tpu_torch.ops.kernels import path_launch_counts, reset_launch_counts
 
     t_phase = time.perf_counter()
@@ -3623,20 +3657,7 @@ def group_model_phase(dev, card, kernels, cfg, ref, src):
         fail(f"group-path pass: launched {paths} in {GROUP_TIMED} pairs, not {want}")
     if not all(bool(torch.isfinite(t).all()) for t in outs):
         fail("group-path pass: non-finite estimated_transform")
-    stage_ms = {name: 0.0 for name in STAGES}
-    for _ in range(GROUP_STAGE):
-        marks = []
-
-        def hook(name):
-            torch.cuda.synchronize()
-            marks.append((name, time.perf_counter()))
-
-        torch.cuda.synchronize()
-        prev = time.perf_counter()
-        pipeline(model, rp, rc, sp, sc, device=dev, stage_hook=hook)
-        for name, t in marks:
-            stage_ms[name] += (t - prev) * 1e3 / GROUP_STAGE
-            prev = t
+    stage_ms = pipeline_stages(model, (rp, rc, sp, sc), dev, GROUP_STAGE, "group-path pass")
     ot, seen = model.optimal_transport, []
     handle = ot.register_forward_hook(
         lambda mod, args, kwargs, out: seen.append((args, kwargs, out)), with_kwargs=True)
@@ -3653,8 +3674,8 @@ def group_model_phase(dev, card, kernels, cfg, ref, src):
                 for name, per in paths.items()}
     print(f"group-path pass (num_points_in_patch {GROUP_PATCH}, caps {big.pyramid.caps}; "
           f"{card}): {dt * 1e3:.3f} ms/pair over {GROUP_TIMED} pairs, peak memory "
-          f"{peak / 2**20:.1f} MiB; launches per pair {per_pair}; stages (ms, mean of "
-          f"{GROUP_STAGE} synchronised pairs) "
+          f"{peak / 2**20:.1f} MiB; launches per pair {per_pair}; stages (device ms, "
+          f"{GROUP_STAGE} profiled replays) "
           + json.dumps({k: round(v, 3) for k, v in stage_ms.items()})
           + f"; phase {time.perf_counter() - t_phase:.3f} s")
     return per_pair
@@ -4281,9 +4302,9 @@ ACC_PROGRAM_STEPS = 6        # phase 19 (c): micro-batches at grad_acc_steps 2 (
 ACC_PROGRAM_NAN = 3          # phase 19 (c): the NaN micro-batch (the second group's last)
 EVAL_PROGRAM_VALID = ((True, True), (True, False), (True, True), (False, True))  # (d), 2 pairs
 TRAIN_PROGRAM_TURNS = 4      # phase 19 (g): timed turns of a replayed and an eager step
+TRAIN_PROGRAM_PARTS = 2      # phase 19 (g): profiled replays read by part (and 2 at the edges)
 ITER_FIRST, ITER_RESUMED = 6, 9  # phase 19 (i): iterations of the first run and the resumed one
 ITER_SNAPSHOT, ITER_VAL = 3, 2   # phase 19 (i): snapshot and validation every so many iterations
-PARTS = ("build", "forward", "losses", "backward", "optimizer")
 
 
 def moved_pairs(ref, src, gt, cap, n, seed):
@@ -4410,34 +4431,6 @@ def profiled_kernels(fn, dev):
     return wall, kernel, seen, prof
 
 
-def parts_of_step(prof, marks):
-    """Kernel ms by part of a profiled eager step: each operator's own
-    kernels go to the part whose host window (``marks``, the
-    ``record_function`` ranges named ``part:<name>``) holds the operator's
-    start, whatever thread launched it (the backward runs on autograd's).
-    Returns {part: (ms, [(ms, operator), ...] by ms)}."""
-    from torch.autograd import DeviceType
-
-    events = prof.events()
-    # the host ranges only: each range also has a device-side annotation, on the
-    # device's later timeline
-    windows = [(e.name[5:], e.time_range.start, e.time_range.end) for e in events
-               if e.name.startswith("part:") and e.device_type == DeviceType.CPU]
-    out = {name: [0.0, {}] for name, _, _ in windows}
-    for e in events:
-        if e.device_type != DeviceType.CPU or e.name.startswith("part:") \
-                or e.self_device_time_total <= 0:
-            continue
-        for name, start, end in windows:
-            if start <= e.time_range.start <= end:
-                out[name][0] += e.self_device_time_total / 1e3
-                ops = out[name][1]
-                ops[e.name] = ops.get(e.name, 0.0) + e.self_device_time_total / 1e3
-                break
-    return {k: (ms, sorted(((v, op) for op, v in ops.items()), reverse=True))
-            for k, (ms, ops) in out.items()}
-
-
 def iter_trainer_check(dev, card, cfg, root, tmp):
     """Phase 19 (i): ``IterBasedTrainer`` on ``root`` for ``ITER_FIRST``
     iterations (validation every ``ITER_VAL``, a snapshot every
@@ -4536,8 +4529,8 @@ def train_program_phase(dev, card, kernels, cfg, ref, src, gt, scan=WORKFLOW_SCA
 
     import rdmnet_tpu_torch.engine.trainer as trainer_mod
     from rdmnet_tpu_torch.cli import trainval
-    from rdmnet_tpu_torch.engine import (batch_to_device, capture_eval_step, create_train_state,
-                                         make_eval_step, make_train_step)
+    from rdmnet_tpu_torch.engine import (TRAIN_STAGES, batch_to_device, capture_eval_step,
+                                         create_train_state, make_eval_step, make_train_step)
     from rdmnet_tpu_torch.engine.train_step import batch_inputs, build_batch
     from rdmnet_tpu_torch.models import RDMNet
     from rdmnet_tpu_torch.ops.kernels import all_launch_counts, reset_launch_counts
@@ -4688,25 +4681,15 @@ def train_program_phase(dev, card, kernels, cfg, ref, src, gt, scan=WORKFLOW_SCA
             eval_ms[kind].append((time.perf_counter() - t0) * 1e3 / 2)
         held_bitwise(got_ev[0], want_ev[0], f"eval program: timed turn {turn}")
     r_wall, r_kernel, r_seen, r_prof = profiled_kernels(lambda: program(pairs[1]), dev)
-    marks = []
-
-    def part_hook(name):
-        marks[-1].__exit__(None, None, None)
-        nxt = PARTS.index(name) + 1
-        if nxt < len(PARTS):
-            marks.append(torch.profiler.record_function(f"part:{PARTS[nxt]}"))
-            marks[-1].__enter__()
-
-    def eager_parts():
-        marks.append(torch.profiler.record_function("part:build"))
-        marks[-1].__enter__()
-        batch = batch_to_device(pairs[1], spec, dev)
-        part_hook("build")
-        e_step(e_state, batch, gens[1], stage_hook=part_hook)
-
-    e_wall, e_kernel, e_seen, e_prof = profiled_kernels(eager_parts, dev)
+    e_wall, e_kernel, e_seen, _ = profiled_kernels(
+        lambda: e_step(e_state, batch_to_device(pairs[1], spec, dev), gens[1]), dev)
     held_bitwise(state_bits(p_state), state_bits(e_state), "train program: after the profiled pair")
-    parts = parts_of_step(e_prof, marks)
+    parts = replayed_stages(lambda: program(pairs[1]), dev, TRAIN_PROGRAM_PARTS,
+                            ("begin", *TRAIN_STAGES), "train program")
+    for _ in range(TRAIN_PROGRAM_PARTS + 2):  # the twin takes the same steps
+        e_step(e_state, batch_to_device(pairs[1], spec, dev), gens[1])
+    held_bitwise(state_bits(p_state), state_bits(e_state),
+                 "train program: after the replays profiled by part")
     r_events = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                        for e in r_prof.key_averages() if e.self_device_time_total > 0
                        and not getattr(e, "is_user_annotation", False)
@@ -4722,14 +4705,12 @@ def train_program_phase(dev, card, kernels, cfg, ref, src, gt, scan=WORKFLOW_SCA
           f"{program.reserved_bytes / 2**20:.1f} MiB), eager {peaks['eager'] / 2**20:.1f} MiB; "
           f"the eval step on two pairs, ms a pair: replay {spread(eval_ms['replay'])}, eager "
           f"{spread(eval_ms['eager'])}")
-    attributed = sum(ms for ms, _ in parts.values())
-    print(f"train program: kernel ms by part of the profiled eager step, {attributed:.3f} ms "
-          f"of its {e_kernel:.3f} attributed (the replay runs the same kernels: "
-          f"{r_kernel:.3f} ms, launches {r_seen} / {e_seen}):")
-    for part in PARTS:
-        p_ms, ops = parts.get(part, (0.0, []))
-        print(f"  {part:9s} {p_ms:9.3f} ms  "
-              + "; ".join(f"{op[:48]} {v:.3f}" for v, op in ops[:4]))
+    attributed = sum(parts.get(part, 0.0) for part in TRAIN_STAGES)
+    print(f"train program: device ms by part of a replay (between its stage marks, "
+          f"{TRAIN_PROGRAM_PARTS} profiled replays), {attributed:.3f} ms, beside the profiled "
+          f"replay's {r_kernel:.3f} ms of kernels (launches {r_seen} replayed / {e_seen} eager):")
+    for part in TRAIN_STAGES:
+        print(f"  {part:9s} {parts.get(part, 0.0):9.3f} ms")
     print("train program: the replay's top kernels by device ms:")
     for v, n, key in r_events[:8]:
         print(f"  {v:9.3f} ms  {n:5d} launches  {key[:90]}")
@@ -5317,7 +5298,6 @@ def main() -> None:
     from rdmnet_tpu_torch.device import set_precision
     from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, pad_cloud, search_plan
     from rdmnet_tpu_torch.models import RDMNet, pipeline
-    from rdmnet_tpu_torch.models.rdmnet import STAGES
     from rdmnet_tpu_torch.ops.kernels import _build, all_launch_counts, reset_launch_counts
     from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain, sinkhorn_plan
     from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
@@ -5489,33 +5469,20 @@ def main() -> None:
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_timed
     peak = torch.cuda.max_memory_allocated()
-    stage_ms = {name: 0.0 for name in STAGES}
-    for _ in range(n_stage):
-        marks = []
-
-        def hook(name):
-            torch.cuda.synchronize()
-            marks.append((name, time.perf_counter()))
-
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        out = pipeline(model, rp, rc, sp, sc, device=dev, stage_hook=hook)
-        prev = start
-        for name, t in marks:
-            stage_ms[name] += (t - prev) * 1e3 / n_stage
-            prev = t
+    out = pipeline(model, rp, rc, sp, sc, device=dev)
     counts = all_launch_counts()
-    n_pairs = n_warm + n_timed + n_stage
+    n_pairs = n_warm + n_timed + 1
     for name, n in counts.items():
         kernels[name]["launches"] = n
         if n == 0:
             fail(f"kernel {name} was not launched on the main path")
+    stage_ms = pipeline_stages(model, (rp, rc, sp, sc), dev, n_stage, "main path")
     tf = out["estimated_transform"]
     if not all(bool(torch.isfinite(t).all()) for t in outs + [tf]) or tf.shape != (4, 4):
         fail("main path: non-finite or misshapen estimated_transform")
     rot_err = float(np.degrees(np.arccos(np.clip(
         (np.trace(tf[:3, :3].cpu().numpy().T @ gt[:3, :3]) - 1) / 2, -1, 1))))
-    print("main path stages (ms, mean of %d pairs, synchronised at each stage): %s" % (
+    print("main path stages (device ms, mean of %d profiled replays of the pipeline captured): %s" % (
         n_stage, json.dumps({k: round(v, 3) for k, v in stage_ms.items()})))
     print(f"main path: {dt * 1e3:.3f} ms/pair, {1.0 / dt:.4f} pairs/s over {n_timed} pairs, "
           f"peak memory {peak / 2**20:.1f} MiB, dropped {out['dropped'].tolist()}, "
@@ -5610,7 +5577,7 @@ def main() -> None:
     for name, n in tr["eval_counts"].items():
         kernels[name]["launches_per_eval_step"] = n
     ms = sorted(tr["step_ms"])
-    print("train step parts (ms, mean of %d steps, synchronised at each part): %s" % (
+    print("train step parts (device ms, mean of %d profiled replays of the step captured): %s" % (
         TRAIN_TIMED, json.dumps({k: round(v, 3) for k, v in tr["parts"].items()})))
     print(f"train path: {sum(ms) / len(ms):.3f} ms/step (median {ms[len(ms) // 2]:.3f}, min "
           f"{ms[0]:.3f}, max {ms[-1]:.3f}) over {TRAIN_TIMED} steps, build included; peak memory "

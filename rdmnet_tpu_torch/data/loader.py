@@ -4,7 +4,10 @@ per-host shard and a prefetch thread (own copy of
 
 The loader does numpy work only: padding and batching. Batches reach the
 device on the consumer's thread (``engine.trainer.batch_to_device``), where
-the pyramid is built; the prefetch thread never touches CUDA.
+the pyramid is built; the prefetch thread never touches CUDA. Traced
+(``trace``, while a profile records): the consumer's blocking get from the
+prefetch queue is the span ``loader.get``, and the counter ``loader.empty``
+counts the gets that found the queue empty.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import threading
 from typing import Iterator, Sequence
 
 import numpy as np
+
+from rdmnet_tpu_torch import trace
 
 
 def choose_bucket(num_points: int, bucket_caps: Sequence[int]) -> int:
@@ -158,7 +163,10 @@ class PairLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                if trace.recording() and q.empty():
+                    trace.count("loader.empty")
+                with trace.span("loader.get"):
+                    item = q.get()
                 if item is sentinel:
                     break
                 if isinstance(item, BaseException):

@@ -53,6 +53,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from rdmnet_tpu_torch import trace
 from rdmnet_tpu_torch.config import Config, PyramidConfig
 from rdmnet_tpu_torch.device import resolve_device
 from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch
@@ -60,7 +61,8 @@ from rdmnet_tpu_torch.losses import Evaluator, OverallLoss
 from rdmnet_tpu_torch.program import SplitProgram, StepProgram
 
 MAX_CONSECUTIVE_ERRORS = 100
-# synchronised parts of one train step (``build`` is ``batch_to_device``)
+# the train step's stages, each closed by the stage mark of its name (``trace.mark``;
+# ``build`` is the graph build, ``batch_to_device``)
 TRAIN_STAGES = ("build", "forward", "losses", "backward", "optimizer")
 
 
@@ -271,24 +273,24 @@ def make_batch_loss(cfg: Config, device=None) -> Callable:
 
 
 def _pair_gradients(cfg: Config) -> Callable:
-    """``gradients(state, batch, generator, mark) -> (sums, grads)``: each
-    pair's forward, losses, PIR and backward in turn; ``sums`` the metrics'
-    means over the pairs (in the losses' insertion order), ``grads`` the mean
-    gradient, one tensor a parameter."""
+    """``gradients(state, batch, generator) -> (sums, grads)``: each pair's
+    forward, losses, PIR and backward in turn, each closed by its
+    ``trace.mark``; ``sums`` the metrics' means over the pairs (in the losses'
+    insertion order), ``grads`` the mean gradient, one tensor a parameter."""
     loss_module, evaluator = OverallLoss(cfg), Evaluator(cfg)
 
-    def gradients(state: TrainState, batch: Sequence[PairBatch], generator: torch.Generator,
-                  mark: Callable[[str], None]):
+    def gradients(state: TrainState, batch: Sequence[PairBatch], generator: torch.Generator):
+        dev = state.device
         scale = 1.0 / len(batch)
         sums: Dict[str, torch.Tensor] = {}
         grads: Optional[List[torch.Tensor]] = None
         with torch.enable_grad():
             for pair in batch:
                 out = state.model(pair, training=True, with_gt=True, generator=generator)
-                mark("forward")
+                trace.mark("forward", dev)
                 losses = loss_module(out, pair)
                 losses["PIR"] = evaluator(out, pair, evaling=False)["PIR"]
-                mark("losses")
+                trace.mark("losses", dev)
                 pair_grads = torch.autograd.grad(losses["loss"] * scale, state.params,
                                                  allow_unused=True)
                 pair_grads = [torch.zeros_like(p) if g is None else g
@@ -296,15 +298,15 @@ def _pair_gradients(cfg: Config) -> Callable:
                 grads = pair_grads if grads is None else [a + g for a, g in zip(grads, pair_grads)]
                 for name, value in losses.items():
                     sums[name] = sums.get(name, 0.0) + value.detach() * scale
-                mark("backward")
+                trace.mark("backward", dev)
         return sums, grads
 
     return gradients
 
 
 def make_value_and_grad(cfg: Config, device=None, group=None) -> Callable:
-    """``value_and_grad(state, batch, generator, stage_hook=None) ->
-    (metrics, grads)`` without the update. ``batch`` is a sequence of
+    """``value_and_grad(state, batch, generator) -> (metrics, grads)``
+    without the update. ``batch`` is a sequence of
     ``PairBatch`` (``batch_to_device``); the loss is the mean of the pairs'
     losses, each pair drawing its targets from ``generator`` in turn.
     ``metrics`` holds the eight loss values, PIR and ``grad_norm`` (the global
@@ -320,9 +322,8 @@ def make_value_and_grad(cfg: Config, device=None, group=None) -> Callable:
         gradient_half = make_gradient_half(cfg, dev)
 
         def value_and_grad_dp(state: TrainState, batch: Sequence[PairBatch],
-                              generator: torch.Generator,
-                              stage_hook: Optional[Callable[[str], None]] = None):
-            flat, stacked, names = gradient_half(state, batch, generator, stage_hook)
+                              generator: torch.Generator):
+            flat, stacked, names = gradient_half(state, batch, generator)
             exchange(flat, stacked, group)
             return _means(state, flat, stacked, names, dist.get_world_size(group))
 
@@ -330,10 +331,9 @@ def make_value_and_grad(cfg: Config, device=None, group=None) -> Callable:
     gradients = _pair_gradients(cfg)
 
     def value_and_grad(state: TrainState, batch: Sequence[PairBatch],
-                       generator: torch.Generator,
-                       stage_hook: Optional[Callable[[str], None]] = None):
+                       generator: torch.Generator):
         _check_device(state, dev)
-        sums, grads = gradients(state, batch, generator, stage_hook or (lambda name: None))
+        sums, grads = gradients(state, batch, generator)
         # one flat copy: a few launches instead of two per tensor, and the
         # float32 sum stays pairwise on the CPU (its vector_norm of a
         # 4M-entry tensor is ~1e-4 off)
@@ -346,20 +346,22 @@ def make_value_and_grad(cfg: Config, device=None, group=None) -> Callable:
 
 def make_gradient_half(cfg: Config, device=None) -> Callable:
     """The data-parallel step's gradient half: ``gradients(state, batch,
-    generator, stage_hook=None) -> (flat, stacked, names)``, the rank's mean
-    gradient over its pairs as one flat float32 buffer in ``state.params``
-    order and its metrics (the eight losses and PIR) stacked in the order of
-    ``names``, both for ``exchange`` to sum in place. Reads nothing back."""
+    generator) -> (flat, stacked, names)``, the rank's mean gradient over its
+    pairs as one flat float32 buffer in ``state.params`` order and its metrics
+    (the eight losses and PIR) stacked in the order of ``names``, both for
+    ``exchange`` to sum in place; it ends with the ``gradients`` mark. Reads
+    nothing back."""
     dev = resolve_device(device)
     gradients = _pair_gradients(cfg)
 
-    def gradient_half(state: TrainState, batch: Sequence[PairBatch], generator: torch.Generator,
-                      stage_hook: Optional[Callable[[str], None]] = None):
+    def gradient_half(state: TrainState, batch: Sequence[PairBatch], generator: torch.Generator):
         _check_device(state, dev)
-        sums, grads = gradients(state, batch, generator, stage_hook or (lambda name: None))
+        sums, grads = gradients(state, batch, generator)
         flat = torch.cat([g.reshape(-1) for g in grads])
         names = list(sums)  # one insertion order on every rank
-        return flat, torch.stack([sums[k] for k in names]), names
+        stacked = torch.stack([sums[k] for k in names])
+        trace.mark("gradients", dev)
+        return flat, stacked, names
 
     return gradient_half
 
@@ -378,7 +380,9 @@ def exchange(flat: torch.Tensor, stacked: torch.Tensor, group) -> None:
 def _means(state: TrainState, flat: torch.Tensor, stacked: torch.Tensor, names: List[str],
            world: int):
     """The exchanged sums -> (metrics with ``grad_norm``, grads): both means
-    over the ``world`` ranks in place, ``grads`` views into ``flat``."""
+    over the ``world`` ranks in place, ``grads`` views into ``flat``. Starts
+    with the ``update`` mark: the update half's entry."""
+    trace.mark("update", flat.device)
     flat /= world
     stacked /= world
     grads = [part.view_as(p) for part, p in zip(torch.split(flat, [p.numel() for p in state.params]),
@@ -394,22 +398,21 @@ def _update_half(state: TrainState, mid, world: int) -> Dict[str, torch.Tensor]:
     ``make_train_step`` runs them over a group. Returns the metrics."""
     metrics, grads = _means(state, *mid, world)
     state.apply_gradients(grads)
+    trace.mark("optimizer", state.device)
     return metrics
 
 
 def make_train_step(cfg: Config, device=None, group=None) -> Callable:
-    """``step(state, batch, generator, stage_hook=None) -> (state, metrics)``:
+    """``step(state, batch, generator) -> (state, metrics)``:
     ``make_value_and_grad`` (over ``group``, see there), then
-    ``state.apply_gradients``. ``stage_hook(name)`` is called after each part
-    of ``TRAIN_STAGES[1:]``."""
+    ``state.apply_gradients``. Each part of ``TRAIN_STAGES[1:]`` ends with
+    its ``trace.mark``."""
     value_and_grad = make_value_and_grad(cfg, device, group)
 
-    def step(state: TrainState, batch: Sequence[PairBatch], generator: torch.Generator,
-             stage_hook: Optional[Callable[[str], None]] = None):
-        metrics, grads = value_and_grad(state, batch, generator, stage_hook)
+    def step(state: TrainState, batch: Sequence[PairBatch], generator: torch.Generator):
+        metrics, grads = value_and_grad(state, batch, generator)
         state.apply_gradients(grads)
-        if stage_hook is not None:
-            stage_hook("optimizer")
+        trace.mark("optimizer", state.device)
         return state, metrics
 
     return step
@@ -481,6 +484,16 @@ def build_batch(inputs: Mapping[str, torch.Tensor], spec: PyramidConfig) -> List
             for b in range(t["ref_points"].shape[0])]
 
 
+def marked_build(inputs: Mapping[str, torch.Tensor], spec: PyramidConfig) -> List[PairBatch]:
+    """``build_batch`` between the ``begin`` and ``build`` marks: the start of
+    a captured train body (``trace.mark``)."""
+    dev = inputs["ref_points"].device
+    trace.mark("begin", dev)
+    batch = build_batch(inputs, spec)
+    trace.mark("build", dev)
+    return batch
+
+
 # ----------------------------------------------------------------- programs
 
 def _program_device(what: str, state: TrainState, device) -> torch.device:
@@ -524,18 +537,14 @@ def capture_train_step(state: TrainState, cfg: Config, batch_size: int,
         world = dist.get_world_size(group)
         return SplitProgram(
             "capture_train_step",
-            lambda static: gradient_half(state, build_batch(static, cfg.pyramid), generator),
+            lambda static: gradient_half(state, marked_build(static, cfg.pyramid), generator),
             lambda mid: exchange(mid[0], mid[1], group),
             lambda mid: _update_half(state, mid, world),
             batch_inputs, shapes, dev, generator)
-    value_and_grad = make_value_and_grad(cfg, dev)
-
-    def body(static):
-        metrics, grads = value_and_grad(state, build_batch(static, cfg.pyramid), generator)
-        state.apply_gradients(grads)
-        return metrics
-
-    return StepProgram("capture_train_step", body, batch_inputs, shapes, dev, generator)
+    step = make_train_step(cfg, dev)
+    return StepProgram("capture_train_step",
+                       lambda static: step(state, marked_build(static, cfg.pyramid), generator)[1],
+                       batch_inputs, shapes, dev, generator)
 
 
 def capture_eval_step(state: TrainState, cfg: Config, batch_size: int, device=None,

@@ -24,11 +24,12 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from rdmnet_tpu_torch import trace
 from rdmnet_tpu_torch.config import Config, PyramidConfig
 from rdmnet_tpu_torch.device import resolve_device
 from rdmnet_tpu_torch.graph.pyramid import PairBatch, build_pair_batch, stack_pair_graph
@@ -51,7 +52,8 @@ from rdmnet_tpu_torch.ops.nms import greedy_nms
 from rdmnet_tpu_torch.ops.partition import point_to_node_partition
 from rdmnet_tpu_torch.program import CAPTURE_WARMUP
 
-STAGES = ("build", "encoder+T1", "decoder", "vote/NMS/T2", "matching", "OT", "LGR")
+# the served pipeline's stages, each closed by the stage mark of its name (``trace.mark``)
+STAGES = ("build", "encoder_t1", "decoder", "vote_t2", "matching", "ot", "lgr")
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -127,7 +129,6 @@ class RDMNet(nn.Module):
 
     def forward(self, batch: PairBatch, training: bool = False, with_gt: bool = False,
                 generator: Optional[torch.Generator] = None,
-                stage_hook: Optional[Callable[[str], None]] = None,
                 node_corr: Optional[Tuple[torch.Tensor, ...]] = None) -> Dict[str, Any]:
         """One pair. Autograd stays on unless the caller turns it off
         (``pipeline`` runs inference under ``no_grad``).
@@ -135,8 +136,7 @@ class RDMNet(nn.Module):
         ``training`` needs ``with_gt`` and a ``generator`` on the batch's
         device for the target sample; it runs Sinkhorn's plain version under
         autograd (the CUDA kernel has no backward), inference the kernel.
-        ``stage_hook(name)``, when given, is called after each stage of
-        ``STAGES[1:]`` (timing breakdowns). ``node_corr`` (ref indices, src
+        Each stage of ``STAGES[1:]`` ends with its ``trace.mark``. ``node_corr`` (ref indices, src
         indices, scores, valid), when given, replaces the matched node pairs
         that the patches, optimal transport and LGR take (the outputs'
         ``node_corr_*`` stay the model's own): one device's run replayed on
@@ -144,13 +144,13 @@ class RDMNet(nn.Module):
         if training and (not with_gt or generator is None):
             raise ValueError("training=True needs with_gt=True and a generator")
         cfg = self.cfg
-        mark = stage_hook or (lambda name: None)
         ref_pyr, src_pyr = batch.ref, batch.src
         coarse, fine = ref_pyr.num_stages - 1, 1
         ref_points_c, src_points_c = ref_pyr.points[coarse], src_pyr.points[coarse]
         ref_points_f, src_points_f = ref_pyr.points[fine], src_pyr.points[fine]
         ref_mask_c, src_mask_c = ref_pyr.mask(coarse), src_pyr.mask(coarse)
         ref_mask_f, src_mask_f = ref_pyr.mask(fine), src_pyr.mask(fine)
+        dev = ref_points_c.device
         out: Dict[str, Any] = {
             "ref_points_c": ref_points_c, "src_points_c": src_points_c,
             "ref_points_f": ref_points_f, "src_points_f": src_points_f,
@@ -172,7 +172,7 @@ class RDMNet(nn.Module):
         src_n2p = self.proj_n2p_score(src_feats_c)
         out["ref_n2p_scores_c"] = torch.sigmoid(ref_n2p[:, 0])
         out["src_n2p_scores_c"] = torch.sigmoid(src_n2p[:, 0])
-        mark("encoder+T1")
+        trace.mark("encoder_t1", dev)
 
         coarse_cond = torch.cat([torch.cat([ref_feats_c, ref_n2p], dim=1),
                                  torch.cat([src_feats_c, src_n2p], dim=1)])
@@ -182,7 +182,7 @@ class RDMNet(nn.Module):
         out["ref_feats_f"], out["src_feats_f"] = ref_feats_f, src_feats_f
         out["ref_p2p_scores_c"] = torch.sigmoid(dec_f[0][:, -1])
         out["src_p2p_scores_c"] = torch.sigmoid(dec_f[1][:, -1])
-        mark("decoder")
+        trace.mark("decoder", dev)
 
         points_c_pair = torch.stack([ref_points_c, src_points_c])
         mask_pair = torch.stack([ref_mask_c, src_mask_c])
@@ -221,7 +221,7 @@ class RDMNet(nn.Module):
         ref_feats_c = ref_feats_c / (torch.linalg.norm(ref_feats_c, dim=1, keepdim=True) + 1e-12)
         src_feats_c = src_feats_c / (torch.linalg.norm(src_feats_c, dim=1, keepdim=True) + 1e-12)
         out["ref_feats_c"], out["src_feats_c"] = ref_feats_c, src_feats_c
-        mark("vote/NMS/T2")
+        trace.mark("vote_t2", dev)
 
         k = cfg.model.num_points_in_patch
         _, ref_node_masks, ref_knn_idx, ref_knn_masks = point_to_node_partition(
@@ -247,7 +247,7 @@ class RDMNet(nn.Module):
                 cfg.coarse_matching.overlap_threshold, generator)
         elif node_corr is not None:
             ref_corr, src_corr, corr_scores, corr_valid = node_corr
-        mark("matching")
+        trace.mark("matching", dev)
 
         rc, sc = ref_corr.long(), src_corr.long()
         p_ref_idx, p_src_idx = ref_knn_idx[rc], src_knn_idx[sc]
@@ -263,7 +263,7 @@ class RDMNet(nn.Module):
         matching_scores = self.optimal_transport(sim, p_ref_masks, p_src_masks,
                                                  use_kernel=not training)
         out["matching_scores"] = matching_scores
-        mark("OT")
+        trace.mark("ot", dev)
 
         if not training:
             corr, transform = local_to_global_registration(
@@ -272,31 +272,32 @@ class RDMNet(nn.Module):
             out["ref_corr_points"], out["src_corr_points"] = corr.ref_points, corr.src_points
             out["corr_scores"] = corr.scores
             out["estimated_transform"] = transform
-            mark("LGR")
+            trace.mark("lgr", dev)
         return out
 
 
-def pipeline(model: RDMNet, rp, rc, sp, sc, device=None,
-             stage_hook: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+def pipeline(model: RDMNet, rp, rc, sp, sc, device=None) -> Dict[str, Any]:
     """Graph build plus inference on one padded pair: the program
     ``bench.py`` times (``build_pair_batch`` then the model).
 
     rp/sp (cap_0, 3) padded clouds, rc/sc their valid counts. Runs on
     ``device`` (default CUDA; raises without a card). Returns the model's
     outputs plus ``dropped`` ((2, num_stages) int32 overflow telemetry).
+    Marks ``begin`` at its entry and ``build`` after the graph build; the
+    model marks its own stages (``trace.mark``).
     """
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model lives on {model.device}, pipeline asked for {dev}")
     with torch.no_grad():
+        trace.mark("begin", dev)
         rp = torch.as_tensor(rp, dtype=torch.float32, device=dev)
         sp = torch.as_tensor(sp, dtype=torch.float32, device=dev)
         rc = torch.as_tensor(rc, dtype=torch.int32, device=dev)
         sc = torch.as_tensor(sc, dtype=torch.int32, device=dev)
         batch = build_pair_batch(rp, rc, sp, sc, torch.eye(4, device=dev), model.cfg.pyramid)
-        if stage_hook is not None:
-            stage_hook("build")
-        out = model(batch, stage_hook=stage_hook)
+        trace.mark("build", dev)
+        out = model(batch)
     out["dropped"] = torch.stack([batch.ref.dropped, batch.src.dropped])
     out["batch"] = batch
     return out
@@ -318,6 +319,9 @@ def capture_pipeline(model: RDMNet, device=None, pool=None):
     caller serialises calls and consumes each call's outputs before the
     next one (``serving.load_exported`` holds a lock); graphs sharing a
     ``pool`` (``torch.cuda.graph_pool_handle()``) are replayed one at a time.
+    ``run.stage(rp, rc, sp, sc)`` and ``run.launch()`` are its two halves
+    (the host's staging; the copies and the replay), for a caller that
+    traces them apart.
 
     Before the capture ``pipeline`` runs ``CAPTURE_WARMUP`` times on a side stream
     (PyTorch's capture recipe: kernels built, cuBLAS handles made) under
@@ -364,6 +368,7 @@ def capture_pipeline(model: RDMNet, device=None, pool=None):
         finally:
             torch.cuda.set_sync_debug_mode(mode)
         torch.cuda.current_stream(dev).wait_stream(side)
+        trace.ready(dev)
         graph = torch.cuda.CUDAGraph()
         counts, paths = all_launch_counts(), path_launch_counts()
         try:
@@ -385,12 +390,14 @@ def capture_pipeline(model: RDMNet, device=None, pool=None):
         buf[:n].copy_(pts)
         buf[n:].fill_(PAD_COORD)
 
-    def run(rp, rc, sp, sc):
+    def stage_all(rp, rc, sp, sc):
         copied.synchronize()  # a call not yet fetched may still read the staging buffers
         stage(host[0], rp)
         host[1].fill_(int(rc))
         stage(host[2], sp)
         host[3].fill_(int(sc))
+
+    def launch():
         with torch.cuda.device(dev):
             for h, s in zip(host, static):
                 s.copy_(h, non_blocking=True)
@@ -398,6 +405,11 @@ def capture_pipeline(model: RDMNet, device=None, pool=None):
             graph.replay()
         return out
 
+    def run(rp, rc, sp, sc):
+        stage_all(rp, rc, sp, sc)
+        return launch()
+
+    run.stage, run.launch = stage_all, launch
     run.outputs = out
     run.capture_s = capture_s
     run.memory_bytes = memory

@@ -19,6 +19,8 @@ from typing import Callable, Mapping, Optional
 import numpy as np
 import torch
 
+from rdmnet_tpu_torch import trace
+
 CAPTURE_WARMUP = 2  # eager passes on a side stream before a capture (PyTorch's recipe)
 
 
@@ -48,7 +50,9 @@ class StepProgram:
     and Sinkhorn's per path, ``capture_s`` the capture's seconds,
     ``memory_bytes`` the device memory it keeps allocated (its outputs) and
     ``reserved_bytes`` what the capture added to the reserved memory (its
-    graph pool's growth)."""
+    graph pool's growth). Traced (``trace.span``): ``program.stage`` (the host
+    arrays into the pinned buffers) and ``program.launch`` (the copies in and
+    the run)."""
 
     def __init__(self, name: str, body: Callable, stage: Callable, shapes: Mapping,
                  device: torch.device, generator: Optional[torch.Generator] = None, pool=None):
@@ -71,6 +75,12 @@ class StepProgram:
         self.capture_s = self.memory_bytes = self.reserved_bytes = None
 
     def __call__(self, *args):
+        with trace.span("program.stage"):
+            self._stage(*args)
+        with trace.span("program.launch"):
+            return self._launch()
+
+    def _stage(self, *args) -> None:
         arrays = self.stage(*args)
         self.copied.synchronize()  # a call not yet run may still read the staging buffers
         for key, buf in self.host.items():
@@ -80,6 +90,8 @@ class StepProgram:
                 raise ValueError(f"{self.name}: {key} of shape {tuple(value.shape)} "
                                  f"for a program of shape {tuple(buf.shape)}")
             buf.copy_(value)
+
+    def _launch(self):
         with torch.cuda.device(self.device):
             for key, buf in self.static.items():
                 buf.copy_(self.host[key], non_blocking=True)
@@ -136,6 +148,7 @@ class StepProgram:
     def _record(self, what: str, fn: Callable, arg, generator=None):
         """``fn(arg)`` captured into a new graph on the side stream, over
         ``pool``: (graph, its outputs). Records only: nothing runs."""
+        trace.ready(self.device)
         graph = torch.cuda.CUDAGraph()
         if generator is not None:  # each replay draws as the eager call does
             graph.register_generator_state(generator)
@@ -187,7 +200,8 @@ class SplitProgram(StepProgram):
     ``memory_bytes`` and ``reserved_bytes`` cover both halves;
     ``half_launches`` holds each half's launches. A failed capture raises,
     naming the half; nothing falls back to eager. ``generator`` is
-    registered with the first graph."""
+    registered with the first graph. ``between`` runs inside the span
+    ``program.exchange``."""
 
     HALVES = ("the gradient half", "the update half")
 
@@ -202,7 +216,8 @@ class SplitProgram(StepProgram):
 
     def _warm_up(self):
         mid = self._eager(self.body, self.static, f" of {self.HALVES[0]}")
-        self.between(mid)
+        with trace.span("program.exchange"):
+            self.between(mid)
         return self._eager(self.second, mid, f" of {self.HALVES[1]}")
 
     def _capture(self) -> None:
@@ -222,6 +237,7 @@ class SplitProgram(StepProgram):
 
     def _replay(self):
         self.graph.replay()
-        self.between(self.mid)
+        with trace.span("program.exchange"):
+            self.between(self.mid)
         self.second_graph.replay()
         return self.outputs

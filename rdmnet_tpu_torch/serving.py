@@ -23,6 +23,15 @@ JAX package (StableHLO beside the same ``weights.npz``) serves too when the
 caller passes its ``cfg`` and ``bucket_scales``. On the CPU the buckets run
 ``pipeline`` eagerly. Consumers filter correspondences by ``corr_scores >
 0``, as with the JAX artifact.
+
+Traced (``trace``, while a profile records): each request is a ``serve``
+span with the children ``serve.pad``, ``serve.stage``, ``serve.launch``
+(copies in, the replay and the fetch's copies), ``serve.wait`` (the one
+synchronise) and ``serve.unpack``, and adds to the counters
+``serve.bucket.<cap>``, ``serve.rows`` (valid rows), ``serve.capacity_rows``
+(2 x cap), ``serve.truncated_rows`` (rows past cap), ``pipeline.dropped``
+and ``pipeline.nms_rounds`` (the program's ``TELEMETRY``, fetched with the
+outputs only then).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from rdmnet_tpu_torch import trace
 from rdmnet_tpu_torch.data.loader import pad_points_np
 
 SERVE_OUTPUTS = (
@@ -44,6 +54,7 @@ SERVE_OUTPUTS = (
     "src_corr_points",
     "corr_scores",
 )
+TELEMETRY = ("dropped", "nms_rounds")  # fetched for the counters while a profile records
 
 PAD_COORD = 1.0e9  # data/loader.pad_points_np convention
 
@@ -89,6 +100,17 @@ def export_inference(cfg, model, out_dir: str,
     with open(osp.join(out_dir, "serving.json"), "w") as f:
         json.dump(meta, f, indent=2)
     return buckets
+
+
+def _count_request(cap: int, rows: int, n_ref: int, n_src: int, dropped: np.ndarray,
+                  nms_rounds: np.ndarray) -> None:
+    """A served request's counters (module docstring)."""
+    trace.count(f"serve.bucket.{cap}")
+    trace.count("serve.rows", int(rows))
+    trace.count("serve.capacity_rows", 2 * cap)
+    trace.count("serve.truncated_rows", max(0, n_ref - cap) + max(0, n_src - cap))
+    trace.count("pipeline.dropped", int(np.sum(dropped)))
+    trace.count("pipeline.nms_rounds", int(np.sum(nms_rounds)))
 
 
 def load_exported(out_dir: str, device=None, cfg=None,
@@ -157,27 +179,48 @@ def load_exported(out_dir: str, device=None, cfg=None,
         torch.cuda.empty_cache()  # the warm-ups' cached blocks; the graphs' pool stays
         # pinned host copies of each program's outputs, so a request fetches once
         fetched = {cap: {k: torch.empty(run.outputs[k].shape, dtype=run.outputs[k].dtype,
-                                        pin_memory=True) for k in SERVE_OUTPUTS}
+                                        pin_memory=True) for k in SERVE_OUTPUTS + TELEMETRY}
                    for cap, run in programs.items()}
     lock = threading.Lock()
 
     def serve(ref_points: np.ndarray, src_points: np.ndarray) -> Dict[str, np.ndarray]:
-        n = max(len(ref_points), len(src_points))
-        # smallest bucket that fits; largest (with truncation) otherwise
-        cap, model_b = next((b for b in views if n <= b[0]), views[-1])
-        rp, rc = _pad_np(np.asarray(ref_points, np.float32), cap)
-        sp, sc = _pad_np(np.asarray(src_points, np.float32), cap)
+        with trace.span("serve"):
+            return request(ref_points, src_points)
+
+    def request(ref_points, src_points) -> Dict[str, np.ndarray]:
+        with trace.span("serve.pad"):
+            n = max(len(ref_points), len(src_points))
+            # smallest bucket that fits; largest (with truncation) otherwise
+            cap, model_b = next((b for b in views if n <= b[0]), views[-1])
+            rp, rc = _pad_np(np.asarray(ref_points, np.float32), cap)
+            sp, sc = _pad_np(np.asarray(src_points, np.float32), cap)
+        recording = trace.recording()
+        keys = SERVE_OUTPUTS + TELEMETRY if recording else SERVE_OUTPUTS
         with lock:  # one request at a time: a replay overwrites the program's outputs
             serve.last_cap = cap  # observability: which bucket served the request
-            if not programs:
-                out = pipeline(model_b, rp, rc, sp, sc, device=dev)
-                return {k: out[k].cpu().numpy() for k in SERVE_OUTPUTS}
-            out = programs[cap](rp, rc, sp, sc)
-            host = fetched[cap]
-            for k in SERVE_OUTPUTS:
-                host[k].copy_(out[k], non_blocking=True)
-            torch.cuda.current_stream(dev).synchronize()
-            return {k: host[k].numpy().copy() for k in SERVE_OUTPUTS}
+            if programs:
+                run, host = programs[cap], fetched[cap]
+                with trace.span("serve.stage"):
+                    run.stage(rp, rc, sp, sc)
+                with trace.span("serve.launch"):
+                    out = run.launch()
+                    for k in keys:
+                        host[k].copy_(out[k], non_blocking=True)
+                with trace.span("serve.wait"):
+                    torch.cuda.current_stream(dev).synchronize()
+            else:
+                with trace.span("serve.stage"):
+                    args = (torch.from_numpy(rp), rc, torch.from_numpy(sp), sc)
+                with trace.span("serve.launch"):
+                    host = pipeline(model_b, *args, device=dev)
+                with trace.span("serve.wait"):
+                    pass  # the CPU's pipeline has finished when it returns
+            with trace.span("serve.unpack"):
+                result = {k: host[k].numpy().copy() for k in SERVE_OUTPUTS}
+                if recording:
+                    _count_request(cap, rc + sc, len(ref_points), len(src_points),
+                                  *(host[k].numpy() for k in TELEMETRY))
+        return result
 
     serve.last_cap = None
     serve.model = model

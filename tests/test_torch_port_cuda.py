@@ -1300,3 +1300,98 @@ def test_trainer_on_programs_equals_an_eager_trainer(cuda, tmp_path):
         states.append(state_to_host(trainer.state))
     assert records[0] == records[1]
     _host_states_equal(*states)
+
+
+def _profiled_events(fn, dev):
+    """The Chrome trace events of ``fn()`` under the profiler (CPU and CUDA)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rdmnet_tpu_torch import trace
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        return trace.load_events(path)
+
+
+def _marks_in_order(events):
+    from rdmnet_tpu_torch import trace
+
+    marks = sorted((e["ts"], e["name"]) for e in events if e.get("cat") == "kernel"
+                   and str(e.get("name", "")).startswith(trace.MARK_KERNEL))
+    return [name[len(trace.MARK_KERNEL):] for _, name in marks]
+
+
+def test_served_replays_carry_their_stage_marks_in_order(cuda, tmp_path):
+    from rdmnet_tpu_torch import trace
+    from rdmnet_tpu_torch.models.rdmnet import STAGES
+
+    cfg = make_tiny_cfg()
+    small, _, _ = procedural_pair(7353, n_rings=16, n_azimuths=200)
+    small = small[np.random.RandomState(0).permutation(len(small))[:500]]
+    moved = (small + np.array([0.5, 0.3, 0.1], np.float32)).astype(np.float32)
+    export_inference(cfg, RDMNet(cfg, device="cpu"), str(tmp_path), bucket_scales=(1.0,))
+    serve, _ = load_exported(str(tmp_path))
+    want = serve(small, moved)
+    trace.reset()
+    events = _profiled_events(lambda: [serve(small, moved) for _ in range(3)], cuda)
+    assert _marks_in_order(events) == ["begin", *STAGES] * 3
+    stages, idle = trace.attribute(events)
+    assert set(STAGES) <= set(stages) and all(stages[s] > 0 for s in STAGES)
+    snap = trace.snapshot()
+    assert sum(s.name == "serve" for s in snap["spans"]) == 3
+    assert snap["counters"]["serve.capacity_rows"] == 6 * 512
+    assert snap["counters"]["pipeline.nms_rounds"] >= 3
+    assert sum(idle.values()) > 0
+    got = serve(small, moved)  # traced or not, the same answers
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    # eagerly on the card while recording: the same kernels, once each
+    model = serve.model
+    args = (*pad_cloud(small, 512, device=cuda), *pad_cloud(moved, 512, device=cuda))
+    events = _profiled_events(lambda: pipeline(model, *args, device=cuda), cuda)
+    assert _marks_in_order(events) == ["begin", *STAGES]
+    trace.reset()
+
+
+def test_train_program_replays_carry_their_stage_marks_in_order(cuda):
+    from rdmnet_tpu_torch import trace
+    from rdmnet_tpu_torch.engine import TRAIN_STAGES, capture_train_step
+    from rdmnet_tpu_torch.models.rdmnet import STAGES
+
+    cfg = make_tiny_cfg()
+    scans, poses = procedural_sequence(11, 2, n_rings=16, n_azimuths=200)
+    rng = np.random.RandomState(0)
+    (rp, rc), (sp, sc) = (pad_cloud(scans[i][rng.permutation(len(scans[i]))[:480], :3], 512)
+                          for i in (0, 1))
+    host = {"ref_points": rp.numpy()[None], "ref_counts": rc.numpy()[None],
+            "src_points": sp.numpy()[None], "src_counts": sc.numpy()[None],
+            "transform": (np.linalg.inv(poses[0]) @ poses[1]).astype(np.float32)[None]}
+    state = create_train_state(cfg, RDMNet(cfg, device=cuda))
+    program = capture_train_step(state, cfg, 1, torch.Generator(cuda).manual_seed(0), cuda)
+    program.prime()
+    trace.reset()
+    events = _profiled_events(lambda: [program(host) for _ in range(2)], cuda)
+    assert _marks_in_order(events) == ["begin", "build", *STAGES[1:-1], *TRAIN_STAGES[1:]] * 2
+    stages, _ = trace.attribute(events, marks=("begin", *TRAIN_STAGES))
+    assert all(stages[s] > 0 for s in TRAIN_STAGES)
+    names = [s.name for s in trace.snapshot()["spans"]]
+    assert names.count("program.stage") == names.count("program.launch") == 2
+    trace.reset()
+
+
+def test_profiles_stopped_inside_spans_on_the_card_leave_the_heap_whole(cuda, tmp_path):
+    from trace_restarts import checked
+
+    from rdmnet_tpu_torch.ops.kernels._build import KERNELS, Build
+
+    for build in [Build(name) for name in KERNELS]:  # outside the malloc checks
+        build.wait()
+    done = checked("cuda", str(tmp_path), rounds=3)
+    assert done.returncode == 0 and done.stdout.split()[-1:] == ["ok"], done.stderr[-3000:]

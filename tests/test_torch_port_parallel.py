@@ -317,6 +317,7 @@ def one_process():
     from rdmnet_tpu.config import make_tiny_cfg as jax_tiny_cfg
     from rdmnet_tpu.engine import train_step as jts
     from rdmnet_tpu.engine.trainer import batch_to_device as jax_batch_to_device
+    from rdmnet_tpu_torch import trace
     from rdmnet_tpu_torch.engine import batch_to_device, create_train_state, make_value_and_grad
     from rdmnet_tpu_torch.models import RDMNet
     from rdmnet_tpu_torch.utils.convert import params_from_jax
@@ -353,7 +354,7 @@ def one_process():
         gen.manual_seed(1)
         gen_states = [gen.get_state()]
 
-        def mark(stage):
+        def mark(stage, device):
             if stage == "backward":
                 gen_states.append(gen.get_state())
 
@@ -361,9 +362,11 @@ def one_process():
         acc_model = RDMNet(acc_cfg, device="cpu")
         acc_model.load_state_dict(state_dict, strict=True)
         acc_state = create_train_state(acc_cfg, acc_model, steps_per_epoch=10, dp_size=2)
-        for _ in range(2):
-            _, g = vag(acc_state, batch, gen, stage_hook=mark)
-            acc_state.apply_gradients(g)
+        with pytest.MonkeyPatch.context() as patch:
+            patch.setattr(trace, "mark", mark)
+            for _ in range(2):
+                _, g = vag(acc_state, batch, gen)
+                acc_state.apply_gradients(g)
         acc_params = [p.detach().clone() for p in acc_state.params]
     finally:
         torch.set_num_threads(threads)

@@ -48,8 +48,10 @@ from rdmnet_tpu.engine.trainer import batch_to_device as jax_batch_to_device
 from rdmnet_tpu.graph.pyramid import pad_cloud as jax_pad_cloud
 from rdmnet_tpu.losses import Evaluator as JaxEvaluator
 from rdmnet_tpu.models import RDMNet as JaxRDMNet
+from rdmnet_tpu_torch import trace
 from rdmnet_tpu_torch.config import make_tiny_cfg
 from rdmnet_tpu_torch.engine import (
+    TRAIN_STAGES,
     batch_to_device,
     create_train_state,
     make_eval_step,
@@ -228,15 +230,19 @@ def test_eval_step_weights_valid_pairs():
         assert float(weighted[k]) == float(v), k
 
 
-def test_train_step_updates_the_model():
+def test_train_step_updates_the_model(monkeypatch):
     cfg = make_tiny_cfg()
     state = create_train_state(cfg, RDMNet(cfg, device="cpu"))
     batch = batch_to_device(_host_batch(), cfg.pyramid, device="cpu")
     before = [p.detach().clone() for p in state.params]
     names = []
+    monkeypatch.setattr(trace, "mark", lambda name, device: names.append(name))
     state, metrics = make_train_step(cfg, device="cpu")(
-        state, batch, torch.Generator().manual_seed(0), stage_hook=names.append)
-    assert names == ["forward", "losses", "backward", "optimizer"]
+        state, batch, torch.Generator().manual_seed(0))
+    assert [n for n in names if n in TRAIN_STAGES] == ["forward", "losses", "backward",
+                                                       "optimizer"]
+    assert names == ["encoder_t1", "decoder", "vote_t2", "matching", "ot", "forward", "losses",
+                     "backward", "optimizer"]
     assert set(metrics) == set(LOSSES) | {"PIR", "grad_norm"}
     assert all(bool(torch.isfinite(v)) for v in metrics.values()) and float(metrics["grad_norm"]) > 0
     assert state.count == 1

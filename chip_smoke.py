@@ -3765,9 +3765,10 @@ NMS_DEVICE_ROWS = 1600                # phase 18: nms_peel past shared memory (M
 EIGH_GAP = 0.1                        # relative eigen-gap from which a fit is held within 1e-5
 F32_UNIT = 2.0 ** -24                 # float32 unit roundoff
 JACOBI_FLOPS = 6 * 50                 # eigh4: one sweep of six rotations, ~50 operations each
+TRAINING_KERNELS = ("gather_grad",)  # launched only where autograd records
 PROFILED_KERNELS = {"radius_knn": "radius_knn", "sinkhorn": "sinkhorn",  # kernel name parts
                     "segment_sums": "segment_sum_kernel", "nms_peel": "nms_peel_kernel",
-                    "eigh4": "eigh4_top_kernel"}
+                    "eigh4": "eigh4_top_kernel", "gather_grad": "gather_grad_sum_kernel"}
 
 
 def rotation_of(q):
@@ -4071,7 +4072,8 @@ def program_phase(dev, card, kernels, cfg, model, ref, src):
     full = make_cfg()
     weights = RDMNet(full, device="cpu", generator=torch.Generator().manual_seed(SEED))
     expected = {"radius_knn": 12, "sinkhorn": 1, "segment_sums": full.pyramid.num_stages - 1,
-                "nms_peel": 1, "eigh4": 2 + full.fine_matching.num_refinement_steps}
+                "nms_peel": 1, "eigh4": 2 + full.fine_matching.num_refinement_steps,
+                "gather_grad": 0}
     with tempfile.TemporaryDirectory() as out_dir:
         export_inference(full, weights, out_dir, bucket_scales=SERVE_SCALES)
         torch.cuda.synchronize(dev)
@@ -4092,7 +4094,7 @@ def program_phase(dev, card, kernels, cfg, model, ref, src):
         if program.launches != expected:
             fail(f"program: bucket {c} launches {program.launches} at its capture, expected "
                  f"{expected}")
-    if any(n == 0 for n in counts.values()):
+    if any(n == 0 for name, n in counts.items() if expected[name]):
         fail(f"program: a kernel was not launched by the capture: {counts}")
     print(f"program: load_exported on the card in {load_s:.3f} s, every bucket captured: "
           + ", ".join(f"{c}: {p.capture_s:.3f} s, {p.memory_bytes / 2**20:.1f} MiB of outputs"
@@ -4569,10 +4571,12 @@ def train_program_phase(dev, card, kernels, cfg, ref, src, gt, scan=WORKFLOW_SCA
             not bool(torch.isfinite(tfs).all()) or state.count != 2:
         fail(f"train program: the checked steps gave {metrics}, {ev}, count {state.count}")
     if train_launches["radius_knn"] != 12 or train_launches["sinkhorn"] != 0 or \
+            train_launches["gather_grad"] == 0 or \
             {k: eval_launches[k] for k in ("radius_knn", "sinkhorn", "segment_sums", "nms_peel",
-                                          "eigh4")} != \
+                                          "eigh4", "gather_grad")} != \
             {"radius_knn": 12, "sinkhorn": 1, "segment_sums": spec.num_stages - 1,
-             "nms_peel": 1, "eigh4": 2 + cfg.fine_matching.num_refinement_steps}:
+             "nms_peel": 1, "eigh4": 2 + cfg.fine_matching.num_refinement_steps,
+             "gather_grad": 0}:
         fail(f"train program: eager launches {train_launches} a train pair, {eval_launches} an "
              f"eval pair")
     print(f"train program: one eager train step and one eval step at make_cfg(), bucket {cap}, "
@@ -4809,7 +4813,8 @@ CLI_SEQUENCES = {8: (SEED + 30, 6), 9: (SEED + 31, 6)}  # phase 20's test split:
 CLI_SCANS = {8: dict(n_rings=64, n_azimuths=2000, step=10.0), 9: WORKFLOW_SCAN}
 CLI_DENSE = 3            # phase 20: seq 09's scans gain every 3rd point again, 0.1 m higher
 CLI_TURNS = 2            # phase 20 (g): timed turns a mode (program, eager, eager, program)
-CLI_PAIR_KERNELS = {"radius_knn": 12, "sinkhorn": 1, "segment_sums": 4, "nms_peel": 1, "eigh4": 7}
+CLI_PAIR_KERNELS = {"radius_knn": 12, "sinkhorn": 1, "segment_sums": 4, "nms_peel": 1, "eigh4": 7,
+                    "gather_grad": 0}
 RANSAC_ROWS = (500, 1000, 2048)          # phase 20 (d): phase 9's first rows, capacities 512-2048
 RANSAC_PROGRAM_ITERATIONS = (5000, 50000)
 RANSAC_SEEDS = (0, 1, 2, 3, 4)           # called in a row on each program
@@ -5017,7 +5022,7 @@ def cli_program_phase(dev, card, kernels, cfg, ref, src, gt, full=None, cli_args
             if prog.program.launches != CLI_PAIR_KERNELS:
                 fail(f"cli programs (f): the test program at {c} launches "
                      f"{prog.program.launches} a pair, not {CLI_PAIR_KERNELS}")
-        if any(n == 0 for n in counted.values()):
+        if any(n == 0 for name, n in counted.items() if CLI_PAIR_KERNELS[name]):
             fail(f"cli programs (b): a kernel of the path was not launched: {counted}")
         replayed = {k: sum(p.program.launches[k] * (p.calls - CAPTURE_WARMUP) for _, p in made)
                     for k in counted}
@@ -5301,6 +5306,7 @@ def main() -> None:
     from rdmnet_tpu_torch.ops.kernels import _build, all_launch_counts, reset_launch_counts
     from rdmnet_tpu_torch.ops.kernels.sinkhorn import sinkhorn_cuda, sinkhorn_plain, sinkhorn_plan
     from rdmnet_tpu_torch.ops.lgr import local_to_global_registration
+    from rdmnet_tpu_torch.tools.kernel_probe import gather_grad_part
     from rdmnet_tpu_torch.tools.overfit_demo import LGR_INPUTS, host_batch, hypothesis_residuals
 
     card = smi("name,power.limit")
@@ -5345,6 +5351,12 @@ def main() -> None:
                       replaces="none: jnp.linalg.eigh at rdmnet_tpu/ops/procrustes.py:49 "
                                "(no Pallas)",
                       launches=0, max_abs_err=0.0, library_ms=None),
+        # the gathers' backward: in training only (phase 6 times it)
+        "gather_grad": dict(name="gather_grad", route="cuda",
+                            source="rdmnet_tpu_torch/csrc/gather_grad.cu",
+                            replaces="none: XLA's scatter-add, the gradient of jnp.take at "
+                                     "rdmnet_tpu/ops/geometry.py:56 (no Pallas)",
+                            launches=0, max_abs_err=0.0, library_ms=None),
     }
 
     # ---- main-path input and model ------------------------------------------
@@ -5474,8 +5486,8 @@ def main() -> None:
     n_pairs = n_warm + n_timed + 1
     for name, n in counts.items():
         kernels[name]["launches"] = n
-        if n == 0:
-            fail(f"kernel {name} was not launched on the main path")
+        if (n == 0) != (name in TRAINING_KERNELS):
+            fail(f"kernel {name} launched {n} times on the main path")
     stage_ms = pipeline_stages(model, (rp, rc, sp, sc), dev, n_stage, "main path")
     tf = out["estimated_transform"]
     if not all(bool(torch.isfinite(t).all()) for t in outs + [tf]) or tf.shape != (4, 4):
@@ -5675,6 +5687,19 @@ def main() -> None:
 
     # ---- 20. the offline CLIs' compiled programs: test, infer, RANSAC, bf16 ----------------
     # in a process of its own, as phase 19
+    # the gathers' backward on one eager make_cfg() train step's own calls
+    gg = gather_grad_part(dev, ref, src, gt)
+    step_gg = gg["step"]
+    kernels["gather_grad"].update(
+        calls_per_train_step=len(gg["calls"]), ms=step_gg["ms"], plain_ms=step_gg["plain_ms"],
+        library_ms=step_gg["library_ms"], bound_ms=step_gg["bound_ms"], bound_by="bytes",
+        max_abs_err=step_gg["max_abs_err"])
+    print(f"train path: gather_grad on the {len(gg['calls'])} gathers' backward calls of one "
+          f"make_cfg() train step: each bit-equal to the plain version (max abs error "
+          f"{step_gg['max_abs_err']}), replay bit-equal to eager; kernel {step_gg['ms']:.4f} ms "
+          f"on the device, bound {step_gg['bound_ms']:.4f} ms (bytes), plain "
+          f"{step_gg['plain_ms']:.3f} ms, PyTorch's embedding backward {step_gg['library_ms']:.3f} "
+          f"ms ({step_gg['library_valid_ms']:.3f} ms without the sentinel positions)")
     child = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli-program-only"],
                            capture_output=True, text=True, timeout=900)
     print("\n".join(line for line in child.stdout.splitlines()

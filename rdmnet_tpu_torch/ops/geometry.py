@@ -78,22 +78,51 @@ def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor, normalized: bool = False)
     return torch.clamp_min(sq, 0.0)
 
 
-def take_padded(x: torch.Tensor, indices: torch.Tensor, fill_value: float = 0.0) -> torch.Tensor:
-    """Gather rows of float ``x`` (N, ...) by ``indices`` of any shape.
-
-    Sentinel gathers: an index >= N yields a ``fill_value`` row, as
-    ``jnp.take(mode="fill")`` does. Implemented with one appended fill row
-    and indices clamped to it (torch would raise on the out-of-range ones).
-    The gather is an embedding lookup with the fill row as its padding
-    index, so the backward skips the sentinel, which most missing
-    neighbours of a level share, and sums the rest by sorted segments.
-    """
+def _lookup(x: torch.Tensor, indices: torch.Tensor, fill_value: float) -> torch.Tensor:
     n = x.shape[0]
     fill = torch.full((1,) + tuple(x.shape[1:]), fill_value, dtype=x.dtype, device=x.device)
     ext = torch.cat([x, fill], dim=0).reshape(n + 1, -1)
     idx = torch.clamp(indices.long(), max=n)
     out = torch.nn.functional.embedding(idx, ext, padding_idx=n)
     return out.reshape(tuple(indices.shape) + tuple(x.shape[1:]))
+
+
+class _TakePadded(torch.autograd.Function):
+    """``take_padded`` under autograd: the same lookup forward, and as its
+    backward the gather-sum of ``ops/kernels/gather_grad``, which sums each
+    row's gathered gradient rows in position order and never reads the
+    sentinel positions."""
+
+    @staticmethod
+    def forward(ctx, x, indices, fill_value):
+        ctx.save_for_backward(indices)
+        ctx.rows = x.shape[0]
+        return _lookup(x, indices, fill_value)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        # imported here: the kernels' package imports this module
+        from rdmnet_tpu_torch.ops.kernels.gather_grad import gather_grad
+
+        (indices,) = ctx.saved_tensors
+        trailing = tuple(grad.shape[indices.dim():])
+        flat = gather_grad(grad.reshape(indices.numel(), -1), indices.reshape(-1), ctx.rows)
+        return flat.reshape((ctx.rows,) + trailing), None, None
+
+
+def take_padded(x: torch.Tensor, indices: torch.Tensor, fill_value: float = 0.0) -> torch.Tensor:
+    """Gather rows of float ``x`` (N, ...) by ``indices`` of any shape.
+
+    Sentinel gathers: an index >= N yields a ``fill_value`` row, as
+    ``jnp.take(mode="fill")`` does. Implemented with one appended fill row
+    and indices clamped to it (torch would raise on the out-of-range ones):
+    an embedding lookup with the fill row as its padding index, run inside
+    ``_TakePadded``. Where autograd records (grad mode on, ``x`` requiring
+    grad) its backward is the gather-sum kernel on the card and its plain
+    version on the CPU; otherwise the lookup is all that runs.
+    """
+    return _TakePadded.apply(x, indices, fill_value)
 
 
 def get_transform_from_rotation_translation(rotation: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:

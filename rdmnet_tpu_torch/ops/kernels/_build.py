@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("radius_knn", "sinkhorn", "segment_sum", "nms", "eigh4", "mark")
+KERNELS = ("radius_knn", "sinkhorn", "segment_sum", "nms", "eigh4", "gather_grad", "mark")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

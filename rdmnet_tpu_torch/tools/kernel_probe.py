@@ -5,7 +5,8 @@ two merge designs side by side, and device times through the public
 wrappers that another tree's kernels can be timed by in the same call.
 
     python -m rdmnet_tpu_torch.tools.kernel_probe
-        [--parts routes,select_split,knn_split,sinkhorn_split,group_split,spill_split,times]
+        [--parts routes,select_split,knn_split,sinkhorn_split,group_split,spill_split,times,
+                 gather_grad]
         [--out FILE.json]
     PYTHONPATH=OTHER_TREE python rdmnet_tpu_torch/tools/kernel_probe.py --parts times
 
@@ -44,6 +45,16 @@ Needs an NVIDIA card and ``nvcc``. The parts:
 - ``spill_split``: the group path past K1 = 2640 at (P, K1) = (8, 2641)
   and (2, 4096), its row step and column sweep cut into the rows a CTA
   keeps in shared memory and those it reads from device memory.
+- ``gather_grad``: every gathers' backward of one eager train step at
+  ``make_cfg()``'s train caps (30720 points a cloud) on the phase-4 pair,
+  recorded as the step runs it: each call's device ms
+  (``csrc/gather_grad.cu``) beside its bound (the non-sentinel gradient
+  rows read and N x C written, at the card's memory bandwidth), the plain
+  version on the card (``index_add_``), and PyTorch's embedding backward
+  (what the port ran before, ``library_ms``) with and without the
+  sentinel positions; each call's kernel output held bit-equal to the plain
+  version (on the CPU; ``max_abs_err`` the measured difference) and its
+  replay bit-equal to its eager call.
 - ``times``: device ms through ``radius_knn_cuda`` and ``sinkhorn_cuda``
   on the ``select_split`` windows and Sinkhorn's group cases of
   ``chip_smoke.py`` phase 3, each held against the plain version. It uses
@@ -302,6 +313,91 @@ def graph_ms(fn, reps: int = REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# ---- the gathers' backward -------------------------------------------------------------------
+
+def train_gathers(dev, ref, src, gt):
+    """The gathers' backward calls of one eager train step at ``make_cfg()``:
+    (table shape, gradient, int32 indices, rows) each, in the order the
+    backward runs them."""
+    import torch
+
+    from rdmnet_tpu_torch.config import make_cfg
+    from rdmnet_tpu_torch.engine import batch_to_device, create_train_state, make_value_and_grad
+    from rdmnet_tpu_torch.models import RDMNet
+    from rdmnet_tpu_torch.ops.kernels import gather_grad as module
+    from rdmnet_tpu_torch.tools.overfit_demo import host_batch
+
+    cfg = make_cfg()
+    state = create_train_state(cfg, RDMNet(cfg, device=dev,
+                                           generator=torch.Generator().manual_seed(SEED)))
+    batch = batch_to_device(host_batch(ref, src, gt, cfg.pyramid.caps[0]), cfg.pyramid, dev)
+    calls, route = [], module.gather_grad
+
+    def record(grad, idx, n):
+        calls.append((grad.clone(), idx.to(torch.int32).contiguous(), n))
+        return route(grad, idx, n)
+
+    module.gather_grad = record
+    try:
+        make_value_and_grad(cfg, dev)(state, batch, torch.Generator(device=dev).manual_seed(SEED))
+    finally:
+        module.gather_grad = route
+    torch.cuda.synchronize()
+    return calls
+
+
+def gather_grad_part(dev, ref, src, gt):
+    """Each gathers' backward of a train step: ms, bound, plain and library
+    ms (module docstring), bit-equality to the plain version and replay to
+    eager; and the step's sums."""
+    import torch
+
+    from rdmnet_tpu_torch.ops.kernels.gather_grad import gather_grad_cuda, gather_grad_plain
+
+    rows, total = [], dict(ms=0.0, bound_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                           library_valid_ms=0.0)
+    for grad, idx, n in train_gathers(dev, ref, src, gt):
+        p, c = grad.shape
+        valid = (idx >= 0) & (idx < n)
+        n_valid = int(valid.sum())
+        eager = gather_grad_cuda(grad, idx, n)
+        plain = gather_grad_plain(grad.cpu(), idx.cpu(), n)
+        err = float((eager.cpu().double() - plain.double()).abs().max()) if n else 0.0
+        if not torch.equal(eager.cpu().view(torch.uint8), plain.view(torch.uint8)):
+            raise RuntimeError(f"kernel_probe: gather_grad differs from its plain version at "
+                               f"P {p}, N {n}, C {c} (max abs error {err})")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = gather_grad_cuda(grad, idx, n)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(replayed.view(torch.uint8), eager.view(torch.uint8)):
+            raise RuntimeError(f"kernel_probe: gather_grad's replay differs from its eager call "
+                               f"at P {p}, N {n}, C {c}")
+        del graph, replayed
+        clamped = torch.clamp(idx.long(), max=n)
+        kept, kept_grad = clamped[valid], grad[valid]
+        row = dict(P=p, N=n, C=c, dtype=str(grad.dtype).split(".")[-1],
+                   sentinel_share=round(1.0 - n_valid / max(p, 1), 4), max_abs_err=err,
+                   ms=graph_ms(lambda: gather_grad_cuda(grad, idx, n)),
+                   bound_ms=(n_valid + n) * c * grad.element_size() / HBM_BYTES_PER_S * 1e3,
+                   plain_ms=graph_ms(lambda: gather_grad_plain(grad, idx, n)),
+                   library_ms=graph_ms(lambda: torch.ops.aten.embedding_dense_backward(
+                       grad, clamped, n + 1, n, False)),
+                   library_valid_ms=graph_ms(lambda: torch.ops.aten.embedding_dense_backward(
+                       kept_grad, kept, n + 1, n, False)))
+        for k in total:
+            total[k] += row[k]
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    total = {k: round(v, 4) for k, v in total.items()}
+    total["max_abs_err"] = max((row["max_abs_err"] for row in rows), default=0.0)
+    print(f"gather_grad: {len(rows)} calls a train step, device ms {json.dumps(total)} "
+          f"(library_valid_ms: the embedding backward without the sentinel positions)",
+          flush=True)
+    return dict(calls=rows, step=total)
 
 
 # ---- searches ------------------------------------------------------------------------------
@@ -929,7 +1025,7 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     dev = torch.device("cuda")
-    ref, src, _ = procedural_pair(SEED, n_rings=80, n_azimuths=3000)
+    ref, src, gt = procedural_pair(SEED, n_rings=80, n_azimuths=3000)
     cfg = make_cfg()
     buckets = [cfg.pyramid.scaled(0.7), cfg.pyramid]
     spec = buckets[choose_bucket(max(len(ref), len(src)), [b.caps[0] for b in buckets])]
@@ -939,6 +1035,8 @@ def main(argv=None) -> int:
                   else [])
     if "times" in parts:
         result["times"] = times_part(dev, spec, pair_pts, calibrated)
+    if "gather_grad" in parts:
+        result["gather_grad"] = gather_grad_part(dev, ref, src, gt)
     if "routes" in parts:
         result["routes"] = routes_part(dev, spec, pair_pts, calibrated)
     if "select_split" in parts:

@@ -8,9 +8,10 @@ the JAX package: NMS keep masks equal to ``greedy_nms``'s (random nodes, a
 truncated adjacency, masked nodes, a suppression chain of 64 rounds), voxel
 centroids bit-equal to ``grid_subsample``'s (a voxel of 3000 points, the
 procedural pair's levels), Horn poses within 1e-4 of JAX's Procrustes (the
-tolerance of ``test_torch_port_ops.py``). The dispatch of the new kernels is
-held with a tensor that reports itself on CUDA: it takes the kernel's
-wrapper, never the plain version, and a launch that fails raises. The
+tolerance of ``test_torch_port_ops.py``). The dispatch of the new kernels,
+and of ``gather_grad`` (the gathers' backward in training), is held with a
+tensor that reports itself on CUDA: it takes the kernel's wrapper, never
+the plain version, and a launch that fails raises. The
 capture refuses the CPU; the CPU's ``serve`` stays eager and thread-safe.
 """
 
@@ -34,6 +35,7 @@ from rdmnet_tpu_torch.data.loader import pad_points_np
 from rdmnet_tpu_torch.models import RDMNet, capture_pipeline, pipeline, with_pyramid
 from rdmnet_tpu_torch.ops.grid_subsample import grid_subsample
 from rdmnet_tpu_torch.ops.kernels import eigh4 as eigh4_module
+from rdmnet_tpu_torch.ops.kernels import gather_grad as gather_grad_module
 from rdmnet_tpu_torch.ops.kernels import nms as nms_module
 from rdmnet_tpu_torch.ops.kernels import segment_sum as segment_module
 from rdmnet_tpu_torch.ops.nms import greedy_nms
@@ -230,7 +232,7 @@ class _OnCard(torch.Tensor):
 
 
 def _card(x):
-    return torch.as_tensor(x).as_subclass(_OnCard)
+    return x if isinstance(x, int) else torch.as_tensor(x).as_subclass(_OnCard)
 
 
 def _inputs(kernel):
@@ -240,13 +242,17 @@ def _inputs(kernel):
         return (pts, np.array([[0, 5], [0, 20]]), np.array([[5, 15], [20, 0]]))
     if kernel == "nms_peel":
         return (np.tril(rng.rand(2, 40, 40) > 0.7, -1), rng.rand(2, 40) > 0.2)
+    if kernel == "gather_grad":
+        return (rng.rand(30, 8).astype(np.float32), rng.randint(0, 12, 30).astype(np.int32), 10)
     return (np.broadcast_to(np.eye(4, dtype=np.float32), (3, 4, 4)).copy(),)
 
 
 MODULES = {"segment_sums": (segment_module, "segment_sums", "segment_sums_cuda",
                             "segment_sums_plain"),
            "nms_peel": (nms_module, "nms_peel", "nms_peel_cuda", "nms_peel_plain"),
-           "eigh4": (eigh4_module, "top_eigenvector", "eigh4_cuda", "top_eigenvector_plain")}
+           "eigh4": (eigh4_module, "top_eigenvector", "eigh4_cuda", "top_eigenvector_plain"),
+           "gather_grad": (gather_grad_module, "gather_grad", "gather_grad_cuda",
+                           "gather_grad_plain")}
 
 
 @pytest.mark.parametrize("kernel", sorted(MODULES))
@@ -261,7 +267,7 @@ def test_a_card_tensor_never_takes_the_plain_version(kernel, monkeypatch):
     monkeypatch.setattr(module, plain, refuse)
     args = [_card(a) for a in _inputs(kernel)]
     assert getattr(module, dispatch)(*args) == "kernel"
-    assert len(calls) == 1 and all(a.is_cuda for a in calls[0])
+    assert len(calls) == 1 and all(a.is_cuda for a in calls[0] if torch.is_tensor(a))
 
 
 @pytest.mark.parametrize("kernel", sorted(MODULES))
@@ -288,7 +294,7 @@ def test_a_failing_launch_raises(kernel, monkeypatch):
 @pytest.mark.parametrize("kernel", sorted(MODULES))
 def test_wrappers_refuse_cpu_tensors(kernel):
     module, _, wrapper, _ = MODULES[kernel]
-    args = [torch.as_tensor(a) for a in _inputs(kernel)]
+    args = [torch.as_tensor(a) if isinstance(a, np.ndarray) else a for a in _inputs(kernel)]
     with pytest.raises(ValueError, match="CUDA"):
         getattr(module, wrapper)(*args)
 

@@ -6,7 +6,9 @@ block select paths; Sinkhorn's register patch, its cluster path for 208 < K1
 the model at such shapes; the serving program: the port's own kernels
 against their plain versions (segment sums bit-equal, NMS keep masks and
 rounds equal, eigh4's rotation within 1e-5 of ``torch.linalg.eigh``'s on
-well-conditioned fits), ``pipeline`` with no host sync, each bucket's
+well-conditioned fits; the gathers' backward bit-equal to its plain version
+on every table of the train caps, run to run, and launched once a gather
+under autograd), ``pipeline`` with no host sync, each bucket's
 captured program against the eager pipeline on requests that rise and fall
 in size, and eight HTTP clients at once against captured programs; the
 Trainer's programs: the captured train step (grad_acc_steps 1 and 2, a NaN
@@ -942,9 +944,88 @@ def test_overfit_demo_learns_on_card(cuda):
 # ---- the serving program: host-sync-free ops, the captured pipeline --------------------------
 
 def _program_launches(cfg):
-    """Launches of one pair's pipeline by kernel, counted at its capture."""
+    """Launches of one pair's pipeline by kernel, counted at its capture (no
+    autograd there: the gathers' backward never launches)."""
     return {"radius_knn": 12, "sinkhorn": 1, "segment_sums": cfg.pyramid.num_stages - 1,
-            "nms_peel": 1, "eigh4": 2 + cfg.fine_matching.num_refinement_steps}
+            "nms_peel": 1, "eigh4": 2 + cfg.fine_matching.num_refinement_steps,
+            "gather_grad": 0}
+
+
+# widths each table is gathered at in the train step (KPConv mid widths, the
+# strided blocks' maxpool, nearest upsampling), with points (3) and odd widths;
+# the decoder upsamples to level 1, so level 0's upsampling table is not built
+GATHER_WIDTHS = {"neighbors": ((3, 32), (64, 37), (128,), (256,), (512,)),
+                 "subsampling": ((32, 128), (64, 256), (128, 512), (256, 1024)),
+                 "upsampling": ((), (512, 3), (1024, 7), (257,))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_gather_grad_kernel_bit_equal_to_plain_on_train_tables(cuda, dtype):
+    """Every table of a procedural pair's stacked graph at the train caps
+    (``make_cfg()``: 61,440 / 24,576 / 10,240 / 3,584 / 1,280 rows, 40
+    neighbours), at the widths the train step gathers it: the kernel's
+    gradient equals the plain version's bit for bit (on the CPU: the card's
+    ``index_add_`` adds atomically), and two launches give the same bits."""
+    from rdmnet_tpu_torch.config import make_cfg
+    from rdmnet_tpu_torch.graph.pyramid import build_pair_batch, stack_pair_graph
+    from rdmnet_tpu_torch.ops.kernels.gather_grad import gather_grad_cuda, gather_grad_plain
+
+    spec = make_cfg().pyramid
+    ref, src, _ = procedural_pair(7351, n_rings=80, n_azimuths=3000)
+    (rp, rc), (sp, sc) = pad_cloud(ref, spec.caps[0], device=cuda), pad_cloud(
+        src, spec.caps[0], device=cuda)
+    batch = build_pair_batch(rp, rc, sp, sc, torch.eye(4, device=cuda), spec)
+    graph = stack_pair_graph(batch.ref, batch.src)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    reset_launch_counts()
+    seen = 0
+    for name, widths in GATHER_WIDTHS.items():
+        for level, cs in enumerate(widths):
+            if not cs:
+                continue
+            table = getattr(graph, name)[level]
+            n = graph.points[level + (name == "upsampling")].shape[0]
+            idx = table.reshape(-1).to(torch.int32).contiguous()
+            sentinel = float((idx >= n).float().mean())
+            assert 0.0 < sentinel < 1.0, (name, level)
+            for c in cs:
+                grad = torch.randn(idx.numel(), c, device=cuda, generator=gen).to(dtype)
+                got = gather_grad_cuda(grad, idx, n)
+                again = gather_grad_cuda(grad, idx, n)
+                want = gather_grad_plain(grad.cpu(), idx.cpu(), n)
+                assert torch.equal(_bits(got), _bits(again)), (name, level, c)
+                assert got.dtype == dtype and got.shape == (n, c)
+                assert torch.equal(_bits(got.cpu()), _bits(want)), (name, level, c)
+                seen += 2
+    paths = gather_grad_cuda.path_launches
+    assert paths["vector"] > 0 and paths["scalar"] > 0 and sum(paths.values()) == seen
+
+
+def test_gather_grad_kernel_edges(cuda):
+    """No positions, every position a sentinel, one row every position
+    references (a run of 50,000), a negative index and a misaligned gradient
+    (the scalar path): each equal to the plain version."""
+    from rdmnet_tpu_torch.ops.kernels.gather_grad import (gather_grad, gather_grad_cuda,
+                                                          gather_grad_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cases = [(torch.zeros(0, dtype=torch.int32, device=cuda), 64, 8),
+             (torch.full((300,), 64, dtype=torch.int32, device=cuda), 64, 8),
+             (torch.full((50000,), 5, dtype=torch.int32, device=cuda), 64, 16),
+             (torch.tensor([3, -1, 3, 70, 0], dtype=torch.int32, device=cuda), 64, 3)]
+    for idx, n, c in cases:
+        grad = torch.randn(idx.numel(), c, device=cuda, generator=gen)
+        assert torch.equal(gather_grad(grad, idx, n).cpu(),
+                           gather_grad_plain(grad.cpu(), idx.cpu(), n))
+    big = torch.randn(301 * 8 + 1, device=cuda, generator=gen)
+    grad = big[1:].reshape(301, 8)  # contiguous, 4 bytes past a 16-byte boundary
+    idx = torch.randint(0, 80, (301,), dtype=torch.int32, device=cuda, generator=gen)
+    reset_launch_counts()
+    got = gather_grad(grad, idx, 64)
+    assert gather_grad_cuda.path_launches == {"vector": 0, "scalar": 1}
+    assert torch.equal(got.cpu(), gather_grad_plain(grad.cpu(), idx.cpu(), 64))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gather_grad(grad.double(), idx, 64)
 
 
 def test_segment_sums_kernel_bit_equal_to_plain(cuda):
@@ -1258,6 +1339,38 @@ def test_train_program_replays_equal_eager(cuda, grad_acc):
     assert program.graph is not None and program.launches["radius_knn"] == 12
     assert program.launches["sinkhorn"] == 0
     assert states[0].count == (5 if grad_acc == 1 else 2) and states[0].notfinite_count == 0
+
+
+def test_train_program_launches_one_gather_grad_a_gather(cuda, monkeypatch):
+    """The captured train step launches the gathers' backward once for each
+    ``take_padded`` call under autograd of an eager step (one a KPConv,
+    maxpool, upsampling and patch gather that carries a gradient)."""
+    from rdmnet_tpu_torch.engine import capture_train_step, make_train_step
+    from rdmnet_tpu_torch.ops import geometry
+    from rdmnet_tpu_torch.program import CAPTURE_WARMUP
+
+    cfg = make_tiny_cfg()
+    calls = []
+    apply = geometry._TakePadded.apply
+
+    def counted(*args):
+        if torch.is_grad_enabled() and args[0].requires_grad:  # autograd records this gather
+            calls.append(args[0].shape)
+        return apply(*args)
+
+    state = create_train_state(cfg, RDMNet(cfg, device=cuda,
+                                           generator=torch.Generator().manual_seed(3)))
+    host = _train_pairs(1)[0]
+    with monkeypatch.context() as patch:
+        patch.setattr(geometry._TakePadded, "apply", counted)
+        make_train_step(cfg, cuda)(state, batch_to_device(host, cfg.pyramid, cuda),
+                                   torch.Generator(device=cuda).manual_seed(5))
+    program = capture_train_step(state, cfg, 1, torch.Generator(device=cuda).manual_seed(5), cuda)
+    for _ in range(CAPTURE_WARMUP + 1):  # the eager warm-ups, then the capture
+        program(host)
+    assert program.graph is not None
+    assert len(calls) >= 1 + 4 * (cfg.pyramid.num_stages - 1)
+    assert program.launches["gather_grad"] == len(calls)
 
 
 def test_eval_program_replays_equal_eager(cuda):
